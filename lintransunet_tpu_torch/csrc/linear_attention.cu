@@ -35,12 +35,15 @@
 // Inputs are f32 or bf16; statistics and sums are f32; the output has the
 // input dtype. d == d_v <= 32 (checked by the Python wrapper).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <math.h>
+#include "common.cuh"
 
 namespace {
+
+using ltu::kFullMask;
+using ltu::store;
+using ltu::to_f32;
+using ltu::warp_max;
+using ltu::warp_sum;
 
 constexpr int kMaxD = 32;  // MAX_D in ops/linear_attention.py
 constexpr int kSplitTokens = 128;      // tokens per ctx_partial block
@@ -49,12 +52,6 @@ constexpr int kPartialWarps = kPartialThreads / 32;
 constexpr int kOutWarps = 8;
 constexpr int kOutTokensPerWarp = 16;
 constexpr int kOutTokens = kOutWarps * kOutTokensPerWarp;  // per attn_out block
-constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // One block per (slice, 128-token range): the range's per-feature max m,
 // sum s = sum_n exp(k - m) and ctx = sum_n exp(k - m) v.
@@ -161,18 +158,6 @@ __global__ void ctx_combine(const float* __restrict__ part_m,
     }
     ctx[(static_cast<size_t>(bh) * d + i) * d + e] = c / total_s[i];
   }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
-  return x;
 }
 
 // One warp per token, lane = feature: out = softmax_d(q) / sqrt(d) @ ctx.

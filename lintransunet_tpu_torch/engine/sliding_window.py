@@ -175,11 +175,16 @@ class SlidingWindowRunner:
     a 2-class one-hot (``make_eval_forward(fg_only=True)``); the runner
     blends that channel and rebuilds class 0 as 1 - class 1, which is exact
     for any blend weights: sum(w(1-p))/sum(w) == 1 - sum(wp)/sum(w).
+
+    ``device``: where the predictor runs (``make_eval_runner`` passes the
+    model's); a volume is moved there and the blend stays there. None
+    keeps each volume where it is.
     """
 
     def __init__(self, predictor: Predictor, roi_size, sw_batch_size: int = 1,
                  overlap: float = 0.6, mode: str = "constant",
-                 sigma_scale: float = 0.0, derive_background: bool = False):
+                 sigma_scale: float = 0.0, derive_background: bool = False,
+                 device=None):
         self.roi_size = tuple(int(r) for r in roi_size)
         _check_args(self.roi_size, sw_batch_size, mode)
         self.predictor = predictor
@@ -188,9 +193,12 @@ class SlidingWindowRunner:
         self.mode = mode
         self.sigma_scale = sigma_scale
         self.derive_background = derive_background
+        self.device = None if device is None else torch.device(device)
 
     def __call__(self, volume: torch.Tensor) -> torch.Tensor:
-        """(N, C, H, W, D) -> f32 (N, C', H, W, D)."""
+        """(N, C, H, W, D) -> f32 (N, C', H, W, D) on the runner's device."""
+        if self.device is not None:
+            volume = volume.to(self.device)
         out = sliding_window_inference(
             volume, self.roi_size, self.sw_batch_size, self.predictor,
             self.overlap, self.mode, self.sigma_scale)

@@ -2,10 +2,11 @@
 
 The sources have a plain C interface and include no PyTorch header, so a
 build takes seconds. The library lands in ``_build/lib<name>-<hash>.so``;
-the hash covers the source and the flags, so an edited kernel is rebuilt
-and a stale one is never loaded. A build writes to a temporary name and
-renames it into place, so concurrent first uses cannot load a half-written
-file. A failed build raises with nvcc's output: there is no fallback.
+the hash covers the source, every shared header ``csrc/*.cuh`` and the
+flags, so an edited kernel or header is rebuilt and a stale library is
+never loaded. A build writes to a temporary name and renames it into
+place, so concurrent first uses cannot load a half-written file. A failed
+build raises with nvcc's output: there is no fallback.
 """
 
 import ctypes
@@ -29,6 +30,16 @@ SIGNATURES = {
         "lta_forward": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         "lta_num_splits": (_I, [_I]),
     },
+    "conv_unit": {
+        "cu_forward": (_I, [_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P,
+                            _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        "cu_num_tiles": (_I, [_I, _I, _I]),
+    },
+    "fused_stack": {
+        "fst_forward": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _P]),
+        "fst_num_tiles": (_I, [_I, _I]),
+    },
 }
 
 _loaded = {}
@@ -46,8 +57,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -58,22 +71,38 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def build_libraries(*names: str) -> None:
+    """Build every named library that is not built yet, one nvcc process
+    per source, all started together; raise with nvcc's output if any
+    fails."""
+    pending = []
+    for name in names:
+        so = _library_path(name)
+        if so.exists():
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        pending.append((name, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, so, tmp, proc in pending:
+        output = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}:\n{output}")
+            continue
+        so.with_suffix(".log").write_text(output)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ctypes library of ``csrc/<name>.cu``, built on first use."""
     if name in _loaded:
         return _loaded[name]
-    so = _library_path(name)
-    if not so.exists():
-        BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                               f"{name}:\n{proc.stdout}{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    build_libraries(name)
+    lib = ctypes.CDLL(str(_library_path(name)))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes

@@ -8,6 +8,15 @@ this port loads as is. Parameters are float32; every layer computes in the
 dtype of its input, which the model sets once at its entry (bf16 for the
 flagship, as flax ``dtype`` does). Attention tokens are flattened in the
 reference's (D, H, W) order.
+
+Two eval-only routes mirror the JAX package's fused configuration
+(``MaskTransUnet(fused_s1=True, fused_stack=True)`` sets them): a
+``_TokenStack`` with ``fused_stack`` runs its layers through the fused
+transformer stack (``ops/fused_stack.py``), and a ``DownBlock`` or
+``UpBlock`` with ``fused_s1`` runs its stride-1 convolutions through the
+conv unit (``ops/conv_unit.py``), InstanceNorm statistics from the unit's
+epilogue, the UpBlock's concat never materialised. Training mode takes
+neither.
 """
 
 from typing import Optional, Tuple
@@ -17,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lintransunet_tpu_torch import ops
-from lintransunet_tpu_torch.ops import attention
+from lintransunet_tpu_torch.ops import attention, conv_unit, fused_stack
 from lintransunet_tpu_torch.ops import linear_attention as fused
 
 
@@ -149,7 +158,14 @@ def peg_on_tokens(tokens: torch.Tensor, hwd: Tuple[int, int, int],
 
 class _TokenStack(nn.Module):
     """``n_layers`` SelfAttentionLayers over the tokens of a 3D grid with the
-    PEG re-injected after layer 0 (the unfused loop of blocks.py:377-390)."""
+    PEG re-injected after layer 0 (the unfused loop of blocks.py:377-390).
+
+    ``fused_stack`` (eval, no mask): layer 0 and layers 1..L-1 run as two
+    fused-stack calls around the PEG (JAX ``_fused_layer_stack``), on the
+    same (D, H, W)-ordered tokens: linear attention does not depend on the
+    order of its tokens, so the JAX route's (H, W, D) order is not needed."""
+
+    fused_stack = False
 
     def _add_layers(self, d_model, nhead, dropout, n_layers, peg_name):
         self.n_layers = n_layers
@@ -162,6 +178,8 @@ class _TokenStack(nn.Module):
     def _run_layers(self, x: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         tokens, hwd = to_tokens_dhw(x)
+        if self.fused_stack and not self.training and mask is None:
+            return from_tokens_dhw(self._fused_layers(tokens, hwd), hwd)
         if mask is not None:
             mask = to_tokens_dhw(mask)[0] != 0
         for i in range(self.n_layers):
@@ -169,6 +187,19 @@ class _TokenStack(nn.Module):
             if i == 0:
                 tokens = peg_on_tokens(tokens, hwd, getattr(self, self.peg_name))
         return from_tokens_dhw(tokens, hwd)
+
+    def _fused_layers(self, tokens: torch.Tensor,
+                      hwd: Tuple[int, int, int]) -> torch.Tensor:
+        layers = [getattr(self, f"layers_{i}") for i in range(self.n_layers)]
+        nhead = layers[0].self_attn.nhead
+        tokens = fused_stack.fused_transformer_stack(
+            tokens.contiguous(), *fused_stack.stack_layer_params(layers[:1]), nhead)
+        tokens = peg_on_tokens(tokens, hwd, getattr(self, self.peg_name))
+        if len(layers) > 1:
+            tokens = fused_stack.fused_transformer_stack(
+                tokens.contiguous(), *fused_stack.stack_layer_params(layers[1:]),
+                nhead)
+        return tokens
 
 
 class PosAttention3DBlock(_TokenStack):
@@ -204,9 +235,25 @@ def _norm_act(x: torch.Tensor) -> torch.Tensor:
     return ops.leaky_relu(ops.instance_norm(x))
 
 
+def _voxels(x: torch.Tensor) -> int:
+    return x.shape[2] * x.shape[3] * x.shape[4]
+
+
+def fused_conv_norm_act(x: torch.Tensor, conv: Conv3d) -> torch.Tensor:
+    """``_norm_act(conv(x))`` for a 3x3x3 stride-1 conv through the conv
+    unit: the InstanceNorm statistics come from its epilogue."""
+    y, stats = conv_unit.conv_unit(x.contiguous(), conv.weight, bias=conv.bias)
+    return conv_unit.apply_affine_leaky(
+        y, *conv_unit.stats_to_affine(stats, _voxels(y)))
+
+
 class DownBlock(nn.Module):
     """Residual conv + strided-conv downsample (Unet_3Dblock.py:290-341).
-    Returns (downsampled, pre-downsample skip)."""
+    Returns (downsampled, pre-downsample skip). ``fused_s1`` (eval): conv1
+    runs through the conv unit (JAX ``PackedDownBlock``'s fused chain);
+    the strided conv2 stays on ``F.conv3d``."""
+
+    fused_s1 = False
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride=(2, 2, 2),
@@ -218,7 +265,10 @@ class DownBlock(nn.Module):
         self.conv2 = conv3d_same(in_channels, out_channels, kernel_size, stride)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        y = _norm_act(self.conv1(x))
+        if self.fused_s1 and not self.training:
+            y = fused_conv_norm_act(x, self.conv1)
+        else:
+            y = _norm_act(self.conv1(x))
         if self.is_res:
             y = y + x
         z = _norm_act(self.conv2(y))
@@ -229,7 +279,12 @@ class DownBlock(nn.Module):
 
 class UpBlock(nn.Module):
     """Conv, concat (x, skip) on channels, conv (Unet_3Dblock.py:504-557).
-    The decoder upsamples before calling it."""
+    The decoder upsamples before calling it. ``fused_s1`` (eval): two conv
+    units as JAX ``PackedUpBlock``'s fused chain; conv1's InstanceNorm +
+    LeakyReLU rides conv2's prologue, and conv2 takes x and the skip as two
+    inputs with its weight split by input channels, x's first."""
+
+    fused_s1 = False
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, dropout: Optional[float] = None):
@@ -239,11 +294,25 @@ class UpBlock(nn.Module):
         self.conv2 = conv3d_same(2 * out_channels, out_channels, kernel_size)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        x = _norm_act(self.conv1(x))
-        x = _norm_act(self.conv2(torch.cat([x, skip], dim=1)))
+        if self.fused_s1 and not self.training:
+            x = self._fused(x, skip)
+        else:
+            x = _norm_act(self.conv1(x))
+            x = _norm_act(self.conv2(torch.cat([x, skip], dim=1)))
         if self.dropout is not None:
             x = F.dropout(x, self.dropout, self.training)
         return x
+
+    def _fused(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        y1, stats1 = conv_unit.conv_unit(x.contiguous(), self.conv1.weight,
+                                         bias=self.conv1.bias)
+        c = y1.shape[1]
+        w = self.conv2.weight
+        y2, stats2 = conv_unit.conv_unit(
+            y1, w[:, :c], xb=skip.contiguous(), wb=w[:, c:], bias=self.conv2.bias,
+            affine_a=torch.stack(conv_unit.stats_to_affine(stats1, _voxels(y1)), dim=1))
+        return conv_unit.apply_affine_leaky(
+            y2, *conv_unit.stats_to_affine(stats2, _voxels(y2)))
 
 
 def _embed_channel_list(in_channels: int, out_channels: int, times: int,

@@ -2,15 +2,29 @@
 ``lintransunet_tpu/models/registry.py``; reference: trans_3DUnet.py:150-204).
 """
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
 
-from lintransunet_tpu_torch.models.blocks import MultiheadLinearAttention
+from lintransunet_tpu_torch.models.blocks import MultiheadLinearAttention, _TokenStack
 from lintransunet_tpu_torch.models.unet import Encoder, ROIDecoder
 
 ATTENTION_IMPLS = ("kernel", "plain")
+# Levels whose stride-1 convs the fused configuration routes through the
+# conv unit: the flagship's packed_levels=2 in the JAX package.
+FUSED_S1_LEVELS = 2
+
+
+def _resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device when none is
+    visible, so that nothing quietly builds on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible: MaskTransUnet runs on the card unless "
+            "it is built with device='cpu'")
+    return device
 
 
 def one_hot_argmax(out: torch.Tensor) -> torch.Tensor:
@@ -25,30 +39,46 @@ class MaskTransUnet(nn.Module):
     """Encoder -> ROIDecoder on (N, C, H, W, D).
 
     ``dtype`` is the compute dtype (bf16 for the flagship); parameters stay
-    f32. ``attention_impl`` selects, for every attention layer, the fused
-    op ("kernel": the CUDA kernel on the card) or its plain version
+    f32. The model is built on ``device``, the card unless the caller asks
+    for the CPU; without a visible CUDA device the default raises.
+
+    This constructor is the one place that picks the kernels:
+    ``attention_impl`` selects, for every unfused attention layer, the
+    fused op ("kernel": the CUDA kernel on the card) or its plain version
     ("plain"), so the two can be compared on one set of weights.
+    ``fused_s1`` and ``fused_stack`` turn on the fused eval configuration,
+    the JAX package's ``LINTRANSUNET_FUSED_S1=1`` and
+    ``LINTRANSUNET_FUSED_STACK=1`` at ``packed_levels=2``: the stride-1
+    convs of the top ``FUSED_S1_LEVELS`` levels run through the conv unit,
+    and every token stack through the fused transformer stack. Both are
+    eval-only and off by default, as in JAX.
     """
 
     def __init__(self, num_layers: Sequence[int], roi_size_list: Sequence[int],
                  is_roi_list: Sequence[bool], dim_input: int, dim_output: int,
                  kernel_size: int = 3, dropout: float = 0.3, n_layers: int = 8,
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[torch.device] = None,
-                 attention_impl: str = "kernel"):
+                 device: Union[str, torch.device] = "cuda",
+                 attention_impl: str = "kernel", fused_s1: bool = False,
+                 fused_stack: bool = False):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}")
+        device = _resolve_device(device)
         self.dim_output = dim_output
         self.dtype = dtype
-        self.encode = Encoder(num_layers, dim_input, kernel_size, dropout)
+        levels = FUSED_S1_LEVELS if fused_s1 else 0
+        self.encode = Encoder(num_layers, dim_input, kernel_size, dropout,
+                              fused_s1_levels=levels)
         self.decode = ROIDecoder(num_layers, roi_size_list, is_roi_list,
-                                 dim_output, kernel_size, n_layers=n_layers)
+                                 dim_output, kernel_size, n_layers=n_layers,
+                                 fused_s1_levels=levels)
         for m in self.modules():
             if isinstance(m, MultiheadLinearAttention):
                 m.attention_impl = attention_impl
-        if device is not None:
-            self.to(device)
+            elif isinstance(m, _TokenStack):
+                m.fused_stack = fused_stack
+        self.to(device)
 
     def forward(self, x: torch.Tensor, return_aux: Optional[bool] = None,
                 fg_only: bool = False):

@@ -6,6 +6,11 @@ folded and paired layouts compute the same functions for the TPU's lanes
 and are not ported. Depth schedule: encoder block i (1-based) strides
 ``(2, 2, (i-1) % 2 + 1)``; the decoder mirrors it with alternating
 ``(2, 2, 2)`` / ``(2, 2, 1)`` trilinear upsamples.
+
+``fused_s1_levels`` is the port's counterpart of the JAX ``packed_levels``
+with ``LINTRANSUNET_FUSED_S1=1``: at eval, the stride-1 convolutions of the
+top levels (the input block, the first DownBlocks' conv1, the last
+UpBlocks) run through the conv unit (``ops/conv_unit.py``).
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -19,6 +24,7 @@ from lintransunet_tpu_torch.models.blocks import (
     SpatialAttentionGate,
     UpBlock,
     conv3d_same,
+    fused_conv_norm_act,
 )
 from lintransunet_tpu_torch.models.bridges import ConnectBridge, InitialBridge, ROIBridge
 
@@ -35,20 +41,25 @@ def decoder_scale(n_levels: int, i: int) -> Tuple[int, int, int]:
 
 class Encoder(nn.Module):
     """2x2 window embed -> input conv -> anisotropic DownBlocks. Returns
-    (bottleneck, [skip_0 .. skip_{L-2}])."""
+    (bottleneck, [skip_0 .. skip_{L-2}]). With ``fused_s1_levels`` = p > 0
+    (capped at L - 2, as JAX caps ``packed_levels``), the input block and
+    DownBlocks 1..p run their stride-1 convs through the conv unit at eval."""
 
     def __init__(self, num_layers: Sequence[int], dim_input: int,
                  kernel_size: int = 3, dropout: Optional[float] = None,
-                 emb_window: int = 2):
+                 emb_window: int = 2, fused_s1_levels: int = 0):
         super().__init__()
         self.num_layers = tuple(num_layers)
         self.emb_window = emb_window
         self.input_block = conv3d_same(dim_input * emb_window ** 2,
                                        num_layers[0], kernel_size)
+        levels = min(fused_s1_levels, len(num_layers) - 2) if kernel_size == 3 else 0
+        self.fused_s1 = levels > 0
         for i in range(1, len(num_layers)):
-            self.add_module(f"block_list_{i - 1}", DownBlock(
-                num_layers[i - 1], num_layers[i], kernel_size,
-                encoder_stride(i), dropout))
+            block = DownBlock(num_layers[i - 1], num_layers[i], kernel_size,
+                              encoder_stride(i), dropout)
+            block.fused_s1 = i <= levels
+            self.add_module(f"block_list_{i - 1}", block)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         n_blocks = len(self.num_layers) - 1
@@ -61,7 +72,10 @@ class Encoder(nn.Module):
                 f"by ({hw_div}, {hw_div}, {d_div}) for {n_blocks} encoder "
                 f"levels with window embedding {self.emb_window}")
         x = ops.windows_embedding(x, self.emb_window)
-        x = ops.leaky_relu(ops.instance_norm(self.input_block(x)))
+        if self.fused_s1 and not self.training:
+            x = fused_conv_norm_act(x, self.input_block)
+        else:
+            x = ops.leaky_relu(ops.instance_norm(self.input_block(x)))
         skips = []
         for i in range(n_blocks):
             x, skip = getattr(self, f"block_list_{i}")(x)
@@ -74,15 +88,19 @@ class ROIDecoder(nn.Module):
     up: trilinear upsample -> mask head (softmax, deep supervision) ->
     attention-gate the skip -> ROIBridge(gated skip, foreground) -> UpBlock.
     Then the final conv, window unembed and (optionally) channel softmax.
-    Returns (out, mask_list), mask_list ordered coarse -> fine."""
+    Returns (out, mask_list), mask_list ordered coarse -> fine. The UpBlocks
+    of levels below ``fused_s1_levels`` (capped at L - 2) run through the
+    conv unit at eval."""
 
     def __init__(self, num_layers: Sequence[int], roi_size_list: Sequence[int],
                  is_roi_list: Sequence[bool], dim_output: int,
                  kernel_size: int = 3, nhead_lens: int = 32,
-                 dropout: float = 0.2, n_layers: int = 8, emb_window: int = 2):
+                 dropout: float = 0.2, n_layers: int = 8, emb_window: int = 2,
+                 fused_s1_levels: int = 0):
         super().__init__()
         layers = list(num_layers)
         n = len(layers)
+        fused_levels = min(fused_s1_levels, n - 2) if kernel_size == 3 else 0
         self.n_levels = n
         self.emb_window = emb_window
         self.add_module(f"bridge_list_{n - 1}", ConnectBridge(
@@ -100,8 +118,9 @@ class ROIDecoder(nn.Module):
             else:
                 bridge = InitialBridge()
             self.add_module(f"bridge_list_{level}", bridge)
-            self.add_module(f"block_list_{i - 1}", UpBlock(
-                layers[level + 1], layers[level], kernel_size, dropout))
+            block = UpBlock(layers[level + 1], layers[level], kernel_size, dropout)
+            block.fused_s1 = level < fused_levels
+            self.add_module(f"block_list_{i - 1}", block)
         self.final_block = conv3d_same(layers[0], dim_output * emb_window ** 2,
                                        kernel_size)
 

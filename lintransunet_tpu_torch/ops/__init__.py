@@ -2,7 +2,10 @@
 
 Attention lives in two submodules, imported by name: ``ops.attention``
 (the plain ops, with the optional mask) and ``ops.linear_attention`` (the
-fused op whose CUDA kernel is in ``csrc/``, with its plain version).
+fused op whose CUDA kernel is in ``csrc/``, with its plain version). The
+fused eval configuration's ops are submodules too: ``ops.conv_unit`` (the
+stride-1 conv unit) and ``ops.fused_stack`` (the transformer stack), each a
+CUDA kernel in ``csrc/`` with its plain version.
 """
 
 from lintransunet_tpu_torch.ops.bbox import mask_boundary, min_max_indice, min_max_indice2

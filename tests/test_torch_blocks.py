@@ -85,7 +85,7 @@ def test_from_flax_inverts_convert_state_dict():
     every torch key lands on exactly one flax leaf and nothing is skipped."""
     jmodel = jm.MaskTransUnet(**SMALL, n_layers=2)
     params = random_params(jmodel, jnp.zeros((1, 64, 64, 8, 1)), train=False)
-    port = load_port(tm.MaskTransUnet(**SMALL, n_layers=2), params)
+    port = load_port(tm.MaskTransUnet(**SMALL, n_layers=2, device="cpu"), params)
     state = {k: v.numpy() for k, v in port.state_dict().items()}
     leaves = jax.tree_util.tree_leaves(params)
     assert len(state) == len(leaves)

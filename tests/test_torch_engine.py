@@ -64,9 +64,10 @@ def test_runner_matches_jax_runner_voxel_for_voxel(monkeypatch):
     _, jrunner = jax_make_eval_runner(jmodel, JaxEvalConfig(64, 8))
     want = np.asarray(jrunner(jnp.asarray(vol), params))
 
-    port = load_port(MaskTransUnet(**SMALL, n_layers=2), params)
+    port = load_port(MaskTransUnet(**SMALL, n_layers=2, device="cpu"), params)
     fwd, runner = make_eval_runner(port, EvalConfig(64, 8))
     assert fwd.fg_only
+    assert runner.device == torch.device("cpu")  # the model's device
     got = from_ncdhw(runner(t(to_ncdhw(vol))).numpy())
     assert got.shape == want.shape == (1, 64, 64, 20, 2)
     np.testing.assert_array_equal(got, want)

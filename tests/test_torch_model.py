@@ -42,7 +42,7 @@ def both():
         {"params": p}, v, train=False, fg_only=True))
     want_probs, want_masks = aux(params, jnp.asarray(x))
     want_fg = fg(params, jnp.asarray(x))
-    port = load_port(MaskTransUnet(**SMALL, n_layers=2), params)
+    port = load_port(MaskTransUnet(**SMALL, n_layers=2, device="cpu"), params)
     with torch.inference_mode():
         got_probs, got_masks = port(t(to_ncdhw(x)), return_aux=True)
         got_fg = port(t(to_ncdhw(x)), return_aux=False, fg_only=True)
@@ -70,6 +70,16 @@ def test_probabilities_and_masks_match_jax(both):
     assert len(both["got_masks"]) == len(both["want_masks"]) == 4
     for got, want in zip(both["got_masks"], both["want_masks"]):
         np.testing.assert_allclose(from_ncdhw(got), want, atol=ATOL, rtol=0)
+
+
+def test_model_without_cuda_raises_unless_asked_for_cpu(monkeypatch):
+    """The card is the default device: with no CUDA device visible the
+    model raises, and builds on the CPU only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MaskTransUnet(**SMALL)
+    model = MaskTransUnet(**SMALL, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 def test_fg_only_segmentation_matches_jax_exactly(both):

@@ -1,13 +1,18 @@
-"""The PyTorch port never imports jax, and its CUDA wrapper keeps CPU tensors
-on the plain path."""
+"""The PyTorch port never imports jax, and its CUDA wrappers keep CPU tensors
+on their plain paths without counting a launch."""
 
+import importlib
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
+from lintransunet_tpu_torch import kernels
+from lintransunet_tpu_torch.ops import conv_unit as cu
+from lintransunet_tpu_torch.ops import fused_stack as fs
 from lintransunet_tpu_torch.ops import linear_attention as fused
 
 REPO = Path(__file__).resolve().parent.parent
@@ -27,8 +32,31 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 20  # every subpackage and module was imported
+    assert int(count) >= 22  # every subpackage and module was imported
     assert bad.strip() == "[]"
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh gives every library a new name, so a stale
+    build is never loaded."""
+    build = importlib.import_module("lintransunet_tpu_torch.kernels.build")
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build._library_path(name) for name in build.SIGNATURES}
+    header = csrc / "common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build._library_path(name) for name in build.SIGNATURES}
+    assert all(before[name] != after[name] for name in build.SIGNATURES)
+
+
+def test_every_kernel_source_has_a_binding():
+    sources = {p.stem for p in (REPO / "lintransunet_tpu_torch" / "csrc").glob("*.cu")}
+    assert sources == set(kernels.SIGNATURES) == {
+        "linear_attention", "conv_unit", "fused_stack"}
 
 
 def test_cpu_tensor_takes_plain_path_without_counting():
@@ -42,3 +70,67 @@ def test_cpu_tensor_takes_plain_path_without_counting():
                                rtol=0, atol=0)
     bf = fused.linear_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert bf.dtype == torch.bfloat16 and fused.linear_attention.launches == before
+
+
+def test_new_wrappers_take_plain_path_on_cpu_without_counting():
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 3, 4, 5, 6)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 3, 3, 3, 3)).astype(np.float32))
+    before = cu.conv_unit.launches
+    y, stats = cu.conv_unit(x, w)
+    assert cu.conv_unit.launches == before
+    torch.testing.assert_close(y, torch.nn.functional.conv3d(x, w, padding=1))
+    assert stats.shape == (1, 2, 2)
+    tokens = torch.from_numpy(rng.standard_normal((1, 7, 32)).astype(np.float32))
+    A, w2 = torch.zeros((1, 32, 192)), torch.zeros((1, 64, 32))
+    vecs = torch.zeros((1, 16, 64))
+    before = fs.fused_transformer_stack.launches
+    out = fs.fused_transformer_stack(tokens, A, w2, vecs, 1)
+    assert fs.fused_transformer_stack.launches == before
+    assert out.shape == tokens.shape and torch.isfinite(out).all()
+
+
+def _conv_args(**change):
+    x = torch.zeros((1, 4, 6, 6, 6))
+    w = torch.zeros((8, 4, 3, 3, 3))
+    args = dict(xa=x, wa=w, xb=None, wb=None, bias=torch.zeros(8),
+                affine_a=torch.zeros((1, 2, 4)), affine_b=None, compute_dtype=None)
+    args.update(change)
+    return args
+
+
+def _stack_args(**change):
+    args = dict(x=torch.zeros((1, 5, 128)), A=torch.zeros((2, 128, 768)),
+                w2=torch.zeros((2, 256, 128)), vecs=torch.zeros((2, 16, 256)),
+                n_heads=4)
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("check,args,error", [
+    (cu._check_cuda_inputs, _conv_args(), None),
+    (cu._check_cuda_inputs, _conv_args(xa=torch.zeros((1, 4, 6, 6, 6)).half()), TypeError),
+    (cu._check_cuda_inputs, _conv_args(xa=torch.zeros((1, 4, 6, 6, 6)).transpose(2, 3)),
+     ValueError),
+    (cu._check_cuda_inputs, _conv_args(wa=torch.zeros((8, 4, 3, 3, 3)).double()), TypeError),
+    (cu._check_cuda_inputs, _conv_args(compute_dtype=torch.bfloat16), ValueError),
+    (cu._check_cuda_inputs, _conv_args(xb=torch.zeros((1, 2, 6, 6, 6))), ValueError),
+    (cu._check_cuda_inputs, _conv_args(affine_a=torch.zeros((1, 2, 3))), ValueError),
+    (cu._check_cuda_inputs, _conv_args(bias=torch.zeros(8, requires_grad=True)),
+     NotImplementedError),
+    (fs._check_cuda_inputs, _stack_args(), None),
+    (fs._check_cuda_inputs, _stack_args(x=torch.zeros((1, 5, 128)).half()), TypeError),
+    (fs._check_cuda_inputs, _stack_args(x=torch.zeros((1, 10, 128))[:, ::2]), ValueError),
+    (fs._check_cuda_inputs, _stack_args(n_heads=2), ValueError),
+    (fs._check_cuda_inputs, _stack_args(w2=torch.zeros((1, 256, 128))), ValueError),
+    (fs._check_cuda_inputs, _stack_args(x=torch.zeros((1, 5, 128), requires_grad=True)),
+     NotImplementedError),
+])
+def test_cuda_input_checks(check, args, error):
+    """The wrappers' checks before a launch, run on CPU tensors: what the
+    kernels take passes, the rest raises."""
+    if error is None:
+        check(*args.values())
+    else:
+        with pytest.raises(error):
+            check(*args.values())

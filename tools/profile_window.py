@@ -1,9 +1,11 @@
 """Where the flagship's serving time goes on one CUDA card.
 
-    python3 tools/profile_window.py
+    python3 tools/profile_window.py [--fused]
 
 Builds the flagship as ``chip_smoke.py`` does (bf16 compute, random weights
-from its seed) behind ``make_eval_runner`` and prints, all warm:
+from its seed; with ``--fused`` in the fused eval configuration,
+``fused_s1=True, fused_stack=True``) behind ``make_eval_runner`` and
+prints, all warm:
 
 * ``window``: one 512 x 512 x 64 window forward, host clock around a
   synchronised call, mean of WINDOW_RUNS;
@@ -21,6 +23,7 @@ The printed names and numbers are the same in every tree that has
 ``make_eval_runner``, so two trees can be compared in one call.
 """
 
+import argparse
 import statistics
 import subprocess
 import sys
@@ -43,6 +46,9 @@ PROFILED_WINDOWS = 3
 TOP = 20
 # kernel-name substrings -> class; the first match wins
 CLASSES = [
+    ("transformer-stack kernel", ("stack_kv_partial", "stack_ctx_combine",
+                                  "stack_apply_layer")),
+    ("conv-unit kernel", ("conv_unit_kernel", "stats_reduce")),
     ("linear-attention kernel", ("ctx_partial", "ctx_combine", "attn_out")),
     ("cuDNN layout transposes", ("nhwcToNchw", "nchwToNhwc")),
     ("conv3d", ("fprop", "conv", "cudnn")),
@@ -76,12 +82,18 @@ def classify(name):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--fused", action="store_true",
+                        help="profile the fused eval configuration")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         chip_smoke.fail("no CUDA device: this script runs only on an NVIDIA GPU")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
-    model = chip_smoke.build_model("kernel")
+    print(f"[config] {'fused' if args.fused else 'default'}", flush=True)
+    model = (chip_smoke.build_model("kernel", fused_config=True) if args.fused
+             else chip_smoke.build_model("kernel"))
     roi = EvalConfig(roi_size=512, depth_size=64, overlap=0.6, mode="constant")
     fwd, runner = make_eval_runner(model, roi)
     gen = torch.Generator(device="cpu").manual_seed(chip_smoke.SEED + 1)
