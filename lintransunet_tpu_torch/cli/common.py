@@ -1,9 +1,35 @@
-"""Shared CLI plumbing (port of ``make_eval_runner``,
-``lintransunet_tpu/cli/common.py:45-62``); the CLIs themselves come later."""
+"""Shared CLI plumbing (port of ``get_criterion_list`` and
+``make_eval_runner``, ``lintransunet_tpu/cli/common.py:10-29, 45-62``); the
+CLIs themselves come later."""
 
 import dataclasses
+from typing import List, Tuple
 
 from torch import nn
+
+
+def get_criterion_list(num_levels: int, criterion_list, loss_module=None
+                       ) -> Tuple[List[dict], dict]:
+    """Per-level criterion schedule (train3D.py:139-155): CE + BalanceDice
+    on the low levels, CE + DiceClass on the second from the top, the
+    configured list on the top (full-resolution) level; and the eval suite
+    of train3D.py:144. ``loss_module`` defaults to the port's binary
+    losses."""
+    if loss_module is None:
+        from lintransunet_tpu_torch.losses import binary as loss_module
+    temp_list = ["CrossEntroLoss", "BalanceDiceLoss"]
+    temp_list2 = ["CrossEntroLoss", "DiceClassLoss"]
+    eval_list = ["BalanceDiceLoss", "DiceClassLoss", "RecallLoss",
+                 "PrecisionLoss", "LocalizationLoss"]
+    criterions = []
+    for i in range(num_levels):
+        if i < num_levels - 2:
+            criterions.append(loss_module.get_criterions(temp_list))
+        elif i == num_levels - 2:
+            criterions.append(loss_module.get_criterions(temp_list2))
+        else:
+            criterions.append(loss_module.get_criterions(list(criterion_list)))
+    return criterions, loss_module.get_criterions(eval_list)
 
 
 @dataclasses.dataclass

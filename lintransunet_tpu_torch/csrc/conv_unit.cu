@@ -11,8 +11,10 @@
 //   stats[n, 0, o] = sum of y as stored, stats[n, 1, o] = sum of y^2 (f32)
 //   z   = a (optional)
 //
-// Operands are rounded to the input dtype (bf16 or f32), products are
-// summed in f32.
+// The input and output dtype TI is bf16 or f32; operands are rounded to the
+// compute dtype TC (bf16 or f32) when they are staged in shared memory, and
+// products are summed in f32. The model's callers take TC = bf16 whatever
+// TI is, as the TPU kernel's `compute_dtype` default does.
 //
 // Replaces the Pallas TPU kernel `_build_kernel` of
 // lintransunet_tpu/ops/pallas_conv.py (pallas_call at :625, via
@@ -78,33 +80,33 @@ __host__ __device__ constexpr int halo_cstride() {
   return std::is_same<T, float>::value ? kKC + 1 : kKC;
 }
 
-template <typename T, int NT>
+template <typename TC, int NT>
 __host__ __device__ constexpr size_t weights_offset() {
-  return ltu::align_up(sizeof(T) * kHalo * halo_cstride<T>(), 128);
+  return ltu::align_up(sizeof(TC) * kHalo * halo_cstride<TC>(), 128);
 }
 
-template <typename T, int NT>
+template <typename TC, int NT>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return weights_offset<T, NT>() + sizeof(T) * 27 * kKC * NT;
+  return weights_offset<TC, NT>() + sizeof(TC) * 27 * kKC * NT;
 }
 
 struct Input {
-  const void* x;         // (N, C, H, W, D), T
+  const void* x;         // (N, C, H, W, D), TI
   const float* w;        // element (o, c, tap) at w[(o * cstride + c) * 27 + tap]
   int cstride;
   const float* affine;   // (N, 2, C) f32 scale, shift; or null
   int c;                 // channels
 };
 
-template <typename T, int NT>
+template <typename TI, typename TC, int NT>
 __global__ void __launch_bounds__(kThreads)
 conv_unit_kernel(Input in_a, Input in_b, const float* __restrict__ bias,
-                 T* __restrict__ y, T* __restrict__ z, float* __restrict__ part,
+                 TI* __restrict__ y, TI* __restrict__ z, float* __restrict__ part,
                  int n_out, int H, int W, int D, int tiles_w, int tiles_d) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int CS = halo_cstride<T>();
-  T* s_in = reinterpret_cast<T*>(smem);
-  T* s_w = reinterpret_cast<T*>(smem + weights_offset<T, NT>());
+  constexpr int CS = halo_cstride<TC>();
+  TC* s_in = reinterpret_cast<TC*>(smem);
+  TC* s_w = reinterpret_cast<TC*>(smem + weights_offset<TC, NT>());
   float* s_out = reinterpret_cast<float*>(smem);  // reuses s_in after the K loop
 
   const int tid = threadIdx.x;
@@ -123,7 +125,7 @@ conv_unit_kernel(Input in_a, Input in_b, const float* __restrict__ bias,
 
   // bf16 accumulators: warp -> voxels [warp * 16, warp * 16 + 16)
   using namespace nvcuda;
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool kMma = std::is_same<TC, __nv_bfloat16>::value;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_mma[NT / 16];
   if constexpr (kMma) {
 #pragma unroll
@@ -138,7 +140,7 @@ conv_unit_kernel(Input in_a, Input in_b, const float* __restrict__ bias,
   for (int src = 0; src < 2; ++src) {
     const Input& in = src == 0 ? in_a : in_b;
     if (in.x == nullptr) continue;
-    const T* x = static_cast<const T*>(in.x);
+    const TI* x = static_cast<const TI*>(in.x);
     for (int c0 = 0; c0 < in.c; c0 += kKC) {
       __syncthreads();  // the previous chunk's readers are done
       // halo of channels [c0, c0 + kKC), prologue applied, zeros outside
@@ -155,13 +157,17 @@ conv_unit_kernel(Input in_a, Input in_b, const float* __restrict__ bias,
           v = to_f32(x[(static_cast<size_t>(n) * in.c + gc) * plane +
                        (static_cast<size_t>(gh) * W + gw) * D + gd]);
           if (in.affine != nullptr) {
-            v = v * in.affine[(n * 2) * in.c + gc] + in.affine[(n * 2 + 1) * in.c + gc];
+            // a multiply and an add, each rounded, as the plain version's
+            // two ops: a fused multiply-add would move some values across a
+            // bf16 rounding boundary and the operand by a bf16 ulp
+            v = __fadd_rn(__fmul_rn(v, in.affine[(n * 2) * in.c + gc]),
+                          in.affine[(n * 2 + 1) * in.c + gc]);
             v = v >= 0.f ? v : v * kSlope;
           }
         }
-        s_in[((hh * kHaloW + ww) * kHaloD + dd) * CS + c] = from_f32<T>(v);
+        s_in[((hh * kHaloW + ww) * kHaloD + dd) * CS + c] = from_f32<TC>(v);
       }
-      // weights of the chunk: s_w[tap][c][o], rounded to T, zero-padded
+      // weights of the chunk: s_w[tap][c][o], rounded to TC, zero-padded
       for (int idx = tid; idx < NT * kKC * 27; idx += kThreads) {
         const int tap = idx % 27;
         const int c = (idx / 27) % kKC;
@@ -169,12 +175,12 @@ conv_unit_kernel(Input in_a, Input in_b, const float* __restrict__ bias,
         const int gc = c0 + c, go = o0 + o;
         const float v = (gc < in.c && go < n_out)
             ? in.w[(static_cast<size_t>(go) * in.cstride + gc) * 27 + tap] : 0.f;
-        s_w[(tap * kKC + c) * NT + o] = from_f32<T>(v);
+        s_w[(tap * kKC + c) * NT + o] = from_f32<TC>(v);
       }
       __syncthreads();
 
       if (z != nullptr && src == 0 && blockIdx.z == 0) {
-        // z = the prologued input at the block's own voxels
+        // z = the prologued input as rounded to TC, at the block's own voxels
         for (int idx = tid; idx < kKC * kM; idx += kThreads) {
           const int dd = idx % kTD;
           const int ww = (idx / kTD) % kTW;
@@ -182,8 +188,8 @@ conv_unit_kernel(Input in_a, Input in_b, const float* __restrict__ bias,
           const int gc = c0 + c, gw = w0 + ww, gd = d0 + dd;
           if (gc < in.c && gw < W && gd < D) {
             z[(static_cast<size_t>(n) * in.c + gc) * plane +
-              (static_cast<size_t>(h) * W + gw) * D + gd] =
-                s_in[((1 * kHaloW + ww + 1) * kHaloD + dd + 1) * CS + c];
+              (static_cast<size_t>(h) * W + gw) * D + gd] = from_f32<TI>(
+                to_f32(s_in[((1 * kHaloW + ww + 1) * kHaloD + dd + 1) * CS + c]));
           }
         }
       }
@@ -218,8 +224,8 @@ conv_unit_kernel(Input in_a, Input in_b, const float* __restrict__ bias,
           for (int kw = 0; kw < 3; ++kw) {
             for (int kd = 0; kd < 3; ++kd) {
               const int tap = (kh * 3 + kw) * 3 + kd;
-              const T* a_row = s_in + ((kh * kHaloW + wl + kw) * kHaloD + dl + kd) * CS;
-              const T* w_row = s_w + tap * kKC * NT + og * OPT;
+              const TC* a_row = s_in + ((kh * kHaloW + wl + kw) * kHaloD + dl + kd) * CS;
+              const TC* w_row = s_w + tap * kKC * NT + og * OPT;
 #pragma unroll 4
               for (int c = 0; c < kKC; ++c) {
                 const float a = to_f32(a_row[c]);
@@ -256,7 +262,7 @@ conv_unit_kernel(Input in_a, Input in_b, const float* __restrict__ bias,
     const bool valid = go < n_out && gw < W && gd < D;
     float v = s_out[m * NT + o];
     if (bias != nullptr && go < n_out) v += bias[go];
-    const T yv = from_f32<T>(v);
+    const TI yv = from_f32<TI>(v);
     if (valid) {
       y[(static_cast<size_t>(n) * n_out + go) * plane +
         (static_cast<size_t>(h) * W + gw) * D + gd] = yv;
@@ -307,21 +313,21 @@ stats_reduce(const float* __restrict__ part, float* __restrict__ stats, int tile
   if (threadIdx.x == 0) stats[(n * 2 + s) * n_out + o] = red[0];
 }
 
-template <typename T, int NT>
+template <typename TI, typename TC, int NT>
 int launch(const Input& a, const Input& b, const float* bias, void* y, void* z,
            float* part, float* stats, int n, int n_out, int H, int W, int D,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, NT>();
+  constexpr size_t smem = smem_bytes<TC, NT>();
   cudaError_t err = cudaFuncSetAttribute(
-      conv_unit_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_unit_kernel<TI, TC, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_w = (W + kTW - 1) / kTW;
   const int tiles_d = (D + kTD - 1) / kTD;
   const int tiles = H * tiles_w * tiles_d;
   const dim3 grid(tiles, n, (n_out + NT - 1) / NT);
-  conv_unit_kernel<T, NT><<<grid, kThreads, smem, stream>>>(
-      a, b, bias, static_cast<T*>(y), static_cast<T*>(z), part, n_out, H, W, D,
+  conv_unit_kernel<TI, TC, NT><<<grid, kThreads, smem, stream>>>(
+      a, b, bias, static_cast<TI*>(y), static_cast<TI*>(z), part, n_out, H, W, D,
       tiles_w, tiles_d);
   err = cudaGetLastError();
   if (err != cudaSuccess || stats == nullptr) return static_cast<int>(err);
@@ -329,12 +335,14 @@ int launch(const Input& a, const Input& b, const float* bias, void* y, void* z,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename TI, typename TC>
 int dispatch(const Input& a, const Input& b, const float* bias, void* y, void* z,
              float* part, float* stats, int n, int n_out, int H, int W, int D,
              cudaStream_t stream) {
-  if (n_out <= 16) return launch<T, 16>(a, b, bias, y, z, part, stats, n, n_out, H, W, D, stream);
-  return launch<T, 32>(a, b, bias, y, z, part, stats, n, n_out, H, W, D, stream);
+  if (n_out <= 16) {
+    return launch<TI, TC, 16>(a, b, bias, y, z, part, stats, n, n_out, H, W, D, stream);
+  }
+  return launch<TI, TC, 32>(a, b, bias, y, z, part, stats, n, n_out, H, W, D, stream);
 }
 
 }  // namespace
@@ -348,7 +356,8 @@ int cu_num_tiles(int h, int w, int d) {
 }
 
 // xa (n, ca, h, w, d) and optional xb (n, cb, h, w, d): contiguous, f32
-// (is_bf16 == 0) or bf16. wa / wb: f32, element (o, c, tap) at
+// (is_bf16 == 0) or bf16; y and z have that dtype. Operands are rounded to
+// bf16 (compute_bf16 != 0) or f32. wa / wb: f32, element (o, c, tap) at
 // w[(o * cstride + c) * 27 + tap]. aff_a / aff_b: (n, 2, c) f32 or null.
 // bias: (n_out,) f32 or null. y: (n, n_out, h, w, d); z: like xa, or null.
 // part: f32 scratch (n, cu_num_tiles, 2, n_out) and stats (n, 2, n_out),
@@ -357,7 +366,8 @@ int cu_num_tiles(int h, int w, int d) {
 int cu_forward(const void* xa, const void* wa, int wa_cstride, const void* aff_a, int ca,
                const void* xb, const void* wb, int wb_cstride, const void* aff_b, int cb,
                const void* bias, void* y, void* z, void* part, void* stats,
-               int n, int n_out, int h, int w, int d, int is_bf16, void* stream) {
+               int n, int n_out, int h, int w, int d, int is_bf16, int compute_bf16,
+               void* stream) {
   const Input a{xa, static_cast<const float*>(wa), wa_cstride,
                 static_cast<const float*>(aff_a), ca};
   const Input b{xb, static_cast<const float*>(wb), wb_cstride,
@@ -366,8 +376,13 @@ int cu_forward(const void* xa, const void* wa, int wa_cstride, const void* aff_a
   auto* pa = static_cast<float*>(part);
   auto* st = static_cast<float*>(stats);
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch<__nv_bfloat16>(a, b, bi, y, z, pa, st, n, n_out, h, w, d, s);
-  return dispatch<float>(a, b, bi, y, z, pa, st, n, n_out, h, w, d, s);
+  using bf16 = __nv_bfloat16;
+  if (is_bf16 && compute_bf16) {
+    return dispatch<bf16, bf16>(a, b, bi, y, z, pa, st, n, n_out, h, w, d, s);
+  }
+  if (is_bf16) return dispatch<bf16, float>(a, b, bi, y, z, pa, st, n, n_out, h, w, d, s);
+  if (compute_bf16) return dispatch<float, bf16>(a, b, bi, y, z, pa, st, n, n_out, h, w, d, s);
+  return dispatch<float, float>(a, b, bi, y, z, pa, st, n, n_out, h, w, d, s);
 }
 
 }  // extern "C"

@@ -1,11 +1,194 @@
-"""Eval forward (port of ``make_eval_forward``,
-``lintransunet_tpu/engine/train.py:178-210``). The training step comes with
-the training slice (ROADMAP)."""
+"""Training step and eval forward (port of ``lintransunet_tpu/engine/train.py``).
 
-from typing import Callable, Optional
+* ``deep_supervision_loss``: the deep-supervision loss over the decoder's
+  mask pyramid with the reference's max-pool label-pyramid schedule
+  (utils_3D_embed_full.py:64, 73-76);
+* ``make_optimizer``: AdamW with weight decay 0.01 on every parameter, as
+  ``optax.adamw`` without a mask;
+* ``step_times`` accumulation with ``optax.MultiSteps`` semantics: the
+  running (Welford) mean of k micro-step gradients, one optimizer update
+  on the k-th, parameters untouched in between;
+* bf16 compute with f32 parameters, as in JAX: the model casts the input
+  and every parameter to its compute dtype, and autograd carries the
+  gradients back to the f32 parameters. No loss scaling, as in JAX.
+
+The step updates its ``TrainState`` in place (JAX's returns a new one) and
+leaves each parameter's ``.grad`` holding the step's gradient until the
+next step, so a caller can inspect it.
+"""
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+
+from lintransunet_tpu_torch.losses.functional import one_hot
+from lintransunet_tpu_torch.ops.pool import max_pool3d
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a resume needs: the model (its parameters), the optimizer (its
+    moments), the micro-step count ``step`` (JAX ``TrainState.step``), and
+    the accumulation state of ``optax.MultiSteps``: ``mini_step``,
+    ``gradient_step`` and ``acc_grads`` (the running mean of the micro-step
+    gradients, f32, None while ``step_times`` is 1)."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step_times: int = 1
+    step: int = 0
+    mini_step: int = 0
+    gradient_step: int = 0
+    acc_grads: Optional[List[torch.Tensor]] = None
+
+
+def make_optimizer(params, learning_rate: float,
+                   weight_decay: float = 0.01) -> torch.optim.AdamW:
+    """AdamW (torch defaults, train3D.py:193): betas (0.9, 0.999), eps 1e-8,
+    decoupled weight decay on every parameter."""
+    return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=weight_decay)
+
+
+def create_train_state(model: nn.Module, learning_rate: float = 1e-4,
+                       step_times: int = 1) -> TrainState:
+    """The train state of ``model`` as it stands (its parameters are the
+    initial ones: ``init_random_`` or a loaded state_dict)."""
+    if step_times < 1:
+        raise ValueError(f"step_times must be >= 1, not {step_times}")
+    return TrainState(model, make_optimizer(model.parameters(), learning_rate),
+                      step_times)
+
+
+def set_learning_rate(state: TrainState, lr: float) -> TrainState:
+    """Write a new LR into every parameter group (the plateau scheduler's hook)."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    return state
+
+
+def get_learning_rate(state: TrainState) -> float:
+    return float(state.optimizer.param_groups[0]["lr"])
+
+
+def apply_gradients(state: TrainState) -> None:
+    """One micro-step on the gradients in each parameter's ``.grad``:
+    ``optax.MultiSteps(adamw, every_k_schedule=step_times)``'s update."""
+    params = [p for p in state.model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    state.step += 1
+    if state.step_times == 1:
+        state.optimizer.step()
+        state.gradient_step += 1
+        return
+    if state.acc_grads is None:
+        state.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    n = state.mini_step
+    with torch.no_grad():
+        for acc, p in zip(state.acc_grads, params):
+            acc.add_((p.grad.float() - acc) / (n + 1))
+    state.mini_step = (n + 1) % state.step_times
+    if state.mini_step == 0:
+        with torch.no_grad():
+            for acc, p in zip(state.acc_grads, params):
+                p.grad.copy_(acc)
+                acc.zero_()
+        state.optimizer.step()
+        state.gradient_step += 1
+
+
+def label_pyramid_kernel(level: int):
+    """Pool kernel applied after deep-supervision level ``level``
+    (utils_3D_embed_full.py:73-76): even levels pool (2, 2, 2), odd
+    (2, 2, 1); the pyramid starts from one (2, 2, 1) pool of the
+    full-resolution labels (:64)."""
+    return (2, 2, 2) if level % 2 == 0 else (2, 2, 1)
+
+
+def deep_supervision_loss(out: torch.Tensor, mask_list: Sequence[torch.Tensor],
+                          labels: torch.Tensor,
+                          criterions: Sequence[Dict[str, Callable]],
+                          dynamic_weight,
+                          criterion_weight: Optional[Sequence[float]] = None,
+                          num_classes: Optional[int] = None):
+    """(total weighted loss, {f"{name} layer{i}": value}).
+
+    ``criterions[level]`` follows the reference's indexing: level L-1 is the
+    full-resolution output, level L-1-k supervises ``mask_list[-k]``
+    (utils_3D_embed_full.py:66-82). ``labels``: (N, H, W, D) integer ids;
+    ``out`` and the masks are channels-first probabilities. With
+    ``num_classes``, targets are channels-first one-hots and each criterion
+    is scaled by ``criterion_weight`` (utils_3D_multi_class.py:84, 96);
+    otherwise the raw ids are passed (the binary path).
+    """
+    n_levels = len(criterions)
+    temp = max_pool3d(labels.float()[:, None], (2, 2, 1), (2, 2, 1))
+    weights_k = torch.as_tensor(dynamic_weight, dtype=torch.float32, device=out.device)
+
+    total = torch.zeros((), dtype=torch.float32, device=out.device)
+    logs: Dict[str, torch.Tensor] = {}
+    for k in range(n_levels):
+        level_criterions = criterions[n_levels - 1 - k]
+        if k == 0:
+            pred, target_ids = out, labels
+        else:
+            pred, target_ids = mask_list[-k], temp[:, 0]
+        if num_classes is not None:
+            target = one_hot(target_ids.reshape(target_ids.shape[0], -1), num_classes)
+            target = target.reshape(target_ids.shape + (num_classes,)).movedim(-1, 1)
+        else:
+            target = target_ids
+
+        level_total = torch.zeros((), dtype=torch.float32, device=out.device)
+        weights = criterion_weight or [1.0] * len(level_criterions)
+        for (name, fn), w in zip(level_criterions.items(), weights):
+            value = fn(pred, target) * (w if num_classes is not None else 1.0)
+            logs[f"{name} layer{n_levels - 1 - k}"] = value
+            level_total = level_total + value
+        total = total + level_total * weights_k[k]
+
+        if k != 0 and k < n_levels - 1:
+            temp = max_pool3d(temp, label_pyramid_kernel(k), label_pyramid_kernel(k))
+    return total, logs
+
+
+def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
+                    criterion_weight: Optional[Sequence[float]] = None,
+                    num_classes: Optional[int] = None) -> Callable:
+    """``step(state, images, labels, dynamic_weight, generator) -> (loss,
+    logs)``; updates ``state`` in place.
+
+    images: (N, C, H, W, D) on the model's device; labels: (N, H, W, D)
+    integer ids; dynamic_weight: (L,) per-level weights; generator: a
+    ``torch.Generator`` on the model's device that every dropout draws
+    from (as JAX's step takes ``rng``), or None for the global one.
+    ``step.loss_fn(images, labels, dynamic_weight, generator)`` is the loss
+    alone, (loss, logs), for a caller that differentiates it itself.
+    """
+    from lintransunet_tpu_torch.models.blocks import dropout_generator
+
+    def loss_fn(images, labels, dynamic_weight, generator=None):
+        with dropout_generator(generator):
+            out, mask_list = model(images, return_aux=True)
+        return deep_supervision_loss(out, mask_list, labels, criterions,
+                                     dynamic_weight, criterion_weight, num_classes)
+
+    def step(state: TrainState, images, labels, dynamic_weight, generator=None):
+        if state.model is not model:
+            raise ValueError("the train state holds another model than this step's")
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, logs = loss_fn(images, labels, dynamic_weight, generator)
+        loss.backward()
+        apply_gradients(state)
+        return loss.detach(), {name: v.detach() for name, v in logs.items()}
+
+    step.loss_fn = loss_fn
+    return step
 
 
 def make_eval_forward(model: nn.Module,

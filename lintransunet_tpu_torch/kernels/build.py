@@ -29,10 +29,12 @@ SIGNATURES = {
     "linear_attention": {
         "lta_forward": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         "lta_num_splits": (_I, [_I]),
+        "lta_backward": (_I, [_P] * 12 + [_I, _I, _I, _I, _P]),
+        "lta_state_floats": (_I, []),
     },
     "conv_unit": {
         "cu_forward": (_I, [_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P,
-                            _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                            _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
         "cu_num_tiles": (_I, [_I, _I, _I]),
     },
     "fused_stack": {

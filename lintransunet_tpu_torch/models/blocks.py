@@ -16,9 +16,15 @@ transformer stack (``ops/fused_stack.py``), and a ``DownBlock`` or
 ``UpBlock`` with ``fused_s1`` runs its stride-1 convolutions through the
 conv unit (``ops/conv_unit.py``), InstanceNorm statistics from the unit's
 epilogue, the UpBlock's concat never materialised. Training mode takes
-neither.
+neither (``MaskTransUnet.train()`` refuses them).
+
+Dropout draws its masks from the generator that ``dropout_generator``
+installs (the train step's, as JAX's step takes ``rng``), or from PyTorch's
+global generator outside it.
 """
 
+import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import torch
@@ -53,6 +59,34 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
+_GENERATOR = contextvars.ContextVar("dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: Optional[torch.Generator]):
+    """Every dropout inside the block draws from ``generator`` (a
+    ``torch.Generator`` on the activations' device)."""
+    token = _GENERATOR.set(generator)
+    try:
+        yield
+    finally:
+        _GENERATOR.reset(token)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            channel: bool = False) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
+    1 / (1 - rate), in x's dtype. ``channel`` draws one mask value per
+    (N, C) and broadcasts it over the spatial dims (``broadcast_dims`` of
+    every spatial axis, torch Dropout3d)."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = x.shape[:2] + (1,) * (x.dim() - 2) if channel else x.shape
+    mask = torch.rand(shape, generator=_GENERATOR.get(), device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def conv3d_same(in_ch: int, out_ch: int, kernel: int, stride=1,
                 groups: int = 1) -> Conv3d:
     """Conv3d with torch 'same'-style symmetric padding k // 2."""
@@ -70,7 +104,7 @@ class ConvPosEmbed3d(nn.Module):
         self.proj = conv3d_same(dim, dim, emb_kernel, groups=dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.dropout3d(x + self.proj(x), self.dropout, self.training)
+        return dropout(x + self.proj(x), self.dropout, self.training, channel=True)
 
 
 class MultiheadLinearAttention(nn.Module):
@@ -127,7 +161,7 @@ class SelfAttentionLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        drop = lambda t: F.dropout(t, self.dropout, self.training)
+        drop = lambda t: dropout(t, self.dropout, self.training)
         x = self.layer_norm1(x + drop(self.self_attn(x, x, x, mask)))
         h = self.linear2(drop(F.gelu(self.linear1(x))))
         return self.layer_norm2(x + drop(h))
@@ -273,7 +307,7 @@ class DownBlock(nn.Module):
             y = y + x
         z = _norm_act(self.conv2(y))
         if self.dropout is not None:
-            z = F.dropout(z, self.dropout, self.training)
+            z = dropout(z, self.dropout, self.training)
         return z, y
 
 
@@ -300,7 +334,7 @@ class UpBlock(nn.Module):
             x = _norm_act(self.conv1(x))
             x = _norm_act(self.conv2(torch.cat([x, skip], dim=1)))
         if self.dropout is not None:
-            x = F.dropout(x, self.dropout, self.training)
+            x = dropout(x, self.dropout, self.training)
         return x
 
     def _fused(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
@@ -347,7 +381,7 @@ class DownEmbedBlock(nn.Module):
         for i in range(self.down_times):
             x = _norm_act(getattr(self, f"module_list_{i}_0")(x))
             if self.dropout is not None:
-                x = F.dropout(x, self.dropout, self.training)
+                x = dropout(x, self.dropout, self.training)
         return x
 
 
@@ -372,7 +406,7 @@ class UpEmbedBlock(nn.Module):
             x = ops.resize_nearest(x, self.stride)
             x = _norm_act(getattr(self, f"module_list_{i}_1")(x))
             if self.dropout is not None:
-                x = F.dropout(x, self.dropout, self.training)
+                x = dropout(x, self.dropout, self.training)
         return x
 
 

@@ -51,7 +51,12 @@ class MaskTransUnet(nn.Module):
     ``LINTRANSUNET_FUSED_STACK=1`` at ``packed_levels=2``: the stride-1
     convs of the top ``FUSED_S1_LEVELS`` levels run through the conv unit,
     and every token stack through the fused transformer stack. Both are
-    eval-only and off by default, as in JAX.
+    eval-only and off by default, as in JAX: a model built with either is
+    put in eval mode, and ``train()`` on it raises ``ValueError``.
+
+    In train mode ``forward(x)`` returns (probabilities, mask_list), as
+    JAX's ``return_aux=True``; its dropouts draw from the generator of
+    ``blocks.dropout_generator``.
     """
 
     def __init__(self, num_layers: Sequence[int], roi_size_list: Sequence[int],
@@ -67,18 +72,28 @@ class MaskTransUnet(nn.Module):
         device = _resolve_device(device)
         self.dim_output = dim_output
         self.dtype = dtype
+        self.fused_s1 = fused_s1
+        self.fused_stack = fused_stack
         levels = FUSED_S1_LEVELS if fused_s1 else 0
         self.encode = Encoder(num_layers, dim_input, kernel_size, dropout,
                               fused_s1_levels=levels)
         self.decode = ROIDecoder(num_layers, roi_size_list, is_roi_list,
-                                 dim_output, kernel_size, n_layers=n_layers,
-                                 fused_s1_levels=levels)
+                                 dim_output, kernel_size, dropout=dropout,
+                                 n_layers=n_layers, fused_s1_levels=levels)
         for m in self.modules():
             if isinstance(m, MultiheadLinearAttention):
                 m.attention_impl = attention_impl
             elif isinstance(m, _TokenStack):
                 m.fused_stack = fused_stack
         self.to(device)
+        if fused_s1 or fused_stack:
+            self.eval()
+
+    def train(self, mode: bool = True):
+        if mode and (self.fused_s1 or self.fused_stack):
+            raise ValueError("fused_s1 and fused_stack are eval only, as in the "
+                             "JAX package: build the model without them to train")
+        return super().train(mode)
 
     def forward(self, x: torch.Tensor, return_aux: Optional[bool] = None,
                 fg_only: bool = False):

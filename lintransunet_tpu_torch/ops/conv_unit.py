@@ -10,11 +10,11 @@ skip concat, never materialised), and whose epilogue sums the stored output
 and its square per (volume, channel) for the next InstanceNorm. The canvas,
 packed, folded and paired layouts the TPU kernel ran on are not ported.
 
-Operand dtype, a deviation from the JAX package: ``fused_s1_canvas``
-rounds its operands to bf16 unless told otherwise, and none of its model
-callers tells it, so there even an f32 model computes the fused conv's
-products in bf16. Here ``compute_dtype`` defaults to the input's dtype:
-the bf16 flagship computes what JAX computes, and an f32 build stays f32.
+Operand dtype, as in the JAX package: ``fused_s1_canvas`` rounds its
+operands to bf16 unless ``compute_dtype`` says otherwise, and none of its
+model callers says otherwise, so even an f32 model computes the fused
+conv's products in bf16. ``conv_unit`` keeps that default; its output and
+``z`` keep the input's dtype.
 
 ``conv_unit`` dispatches on the device of its inputs: CPU tensors go to
 ``conv_unit_reference``; CUDA tensors launch ``csrc/conv_unit.cu`` or raise.
@@ -72,7 +72,7 @@ def conv_unit_reference(xa, wa, xb=None, wb=None, bias=None, affine_a=None,
     act(x * scale + shift) rounded to ``compute_dtype``, zero padding
     outside the volume, ``F.conv3d`` of the concat in f32 on the rounded
     operands, bias, the output rounded to xa's dtype, and f32 sums of it."""
-    cdt = compute_dtype or xa.dtype
+    cdt = compute_dtype or torch.bfloat16
     a = _prologue(xa, affine_a, cdt)
     x, w = a, wa
     if xb is not None:
@@ -122,8 +122,9 @@ def _check_vector(v: torch.Tensor, shape, what: str):
 
 def _check_cuda_inputs(xa, wa, xb, wb, bias, affine_a, affine_b, compute_dtype):
     _check_activation(xa, None, "xa")
-    if compute_dtype not in (None, xa.dtype):
-        raise ValueError("the CUDA kernel computes in its input's dtype")
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"the CUDA kernel computes in float32 or bfloat16, "
+                         f"not {compute_dtype}")
     n, ca = xa.shape[:2]
     if n > 65535:
         raise ValueError(f"N={n} exceeds the kernel's grid limit")
@@ -166,6 +167,8 @@ def conv_unit(xa: torch.Tensor, wa: torch.Tensor,
     LeakyReLU(0.01). Returns y (N, O, H, W, D) in xa's dtype, then
     ``stats`` (N, 2, O) f32 (sums of y as stored and of y^2) if
     ``want_stats``, then ``z`` = act(xa) if ``want_z``; y alone if neither.
+    The operands act(x) and the weights are rounded to ``compute_dtype``
+    (default bf16, as JAX's ``fused_s1_canvas``); products sum in f32.
     ``conv_unit.launches`` counts kernel launches (CPU calls do not count).
     """
     if xa.device.type == "cpu":
@@ -198,7 +201,8 @@ def conv_unit(xa: torch.Tensor, wa: torch.Tensor,
             ptr(xb), ptr(wb), 0 if wb is None else wb.stride(0) // 27,
             ptr(affine_b), 0 if xb is None else xb.shape[1],
             ptr(bias), ptr(y), ptr(z), ptr(part), ptr(stats),
-            n, n_out, h, w, d, int(xa.dtype == torch.bfloat16), stream)
+            n, n_out, h, w, d, int(xa.dtype == torch.bfloat16),
+            int(compute_dtype in (None, torch.bfloat16)), stream)
     if err != 0:
         raise RuntimeError(f"conv-unit kernel launch failed: CUDA error {err}")
     conv_unit.launches += 1

@@ -2,7 +2,8 @@
 fused conv kernel, in f32 on the CPU.
 
 The same numpy inputs go to the port's ``conv_unit`` (on a CPU tensor: its
-plain version) on ``(N, C, H, W, D)`` tensors and to JAX
+plain version; ``compute_dtype=float32``) on ``(N, C, H, W, D)`` tensors and
+to JAX
 ``fused_s1_canvas(..., interpret=True, compute_dtype=float32)`` on the
 packed folded or paired canvas, converted with the JAX package's own pack
 and canvas helpers (as ``tests/test_pallas_conv.py`` does). Tolerances, as
@@ -87,7 +88,7 @@ def test_conv_unit_matches_jax_fused_s1(case, paired, n):
     jax_kw = dict(bias=bias_l, n_volumes=n, h=H // 2, w=W // 2,
                   mode="paired" if paired else "folded", want_stats=True,
                   interpret=True, compute_dtype=jnp.float32)
-    port_kw = dict(bias=t(b))
+    port_kw = dict(bias=t(b), compute_dtype=torch.float32)
     if case == "dual":
         jax_kw.update(xb=pcv.to_canvas(_layout(xb, n, paired), n),
                       packed_kernel_b=kp[:, :, :, 4 * ca:])

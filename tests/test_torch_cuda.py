@@ -10,7 +10,11 @@ Tolerances, each a share of the plain output's largest magnitude:
 
 * linear attention: f32 5e-5 (sums in another order); bf16 2e-2 (both
   round their f32 result to bf16 once, at places that can differ by one
-  bf16 ulp).
+  bf16 ulp). Its backward: dq, dk and dv each within 1e-5 (f32) and 2e-2
+  (bf16) of their own max |plain|, for the same reasons; a gradient that is
+  zero in exact arithmetic (dk of a single token, whose token softmax is 1;
+  below 1e-3 of the largest of the three) is held against a tenth of the
+  largest instead, the scale of the two sums that cancel in it.
 * conv unit: y and z f32 1e-5, bf16 2e-2 (the same operands, rounded alike,
   summed in f32 in another order; bf16 outputs one ulp apart); statistics
   f32 1e-5, bf16 1e-3 (sums of outputs that can sit one bf16 ulp apart).
@@ -70,8 +74,44 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     wide = _qkv((1, 1, 64, 64), torch.float32, cuda)
     with pytest.raises(ValueError):
         fused.linear_attention(*wide)
-    with pytest.raises(NotImplementedError, match="B.3"):
-        fused.linear_attention(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError):
+        fused.linear_attention_backward(q, k, v, q[:, :, :32].contiguous())
+
+
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 8, 2048, 32), (1, 4, 14352, 32),
+                                   (2, 3, 300, 32), (1, 2, 1, 32),
+                                   (1, 2, 129, 16)])
+def test_backward_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v = _qkv(shape, dtype, cuda)
+    g = _qkv(shape, dtype, cuda, seed=1)[0]
+    before = fused.linear_attention_backward.launches
+    got = fused.linear_attention_backward(q, k, v, g)
+    torch.cuda.synchronize()
+    assert fused.linear_attention_backward.launches == before + 1
+    want = fused.linear_attention_backward_reference(q, k, v, g)
+    top = max(w.float().abs().max().item() for w in want)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        assert err <= BWD_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
+
+
+def test_autograd_launches_both_kernels(cuda):
+    q, k, v = (t.requires_grad_() for t in _qkv((1, 4, 777, 32), torch.float32, cuda))
+    g = _qkv((1, 4, 777, 32), torch.float32, cuda, seed=1)[0]
+    before = (fused.linear_attention.launches, fused.linear_attention_backward.launches)
+    out = fused.linear_attention(q, k, v)
+    out.backward(g.transpose(1, 2).contiguous().transpose(1, 2))  # a strided gradient
+    assert (fused.linear_attention.launches,
+            fused.linear_attention_backward.launches) == (before[0] + 1, before[1] + 1)
+    want = fused.linear_attention_backward_reference(q.detach(), k.detach(), v.detach(), g)
+    for t, w in zip((q, k, v), want):
+        assert _rel(t.grad, w) <= BWD_TOL[torch.float32]
 
 
 def _rel(got, want):
@@ -102,6 +142,7 @@ CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-3)}
 ])
 def test_conv_unit_matches_plain(cuda, dtype, n, ca, cb, o, spatial):
     xa, wa, kw = _conv_inputs(n, ca, cb, o, spatial, dtype, cuda)
+    kw["compute_dtype"] = dtype
     before = cu.conv_unit.launches
     got = cu.conv_unit(xa, wa, want_z=True, **kw)
     torch.cuda.synchronize()
@@ -110,6 +151,24 @@ def test_conv_unit_matches_plain(cuda, dtype, n, ca, cb, o, spatial):
     y_tol, stats_tol = CONV_TOL[dtype]
     assert got[0].dtype == dtype and got[0].shape == (n, o) + spatial
     assert got[2].shape == xa.shape
+    assert _rel(got[0], want[0]) <= y_tol
+    assert _rel(got[1], want[1]) <= stats_tol
+    assert _rel(got[2], want[2]) <= y_tol
+
+
+@pytest.mark.parametrize("n,ca,cb,o,spatial", [
+    (1, 32, 32, 32, (128, 128, 64)),
+    (2, 5, 0, 7, (9, 7, 13)),
+])
+def test_conv_unit_f32_input_bf16_operands(cuda, n, ca, cb, o, spatial):
+    """The default: f32 activations, operands rounded to bf16 when staged,
+    y and z in f32; held to the f32 tolerance against the plain version,
+    which rounds the same operands."""
+    xa, wa, kw = _conv_inputs(n, ca, cb, o, spatial, torch.float32, cuda)
+    got = cu.conv_unit(xa, wa, want_z=True, **kw)
+    want = cu.conv_unit_reference(xa, wa, want_z=True, **kw)
+    assert got[0].dtype == torch.float32
+    y_tol, stats_tol = CONV_TOL[torch.float32]
     assert _rel(got[0], want[0]) <= y_tol
     assert _rel(got[1], want[1]) <= stats_tol
     assert _rel(got[2], want[2]) <= y_tol
@@ -152,7 +211,7 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         cu.conv_unit(xa.transpose(2, 3), wa)
     with pytest.raises(ValueError):
-        cu.conv_unit(xa, wa, compute_dtype=torch.bfloat16)
+        cu.conv_unit(xa, wa, compute_dtype=torch.float16)
     with pytest.raises(NotImplementedError):
         cu.conv_unit(xa, wa.clone().requires_grad_())
     x, A, w2, vecs = _stack_inputs(1, 64, 128, 1, torch.float32, cuda)
@@ -164,3 +223,44 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
         fs.fused_transformer_stack(x, A, w2, vecs, 2)  # d_k 64
     with pytest.raises(NotImplementedError):
         fs.fused_transformer_stack(x.requires_grad_(), A, w2, vecs, 4)
+
+
+def test_small_train_step_kernel_matches_plain(cuda):
+    """One train step of a small MaskTransUnet in f32 (TF32 off), kernel vs
+    plain attention: 8 forward and 8 backward kernel launches (4 bridges of
+    2 layers), the loss within 1e-5 relative and the gradients within 1e-3
+    of their max |plain| (a gradient that vanishes in exact arithmetic is
+    held against a tenth of the largest, as in ``chip_smoke.py``)."""
+    from lintransunet_tpu_torch import engine
+    from lintransunet_tpu_torch.cli.common import get_criterion_list
+    from lintransunet_tpu_torch.models import MaskTransUnet, init_random_
+
+    small = dict(num_layers=(8, 16, 32, 32, 64), roi_size_list=(16, 12, 8, 6, 4),
+                 is_roi_list=(False, True, True, True, True), dim_input=1,
+                 dim_output=2, n_layers=2, dropout=0.3)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    images = torch.randn((1, 1, 64, 64, 8), generator=g).to(cuda)
+    labels = torch.zeros((1, 64, 64, 8), dtype=torch.long, device=cuda)
+    labels[:, 20:44, 24:40, 2:6] = 1
+    criterions, _ = get_criterion_list(5, ["CrossEntroLoss", "DiceClassLoss"])
+    results = {}
+    for impl in ("kernel", "plain"):
+        model = MaskTransUnet(**small, attention_impl=impl, device=cuda)
+        init_random_(model, torch.Generator(device="cpu").manual_seed(1))
+        state = engine.create_train_state(model, 1e-4)
+        before = (fused.linear_attention.launches, fused.linear_attention_backward.launches)
+        loss, _ = engine.make_train_step(model, criterions)(
+            state, images, labels, [0.1, 0.2, 0.3, 0.4, 1.0],
+            torch.Generator(device=cuda).manual_seed(2))
+        launched = (fused.linear_attention.launches - before[0],
+                    fused.linear_attention_backward.launches - before[1])
+        results[impl] = (loss.item(), {n: p.grad for n, p in model.named_parameters()},
+                         launched)
+    assert results["kernel"][2] == (8, 8) and results["plain"][2] == (0, 0)
+    (loss, grads, _), (want_loss, want, _) = results["kernel"], results["plain"]
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    top = max(w.abs().max().item() for w in want.values())
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        scale = scale if scale >= 1e-5 * top else 1e-1 * top
+        assert (grads[name] - w).abs().max().item() <= 1e-3 * scale, name

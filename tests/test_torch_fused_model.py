@@ -5,16 +5,26 @@ unit's and the fused stack's plain versions here) against the JAX package's
 fused configuration: ``MaskTransUnet(packed_levels=2)`` with
 ``FUSED_S1_MODE = "interpret"`` and the stack routed through
 ``fused_transformer_stack(..., interpret=True)``, the patterns of
-``tests/test_pallas_conv.py`` and ``tests/test_fused_stack.py``. The JAX
-fused conv rounds its operands to bf16 unless ``compute_dtype`` says
-otherwise, so this test passes it float32 (the port computes in the input
-dtype): without that, f32 agreement stops near 1e-2.
+``tests/test_pallas_conv.py`` and ``tests/test_fused_stack.py``. Both
+packages' fused conv units round their operands to bf16 by default, in an
+f32 model too, and both are compared as they are.
 
-Tolerances as in ``tests/test_torch_model.py``: probabilities and masks
-within atol 1e-4, the fg segmentation voxel for voxel, on seed 6, which
-keeps every ROI mask value and class margin of this configuration clear of
-its threshold by more than 1e-5 (checked below). The port's fused and
-default configurations agree the same way.
+Against JAX: both round the same operands to bf16 at the same places, but
+the f32 values they round come out of convolutions and norms summed in
+another order, so a value within ~1e-7 of a bf16 rounding boundary lands
+one bf16 ulp (2^-8 relative) apart. A few such flips in each of the seven
+units carry to the output: over seeds 1-15 the probabilities differ by at
+most 6.9e-3 (median 2-5e-4) and 14-42 of 32,768 fg voxels differ, all
+where the class margin is that small. So probabilities and masks are held
+within atol 1e-2 and the fg segmentation on at least 99.5% of voxels.
+
+Against the port's default configuration, with the fused conv unit at
+``compute_dtype=float32``, the fused routes compute the function of the
+unfused ones: tolerances as in ``tests/test_torch_model.py``, probabilities
+and masks within atol 1e-4, the fg segmentation voxel for voxel.
+
+Seed 13 keeps every ROI mask value of JAX's fused run clear of its
+threshold by more than 1e-5, and its class margins too (checked below).
 """
 
 import jax
@@ -33,18 +43,16 @@ from torch_port_helpers import SMALL, load_port, random_params, t
 
 torch.set_num_threads(2)
 
-ATOL = 1e-4
-SEED = 6
+# against: (atol of probabilities and masks, least share of equal fg voxels)
+TOL = {"jax": (1e-2, 0.995), "default": (1e-4, 1.0)}
+SEED = 13
 
 
 def _jax_fused(params, x):
     """JAX's fused configuration on ``x``: (probs, masks, fg)."""
-    orig_conv = pcv.fused_s1_canvas
     orig_stack = pll.fused_transformer_stack
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pcv, "FUSED_S1_MODE", "interpret")
-        mp.setattr(pcv, "fused_s1_canvas", lambda *a, **k: orig_conv(
-            *a, **{**k, "compute_dtype": jnp.float32}))
         mp.setattr(pll, "fused_stack_supported", lambda d, h, n=None: True)
         mp.setattr(pll, "fused_transformer_stack",
                    lambda x, a, w2, v, nh, interpret=False: orig_stack(
@@ -65,8 +73,10 @@ def runs():
                            train=False, seed=SEED)
     out = {"jax": _jax_fused(params, jnp.asarray(x))}
     launches = (conv_unit.conv_unit.launches, fused_stack.fused_transformer_stack.launches)
-    for name, flags in (("fused", dict(fused_s1=True, fused_stack=True)),
-                        ("default", {})):
+    fused = dict(fused_s1=True, fused_stack=True)
+    for name, flags, conv_dtype in (("fused", fused, None),
+                                    ("fused f32", fused, torch.float32),
+                                    ("default", {}, None)):
         port = load_port(MaskTransUnet(**SMALL, n_layers=2, device="cpu", **flags),
                          params)
         calls = {"conv_unit": 0, "fused_stack": 0}
@@ -78,6 +88,9 @@ def runs():
                     calls[_key] += 1
                     return _orig(*a, **k)
                 mp.setattr(mod, fn, counted)
+            if conv_dtype is not None:
+                mp.setattr(conv_unit, "conv_unit", lambda *a, _orig=conv_unit.conv_unit,
+                           **k: _orig(*a, **k, compute_dtype=conv_dtype))
             with torch.inference_mode():
                 probs, masks = port(t(to_ncdhw(x)), return_aux=True)
                 fg = port(t(to_ncdhw(x)), return_aux=False, fg_only=True)
@@ -100,15 +113,17 @@ def test_seed_keeps_clear_of_thresholds(runs):
 
 @pytest.mark.parametrize("against", ["jax", "default"])
 def test_fused_configuration_matches(runs, against):
-    got_probs, got_masks, got_fg = runs["fused"]
+    got_probs, got_masks, got_fg = runs["fused" if against == "jax" else "fused f32"]
     want_probs, want_masks, want_fg = runs[against]
+    atol, min_agreement = TOL[against]
     assert got_probs.shape == want_probs.shape == (1, 64, 64, 8, 2)
     assert np.isfinite(got_probs).all()
-    np.testing.assert_allclose(got_probs, want_probs, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got_probs, want_probs, atol=atol, rtol=0)
     assert len(got_masks) == len(want_masks) == 4
     for got, want in zip(got_masks, want_masks):
-        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
-    np.testing.assert_array_equal(got_fg, want_fg)
+        np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    assert got_fg.shape == want_fg.shape
+    assert np.mean(got_fg == want_fg) >= min_agreement
     assert 0 < got_fg.sum() < got_fg.size
 
 

@@ -1,5 +1,6 @@
-"""The PyTorch port never imports jax, and its CUDA wrappers keep CPU tensors
-on their plain paths without counting a launch."""
+"""The PyTorch port and ``chip_smoke.py`` never import jax, and the port's
+CUDA wrappers keep CPU tensors on their plain paths without counting a
+launch."""
 
 import importlib
 import subprocess
@@ -23,17 +24,21 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys\n"
         "import lintransunet_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'lintransunet_tpu_torch.')]\n"
-        "for name in names:\n"
+        "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lintransunet_tpu.')))\n"
-        "print(len(names), bad)\n"
+        "print(len(names), bad, sorted(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 22  # every subpackage and module was imported
-    assert bad.strip() == "[]"
+    count, rest = proc.stdout.split(" ", 1)
+    bad, names = rest.split("] ", 1)
+    assert int(count) >= 28  # every subpackage and module was imported
+    assert bad.strip() == "["
+    for name in ("losses", "losses.binary", "losses.functional", "ops.pool",
+                 "engine.train", "engine.schedule", "engine.checkpoint", "cli.common"):
+        assert f"'lintransunet_tpu_torch.{name}'" in names, name
 
 
 def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
@@ -79,7 +84,9 @@ def test_new_wrappers_take_plain_path_on_cpu_without_counting():
     before = cu.conv_unit.launches
     y, stats = cu.conv_unit(x, w)
     assert cu.conv_unit.launches == before
-    torch.testing.assert_close(y, torch.nn.functional.conv3d(x, w, padding=1))
+    # operands rounded to bf16 by default, as JAX's fused_s1_canvas does
+    rounded = [a.bfloat16().float() for a in (x, w)]
+    torch.testing.assert_close(y, torch.nn.functional.conv3d(*rounded, padding=1))
     assert stats.shape == (1, 2, 2)
     tokens = torch.from_numpy(rng.standard_normal((1, 7, 32)).astype(np.float32))
     A, w2 = torch.zeros((1, 32, 192)), torch.zeros((1, 64, 32))
@@ -113,7 +120,7 @@ def _stack_args(**change):
     (cu._check_cuda_inputs, _conv_args(xa=torch.zeros((1, 4, 6, 6, 6)).transpose(2, 3)),
      ValueError),
     (cu._check_cuda_inputs, _conv_args(wa=torch.zeros((8, 4, 3, 3, 3)).double()), TypeError),
-    (cu._check_cuda_inputs, _conv_args(compute_dtype=torch.bfloat16), ValueError),
+    (cu._check_cuda_inputs, _conv_args(compute_dtype=torch.float16), ValueError),
     (cu._check_cuda_inputs, _conv_args(xb=torch.zeros((1, 2, 6, 6, 6))), ValueError),
     (cu._check_cuda_inputs, _conv_args(affine_a=torch.zeros((1, 2, 3))), ValueError),
     (cu._check_cuda_inputs, _conv_args(bias=torch.zeros(8, requires_grad=True)),
