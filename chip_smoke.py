@@ -25,6 +25,11 @@ last line):
    d. the linear-attention backward at the four attention shapes of the
       training patch plus a ragged and a one-token case (no single PyTorch
       call computes it);
+   e. the six conv probes (``lintransunet_tpu_torch/experiments``, the H100
+      counterparts of the TPU probes under ``experiments/``) at their TPU
+      probes' main shapes in bf16 (``conv3d_cl_rows`` also in f32), beside
+      the library call that computes the same function where there is one
+      (``einsum``, ``F.conv3d`` in ``channels_last_3d``, ``torch.var_mean``);
 3. the default path at full width: the flagship ``MaskTransUnet`` (random
    weights from a seed, f32 parameters, bf16 compute) behind
    ``make_eval_runner`` answers three 512 x 512 x 144 volumes (5 windows
@@ -56,11 +61,16 @@ last line):
    gives (the kernel build with its weights moved by 1e-7 relative); in bf16
    the step's differences are printed, and the ConnectBridge gradients of
    the coarsest deep-supervision term alone (upstream of the first ROI box)
-   are held within UPSTREAM_GRAD_TOL.
+   are held within UPSTREAM_GRAD_TOL;
+9. the probes' path: each probe's entry point called once at its main
+   shape, through the wrapper a user of ``python -m
+   lintransunet_tpu_torch.experiments.<probe>`` calls; each launches its
+   kernel exactly once and gives finite output of the expected shape.
 
 The last two lines are a JSON summary of the kernels (bf16; the forward
 kernels' per-window sums over their serving calls, the backward's per-step
-sum over its training calls) and ``{"ok": true, "device": {...}}``.
+sum over its training calls, each probe's one call at its main shape) and
+``{"ok": true, "device": {...}}``.
 Imports nothing of jax.
 """
 
@@ -75,6 +85,20 @@ import torch.nn.functional as F
 from lintransunet_tpu_torch import engine, kernels
 from lintransunet_tpu_torch.cli.common import EvalConfig, get_criterion_list, make_eval_runner
 from lintransunet_tpu_torch.engine import make_eval_forward
+from lintransunet_tpu_torch.experiments import (
+    conv_prototype,
+    conv_retired,
+    dot_probe,
+    in_stats_probe,
+    inner_probe,
+    rowoffset_probe,
+)
+from lintransunet_tpu_torch.experiments.common import (
+    HBM_BYTES_PER_S,
+    PEAK_FLOPS,
+    bound,
+    cuda_ms,
+)
 from lintransunet_tpu_torch.models import MaskTransUnet, init_random_
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import fused_stack as fs
@@ -88,14 +112,29 @@ FLAGSHIP = dict(num_layers=(16, 32, 64, 128, 256),
 VOLUME = (1, 1, 512, 512, 144)
 N_VOLUMES = 3
 WINDOWS_PER_VOLUME = 5      # depth 144, roi depth 64, overlap 0.6
-KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack")
-# launches per window (serving) or step (training) of each kernel wrapper
-PER_WINDOW = {"default": {"linear_attention": 32, "linear_attention_backward": 0,
-                          "conv_unit": 0, "fused_stack": 0},
-              "fused": {"linear_attention": 0, "linear_attention_backward": 0,
-                        "conv_unit": 7, "fused_stack": 8},
-              "train": {"linear_attention": 32, "linear_attention_backward": 32,
-                        "conv_unit": 0, "fused_stack": 0}}
+KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "probe_taps",
+                "probe_conv", "probe_stats")
+# The probes: name -> (kernel source, the TPU kernel's pallas_call it replaces)
+PROBES = {"tap_sum": ("probe_taps", "experiments/pallas_dot_probe.py:41"),
+          "row_offset_sum": ("probe_taps", "experiments/pallas_rowoffset_probe.py:53"),
+          "inner_step": ("probe_taps", "experiments/pallas_inner_probe.py:226"),
+          "conv3d_cl": ("probe_conv", "experiments/pallas_conv_prototype.py:90"),
+          "conv3d_cl_rows": ("probe_conv", "experiments/pallas_conv_retired.py:149"),
+          "lane_sums": ("probe_stats", "experiments/in_stats_probe.py:90")}
+
+
+def _per(**counts):
+    names = ("linear_attention", "linear_attention_backward", "conv_unit",
+             "fused_stack") + tuple(PROBES)
+    return {name: counts.get(name, 0) for name in names}
+
+
+# launches per window (serving), step (training) or run (probes) of each
+# kernel wrapper
+PER_WINDOW = {"default": _per(linear_attention=32),
+              "fused": _per(conv_unit=7, fused_stack=8),
+              "train": _per(linear_attention=32, linear_attention_backward=32),
+              "probes": _per(**{name: 1 for name in PROBES})}
 # (BH, N, d) of the window's attention calls: bottleneck, levels 3, 2, 1
 MAIN_SHAPES = [(8, 4096, 32), (8, 2160, 32), (8, 5376, 32), (4, 28704, 32)]
 # the same on the 512 x 512 x 32 training patch (half the window's depth)
@@ -162,8 +201,6 @@ TRAIN_TOL = {"loss": 1e-5, "grad": 5e-2, "grad_median": 2e-3}
 # alone, which flows through nothing downstream of the first ROI box.
 UPSTREAM_GRAD_TOL = 5e-2
 MIN_AGREEMENT = 0.999
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 ITERS = 10
 
 
@@ -179,30 +216,12 @@ def rel_err(got, want):
     return err, (err / scale if scale else err)
 
 
-def cuda_ms(fn, iters):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def pkkp(plain, kern, iters=ITERS):
     """(kernel ms, plain ms): warm, then plain, kernel, kernel, plain."""
     for fn in (kern, plain):
-        cuda_ms(fn, 2)
-    p1, k1, k2, p2 = (cuda_ms(fn, iters) for fn in (plain, kern, kern, plain))
+        cuda_ms(fn, 2, warmup=0)
+    p1, k1, k2, p2 = (cuda_ms(fn, iters, warmup=0) for fn in (plain, kern, kern, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def bound(flops, nbytes, dtype):
-    """(ms, 'bytes' or 'operations'): the least time of the card."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 class Summary:
@@ -321,7 +340,8 @@ def phase_conv_vs_plain():
                                 lambda: cu.conv_unit(xa, wa, **kw))
             x_cat = torch.cat([xa, kw["xb"]], dim=1) if cb else xa
             w_dt, b_dt = w.to(dtype), kw["bias"].to(dtype)
-            library_ms = cuda_ms(lambda: F.conv3d(x_cat, w_dt, b_dt, 1, 1), ITERS)
+            # warmed first: cuDNN picks its algorithm on the first call
+            library_ms = cuda_ms(lambda: F.conv3d(x_cat, w_dt, b_dt, 1, 1), ITERS, 2)
             voxels = spatial[0] * spatial[1] * spatial[2]
             flops = 2 * voxels * o * 27 * (ca + cb)
             nbytes = (xa.element_size() * voxels * (ca + cb + o)
@@ -441,6 +461,183 @@ def phase_attention_backward_vs_plain():
     return summary
 
 
+# max |kernel - plain| <= tol * max |plain| for the probes: bf16 outputs as
+# TOL; variant E of the dot probe 1e-2 (a bf16 rounding after every tap, so
+# a one-ulp difference carries into the next sum; measured on an H100:
+# 3.4e-3), and its output nearer the bf16-accumulated sum than the
+# f32-accumulated one (dot_probe.E_ROUNDING_SHARE); lane sums 1e-5 of each
+# sum's max |plain| (f32 sums in another order).
+PROBE_E_TOL = 1e-2
+LANE_SUMS_TOL = 1e-5
+# the row-offset probe's variant on the probes' path and the kernels line
+ROW_OFFSET_MAIN = "C. 9 dots, misaligned offsets (k*577)"
+
+
+def lane_sums_error(got, want):
+    """The larger (max |err|, rel) of the sums and the sums of squares."""
+    return max((rel_err(got[:, :, i], want[:, :, i]) for i in (0, 1)), key=lambda e: e[1])
+
+
+def probe_inputs():
+    """Each probe's bf16 inputs at its TPU probe's main shape, on the card."""
+    device = "cuda"
+    return {"dot": dot_probe.inputs(dot_probe.GROUPS, dot_probe.M, 128, 9, 64, device),
+            "rows": rowoffset_probe.inputs(rowoffset_probe.GROUPS, rowoffset_probe.M_PAD,
+                                           device),
+            "inner": inner_probe.inputs(inner_probe.BATCH, inner_probe.HBO, device),
+            "halo": conv_prototype.inputs(conv_prototype.SHAPE, conv_prototype.N_OUT, device),
+            "conv_rows": conv_retired.inputs(conv_retired.SHAPES[0][1],
+                                             conv_retired.SHAPES[0][2], device),
+            "stats": in_stats_probe.inputs(in_stats_probe.SHAPES[1][1], device)}
+
+
+def probe_path(inp):
+    """Each probe's entry point at its main shape, as a user of ``python -m
+    lintransunet_tpu_torch.experiments.<probe>`` calls it (phase 9)."""
+    (x, w), (xr, wr), (z, kp, ku, kd) = inp["dot"], inp["rows"], inp["inner"]
+    (xc, kc), (xp, kr, br), xs = inp["halo"], inp["conv_rows"], inp["stats"]
+    return {"tap_sum": lambda: dot_probe.tap_sum(x, w),
+            "row_offset_sum": lambda: rowoffset_probe.row_offset_sum(
+                xr, wr, rowoffset_probe.OFFSETS[ROW_OFFSET_MAIN]),
+            "inner_step": lambda: inner_probe.inner_step(z, kp, ku, kd, inner_probe.HBO),
+            "conv3d_cl": lambda: conv_prototype.conv3d_cl(xc, kc),
+            "conv3d_cl_rows": lambda: conv_retired.conv3d_cl_rows(xp, kr, br),
+            "lane_sums": lambda: in_stats_probe.lane_sums(xs)}
+
+
+def probe_cases(inp):
+    """One dict per probe comparison on ``probe_inputs()`` (and #7 also in
+    f32): the kernel's call, its plain version, the library call (or None),
+    (FLOPs the function needs, compulsory bytes), the tolerance, and whether
+    it is the probe's row of the kernels line."""
+    bf16, f32, device = torch.bfloat16, torch.float32, "cuda"
+    cases = []
+    x, w = inp["dot"]
+    cases.append(dict(
+        name="tap_sum", what="#10 variant A, 9 taps (16 x 4096, 128) @ (128, 64)",
+        run=lambda: dot_probe.tap_sum(x, w), plain=lambda: dot_probe.tap_sum_reference(x, w),
+        library=lambda: dot_probe.library(x, w), costs=dot_probe.tap_sum_costs(x, w),
+        tol=TOL[bf16], dtype=bf16, entry=True))
+    cases.append(dict(
+        name="tap_sum", what="#10 variant E, bf16 accumulation",
+        run=lambda: dot_probe.tap_sum(x, w, acc_dtype=bf16, staging="per_tap"),
+        plain=lambda: dot_probe.tap_sum_reference(x, w, acc_dtype=bf16),
+        f32_acc=lambda: dot_probe.tap_sum_reference(x, w), library=None,
+        costs=dot_probe.tap_sum_costs(x, w, acc_dtype=bf16), tol=PROBE_E_TOL, dtype=bf16))
+    xr, wr = inp["rows"]
+    for variant, offsets in rowoffset_probe.OFFSETS.items():
+        for staging in ("window", "per_tap"):
+            cases.append(dict(
+                name="row_offset_sum", what=f"#8 {variant} [{staging}]",
+                run=lambda o=offsets, st=staging: rowoffset_probe.row_offset_sum(
+                    xr, wr, o, staging=st),
+                plain=lambda o=offsets: rowoffset_probe.row_offset_sum_reference(xr, wr, o),
+                library=None, costs=dot_probe.tap_sum_costs(xr, wr, rowoffset_probe.M, offsets),
+                tol=TOL[bf16], dtype=bf16,
+                entry=variant == ROW_OFFSET_MAIN and staging == "window"))
+    z, kp, ku, kd = inp["inner"]
+    ke = inner_probe.pack_weights(kp, ku, kd)
+    for strategy in inner_probe.STRATEGIES:
+        cases.append(dict(
+            name="inner_step", what=f"#11 {strategy}, {inner_probe.BATCH} windows at "
+                                    f"hbo={inner_probe.HBO}",
+            run=lambda st=strategy: inner_probe.inner_step_packed(z, ke, inner_probe.HBO, st),
+            plain=lambda: inner_probe.inner_step_reference(z, kp, ku, kd, inner_probe.HBO),
+            library=None, costs=inner_probe.costs(inner_probe.BATCH, inner_probe.HBO),
+            tol=TOL[bf16], dtype=bf16, entry=strategy == "dots27"))
+    xc, kc = inp["halo"]
+    kc_lib = conv_prototype.library_weight(kc)
+    cases.append(dict(
+        name="conv3d_cl", what=f"#6 halo tile, x {conv_prototype.SHAPE} -> "
+                               f"{conv_prototype.N_OUT}",
+        run=lambda: conv_prototype.conv3d_cl(xc, kc),
+        plain=lambda: conv_prototype.conv3d_cl_reference(xc, kc),
+        library=lambda: conv_prototype.library_conv(xc[None], kc_lib),
+        costs=conv_prototype.conv_costs(xc, kc), tol=TOL[bf16], dtype=bf16, entry=True))
+    label, shape, n_out = conv_retired.SHAPES[0]
+    for dtype in (bf16, f32):
+        xp, kr, br = (inp["conv_rows"] if dtype == bf16
+                      else conv_retired.inputs(shape, n_out, device, dtype))
+        kr_lib, br_lib = conv_prototype.library_weight(kr), br.to(dtype)
+        cases.append(dict(
+            name="conv3d_cl_rows", what=f"#7 rows, {label} {shape} -> {n_out} "
+                                        f"{str(dtype)[6:]}",
+            run=lambda xp=xp, kr=kr, br=br: conv_retired.conv3d_cl_rows(xp, kr, br),
+            plain=lambda xp=xp, kr=kr, br=br: conv_retired.conv3d_cl_rows_reference(xp, kr, br),
+            library=lambda xp=xp, k=kr_lib, b=br_lib: conv_prototype.library_conv(xp, k, b),
+            costs=conv_prototype.conv_costs(xp, kr, dtype), tol=TOL[dtype], dtype=dtype,
+            entry=dtype == bf16))
+    label, shape, ch, n, sub = in_stats_probe.SHAPES[1]
+    xs = inp["stats"]
+    cases.append(dict(
+        name="lane_sums", what=f"#9 {label} {shape}",
+        run=lambda: in_stats_probe.lane_sums(xs),
+        plain=lambda: in_stats_probe.lane_sums_reference(xs),
+        library=lambda: in_stats_probe.library_stats(xs, ch, n, sub),
+        costs=(3 * xs.numel(), 2 * xs.numel() + 4 * 2 * xs.numel() // (
+            in_stats_probe.HBLK * shape[2])),
+        tol=LANE_SUMS_TOL, dtype=bf16, entry=True, compare=lane_sums_error))
+    return cases
+
+
+def phase_probes_vs_plain(cases):
+    """Each probe kernel against its plain version, timed beside the library
+    call and the bound; returns {name: Summary} of the kernels line's rows."""
+    summaries = {}
+    for case in cases:
+        got, want = case["run"](), case["plain"]()
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{case['what']}: kernel output {got.dtype} {tuple(got.shape)}, plain "
+                 f"{want.dtype} {tuple(want.shape)}")
+        err, rel = case.get("compare", rel_err)(got, want)
+        rounding = ""
+        if "f32_acc" in case:
+            share = dot_probe.bf16_rounding_share(got, want, case["f32_acc"]())
+            rounding = (f" rounding share {share:.3e} (at most "
+                        f"{dot_probe.E_ROUNDING_SHARE:g})")
+            if share > dot_probe.E_ROUNDING_SHARE:
+                fail(f"{case['what']}: the kernel's output sits at {share:.3f} of the gap "
+                     f"between the bf16- and the f32-accumulated sums: no bf16 rounding")
+        del got, want
+        ms, plain_ms = pkkp(case["plain"], case["run"])
+        library_ms = None if case["library"] is None else cuda_ms(case["library"], ITERS, 2)
+        flops, nbytes = case["costs"]
+        bound_ms, bound_by = bound(flops, nbytes, case["dtype"])
+        ok = rel <= case["tol"]
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"[probe] {case['name']} {case['what']}: max_abs_err {err:.3e} rel "
+              f"{rel:.3e} (tol {case['tol']:g}){rounding} kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms library {lib} bound {bound_ms:.4f} ms ({bound_by}), "
+              f"kernel at {bound_ms / ms * 100:.1f}% of it {'ok' if ok else 'TOO FAR'}",
+              flush=True)
+        if not ok:
+            fail(f"probe kernel disagrees with plain: {case['name']} {case['what']}")
+        if case.get("entry"):
+            summary = Summary()
+            summary.max_abs_err = err
+            summary.add(torch.bfloat16, 1, ms, plain_ms, flops, nbytes, library_ms)
+            summaries[case["name"]] = summary
+    return summaries
+
+
+def phase_probe_path(path):
+    """Phase 9: every probe's entry point once; each launches its kernel
+    exactly once and gives finite output."""
+    reset_launch_counts()
+    outs = {name: call() for name, call in path.items()}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for name, out in outs.items():
+        if not bool(torch.isfinite(out).all()):
+            fail(f"the probe {name} gave non-finite output")
+    print(f"[probes] launches {launches} (want {PER_WINDOW['probes']}); output shapes "
+          f"{ {name: tuple(out.shape) for name, out in outs.items()} }", flush=True)
+    if launches != PER_WINDOW["probes"]:
+        fail(f"the probes' path launched {launches}, not {PER_WINDOW['probes']}")
+    return launches
+
+
 def build_model(attention_impl="kernel", dtype=torch.bfloat16, state=None,
                 fused_config=False):
     model = MaskTransUnet(**FLAGSHIP, dtype=dtype, attention_impl=attention_impl,
@@ -455,7 +652,13 @@ def build_model(attention_impl="kernel", dtype=torch.bfloat16, state=None,
 COUNTED = {"linear_attention": fused.linear_attention,
            "linear_attention_backward": fused.linear_attention_backward,
            "conv_unit": cu.conv_unit,
-           "fused_stack": fs.fused_transformer_stack}
+           "fused_stack": fs.fused_transformer_stack,
+           "tap_sum": dot_probe.tap_sum,
+           "row_offset_sum": rowoffset_probe.row_offset_sum,
+           "inner_step": inner_probe.inner_step_packed,
+           "conv3d_cl": conv_prototype.conv3d_cl,
+           "conv3d_cl_rows": conv_retired.conv3d_cl_rows,
+           "lane_sums": in_stats_probe.lane_sums}
 
 
 def launch_counts():
@@ -758,6 +961,11 @@ def main():
                  "conv_unit": phase_conv_vs_plain(),
                  "fused_stack": phase_stack_vs_plain(),
                  "linear_attention_backward": phase_attention_backward_vs_plain()}
+    # the cases hold the probes' inputs: drop them all before the model phases
+    cases = probe_cases(probe_inputs())
+    summaries.update(phase_probes_vs_plain(cases))
+    del cases
+    torch.cuda.empty_cache()
 
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     volumes = [torch.randn(VOLUME, generator=gen).to("cuda") for _ in range(N_VOLUMES)]
@@ -774,6 +982,9 @@ def main():
     images, labels, criterions = train_inputs()
     launches["train"] = phase_train(images, labels, criterions)
     phase_train_vs_plain(images, labels, criterions)
+    del images, labels
+    torch.cuda.empty_cache()
+    launches["probes"] = phase_probe_path(probe_path(probe_inputs()))
 
     # name: (source, the TPU kernel it replaces, the path whose launches it reports)
     sources = {"linear_attention": ("linear_attention", "pallas_attention.py:126", "default"),
@@ -790,6 +1001,12 @@ def main():
             entry["also_replaces"] = ["lintransunet_tpu/ops/pallas_attention.py:206",
                                       "lintransunet_tpu/ops/pallas_attention.py:233"]
         entry.update(summaries[name].entry(launches[path][name]))
+        entries.append(entry)
+    for name, (source, replaces) in PROBES.items():
+        entry = {"name": name, "route": "cuda",
+                 "source": f"lintransunet_tpu_torch/csrc/{source}.cu",
+                 "replaces": replaces, "path": "probes"}
+        entry.update(summaries[name].entry(launches["probes"][name]))
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

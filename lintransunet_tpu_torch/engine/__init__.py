@@ -3,9 +3,9 @@ eval forward and sliding-window inference."""
 
 from lintransunet_tpu_torch.engine.checkpoint import restore_train_state, save_train_state
 from lintransunet_tpu_torch.engine.schedule import (
+    ReduceLROnPlateau,
     get_dynamic_weight,
     get_weight,
-    make_plateau_scheduler,
 )
 from lintransunet_tpu_torch.engine.sliding_window import (
     SlidingWindowRunner,
@@ -39,7 +39,7 @@ __all__ = [
     "set_learning_rate",
     "get_dynamic_weight",
     "get_weight",
-    "make_plateau_scheduler",
+    "ReduceLROnPlateau",
     "save_train_state",
     "restore_train_state",
 ]

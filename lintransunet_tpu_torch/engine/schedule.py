@@ -4,14 +4,15 @@
 ``get_weight`` mirrors utils/utils_3D_embed_full.py:16-19:
     w(t) = min(initial + default * exp(t / (5T)), final), t clamped at 0.
 ``get_dynamic_weight`` builds the per-epoch 5-level weight table
-(train3D.py:122-137). The plateau scheduler is PyTorch's own, built as
-train3D.py:195-201 builds it.
+(train3D.py:122-137). ``ReduceLROnPlateau`` is the JAX package's
+plateau scheduler, field for field and branch for branch, as plain
+host-side state: the caller writes the LR that ``step`` returns into the
+optimizer with ``set_learning_rate``.
 """
 
+import dataclasses
 import math
 from typing import List, Sequence
-
-import torch
 
 
 def get_weight(t: float, T: float, default_weight: float = 0.2,
@@ -37,11 +38,45 @@ def get_dynamic_weight(epochs: int, T: float, warmup_step: int,
     return list(zip(*out))
 
 
-def make_plateau_scheduler(optimizer: torch.optim.Optimizer
-                           ) -> torch.optim.lr_scheduler.ReduceLROnPlateau:
-    """``ReduceLROnPlateau`` with the reference's settings: mode 'min',
-    factor 0.8, patience 5, relative threshold 1e-2, cooldown 1, min_lr
-    1e-7. ``step(eval_loss)`` after each eval updates the optimizer's LR."""
-    return torch.optim.lr_scheduler.ReduceLROnPlateau(
-        optimizer, mode="min", factor=0.8, patience=5, threshold=1e-2,
-        threshold_mode="rel", cooldown=1, min_lr=1e-7)
+@dataclasses.dataclass
+class ReduceLROnPlateau:
+    """Plateau LR schedule (mode 'min', relative threshold) with the
+    reference's defaults (train3D.py:195-201): factor 0.8, patience 5,
+    threshold 1e-2, cooldown 1, min_lr 1e-7.
+
+    It follows the JAX package's scheduler, not torch's: an epoch that
+    improves during a cooldown leaves ``cooldown_counter`` as it is (torch
+    counts it down there too), so after a reduction and an improvement the
+    next reduction comes one epoch later than torch's. ``state_dict()`` is
+    plain data; ``ReduceLROnPlateau(**state_dict())`` resumes it.
+    """
+
+    lr: float
+    factor: float = 0.8
+    patience: int = 5
+    threshold: float = 1e-2
+    cooldown: int = 1
+    min_lr: float = 1e-7
+
+    best: float = float("inf")
+    num_bad_epochs: int = 0
+    cooldown_counter: int = 0
+
+    def state_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def step(self, metric: float) -> float:
+        """Take one eval's metric; return the LR for the next epoch."""
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.num_bad_epochs = 0
+        elif self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+            if self.num_bad_epochs > self.patience:
+                self.lr = max(self.lr * self.factor, self.min_lr)
+                self.cooldown_counter = self.cooldown
+                self.num_bad_epochs = 0
+        return self.lr

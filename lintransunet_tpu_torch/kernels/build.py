@@ -24,6 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of each library's entry points: name -> (restype, argtypes).
 SIGNATURES = {
     "linear_attention": {
@@ -41,6 +43,17 @@ SIGNATURES = {
         "fst_forward": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _P]),
         "fst_num_tiles": (_I, [_I, _I]),
+    },
+    "probe_taps": {
+        "pt_forward": (_I, [_P, _P, _P, _L] + [_I] * 7 + [_P] * 4 + [_I, _I, _P]),
+        "pt_smem_bytes": (_I, [_I, _I, _I]),
+    },
+    "probe_conv": {
+        "pc_forward": (_I, [_P, _P, _P, _P] + [_I] * 10 + [_P]),
+        "pc_smem_bytes": (_I, [_I] * 6),
+    },
+    "probe_stats": {
+        "ps_lane_sums": (_I, [_P, _P, _I, _I, _I, _I, _I, _F, _P]),
     },
 }
 

@@ -22,11 +22,25 @@ Tolerances, each a share of the plain output's largest magnitude:
   order); bf16 3e-2 (the kernel rounds every product's operands to bf16, as
   the TPU kernel does; the plain version computes in f32 and rounds the
   tokens once a layer).
+* probes (``lintransunet_tpu_torch/experiments``): bf16 2e-2 (the same bf16
+  operands, products summed in f32 in another order, each side rounding
+  its result to bf16 once); variant E's bf16 accumulation 3e-2 (a bf16
+  rounding after every tap, where a one-ulp difference carries into the
+  next sum); f32 convs 1e-5 (f32 FMA against cuDNN in f32 with TF32 off);
+  lane sums 1e-5 of each sum's max |plain| (f32 sums in another order).
 """
 
 import pytest
 import torch
 
+from lintransunet_tpu_torch.experiments import (
+    conv_prototype,
+    conv_retired,
+    dot_probe,
+    in_stats_probe,
+    inner_probe,
+    rowoffset_probe,
+)
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import fused_stack as fs
 from lintransunet_tpu_torch.ops import linear_attention as fused
@@ -264,3 +278,137 @@ def test_small_train_step_kernel_matches_plain(cuda):
         scale = w.abs().max().item()
         scale = scale if scale >= 1e-5 * top else 1e-1 * top
         assert (grads[name] - w).abs().max().item() <= 1e-3 * scale, name
+
+
+PROBE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _probe_taps(groups, rows, k, taps, n, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((groups, rows, k), generator=g).to(device, torch.bfloat16)
+    w = (torch.randn((taps, k, n), generator=g) * 0.05).to(device, torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize("taps,k,n,acc,staging", [
+    (9, 128, 64, torch.float32, "window"),      # variant A
+    (9, 128, 64, torch.float32, "per_tap"),
+    (9, 128, 128, torch.float32, "im2col"),     # variant B's shape
+    (1, 1152, 64, torch.float32, "window"),     # variant C
+    (9, 128, 64, torch.bfloat16, "per_tap"),    # variant E
+    (27, 128, 128, torch.float32, "window"),    # variant F
+    (27, 16, 16, torch.float32, "window"),      # the conv unit's smallest taps
+    (1, 27 * 32, 32, torch.float32, "window"),  # tap-folded K = 27 C_in
+])
+def test_tap_sum_matches_plain(cuda, taps, k, n, acc, staging):
+    x, w = _probe_taps(3, 4096 + 77, k, taps, n, cuda)
+    before = dot_probe.tap_sum.launches
+    got = dot_probe.tap_sum(x, w, acc_dtype=acc, staging=staging)
+    torch.cuda.synchronize()
+    assert dot_probe.tap_sum.launches == before + 1
+    want = dot_probe.tap_sum_reference(x, w, acc_dtype=acc)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel(got, want) <= (1e-2 if acc == torch.bfloat16 else 2e-2)
+    if acc == torch.bfloat16:  # nearer the bf16-accumulated sum than the f32 one
+        f32_acc = dot_probe.tap_sum_reference(x, w)
+        assert dot_probe.bf16_rounding_share(got, want, f32_acc) <= dot_probe.E_ROUNDING_SHARE
+
+
+@pytest.mark.parametrize("staging", ["window", "per_tap"])
+@pytest.mark.parametrize("variant", sorted(rowoffset_probe.OFFSETS))
+def test_row_offset_sum_matches_plain(cuda, variant, staging):
+    x, w = rowoffset_probe.inputs(2, rowoffset_probe.M_PAD, cuda)
+    offsets = rowoffset_probe.OFFSETS[variant]
+    before = rowoffset_probe.row_offset_sum.launches
+    got = rowoffset_probe.row_offset_sum(x, w, offsets, staging=staging)
+    torch.cuda.synchronize()
+    assert rowoffset_probe.row_offset_sum.launches == before + 1
+    want = rowoffset_probe.row_offset_sum_reference(x, w, offsets)
+    assert got.shape == (2, rowoffset_probe.M, rowoffset_probe.N)
+    assert _rel(got, want) <= PROBE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("strategy", inner_probe.STRATEGIES)
+@pytest.mark.parametrize("batch,hbo", [(3, 12), (1, 2)])
+def test_inner_step_matches_plain(cuda, strategy, batch, hbo):
+    """Every strategy is held to the dots27 function on all rows, the two
+    clipped edge rows included."""
+    z, kp, ku, kd = inner_probe.inputs(batch, hbo, cuda)
+    ke = inner_probe.pack_weights(kp, ku, kd)
+    before = inner_probe.inner_step_packed.launches
+    got = inner_probe.inner_step_packed(z, ke, hbo, strategy)
+    torch.cuda.synchronize()
+    assert inner_probe.inner_step_packed.launches == before + 1
+    want = inner_probe.inner_step_reference(z, kp, ku, kd, hbo)
+    assert got.shape == (batch, hbo * inner_probe.WC, inner_probe.NO)
+    assert _rel(got, want) <= PROBE_TOL[torch.bfloat16]
+    assert _rel(got[:, [0, -1]], want[:, [0, -1]]) <= PROBE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n_out", [
+    ((32, 16, 64, 64), 64),     # the TPU probe's C and D
+    ((8, 12, 32, 32), 128),     # D 32: a 1 x 4 x 32 tile, 128 outputs
+])
+def test_conv3d_cl_matches_plain(cuda, dtype, shape, n_out):
+    x, k = conv_prototype.inputs(shape, n_out, cuda, dtype)
+    before = conv_prototype.conv3d_cl.launches
+    got = conv_prototype.conv3d_cl(x, k)
+    torch.cuda.synchronize()
+    assert conv_prototype.conv3d_cl.launches == before + 1
+    want = conv_prototype.conv3d_cl_reference(x, k)
+    assert got.dtype == dtype and got.shape == shape[:3] + (n_out,)
+    assert _rel(got, want) <= PROBE_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n_out,tile", [
+    ((2, 16, 8, 64, 64), 64, None),     # the level-0 packed C4 = O4 = 64
+    ((1, 8, 8, 64, 128), 128, None),    # the 8C-lane C4 = O4 = 128
+    ((1, 6, 8, 32, 32), 64, (2, 2)),
+])
+def test_conv3d_cl_rows_matches_plain(cuda, dtype, shape, n_out, tile):
+    xp, k, bias = conv_retired.inputs(shape, n_out, cuda, dtype)
+    th, tw = tile or (None, None)
+    before = conv_retired.conv3d_cl_rows.launches
+    got = conv_retired.conv3d_cl_rows(xp, k, bias, th, tw)
+    torch.cuda.synchronize()
+    assert conv_retired.conv3d_cl_rows.launches == before + 1
+    want = conv_retired.conv3d_cl_rows_reference(xp, k, bias)
+    assert got.dtype == dtype and got.shape == shape[:4] + (n_out,)
+    assert _rel(got, want) <= PROBE_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape,scale", [((4, 16, 8, 256), 1.0), ((2, 24, 16, 128), 0.7),
+                                         ((32, 128, 128, 128), 1.0)])
+def test_lane_sums_matches_plain(cuda, shape, scale):
+    x = in_stats_probe.inputs(shape, cuda)
+    before = in_stats_probe.lane_sums.launches
+    got = in_stats_probe.lane_sums(x, scale)
+    torch.cuda.synchronize()
+    assert in_stats_probe.lane_sums.launches == before + 1
+    want = in_stats_probe.lane_sums_reference(x, scale)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    for part in (0, 1):
+        assert _rel(got[:, :, part], want[:, :, part]) <= 1e-5
+
+
+def test_probes_reject_what_they_do_not_take(cuda):
+    x, w = _probe_taps(1, 256, 128, 9, 64, cuda)
+    with pytest.raises(TypeError):
+        dot_probe.tap_sum(x.float(), w.float())
+    with pytest.raises(ValueError):
+        dot_probe.tap_sum(x[:, ::2], w)
+    with pytest.raises(ValueError):
+        dot_probe.tap_sum(x, w[:8], staging="im2col")
+    with pytest.raises(ValueError):
+        dot_probe.tap_sum(x, w, acc_dtype=torch.bfloat16)        # needs per_tap
+    with pytest.raises(ValueError):
+        dot_probe.tap_sum(x, w, offsets=[0] * 8 + [4000])         # window too large
+    xc, k = conv_prototype.inputs((8, 8, 64, 64), 64, cuda)
+    with pytest.raises(ValueError):
+        conv_retired.conv3d_cl_rows(xc[None], k, None, 1, 1)      # th * tw * D != 128
+    with pytest.raises(TypeError):
+        conv_prototype.conv3d_cl(xc, k.float())
+    with pytest.raises(TypeError):
+        in_stats_probe.lane_sums(xc.float())

@@ -12,6 +12,14 @@ import pytest
 import torch
 
 from lintransunet_tpu_torch import kernels
+from lintransunet_tpu_torch.experiments import (
+    conv_prototype,
+    conv_retired,
+    dot_probe,
+    in_stats_probe,
+    inner_probe,
+    rowoffset_probe,
+)
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import fused_stack as fs
 from lintransunet_tpu_torch.ops import linear_attention as fused
@@ -34,10 +42,14 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, rest = proc.stdout.split(" ", 1)
     bad, names = rest.split("] ", 1)
-    assert int(count) >= 28  # every subpackage and module was imported
+    assert int(count) >= 36  # every subpackage and module was imported
     assert bad.strip() == "["
     for name in ("losses", "losses.binary", "losses.functional", "ops.pool",
-                 "engine.train", "engine.schedule", "engine.checkpoint", "cli.common"):
+                 "engine.train", "engine.schedule", "engine.checkpoint", "cli.common",
+                 "experiments", "experiments.common", "experiments.dot_probe",
+                 "experiments.rowoffset_probe", "experiments.inner_probe",
+                 "experiments.conv_prototype", "experiments.conv_retired",
+                 "experiments.in_stats_probe"):
         assert f"'lintransunet_tpu_torch.{name}'" in names, name
 
 
@@ -61,7 +73,8 @@ def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
 def test_every_kernel_source_has_a_binding():
     sources = {p.stem for p in (REPO / "lintransunet_tpu_torch" / "csrc").glob("*.cu")}
     assert sources == set(kernels.SIGNATURES) == {
-        "linear_attention", "conv_unit", "fused_stack"}
+        "linear_attention", "conv_unit", "fused_stack", "probe_taps", "probe_conv",
+        "probe_stats"}
 
 
 def test_cpu_tensor_takes_plain_path_without_counting():
@@ -141,3 +154,34 @@ def test_cuda_input_checks(check, args, error):
     else:
         with pytest.raises(error):
             check(*args.values())
+
+
+def _probe_calls():
+    rng = np.random.default_rng(2)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    x, w = rnd(2, 40, 32).bfloat16(), rnd(9, 32, 16).bfloat16()
+    z = rnd(1, 3, 4, inner_probe.WC, 128).bfloat16()
+    kp, ku, kd = rnd(3, 3, 128, 128), rnd(3, 3, 64, 64), rnd(3, 3, 64, 64)
+    xc, kc = rnd(4, 4, 16, 16), rnd(3, 3, 3, 16, 32)
+    return [
+        (dot_probe.tap_sum, lambda: dot_probe.tap_sum(x, w)),
+        (rowoffset_probe.row_offset_sum,
+         lambda: rowoffset_probe.row_offset_sum(x, w, [0, 3, 7] * 3, m=30)),
+        (inner_probe.inner_step_packed, lambda: inner_probe.inner_step(z, kp, ku, kd, 2)),
+        (conv_prototype.conv3d_cl, lambda: conv_prototype.conv3d_cl(xc, kc)),
+        (conv_retired.conv3d_cl_rows,
+         lambda: conv_retired.conv3d_cl_rows(xc[None], kc, rnd(32))),
+        (in_stats_probe.lane_sums, lambda: in_stats_probe.lane_sums(x.reshape(2, 8, 5, 32))),
+    ]
+
+
+@pytest.mark.parametrize("index", range(6))
+def test_probe_wrappers_take_plain_path_on_cpu_without_counting(index):
+    counted, call = _probe_calls()[index]
+    before = counted.launches
+    out = call()
+    assert counted.launches == before
+    assert torch.isfinite(out.float()).all()

@@ -95,20 +95,44 @@ def test_dynamic_weights_match_jax():
             jax_engine.get_weight(step, 12.0, 0.1, 0.3, 1.0)
 
 
-def test_plateau_scheduler_matches_jax():
-    """On the metric sequence of ``tests/test_engine.py``. The two part on
-    an epoch that improves during a cooldown: torch's scheduler (the port's)
-    counts the cooldown down there too, JAX's does not (ROADMAP C)."""
+# The metric sequence of ``tests/test_engine.py``, and one that reduces the
+# LR, improves during the cooldown that follows, then stalls: there JAX's
+# scheduler (and the port's) keeps the cooldown on the improving epoch and
+# lowers the LR one epoch later than torch's.
+PLATEAU_SEQUENCES = {
+    "test_engine": list(np.random.default_rng(0).random(40) * 2) + [1.5] * 20,
+    "improve_in_cooldown": [1.0] * 7 + [0.5] + [0.5] * 9,
+}
+
+
+@pytest.mark.parametrize("sequence", sorted(PLATEAU_SEQUENCES))
+def test_plateau_scheduler_matches_jax(sequence):
+    """The port's ``ReduceLROnPlateau`` gives JAX's LR on every epoch, its
+    LR goes into the optimizer through ``set_learning_rate``, and a
+    ``state_dict()`` round trip halfway resumes identically."""
+    metrics = PLATEAU_SEQUENCES[sequence]
     lin = nn.Linear(1, 1)
     state = engine.TrainState(lin, engine.make_optimizer(lin.parameters(), 1e-4))
-    sched = engine.make_plateau_scheduler(state.optimizer)
+    sched = engine.ReduceLROnPlateau(lr=1e-4)
     ours = jax_engine.ReduceLROnPlateau(lr=1e-4)
-    rng = np.random.default_rng(0)
-    for metric in list(rng.random(40) * 2) + [1.5] * 20:
-        sched.step(metric)
-        assert engine.get_learning_rate(state) == pytest.approx(ours.step(metric), rel=1e-6)
-    engine.set_learning_rate(state, 5e-5)
-    assert engine.get_learning_rate(state) == 5e-5
+    assert sched.state_dict() == ours.state_dict()
+    for i, metric in enumerate(metrics):
+        if i == len(metrics) // 2:
+            sched = engine.ReduceLROnPlateau(**sched.state_dict())
+        engine.set_learning_rate(state, sched.step(metric))
+        assert engine.get_learning_rate(state) == ours.step(metric)
+        assert sched.state_dict() == ours.state_dict()
+    if sequence == "improve_in_cooldown":
+        # the sequence reaches the case where torch's scheduler differs
+        torch_sched = torch.optim.lr_scheduler.ReduceLROnPlateau(
+            torch.optim.SGD(nn.Linear(1, 1).parameters(), lr=1e-4), factor=0.8,
+            patience=5, threshold=1e-2, cooldown=1, min_lr=1e-7)
+        lrs = []
+        for metric in metrics:
+            torch_sched.step(metric)
+            lrs.append(torch_sched.optimizer.param_groups[0]["lr"])
+        ours = jax_engine.ReduceLROnPlateau(lr=1e-4)
+        assert lrs != [ours.step(metric) for metric in metrics]
 
 
 def _pyramid_preds(rng, n_classes=2):
@@ -295,10 +319,16 @@ def test_resume_is_exact(tmp_path, step_times):
     first = _train_setup(step_times)
     run(*first, range(2))
     path = str(tmp_path / "state.pt")
-    engine.save_train_state(path, first[0], aux={"epoch": 4, "best_eval_loss": 0.5})
+    sched = engine.ReduceLROnPlateau(lr=1e-4)
+    for metric in (1.0,) * 7 + (0.5,):
+        sched.step(metric)
+    saved = {"epoch": 4, "best_eval_loss": 0.5, "scheduler": sched.state_dict()}
+    engine.save_train_state(path, first[0], aux=saved)
     resumed = _train_setup(step_times)
     _, aux = engine.restore_train_state(path, resumed[0])
-    assert aux == {"epoch": 4, "best_eval_loss": 0.5}
+    assert aux == saved
+    # the scheduler comes back as the JAX CLIs rebuild theirs
+    assert engine.ReduceLROnPlateau(**aux["scheduler"]) == sched
     run(*resumed, range(2, 3))
     a, b = straight[0], resumed[0]
     assert (a.step, a.mini_step, a.gradient_step) == (b.step, b.mini_step, b.gradient_step)
