@@ -350,18 +350,22 @@ def phase_conv_vs_plain():
             if dtype == compute:
                 summary.add(dtype, 1, ms, plain_ms, flops, nbytes, library_ms)
             ok = rel <= TOL[dtype] and srel <= CONV_STATS_TOL[dtype]
+            # executed rates: the function's FLOPs (27 C_in products per
+            # output value, no padding counted) and compulsory bytes
             print(f"[conv_unit] {str(dtype)[6:]}/{str(compute)[6:]} {name}: {ca}+{cb}->{o} at "
                   f"{spatial}: y max_abs_err {err:.3e} rel {rel:.3e} (tol "
                   f"{TOL[dtype]:g}), stats rel {srel:.3e} (tol "
                   f"{CONV_STATS_TOL[dtype]:g}); kernel {ms:.4f} ms plain "
                   f"{plain_ms:.4f} ms cuDNN conv3d {library_ms:.4f} ms bound "
-                  f"{bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'TOO FAR'}",
-                  flush=True)
+                  f"{bound_ms:.4f} ms ({bound_by}); kernel {flops / ms * 1e-9:.1f} TFLOP/s "
+                  f"{nbytes / ms * 1e-6:.1f} GB/s, {bound_ms / ms * 100:.1f}% of its bound "
+                  f"{'ok' if ok else 'TOO FAR'}", flush=True)
             if not ok:
                 fail(f"conv unit disagrees with plain at {dtype}/{compute} {name}")
     print(f"[conv_unit] one window's 7 bf16 units: kernel {summary.ms:.4f} ms, "
           f"plain {summary.plain_ms:.4f} ms, cuDNN conv3d alone "
-          f"{summary.library_ms:.4f} ms, bound {summary.bound_ms:.4f} ms", flush=True)
+          f"{summary.library_ms:.4f} ms, bound {summary.bound_ms:.4f} ms "
+          f"(kernel at {summary.bound_ms / summary.ms * 100:.1f}% of it)", flush=True)
     return summary
 
 

@@ -11,6 +11,7 @@ from lintransunet_tpu_torch.models.blocks import (
     SpatialAttentionGate,
     UpBlock,
     UpEmbedBlock,
+    lecun_normal_,
 )
 from lintransunet_tpu_torch.models.bridges import ConnectBridge, InitialBridge, ROIBridge
 from lintransunet_tpu_torch.models.registry import MaskTransUnet, init_random_, one_hot_argmax
@@ -27,6 +28,7 @@ __all__ = [
     "SpatialAttentionGate",
     "UpBlock",
     "UpEmbedBlock",
+    "lecun_normal_",
     "ConnectBridge",
     "InitialBridge",
     "ROIBridge",

@@ -21,10 +21,15 @@ neither (``MaskTransUnet.train()`` refuses them).
 Dropout draws its masks from the generator that ``dropout_generator``
 installs (the train step's, as JAX's step takes ``rng``), or from PyTorch's
 global generator outside it.
+
+A fresh ``Conv3d`` or ``Linear`` initialises as flax's ``nn.Conv`` and
+``nn.Dense`` do: ``lecun_normal`` kernels (:func:`lecun_normal_`) and zero
+biases.
 """
 
 import contextlib
 import contextvars
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -36,8 +41,34 @@ from lintransunet_tpu_torch.ops import attention, conv_unit, fused_stack
 from lintransunet_tpu_torch.ops import linear_attention as fused
 
 
+# flax's variance_scaling "truncated_normal": the std of a standard normal
+# cut at +-2, by which the scale is divided so the cut draw keeps its variance
+TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``lecun_normal()`` in place: a normal of std 1 / sqrt(fan_in) /
+    TRUNCATED_STD cut at +-2 of that std, so the draw has variance 1 /
+    fan_in. fan_in is everything of a torch weight past its output dim:
+    in_features of a dense layer, in_channels / groups times the kernel
+    volume of a conv."""
+    std = 1.0 / math.sqrt(weight[0].numel()) / TRUNCATED_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def _flax_reset(layer: nn.Module) -> None:
+    lecun_normal_(layer.weight)
+    if layer.bias is not None:
+        nn.init.zeros_(layer.bias)
+
+
 class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` computing in its input's dtype (parameters stay f32)."""
+    """``nn.Conv3d`` computing in its input's dtype (parameters stay f32),
+    initialised as flax's ``nn.Conv``."""
+
+    def reset_parameters(self) -> None:
+        _flax_reset(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ops.conv3d(x, self.weight, self.bias, self.stride, self.padding,
@@ -45,7 +76,11 @@ class Conv3d(nn.Conv3d):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` computing in its input's dtype (parameters stay f32)."""
+    """``nn.Linear`` computing in its input's dtype (parameters stay f32),
+    initialised as flax's ``nn.Dense``."""
+
+    def reset_parameters(self) -> None:
+        _flax_reset(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))

@@ -7,7 +7,11 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
-from lintransunet_tpu_torch.models.blocks import MultiheadLinearAttention, _TokenStack
+from lintransunet_tpu_torch.models.blocks import (
+    MultiheadLinearAttention,
+    _TokenStack,
+    lecun_normal_,
+)
 from lintransunet_tpu_torch.models.unet import Encoder, ROIDecoder
 
 ATTENTION_IMPLS = ("kernel", "plain")
@@ -116,8 +120,9 @@ class MaskTransUnet(nn.Module):
 
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill ``model``'s parameters in place from ``generator`` (a CPU
-    generator) as flax's default initialisers do: weights normal with
-    variance 1 / fan_in, biases zero, LayerNorm scales one."""
+    generator) as flax's default initialisers do: weights by
+    ``lecun_normal_`` (a truncated normal of variance 1 / fan_in), biases
+    zero, LayerNorm scales one."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("bias"):
@@ -125,7 +130,5 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif p.dim() == 1:
                 p.fill_(1.0)
             else:
-                fan_in = p[0].numel()
-                w = torch.randn(p.shape, generator=generator) / fan_in ** 0.5
-                p.copy_(w)
+                p.copy_(lecun_normal_(torch.empty(p.shape), generator))
     return model

@@ -18,7 +18,9 @@ conv's products in bf16. ``conv_unit`` keeps that default; its output and
 
 ``conv_unit`` dispatches on the device of its inputs: CPU tensors go to
 ``conv_unit_reference``; CUDA tensors launch ``csrc/conv_unit.cu`` or raise.
-Eval only: the kernel has no backward, as in JAX.
+With bf16 operands (the default) the wrapper first packs the weights with
+``pack_weights``, once per call: the kernel keeps them resident in shared
+memory. Eval only: the kernel has no backward, as in JAX.
 """
 
 from typing import Optional, Tuple
@@ -27,6 +29,29 @@ import torch
 import torch.nn.functional as F
 
 NEG_SLOPE = 0.01  # torch nn.LeakyReLU default, the reference's activation
+K_CHUNK = 16      # input channels per K chunk of the bf16 kernel
+
+
+def block_outputs(n_out: int) -> int:
+    """Output channels per block of the bf16 kernel (``cu_block_outputs``)."""
+    return 16 if n_out <= 16 else 32
+
+
+def pack_weights(wa: torch.Tensor, wb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bf16 kernel's weights: (O, Ca, 3, 3, 3) [and (O, Cb, 3, 3, 3)]
+    f32 -> bf16 (G, K / 16, 27, 16, NT), indexed [output tile, K chunk, tap
+    (kh, kw, kd), input channel in the chunk, output channel in the tile],
+    NT = ``block_outputs(O)``. Each input's channels are zero-padded to a
+    multiple of 16, xa's chunks first; the outputs to G * NT."""
+    n_out = wa.shape[0]
+    nt = block_outputs(n_out)
+    parts = [F.pad(w.reshape(n_out, w.shape[1], 27), (0, 0, 0, -w.shape[1] % K_CHUNK))
+             for w in (wa, wb) if w is not None]
+    groups = -(-n_out // nt)
+    w = F.pad(torch.cat(parts, dim=1), (0, 0, 0, 0, 0, groups * nt - n_out))
+    k = w.shape[1]
+    return (w.reshape(groups, nt, k // K_CHUNK, K_CHUNK, 27).permute(0, 2, 4, 3, 1)
+            .to(torch.bfloat16).contiguous())
 
 
 def stats_to_affine(stats: torch.Tensor, count: int,
@@ -182,27 +207,32 @@ def conv_unit(xa: torch.Tensor, wa: torch.Tensor,
 
     lib = kernels.load("conv_unit")
     n, ca, h, w, d = xa.shape
+    cb = 0 if xb is None else xb.shape[1]
     n_out = wa.shape[0]
+    is_bf16 = int(xa.dtype == torch.bfloat16)
+    compute_bf16 = int(compute_dtype in (None, torch.bfloat16))
     y = torch.empty((n, n_out, h, w, d), dtype=xa.dtype, device=xa.device)
     z = torch.empty_like(xa) if want_z else None
-    stats = part = None
-    if want_stats:
-        f32 = dict(dtype=torch.float32, device=xa.device)
-        part = torch.empty((n, lib.cu_num_tiles(h, w, d), 2, n_out), **f32)
-        stats = torch.empty((n, 2, n_out), **f32)
+    packed = pack_weights(wa, wb) if compute_bf16 else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(xa.device):
+        stats = part = None
+        if want_stats:
+            partials = lib.cu_num_partials(n, ca, cb, n_out, h, w, d, is_bf16, compute_bf16)
+            if partials < 1:
+                raise RuntimeError(f"conv-unit kernel plan failed: CUDA error {-partials}")
+            f32 = dict(dtype=torch.float32, device=xa.device)
+            part = torch.empty((n, partials, 2, n_out), **f32)
+            stats = torch.empty((n, 2, n_out), **f32)
         stream = torch.cuda.current_stream(xa.device).cuda_stream
         err = lib.cu_forward(
             ptr(xa), ptr(wa), wa.stride(0) // 27, ptr(affine_a), ca,
-            ptr(xb), ptr(wb), 0 if wb is None else wb.stride(0) // 27,
-            ptr(affine_b), 0 if xb is None else xb.shape[1],
-            ptr(bias), ptr(y), ptr(z), ptr(part), ptr(stats),
-            n, n_out, h, w, d, int(xa.dtype == torch.bfloat16),
-            int(compute_dtype in (None, torch.bfloat16)), stream)
+            ptr(xb), ptr(wb), 0 if wb is None else wb.stride(0) // 27, ptr(affine_b), cb,
+            ptr(packed), block_outputs(n_out), ptr(bias), ptr(y), ptr(z), ptr(part),
+            ptr(stats), n, n_out, h, w, d, is_bf16, compute_bf16, stream)
     if err != 0:
         raise RuntimeError(f"conv-unit kernel launch failed: CUDA error {err}")
     conv_unit.launches += 1

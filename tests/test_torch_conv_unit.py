@@ -9,7 +9,8 @@ packed folded or paired canvas, converted with the JAX package's own pack
 and canvas helpers (as ``tests/test_pallas_conv.py`` does). Tolerances, as
 in that file: rtol / atol 2e-5 on y and z (f32, sums in another order),
 rtol 1e-4 / atol 1e-3 on the statistics (sums of a few thousand O(1)
-values in another order). The affine helpers agree within rtol 1e-5.
+values in another order). The affine helpers agree within rtol 1e-5. The
+bf16 kernel's packed weights equal the weights rounded to bf16, exactly.
 """
 
 import jax.numpy as jnp
@@ -139,3 +140,31 @@ def test_affine_helpers_match_jax(rng, paired):
     want = _unlayout(pcv.apply_affine_leaky(y_l, scale_l, shift_l, n), n, paired)
     got = cu.apply_affine_leaky(t(to_ncdhw(y)), scale, shift)
     np.testing.assert_allclose(from_ncdhw(got.numpy()), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("ca,cb,o", [
+    (5, 0, 7),      # one input, channels and outputs padded
+    (3, 18, 20),    # dual: xb's chunks after xa's padded one, two chunks of xb
+    (16, 0, 40),    # two output tiles of 32, the second padded
+    (32, 32, 32),   # the level-1 UpBlock's conv2: no padding
+])
+def test_pack_weights_matches_rounded_weights(ca, cb, o):
+    rng = np.random.default_rng(ca + 10 * cb + o)
+    wa = t(rng.standard_normal((o, ca, 3, 3, 3)).astype(np.float32))
+    wb = t(rng.standard_normal((o, cb, 3, 3, 3)).astype(np.float32)) if cb else None
+    packed = cu.pack_weights(wa, wb)
+    nt = cu.block_outputs(o)
+    pad = -ca % cu.K_CHUNK
+    k = ca + pad + cb + (-cb % cu.K_CHUNK)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert packed.shape == (-(-o // nt), k // cu.K_CHUNK, 27, cu.K_CHUNK, nt)
+    # back to (O, K, 27): row k of xa's channel c is c, of xb's channel c is
+    # ca + pad + c; everything else is zero
+    flat = packed.float().permute(0, 4, 1, 3, 2).reshape(-1, k, 27)
+    want = torch.zeros_like(flat)
+    want[:o, :ca] = wa.reshape(o, ca, 27).to(torch.bfloat16).float()
+    if cb:
+        want[:o, ca + pad:ca + pad + cb] = wb.reshape(o, cb, 27).to(torch.bfloat16).float()
+    assert torch.equal(flat, want)
+    # tap order (kh, kw, kd), as the kernel walks it
+    assert torch.equal(packed[0, 0, 5, 1, 2].float(), wa[2, 1, 0, 1, 2].to(torch.bfloat16).float())

@@ -153,6 +153,12 @@ CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-3)}
     (1, 4, 0, 16, (256, 256, 64)),     # the input block
     (2, 5, 0, 7, (9, 7, 13)),          # ragged in every dim
     (1, 3, 6, 20, (6, 5, 70)),         # ragged, dual, two output tiles
+    (2, 20, 0, 16, (17, 11, 70)),      # ragged in every dim of the 4 x 4 x 32 tile
+    (1, 16, 16, 16, (256, 256, 64)),   # the level-0 UpBlock's conv2: dual, NT = 16
+    (1, 64, 0, 32, (128, 128, 64)),    # the level-1 UpBlock's conv1
+    (1, 8, 8, 24, (9, 10, 1)),         # D = 1
+    (1, 40, 0, 40, (8, 6, 16)),        # two output tiles of 32 channels
+    (1, 160, 160, 32, (6, 7, 40)),     # weights too large to stay in shared memory
 ])
 def test_conv_unit_matches_plain(cuda, dtype, n, ca, cb, o, spatial):
     xa, wa, kw = _conv_inputs(n, ca, cb, o, spatial, dtype, cuda)
@@ -173,6 +179,8 @@ def test_conv_unit_matches_plain(cuda, dtype, n, ca, cb, o, spatial):
 @pytest.mark.parametrize("n,ca,cb,o,spatial", [
     (1, 32, 32, 32, (128, 128, 64)),
     (2, 5, 0, 7, (9, 7, 13)),
+    (2, 20, 0, 16, (17, 11, 70)),
+    (1, 8, 8, 24, (9, 10, 1)),
 ])
 def test_conv_unit_f32_input_bf16_operands(cuda, n, ca, cb, o, spatial):
     """The default: f32 activations, operands rounded to bf16 when staged,
@@ -186,6 +194,18 @@ def test_conv_unit_f32_input_bf16_operands(cuda, n, ca, cb, o, spatial):
     assert _rel(got[0], want[0]) <= y_tol
     assert _rel(got[1], want[1]) <= stats_tol
     assert _rel(got[2], want[2]) <= y_tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_unit_is_deterministic(cuda, dtype):
+    """Two calls give the same bits: y, z and the statistics (per-block
+    partials of a persistent grid, added in a fixed order, no atomics)."""
+    xa, wa, kw = _conv_inputs(1, 16, 16, 16, (64, 64, 64), dtype, cuda)
+    first = cu.conv_unit(xa, wa, want_z=True, **kw)
+    second = cu.conv_unit(xa, wa, want_z=True, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _stack_inputs(b, n, c, layers, dtype, device, seed=0):
