@@ -55,10 +55,17 @@
 // * Epilogue: bias, rounding to TI, then 16 channels at a time through
 //   shared memory to 16-byte stores along d (NCDHW). z is written from the
 //   registers of the staged values.
-// What still separates it from the bound: `wgmma` on 64-row tiles (the
-//   tensor cores' full rate; `mma.sync` reaches a fraction of it), TMA
-//   loads, warp specialisation, and staging that overlaps the MMAs (a block
-//   stages a chunk, waits, then computes).
+// * Two blocks share an SM where the resident weights allow, so that one
+//   block's staging overlaps the other's MMAs; a block whose weights leave
+//   room for one per SM may use up to 255 registers a thread instead.
+// What still separates it from the bound, as measured on an H100: staging
+// takes about half of a block's time (clock64 phases), and within a block
+// it does not overlap the MMAs. Two ways to overlap it were tried and lost
+// at these shapes: a register prefetch of the next chunk (spills at 128
+// registers) and warp specialisation (9 staging warps filling a double
+// buffer for 8 MMA warps, named barriers; faster at NT = 32, slower at
+// NT = 16 for want of a second block per SM). Past that: `wgmma` on 64-row
+// tiles and TMA loads.
 //
 // f32 operands (`conv_unit_fma`, compute_dtype=float32): a block takes
 // 2 (w) x 64 (d) outputs at one h and stages a 3 x 4 x 66 halo per chunk of
@@ -104,8 +111,6 @@ constexpr int kOutStride = kM + 4;                         // s_out row: no bank
 constexpr int kDPT = 16;                                   // d per staging item
 constexpr int kPieces = kTD / kDPT;
 constexpr int kItems = kKC * kHH * kHW * kPieces;          // staging items per chunk
-constexpr int kIters = (kItems + kThreads - 1) / kThreads;
-constexpr int kBatch = 2;                                  // items loaded before stored
 constexpr size_t kHaloBytes = sizeof(bf16) * kRows * kKC;
 constexpr size_t kRunBytes = sizeof(float) * kWarps * 2 * 32;  // running sums
 constexpr size_t kWeightsOffset = ltu::align_up(kHaloBytes + kRunBytes, 128);
@@ -196,95 +201,76 @@ __device__ __forceinline__ void store16(float* p, const float (&v)[kDPT]) {
   }
 }
 
-// Stages channels [c0, c0 + 16) of one input for the output tile at
-// (h0, w0, d0): s_in row (hh, ww, dd) holds act(x) at (h0 + hh - 1,
-// w0 + ww - 1, d0 + dd - 1), rounded to bf16, 0 outside the volume. An item
-// is one channel's 16 consecutive d of one (hh, ww) and one d-edge of the
-// halo; lanes run over the 16 channels, then over ww, so that a warp's
-// stores of one position fall in distinct banks. With `z`, writes act(x) as
-// rounded at the tile's own positions.
+// Stages channels [c0, c0 + 16) of x for the output tile at (h0, w0, d0):
+// s_in row (hh, ww, dd) holds act(x) at (h0 + hh - 1, w0 + ww - 1,
+// d0 + dd - 1), rounded to bf16, 0 outside the volume. An item is one
+// channel's 16 consecutive d at one (hh, ww) and one d-edge of the halo;
+// lanes run over the 16 channels, then over ww, so that a warp's stores of
+// one position fall in distinct banks. With `z`, writes act(x) as rounded
+// at the tile's own positions.
 template <typename TI>
 __device__ __forceinline__ void stage_chunk(bf16* __restrict__ s_in, const TI* __restrict__ x,
                                             const float* __restrict__ aff, int C, int c0, int n,
                                             int h0, int w0, int d0, const MmaArgs& a,
                                             TI* __restrict__ z, int tid) {
+  // one item at a time: a deeper unroll lets the compiler hoist every
+  // item's loads, and the registers spill
+#pragma unroll 1
+  for (int item = tid; item < kItems; item += kThreads) {
+    const int c = item % kKC;
+    int r = item / kKC;
+    const int ww = r % kHW;
+    r /= kHW;
+    const int hh = r % kHH;
+    const int piece = r / kHH;
+    const int gc = c0 + c, gh = h0 + hh - 1, gw = w0 + ww - 1;
+    const int dbase = d0 + piece * kDPT;
+    const int ed = piece == 0 ? d0 - 1 : d0 + kTD;
+    const bool inside = gc < C && gh >= 0 && gh < a.H && gw >= 0 && gw < a.W;
+    const size_t off = ((static_cast<size_t>(n) * C + gc) * a.H + gh) * a.W * a.D +
+                       static_cast<size_t>(gw) * a.D;
+    float v[kDPT];
+    float edge = 0.f;
 #pragma unroll
-  for (int i0 = 0; i0 < kIters; i0 += kBatch) {
-    float v[kBatch][kDPT];
-    float edge[kBatch];
-    size_t off[kBatch];
-    bool inside[kBatch];
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const int item = (i0 + b) * kThreads + tid;
-      const int c = item % kKC;
-      int r = item / kKC;
-      const int ww = r % kHW;
-      r /= kHW;
-      const int hh = r % kHH;
-      const int piece = r / kHH;
-      const int gc = c0 + c, gh = h0 + hh - 1, gw = w0 + ww - 1;
-      const int dbase = d0 + piece * kDPT;
-      const int ed = piece == 0 ? d0 - 1 : d0 + kTD;
-      inside[b] = i0 + b < kIters && item < kItems && gc < C && gh >= 0 && gh < a.H &&
-                  gw >= 0 && gw < a.W;
-      off[b] = ((static_cast<size_t>(n) * C + gc) * a.H + gh) * a.W * a.D +
-               static_cast<size_t>(gw) * a.D;
-      edge[b] = 0.f;
-#pragma unroll
-      for (int i = 0; i < kDPT; ++i) v[b][i] = 0.f;
-      if (!inside[b]) continue;
-      const TI* row = x + off[b];
+    for (int i = 0; i < kDPT; ++i) v[i] = 0.f;
+    if (inside) {
+      const TI* row = x + off;
       if (a.vec && dbase + kDPT <= a.D) {
-        load16(v[b], row + dbase);
+        load16(v, row + dbase);
       } else {
 #pragma unroll
         for (int i = 0; i < kDPT; ++i) {
-          if (dbase + i < a.D) v[b][i] = to_f32(row[dbase + i]);
+          if (dbase + i < a.D) v[i] = to_f32(row[dbase + i]);
         }
       }
-      if (ed >= 0 && ed < a.D) edge[b] = to_f32(row[ed]);
-    }
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const int item = (i0 + b) * kThreads + tid;
-      if (i0 + b >= kIters || item >= kItems) continue;
-      const int c = item % kKC;
-      int r = item / kKC;
-      const int ww = r % kHW;
-      r /= kHW;
-      const int hh = r % kHH;
-      const int piece = r / kHH;
-      const int dbase = d0 + piece * kDPT;
-      const int ed = piece == 0 ? d0 - 1 : d0 + kTD;
-      if (inside[b] && aff != nullptr) {
-        const float scale = __ldg(aff + (n * 2) * C + c0 + c);
-        const float shift = __ldg(aff + (n * 2 + 1) * C + c0 + c);
+      if (ed >= 0 && ed < a.D) edge = to_f32(row[ed]);
+      if (aff != nullptr) {
+        const float scale = __ldg(aff + (n * 2) * C + gc);
+        const float shift = __ldg(aff + (n * 2 + 1) * C + gc);
 #pragma unroll
         for (int i = 0; i < kDPT; ++i) {
-          if (dbase + i < a.D) v[b][i] = prologue(v[b][i], scale, shift);
+          if (dbase + i < a.D) v[i] = prologue(v[i], scale, shift);
         }
-        if (ed >= 0 && ed < a.D) edge[b] = prologue(edge[b], scale, shift);
+        if (ed >= 0 && ed < a.D) edge = prologue(edge, scale, shift);
       }
-      const int srow = (hh * kHW + ww) * kHD;
-      const int chunk = c >> 3, lane_c = c & 7;
+    }
+    const int srow = (hh * kHW + ww) * kHD;
+    const int chunk = c >> 3, lane_c = c & 7;
 #pragma unroll
-      for (int i = 0; i < kDPT; ++i) {
-        const bf16 q = __float2bfloat16(v[b][i]);
-        s_in[ltu::swz(srow + 1 + piece * kDPT + i, chunk, 2) + lane_c] = q;
-        v[b][i] = __bfloat162float(q);
-      }
-      s_in[ltu::swz(srow + (piece == 0 ? 0 : kHD - 1), chunk, 2) + lane_c] =
-          __float2bfloat16(edge[b]);
-      if (z != nullptr && inside[b] && hh >= 1 && hh <= kTH && ww >= 1 && ww <= kTW) {
-        TI* dst = z + off[b] + dbase;
-        if (a.vec && dbase + kDPT <= a.D) {
-          store16(dst, v[b]);
-        } else {
+    for (int i = 0; i < kDPT; ++i) {
+      const bf16 q = __float2bfloat16(v[i]);
+      s_in[ltu::swz(srow + 1 + piece * kDPT + i, chunk, 2) + lane_c] = q;
+      v[i] = __bfloat162float(q);
+    }
+    s_in[ltu::swz(srow + (piece == 0 ? 0 : kHD - 1), chunk, 2) + lane_c] = __float2bfloat16(edge);
+    if (z != nullptr && inside && hh >= 1 && hh <= kTH && ww >= 1 && ww <= kTW) {
+      TI* dst = z + off + dbase;
+      if (a.vec && dbase + kDPT <= a.D) {
+        store16(dst, v);
+      } else {
 #pragma unroll
-          for (int i = 0; i < kDPT; ++i) {
-            if (dbase + i < a.D) dst[i] = from_f32<TI>(v[b][i]);
-          }
+        for (int i = 0; i < kDPT; ++i) {
+          if (dbase + i < a.D) dst[i] = from_f32<TI>(v[i]);
         }
       }
     }
@@ -412,8 +398,10 @@ __device__ __forceinline__ void epilogue(float (&acc)[kR][NT / 8][4], float* s_o
   }
 }
 
-template <typename TI, int NT>
-__global__ void __launch_bounds__(kThreads, 2) conv_unit_mma(const MmaArgs a) {
+// Wide: the weights leave room for one block per SM, which may then use up
+// to 255 registers a thread; otherwise two blocks share an SM.
+template <typename TI, int NT, bool Wide>
+__global__ void __launch_bounds__(kThreads, Wide ? 1 : 2) conv_unit_mma(const MmaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_in = reinterpret_cast<bf16*>(smem);
   float* s_out = reinterpret_cast<float*>(smem);  // reuses s_in after the K loop
@@ -472,6 +460,7 @@ __global__ void __launch_bounds__(kThreads, 2) conv_unit_mma(const MmaArgs a) {
 struct Plan {
   size_t smem;
   int resident, gx, groups;
+  void (*kernel)(MmaArgs);
 };
 
 // Shared memory, weight residency and grid of the bf16 kernel for a call.
@@ -481,7 +470,9 @@ cudaError_t plan_mma(int ca, int cb, int n, int n_out, int h, int w, int d, Plan
   const size_t slab = sizeof(bf16) * slab_elems<NT>();
   p->resident = kWeightsOffset + chunks * slab <= static_cast<size_t>(kSmemLimit);
   p->smem = kWeightsOffset + (p->resident ? chunks : 1) * slab;
-  cudaError_t err = cudaFuncSetAttribute(conv_unit_mma<TI, NT>,
+  p->kernel = 2 * p->smem > static_cast<size_t>(kSmemLimit) ? conv_unit_mma<TI, NT, true>
+                                                             : conv_unit_mma<TI, NT, false>;
+  cudaError_t err = cudaFuncSetAttribute(p->kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(p->smem));
   if (err != cudaSuccess) return err;
@@ -491,7 +482,7 @@ cudaError_t plan_mma(int ca, int cb, int n, int n_out, int h, int w, int d, Plan
       cudaSuccess) {
     return err;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_unit_mma<TI, NT>, kThreads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p->kernel, kThreads,
                                                       p->smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -747,7 +738,7 @@ int launch_mma(MmaArgs a, float* stats, int n, cudaStream_t stream) {
   a.gx = p.gx;
   a.resident = p.resident;
   a.vec = a.D % 8 == 0;  // 16-byte aligned rows of 8 bf16 or 4 f32
-  conv_unit_mma<TI, NT><<<dim3(p.gx, p.groups, n), kThreads, p.smem, stream>>>(a);
+  p.kernel<<<dim3(p.gx, p.groups, n), kThreads, p.smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return reduce_stats(a.part, stats, n, p.gx, a.n_out, stream);
