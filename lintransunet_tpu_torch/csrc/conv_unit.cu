@@ -752,13 +752,13 @@ int partials_mma(int n, int ca, int cb, int n_out, int h, int w, int d) {
   return err == cudaSuccess ? p.gx : -static_cast<int>(err);
 }
 
+// Output channels per block of the bf16 kernel: the NT that its packed
+// weights are laid out for (ops/conv_unit.py `block_outputs`).
+int block_outputs(int n_out) { return n_out <= 16 ? 16 : 32; }
+
 }  // namespace
 
 extern "C" {
-
-// Output channels per block of the bf16 kernel: the NT that its packed
-// weights are laid out for.
-int cu_block_outputs(int n_out) { return n_out <= 16 ? 16 : 32; }
 
 // Partial sums per volume and channel that the statistics need: the
 // wrapper allocates `part` as (n, cu_num_partials, 2, n_out). A negative
@@ -776,7 +776,7 @@ int cu_num_partials(int n, int ca, int cb, int n_out, int h, int w, int d, int i
 // xa, or null. part: f32 scratch (n, cu_num_partials, 2, n_out) and stats
 // (n, 2, n_out), both null without statistics.
 // compute_bf16 != 0: operands rounded to bf16; `packed` holds the weights
-// as pack_weights lays them out for nt = cu_block_outputs(n_out) outputs
+// as pack_weights lays them out for nt = block_outputs(n_out) outputs
 // per block; wa / wb are not read. compute_bf16 == 0: f32 operands; wa /
 // wb: f32, element (o, c, tap) at w[(o * cstride + c) * 27 + tap].
 // Launches on `stream`; returns the CUDA error of the launches (0 on
@@ -791,7 +791,7 @@ int cu_forward(const void* xa, const void* wa, int wa_cstride, const void* aff_a
   auto* st = static_cast<float*>(stats);
   auto s = static_cast<cudaStream_t>(stream);
   if (compute_bf16) {
-    if (nt != cu_block_outputs(n_out) || packed == nullptr) {
+    if (nt != block_outputs(n_out) || packed == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     MmaArgs a{};

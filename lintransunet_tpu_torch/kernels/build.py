@@ -38,7 +38,6 @@ SIGNATURES = {
         "cu_forward": (_I, [_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P,
                             _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
         "cu_num_partials": (_I, [_I] * 9),
-        "cu_block_outputs": (_I, [_I]),
     },
     "fused_stack": {
         "fst_forward": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -33,7 +33,8 @@ K_CHUNK = 16      # input channels per K chunk of the bf16 kernel
 
 
 def block_outputs(n_out: int) -> int:
-    """Output channels per block of the bf16 kernel (``cu_block_outputs``)."""
+    """Output channels per block of the bf16 kernel (``block_outputs`` in
+    ``csrc/conv_unit.cu``, which refuses packed weights laid out otherwise)."""
     return 16 if n_out <= 16 else 32
 
 
