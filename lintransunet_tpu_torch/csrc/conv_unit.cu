@@ -49,9 +49,11 @@
 //   the plain version), then one row of 16 bf16 channels per position,
 //   swizzled by `ltu::swz`. Tap (kh, kw, kd) reads the rows of a warp's
 //   positions shifted by a whole number of rows.
-// * MMA: a warp owns four 16-row tiles (16 positions along d each) and all
-//   NT columns; per tap it loads the B fragments once with `ldmatrix.trans`
-//   and reuses them over its four A tiles (f32 accumulators).
+// * MMA: a warp owns four 16-row tiles, the same 16 positions along d in
+//   each of the tile's 4 w columns, and all NT outputs (f32 accumulators).
+//   Per tap it loads the B fragments once with `ldmatrix.trans` and reuses
+//   them over its four A tiles; per (kh, kd) it loads the A fragments of
+//   the 6 halo columns once and uses each for up to three kw taps.
 // * Epilogue: bias, rounding to TI, then 16 channels at a time through
 //   shared memory to 16-byte stores along d (NCDHW). z is written from the
 //   registers of the staged values.
@@ -277,25 +279,31 @@ __device__ __forceinline__ void stage_chunk(bf16* __restrict__ s_in, const TI* _
   }
 }
 
-// acc[j] += the chunk's 27 taps for the warp's 16-row tile j
+// A warp's 16-row tiles: warp w owns h row w / 2 of the tile, the 16 d
+// positions starting at 16 (w % 2), and the tile's kTW = 4 w columns, one
+// tile per column: tile j is output column (w / 2) * kTW + j.
+static_assert(kR == kTW && kWarps == kTH * (kTD / 16), "a warp owns one h row's w columns");
+
+// acc[j] += the chunk's 27 taps for the warp's 16-row tile j. Tap
+// (kh, kw, kd) of column j reads halo column j + kw, so per (kh, kd) the
+// warp loads the 6 halo columns' A fragments once and uses each for up to
+// three taps.
 template <int NT>
 __device__ __forceinline__ void mma_chunk(float (&acc)[kR][NT / 8][4], const bf16* s_in,
                                           const bf16* s_w, int warp, int lane) {
-  int base[kR];
-#pragma unroll
-  for (int j = 0; j < kR; ++j) {
-    const int i = warp * kR + j;
-    const int col = i / (kTD / 16), dh = i % (kTD / 16);
-    base[j] = ((col / kTW) * kHW + col % kTW) * kHD + dh * 16 + (lane & 15);
-  }
-  // (kh, kw) not unrolled: 27 taps' addresses hoisted out of the tile loop
-  // would not fit in registers
+  const int hl = warp / (kTD / 16), dh = warp % (kTD / 16);
 #pragma unroll 1
   for (int kh = 0; kh < 3; ++kh) {
 #pragma unroll 1
-    for (int kw = 0; kw < 3; ++kw) {
+    for (int kd = 0; kd < 3; ++kd) {
+      const int r0 = (hl + kh) * kHW * kHD + dh * 16 + kd + (lane & 15);
+      unsigned af[kHW][4];
 #pragma unroll
-      for (int kd = 0; kd < 3; ++kd) {
+      for (int c = 0; c < kHW; ++c) {
+        ltu::ldsm_x4(af[c], s_in + ltu::swz(r0 + c * kHD, lane >> 4, 2));
+      }
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
         const int tap = (kh * 3 + kw) * 3 + kd;
         unsigned b[NT / 16][4];
 #pragma unroll
@@ -303,15 +311,12 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[kR][NT / 8][4], const bf1
           ltu::ldsm_x4_t(b[p], s_w + tap * kKC * NT +
                                    ltu::swz(lane & 15, p * 2 + (lane >> 4), NT / 8));
         }
-        const int shift = (kh * kHW + kw) * kHD + kd;
 #pragma unroll
         for (int j = 0; j < kR; ++j) {
-          unsigned af[4];
-          ltu::ldsm_x4(af, s_in + ltu::swz(base[j] + shift, lane >> 4, 2));
 #pragma unroll
           for (int p = 0; p < NT / 16; ++p) {
-            ltu::mma_bf16_16816(acc[j][2 * p], af, b[p][0], b[p][1]);
-            ltu::mma_bf16_16816(acc[j][2 * p + 1], af, b[p][2], b[p][3]);
+            ltu::mma_bf16_16816(acc[j][2 * p], af[j + kw], b[p][0], b[p][1]);
+            ltu::mma_bf16_16816(acc[j][2 * p + 1], af[j + kw], b[p][2], b[p][3]);
           }
         }
       }
@@ -343,9 +348,8 @@ __device__ __forceinline__ void epilogue(float (&acc)[kR][NT / 8][4], float* s_o
         const float bias = (a.bias != nullptr && go < a.n_out) ? __ldg(a.bias + go) : 0.f;
 #pragma unroll
         for (int j = 0; j < kR; ++j) {
-          const int i = warp * kR + j;
-          const int col = i / (kTD / 16);
-          const int dl = (i % (kTD / 16)) * 16 + (lane >> 2) + 8 * (e >> 1);
+          const int col = warp / (kTD / 16) * kTW + j;
+          const int dl = warp % (kTD / 16) * 16 + (lane >> 2) + 8 * (e >> 1);
           const float yv = ltu::round_to<TI>(acc[j][t][e] + bias);
           const bool valid = go < a.n_out && h0 + col / kTW < a.H && w0 + col % kTW < a.W &&
                              d0 + dl < a.D;
