@@ -58,8 +58,8 @@
 //   shared memory to 16-byte stores along d (NCDHW). z is written from the
 //   registers of the staged values.
 // * Two blocks share an SM where the resident weights allow, so that one
-//   block's staging overlaps the other's MMAs; a block whose weights leave
-//   room for one per SM may use up to 255 registers a thread instead.
+//   block's staging overlaps the other's MMAs; where they leave room for
+//   only one block per SM, it may use up to 255 registers a thread.
 // What still separates it from the bound, as measured on an H100: staging
 // takes about half of a block's time (clock64 phases), and within a block
 // it does not overlap the MMAs. Two ways to overlap it were tried and lost

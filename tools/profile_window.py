@@ -48,7 +48,7 @@ TOP = 20
 CLASSES = [
     ("transformer-stack kernel", ("stack_kv_partial", "stack_ctx_combine",
                                   "stack_apply_layer")),
-    ("conv-unit kernel", ("conv_unit_kernel", "conv_unit_mma", "conv_unit_fma", "stats_reduce")),
+    ("conv-unit kernel", ("conv_unit_", "stats_reduce")),
     ("linear-attention kernel", ("ctx_partial", "ctx_combine", "attn_out")),
     ("cuDNN layout transposes", ("nhwcToNchw", "nchwToNhwc")),
     ("conv3d", ("fprop", "conv", "cudnn")),
