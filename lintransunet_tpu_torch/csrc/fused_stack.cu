@@ -64,6 +64,37 @@ constexpr int kPadF = 4;         // row padding of f32 GEMM outputs
 constexpr int kLdW = kNP + kPadT;
 constexpr float kLnEps = 1e-6f;
 
+// clock64 phase split of stack_apply_layer, built only with -DFST_PHASES
+// (tools/profile_stack.py --phases): thread 0 of each block adds the cycles
+// between marks to its phase; fst_phase_clocks reads and clears the sums.
+enum Phase { kLoad, kStage, kMma, kSoftmaxCtx, kLn1, kGelu, kLn2, kPhases };
+#ifdef FST_PHASES
+__device__ unsigned long long g_phase[kPhases + 1];
+struct PhaseClock {
+  long long t;
+  long long acc[kPhases];
+  __device__ PhaseClock() {
+    t = clock64();
+    for (int i = 0; i < kPhases; ++i) acc[i] = 0;
+  }
+  __device__ void mark(int i) {
+    const long long now = clock64();
+    acc[i] += now - t;
+    t = now;
+  }
+  __device__ void flush() {
+    if (threadIdx.x != 0) return;
+    for (int i = 0; i < kPhases; ++i) atomicAdd(&g_phase[i], static_cast<unsigned long long>(acc[i]));
+    atomicAdd(&g_phase[kPhases], 1ull);
+  }
+};
+#else
+struct PhaseClock {
+  __device__ void mark(int) {}
+  __device__ void flush() {}
+};
+#endif
+
 template <typename T>
 struct Tile;
 template <>
@@ -118,7 +149,8 @@ __device__ void stage_weights(const T* __restrict__ w, int ldw, int k0, int n0, 
 // with a barrier, so s_out is ready and s_in may be overwritten.
 template <typename T>
 __device__ void block_gemm(const T* s_in, int ld_in, int K, const T* __restrict__ w,
-                           int ldw, int nout, T* s_w, float* s_out, int ld_out) {
+                           int ldw, int nout, T* s_w, float* s_out, int ld_out,
+                           PhaseClock& ph) {
   using namespace nvcuda;
   constexpr int TN = Tile<T>::kTokens;
   constexpr int KC = Tile<T>::kChunk;
@@ -135,6 +167,7 @@ __device__ void block_gemm(const T* s_in, int ld_in, int K, const T* __restrict_
       for (int i = 0; i < kPerWarp; ++i) wmma::fill_fragment(acc[i], 0.f);
       for (int k0 = 0; k0 < K; k0 += KC) {
         stage_weights<T>(w, ldw, k0, n0, np, s_w);
+        ph.mark(kStage);
 #pragma unroll
         for (int kk = 0; kk < KC; kk += 16) {
 #pragma unroll
@@ -150,6 +183,7 @@ __device__ void block_gemm(const T* s_in, int ld_in, int K, const T* __restrict_
             }
           }
         }
+        ph.mark(kMma);
       }
 #pragma unroll
       for (int i = 0; i < kPerWarp; ++i) {
@@ -186,6 +220,7 @@ __device__ void block_gemm(const T* s_in, int ld_in, int K, const T* __restrict_
     }
   }
   __syncthreads();
+  ph.mark(kMma);
 }
 
 // Load the block's token tile (zeros past n) into s_a as T; also as f32
@@ -224,7 +259,8 @@ stack_kv_partial(const T* __restrict__ x, const T* __restrict__ A, const float* 
   load_tile<T>(x + static_cast<size_t>(b) * n * c, s_a, plan.ld_a, nullptr, t0, count, c);
   __syncthreads();
   // s_g[:, 0:c] = x Wk, s_g[:, c:2c] = x Wv
-  block_gemm<T>(s_a, plan.ld_a, c, A + c, 6 * c, 2 * c, s_w, s_g, ld_g);
+  PhaseClock ph;  // not flushed: the split covers the apply kernel
+  block_gemm<T>(s_a, plan.ld_a, c, A + c, 6 * c, 2 * c, s_w, s_g, ld_g, ph);
 
   const size_t part = static_cast<size_t>(b) * tiles + tile;
   // per feature: the tile's max and sum of exp; exp(k - m) replaces k,
@@ -352,15 +388,17 @@ stack_apply_layer(const T* x_in, T* x_out, const T* __restrict__ A, const T* __r
   const int warp = tid >> 5, lane = tid & 31;
   const int per_lane = c / 32;
   const int c2 = 2 * c;
+  PhaseClock ph;
 
   load_tile<T>(x_in + static_cast<size_t>(b) * n * c, s_a, ld_a, s_x1, t0, count, c);
   for (int idx = tid; idx < c * kDk; idx += kThreads) {
     s_ctx[idx] = from_f32<T>(ctxn[static_cast<size_t>(b) * c * kDk + idx]);
   }
   __syncthreads();
+  ph.mark(kLoad);
 
   // q = x Wq; per (token, head): feature softmax / sqrt(d_k), then Q' ctx
-  block_gemm<T>(s_a, ld_a, c, A, 6 * c, c, s_w, s_g, ld_g);
+  block_gemm<T>(s_a, ld_a, c, A, 6 * c, c, s_w, s_g, ld_g, ph);
   for (int p = warp; p < TN * heads; p += kWarps) {
     const int r = p / heads, h = p % heads;
     const int f = h * kDk + lane;
@@ -375,9 +413,10 @@ stack_apply_layer(const T* x_in, T* x_out, const T* __restrict__ A, const T* __r
     s_a[r * ld_a + f] = from_f32<T>(acc);
   }
   __syncthreads();
+  ph.mark(kSoftmaxCtx);
 
   // x1 = LN1(x + attn Wo + bo)
-  block_gemm<T>(s_a, ld_a, c, A + 3 * c, 6 * c, c, s_w, s_g, ld_g);
+  block_gemm<T>(s_a, ld_a, c, A + 3 * c, 6 * c, c, s_w, s_g, ld_g, ph);
   for (int r = warp; r < TN; r += kWarps) {
     float v[kMaxPerLane];
     for (int j = 0; j < per_lane; ++j) {
@@ -392,18 +431,20 @@ stack_apply_layer(const T* x_in, T* x_out, const T* __restrict__ A, const T* __r
     }
   }
   __syncthreads();
+  ph.mark(kLn1);
 
   // h = GELU(x1 W1 + b1)
-  block_gemm<T>(s_a, ld_a, c, A + 4 * c, 6 * c, c2, s_w, s_g, ld_g);
+  block_gemm<T>(s_a, ld_a, c, A + 4 * c, 6 * c, c2, s_w, s_g, ld_g, ph);
   for (int idx = tid; idx < TN * c2; idx += kThreads) {
     const int r = idx / c2, f = idx - r * c2;
     const float hv = s_g[r * ld_g + f] + vec[4 * c2 + f];
     s_a[r * ld_a + f] = from_f32<T>(0.5f * hv * (1.f + erff(hv * 0.70710678118654752f)));
   }
   __syncthreads();
+  ph.mark(kGelu);
 
   // x = LN2(x1 + h W2 + b2), stored in T
-  block_gemm<T>(s_a, ld_a, c2, w2, c, c, s_w, s_g, ld_g);
+  block_gemm<T>(s_a, ld_a, c2, w2, c, c, s_w, s_g, ld_g, ph);
   T* out = x_out + static_cast<size_t>(b) * n * c;
   for (int r = warp; r < TN; r += kWarps) {
     float v[kMaxPerLane];
@@ -418,6 +459,8 @@ stack_apply_layer(const T* x_in, T* x_out, const T* __restrict__ A, const T* __r
       }
     }
   }
+  ph.mark(kLn2);
+  ph.flush();
 }
 
 int num_tiles(int n, int is_bf16) {
@@ -488,5 +531,17 @@ int fst_forward(const void* x, void* out, const void* A, const void* w2, const v
   }
   return launch<float>(x, out, A, w2, v, pm, ps, pc, cn, batch, n, c, heads, layers, s);
 }
+
+#ifdef FST_PHASES
+// Copies the phase sums (kPhases cycle counts, then the block count) to
+// host memory `out` (kPhases + 1 uint64) and clears them.
+int fst_phase_clocks(void* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
+  const unsigned long long zero[kPhases + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 }  // extern "C"

@@ -4,7 +4,9 @@ The sources have a plain C interface and include no PyTorch header, so a
 build takes seconds. The library lands in ``_build/lib<name>-<hash>.so``;
 the hash covers the source, every shared header ``csrc/*.cuh`` and the
 flags, so an edited kernel or header is rebuilt and a stale library is
-never loaded. A build writes to a temporary name and renames it into
+never loaded. Extra nvcc flags (a ``-D`` variant, such as the clock64
+phase split of ``tools/profile_stack.py``) build a library of their own
+beside the plain one. A build writes to a temporary name and renames it into
 place, so concurrent first uses cannot load a half-written file. A failed
 build raises with nvcc's output: there is no fallback.
 """
@@ -15,6 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Tuple
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -71,33 +74,33 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _library_path(name: str) -> Path:
+def _library_path(name: str, flags: Tuple[str, ...] = ()) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, flags: Tuple[str, ...] = ()) -> str:
     """nvcc's output (ptxas register and shared-memory report) of the last
     build of ``name``, or '' if it has not been built in this checkout."""
-    log = _library_path(name).with_suffix(".log")
+    log = _library_path(name, flags).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def build_libraries(*names: str) -> None:
+def build_libraries(*names: str, flags: Tuple[str, ...] = ()) -> None:
     """Build every named library that is not built yet, one nvcc process
-    per source, all started together; raise with nvcc's output if any
-    fails."""
+    per source, all started together, with ``flags`` after the usual ones;
+    raise with nvcc's output if any fails."""
     pending = []
     for name in names:
-        so = _library_path(name)
+        so = _library_path(name, flags)
         if so.exists():
             continue
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         pending.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -112,14 +115,18 @@ def build_libraries(*names: str) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes library of ``csrc/<name>.cu``, built on first use."""
-    if name in _loaded:
-        return _loaded[name]
-    build_libraries(name)
-    lib = ctypes.CDLL(str(_library_path(name)))
+def load(name: str, flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The ctypes library of ``csrc/<name>.cu``, built on first use. The
+    wrappers call the plain build; a build with extra ``flags`` is kept
+    apart, and a caller that wants the wrappers to use it puts it into
+    ``_loaded[name]``."""
+    key = (name, tuple(flags)) if flags else name
+    if key in _loaded:
+        return _loaded[key]
+    build_libraries(name, flags=tuple(flags))
+    lib = ctypes.CDLL(str(_library_path(name, tuple(flags))))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
-    _loaded[name] = lib
+    _loaded[key] = lib
     return lib
