@@ -6,8 +6,10 @@ Phases (each prints its findings; any failure exits non-zero before the
 last line):
 
 1. card: ``nvidia-smi`` name and power limit, the device name, and the
-   nvcc builds of the three CUDA kernels from ``lintransunet_tpu_torch/csrc``
-   (one nvcc per source, all started together) with their ptxas reports;
+   nvcc builds of the CUDA kernels from ``lintransunet_tpu_torch/csrc``
+   (one nvcc per source, all started together) with their ptxas reports,
+   the stack's per kernel, and the bf16 stack kernels' shared memory and
+   blocks per SM;
 2. kernel vs plain, each kernel against its plain PyTorch version at the
    shapes the main paths give it, in f32 (TF32 off) and bf16, timed with
    CUDA events in turns plain, kernel, kernel, plain, beside its bound (the
@@ -21,7 +23,8 @@ last line):
       ``compute_dtype=float32``, and f32 activations with the default bf16
       operands (what an f32 fused model runs);
    c. the transformer stack at the four token stacks of a window, one and
-      seven layers (no single PyTorch call computes a stack);
+      seven layers, with its executed TFLOP/s and share of its bound (no
+      single PyTorch call computes a stack);
    d. the linear-attention backward at the four attention shapes of the
       training patch plus a ragged and a one-token case (no single PyTorch
       call computes it);
@@ -74,7 +77,9 @@ sum over its training calls, each probe's one call at its main shape) and
 Imports nothing of jax.
 """
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -271,6 +276,41 @@ def phase_card():
         ptxas = [line.strip() for line in kernels.build_log(name).splitlines()
                  if "registers" in line or "spill" in line]
         print(f"[card] {name} ptxas: {' | '.join(ptxas)}", flush=True)
+    for entry in ptxas_entries(kernels.build_log("fused_stack")):
+        print(f"[card] fused_stack ptxas {entry}", flush=True)
+    stack, smem = kernels.load("fused_stack"), ctypes.c_int()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, c in STACK_SHAPES:
+        tile = stack.fst_tile_tokens(n, 1)
+        for apply in (0, 1):
+            blocks = stack.fst_occupancy(c, apply, tile, ctypes.byref(smem))
+            if blocks < 1:
+                fail(f"the bf16 stack kernel at C={c} fits no block on an SM ({blocks})")
+            print(f"[card] fused_stack bf16 {'apply' if apply else 'kv'} kernel at N={n} "
+                  f"C={c}: {tile}-token tiles, {stack.fst_num_tiles(n, 1, 1)} blocks, "
+                  f"{smem.value} bytes of dynamic shared memory, {blocks} block(s) per SM "
+                  f"on {sms} SMs", flush=True)
+
+
+def ptxas_entries(log):
+    """'name<template ints>: registers, spills, static shared memory' for
+    each kernel in an nvcc -Xptxas -v log."""
+    entries, name = [], None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            mangled = found.group(1)
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
+            name = m.group(2)[:int(m.group(1))] if m else mangled
+            rest = m.group(2)[int(m.group(1)):] if m else ""
+            args = re.findall(r"Li(\d+)E", rest)
+            name += f"<{', '.join(args)}>" if args else ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            entries.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return entries
 
 
 def phase_attention_vs_plain():
@@ -400,16 +440,20 @@ def phase_stack_vs_plain():
                 bound_ms, bound_by = bound(flops, nbytes, dtype)
                 summary.add(dtype, 1, ms, plain_ms, flops, nbytes)
                 ok = rel <= STACK_TOL[dtype]
+                # executed rate: the function's FLOPs (the products of every
+                # layer) over the kernel's time
                 print(f"[fused_stack] {str(dtype)[6:]:8s} N={n} C={c} L={layers}: "
                       f"max_abs_err {err:.3e} rel {rel:.3e} (tol "
                       f"{STACK_TOL[dtype]:g}) kernel {ms:.4f} ms plain "
-                      f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
-                      f"{'ok' if ok else 'TOO FAR'}", flush=True)
+                      f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); kernel "
+                      f"{flops / ms * 1e-9:.1f} TFLOP/s, {bound_ms / ms * 100:.1f}% of its "
+                      f"bound {'ok' if ok else 'TOO FAR'}", flush=True)
                 if not ok:
                     fail(f"stack disagrees with plain at {dtype} {(n, c, layers)}")
     print(f"[fused_stack] one window's 8 bf16 stack calls: kernel {summary.ms:.4f} ms, "
-          f"plain {summary.plain_ms:.4f} ms, bound {summary.bound_ms:.4f} ms; no "
-          f"single PyTorch call computes a transformer stack", flush=True)
+          f"plain {summary.plain_ms:.4f} ms, bound {summary.bound_ms:.4f} ms (kernel at "
+          f"{summary.bound_ms / summary.ms * 100:.1f}% of it); no single PyTorch call "
+          f"computes a transformer stack", flush=True)
     return summary
 
 

@@ -1,6 +1,8 @@
 // Warp-level bf16 tensor-core helpers shared by the probe kernels
-// (csrc/probe_taps.cu, csrc/probe_conv.cu): `ldmatrix` loads from XOR-swizzled
-// shared-memory tiles and `mma.sync` m16n8k16 with f32 accumulation.
+// (csrc/probe_taps.cu, csrc/probe_conv.cu) and the transformer stack
+// (csrc/fused_stack.cu): `ldmatrix` loads from XOR-swizzled shared-memory
+// tiles, `mma.sync` m16n8k16 with f32 accumulation, and 16-byte `cp.async`
+// copies from device to shared memory.
 //
 // Tiles are stored as rows of 16-byte chunks (8 bf16). `swz` places chunk c
 // of row r so that any 8 consecutive rows read at one logical chunk land on
@@ -15,7 +17,7 @@
 namespace ltu {
 
 // Element offset of chunk c of row r in a bf16 tile of `cpr` 16-byte chunks
-// per row (cpr a power of two, 2 to 16).
+// per row (cpr a power of two, 2 to 64).
 __device__ __forceinline__ int swz(int r, int c, int cpr) {
   const int f = cpr >= 8 ? (r & 7) : ((r * cpr / 8) & (cpr - 1));
   return (r * cpr + (c ^ f)) * 8;
@@ -49,6 +51,122 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from device memory to shared memory, asynchronously (L2 only:
+// the source is read once per block); completes with the commit group.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `N` of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until all of this thread's cp.async copies, committed or not, land.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// mbarrier and bulk-copy (TMA, one-dimensional) helpers: one thread arms a
+// barrier with the bytes it expects and starts the copies, which complete
+// on that barrier; every thread waits on the barrier's phase parity.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the copy engine.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Built with -DLTU_MBAR_WATCHDOG, a wait that lasts about a second traps,
+// so that a barrier protocol under test fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+#ifdef LTU_MBAR_WATCHDOG
+  const long long start = clock64();
+#endif
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+#ifdef LTU_MBAR_WATCHDOG
+    if (!done && clock64() - start > 2000000000ll) __trap();
+#endif
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory to shared memory; completes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Thread-block clusters: the same copy into the same offsets of the shared
+// memory of every block in `mask` (bit r: the block of rank r), each
+// completing on its own barrier at `bar`'s offset.
+__device__ __forceinline__ void bulk_copy_multicast(void* smem, const void* gmem, unsigned bytes,
+                                                    unsigned long long* bar, unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n"
+      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// One arrival on the barrier at `bar`'s offset in the block of rank `cta`.
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned long long* bar, unsigned cta) {
+  asm volatile(
+      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(smem_addr(bar)), "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses before later copies
+// by the copy engine into the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Two floats rounded to bf16 and packed as one 32-bit word (lower address
+// first).
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // One warp's 16 output rows times NT columns over KC (a multiple of 16) of K:

@@ -7,12 +7,13 @@ Port of ``lintransunet_tpu/ops/pallas_layer.py``: ``stack_layer_params``,
 
 ``fused_transformer_stack`` dispatches on the device of its tokens: CPU
 tensors go to ``fused_transformer_stack_reference``; CUDA tensors launch
-``csrc/fused_stack.cu`` or raise. Eval only: the kernel has no backward, as
+``csrc/fused_stack.cu`` or raise. The kernel takes the f32 weights; in bf16
+it first rounds and packs them for the tensor cores into scratch. Eval only: the kernel has no backward, as
 in JAX.
 """
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -103,6 +104,32 @@ def _check_cuda_inputs(x, A, w2, vecs, n_heads):
             "JAX package")
 
 
+def scratch_shapes(b: int, c: int, layers: int, tiles: int, is_bf16: int
+                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """name -> (shape, dtype) of the kernel's scratch for ``tiles`` token
+    tiles (``fst_num_tiles``): the tiles' K-softmax partials, the combined
+    ctx / s and, in bf16, the weights packed for the tensor cores (each
+    layer's A then its w2, 8 C^2 bf16)."""
+    shapes = {"part_m": ((b, tiles, c), torch.float32),
+              "part_s": ((b, tiles, c), torch.float32),
+              "part_ctx": ((b, tiles, c, D_K), torch.float32),
+              "ctxn": ((b, c, D_K), torch.float32)}
+    if is_bf16:
+        shapes["packed"] = ((layers, 8 * c * c), torch.bfloat16)
+    return shapes
+
+
+def scratch_layout(b: int, c: int, layers: int, tiles: int, is_bf16: int
+                   ) -> Tuple[Dict[str, int], int]:
+    """The scratch of ``scratch_shapes`` in one buffer: name -> byte offset
+    (each a multiple of 256), and the buffer's size in bytes."""
+    offsets, total = {}, 0
+    for name, (shape, dtype) in scratch_shapes(b, c, layers, tiles, is_bf16).items():
+        offsets[name] = total
+        total += -(-math.prod(shape) * dtype.itemsize // 256) * 256
+    return offsets, total
+
+
 def fused_transformer_stack(x: torch.Tensor, A: torch.Tensor, w2: torch.Tensor,
                             vecs: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B, N, C) tokens through the L layers of ``stack_layer_params``
@@ -121,21 +148,17 @@ def fused_transformer_stack(x: torch.Tensor, A: torch.Tensor, w2: torch.Tensor,
     lib = kernels.load("fused_stack")
     b, n, c = x.shape
     is_bf16 = int(x.dtype == torch.bfloat16)
-    tiles = lib.fst_num_tiles(n, is_bf16)
-    a_t, w2_t = A.to(x.dtype), w2.to(x.dtype)  # weights ride in the token dtype
     out = torch.empty_like(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    part_m = torch.empty((b, tiles, c), **f32)
-    part_s = torch.empty((b, tiles, c), **f32)
-    part_ctx = torch.empty((b, tiles, c, D_K), **f32)
-    ctxn = torch.empty((b, c, D_K), **f32)
+    offsets, nbytes = scratch_layout(b, c, A.shape[0], lib.fst_num_tiles(n, b, is_bf16), is_bf16)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    base = scratch.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fst_forward(
-            x.data_ptr(), out.data_ptr(), a_t.data_ptr(), w2_t.data_ptr(),
-            vecs.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
-            part_ctx.data_ptr(), ctxn.data_ptr(), b, n, c, n_heads, A.shape[0],
-            is_bf16, stream)
+            x.data_ptr(), out.data_ptr(), A.data_ptr(), w2.data_ptr(), vecs.data_ptr(),
+            *(base + offsets[name] if name in offsets else None
+              for name in ("packed", "part_m", "part_s", "part_ctx", "ctxn")),
+            b, n, c, n_heads, A.shape[0], is_bf16, stream)
     if err != 0:
         raise RuntimeError(f"fused-stack kernel launch failed: CUDA error {err}")
     fused_transformer_stack.launches += 1

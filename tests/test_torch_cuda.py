@@ -226,9 +226,18 @@ def _stack_inputs(b, n, c, layers, dtype, device, seed=0):
     (1, 28704, 128, 1),    # the level-1 ROI stack
     (2, 300, 128, 2),      # ragged N, batch 2
     (1, 1, 64, 1),         # one token
+    (1, 2160, 256, 7),     # the level-3 stack: fewer tiles than SMs
+    (1, 4096, 256, 1),     # the bottleneck stack
+    (2, 300, 256, 1),      # batch 2 at the 256-wide stacks
+    (1, 200, 32, 2),       # the narrow widths
+    (1, 200, 64, 2),
 ])
 def test_fused_stack_matches_plain(cuda, dtype, tol, b, n, c, layers):
-    x, A, w2, vecs = _stack_inputs(b, n, c, layers, dtype, cuda)
+    _check_stack(cuda, dtype, tol, b, n, c, layers)
+
+
+def _check_stack(device, dtype, tol, b, n, c, layers):
+    x, A, w2, vecs = _stack_inputs(b, n, c, layers, dtype, device)
     before = fs.fused_transformer_stack.launches
     got = fs.fused_transformer_stack(x, A, w2, vecs, c // 32)
     torch.cuda.synchronize()
@@ -236,6 +245,35 @@ def test_fused_stack_matches_plain(cuda, dtype, tol, b, n, c, layers):
     want = fs.fused_transformer_stack_reference(x, A, w2, vecs, c // 32)
     assert got.dtype == dtype and got.shape == x.shape
     assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol,tile", [(torch.float32, 1e-5, 16),
+                                            (torch.bfloat16, 3e-2, 16),
+                                            (torch.bfloat16, 3e-2, 32)])
+@pytest.mark.parametrize("c", [128, 256])
+@pytest.mark.parametrize("where", ["one_token_more", "one_token_less_than_two"])
+def test_fused_stack_ragged_tiles(cuda, monkeypatch, dtype, tol, tile, c, where):
+    """N one token past a tile, and one short of two tiles, for each tile
+    the kernels take: f32 blocks hold 16 tokens; bf16 blocks 16 or 32, as
+    ``tile_tokens`` picks by N, here forced with a build of that tile."""
+    from lintransunet_tpu_torch.kernels import build
+
+    n = tile + 1 if where == "one_token_more" else 2 * tile - 1
+    if dtype == torch.bfloat16:
+        lib = build.load("fused_stack", (f"-DFST_TILE={tile}",))
+        monkeypatch.setitem(build._loaded, "fused_stack", lib)
+        assert lib.fst_tile_tokens(n, 1) == tile
+    else:
+        assert build.load("fused_stack").fst_num_tiles(n, 1, 0) == (n + 15) // 16
+    _check_stack(cuda, dtype, tol, 1, n, c, 2)
+
+
+def test_fused_stack_is_deterministic(cuda):
+    x, A, w2, vecs = _stack_inputs(1, 5376, 256, 2, torch.bfloat16, cuda)
+    first = fs.fused_transformer_stack(x, A, w2, vecs, 8)
+    second = fs.fused_transformer_stack(x, A, w2, vecs, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_new_kernels_reject_what_they_do_not_take(cuda):

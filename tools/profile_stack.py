@@ -13,8 +13,11 @@ At the four token stacks of a window of the fused configuration
   clock64 marks to the kernel that applies a layer; prints each phase's
   share of a block's cycles and the cycles per block;
 * ``--variant NAME=FLAGS``: the library built again with the extra nvcc
-  flags (space-separated, such as ``-DFST_TILE=16``) and timed in turns
-  with the plain build (plain, variant, variant, plain), per shape.
+  flags (space-separated, such as ``-DFST_TILE=16``), held against the
+  plain PyTorch stack (``[check]``, at ``chip_smoke.STACK_TOL``) and timed
+  in turns with the plain build (plain, variant, variant, plain), per shape;
+* ``--unchecked NAME=FLAGS``: as ``--variant``, not held to the plain stack
+  (a build that is wrong by design, such as ``-DFST_FAKE_WEIGHTS=1``).
 
 Builds go to ``lintransunet_tpu_torch/_build/`` (git-ignored), each keyed
 on its flags; the plain build is the one the wrappers use.
@@ -25,6 +28,7 @@ import ctypes
 import subprocess
 import sys
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -37,7 +41,9 @@ from lintransunet_tpu_torch.experiments.common import cuda_ms  # noqa: E402
 from lintransunet_tpu_torch.kernels import build  # noqa: E402
 from lintransunet_tpu_torch.ops import fused_stack as fs  # noqa: E402
 
-PHASES = ("load", "stage", "mma", "softmax_ctx", "ln1", "gelu", "ln2")
+# the layer kernel's phases (`Phase` in csrc/fused_stack.cu); `weights` is
+# the wait for a weight chunk and its barrier
+PHASES = ("load", "weights", "mma", "softmax_ctx", "ln1", "gelu", "ln2")
 PHASE_SHAPES = [(4096, 256), (28704, 128)]
 ITERS = 10
 
@@ -60,6 +66,23 @@ def flops(n, c, layers):
 
 def use(lib):
     build._loaded["fused_stack"] = lib
+
+
+def check(label):
+    """The loaded build against the plain stack at the window's shapes (seven
+    layers) and at batch 2 with a ragged N; exits if one is too far."""
+    for b, n, c, layers in [(1, n, c, 7) for n, c in chip_smoke.STACK_SHAPES] + [(2, 300, 256, 2)]:
+        x, A, w2, vecs, heads = inputs(n, c, layers)
+        x = x.expand(b, n, c).contiguous()
+        got = fs.fused_transformer_stack(x, A, w2, vecs, heads)
+        want = fs.fused_transformer_stack_reference(x, A, w2, vecs, heads)
+        torch.cuda.synchronize()
+        err, rel = chip_smoke.rel_err(got, want)
+        ok = rel <= chip_smoke.STACK_TOL[torch.bfloat16]
+        print(f"[check] {label} B={b} N={n} C={c} L={layers}: max_abs_err {err:.3e} rel "
+              f"{rel:.3e} {'ok' if ok else 'TOO FAR'}", flush=True)
+        if not ok:
+            chip_smoke.fail(f"{label} disagrees with the plain stack")
 
 
 def time_calls(label):
@@ -122,21 +145,29 @@ def main():
                         help="clock64 phase split of the layer kernel")
     parser.add_argument("--variant", action="append", default=[],
                         help="NAME=FLAGS: a build with extra nvcc flags, timed in turns")
+    parser.add_argument("--unchecked", action="append", default=[],
+                        help="NAME=FLAGS: as --variant, without the check against plain")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         chip_smoke.fail("no CUDA device: this script runs only on an NVIDIA GPU")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
-    variants = [(v.split("=", 1)[0], tuple(v.split("=", 1)[1].split())) for v in args.variant]
-    build.build_libraries("fused_stack")
-    for _, flags in variants:
-        build.build_libraries("fused_stack", flags=flags)
+    parse = lambda v: (v.split("=", 1)[0], tuple(v.split("=", 1)[1].split()))  # noqa: E731
+    checked = [parse(v) for v in args.variant]
+    variants = checked + [parse(v) for v in args.unchecked]
+    builds = [()] + [flags for _, flags in variants] + ([("-DFST_PHASES",)] if args.phases else [])
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
+        list(pool.map(lambda flags: build.build_libraries("fused_stack", flags=flags), builds))
     for _, flags in variants:
         log = [line.strip() for line in build.build_log("fused_stack", flags).splitlines()
                if "registers" in line or "spill" in line]
         print(f"[build] {' '.join(flags)} ptxas: {' | '.join(log)}", flush=True)
     plain = build.load("fused_stack")
+    for name, flags in checked:
+        use(build.load("fused_stack", flags))
+        check(name)
+    use(plain)
     time_calls("build")
     per_kernel()
     for name, flags in variants:

@@ -46,8 +46,8 @@ PROFILED_WINDOWS = 3
 TOP = 20
 # kernel-name substrings -> class; the first match wins
 CLASSES = [
-    ("transformer-stack kernel", ("stack_kv_partial", "stack_ctx_combine",
-                                  "stack_apply_layer")),
+    ("transformer-stack kernel", ("stack_kv_", "stack_ctx_combine", "stack_apply_",
+                                  "stack_pack_weights")),
     ("conv-unit kernel", ("conv_unit_", "stats_reduce")),
     ("linear-attention kernel", ("ctx_partial", "ctx_combine", "attn_out")),
     ("cuDNN layout transposes", ("nhwcToNchw", "nchwToNhwc")),
