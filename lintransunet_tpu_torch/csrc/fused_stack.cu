@@ -23,9 +23,9 @@
 // in VMEM across layers; 28,704 x 128 tokens do not fit in a block's 227 KB
 // of shared memory, so here each layer is three launches:
 //
-// * `stack_kv_*`, per token tile (and head group): the k/v projections,
-//   the tile's per-feature max m and sum s of exp(k - m), and the per-head
-//   partial ctx = exp(k - m)^T v. k and v never reach device memory.
+// * `stack_kv_*`, per token tile: the k/v projections, the tile's
+//   per-feature max m and sum s of exp(k - m), and the per-head partial
+//   ctx = exp(k - m)^T v. k and v never reach device memory.
 // * `stack_ctx_combine`, per feature: merges the tiles' partials with
 //   max-rescaling in a fixed order (no atomics, deterministic) into
 //   ctx / s, as the linear-attention kernel's combine does.
@@ -36,36 +36,48 @@
 // The bf16 kernels (`stack_kv_mma`, `stack_apply_mma`). A layer is
 // ~16 C^2 FLOP per token against ~4 C bytes of token traffic: bound by
 // operations. Every block streams the layer's weights (1 MB of bf16 at
-// C = 256) from L2 once per token tile, so what holds a block back is how
-// fast weight chunks reach the tensor cores. The design:
+// C = 256) from L2 once per token tile. The design:
 // * `stack_pack_weights` lays the weights out once per call as bf16
 //   panels of 16 K rows x 32 columns, XOR-swizzled for `ldmatrix`
 //   (`packed_offset` is the layout rule). The chunk a product needs (KC
 //   rows x NP output columns: 16 KB at C = 256, 8 KB below) is then KC / 16
-//   contiguous spans, copied by 16-byte `cp.async` straight into the
-//   swizzled tile that `ldsm_x4_t` reads.
+//   contiguous spans, each one bulk copy (TMA) straight into the swizzled
+//   tile that `ldsm_x4_t` reads, completing on the slot's mbarrier.
 // * The chunks of all of a kernel's products form one stream through a
-//   ring of S buffers (`ring_stages`: 3 or 4): while chunk g's MMAs run,
-//   chunks g + 1 .. g + S - 1 are in flight, across products and their
-//   epilogues. One block barrier per chunk.
+//   ring of kStages = 4 slots: while chunk g's MMAs run, chunks g + 1 ..
+//   g + 3 are in flight, across products and their epilogues. One block
+//   barrier per chunk.
 // * Every product is `ldmatrix` + `mma.sync` m16n8k16 from swizzled tiles:
 //   the projections and the FFN, e^T v (the token axis is the reduction:
 //   e is read transposed) and Q' ctx (one 32 x 32 product per head, so no
 //   head mask).
-// * kTileTokens (32) tokens per block; its 8 warps split each product as
-//   (TM / 16) row groups x (8 / (TM / 16)) column groups. The kv pass may
-//   split the heads over kKvGroups blocks per tile (no exchange: a head's
-//   k, v and ctx stay in one block).
+// * 16 tokens per block where 32-token tiles would give fewer than two
+//   blocks per SM (`tile_tokens`: the window's stacks at C = 256, whose 135
+//   to 336 tiles then run two blocks per SM on all 132 SMs), else 32. The
+//   8 warps split each product as (TM / 16) row groups x (8 / (TM / 16))
+//   column groups.
+// * LN1's f32 output stays in the registers of the warp that owns the row
+//   until LN2 adds it back, which leaves shared memory for the ring.
+//
+// What bounds it now (tools/profile_stack.py on an H100, PERF.md, PR 7):
+// a 16-token block at C = 256 spends ~1,300 cycles per chunk whatever the
+// ring's depth (3, 4 or 6) or the tile (16 or 32 tokens); with no weight
+// copies at all it is 17% faster, and without the per-chunk barrier too,
+// 22%. So the L2 stream is not what binds; the per-chunk work is: each B
+// element read from shared memory feeds only 16 tokens (40 KB of shared
+// memory traffic per 64 MMAs), behind short dependent MMA chains, and
+// the epilogues take a quarter of a block. Clusters that multicast each
+// chunk into two or four blocks halve the L2 reads and were 2x slower.
 //
 // Shared memory of the bf16 kernels (TM tokens, kStages chunks):
 //   apply: s_a   TM x 2C bf16, swizzled: the A operand of every product
 //          s_g   TM x (min(2C, 256) + 8) f32: a product's output
-//          s_x1  TM x C f32: the residual
 //          s_ctx C x 32 bf16: ctx / s as per-head B panels
-//          ring  kStages chunks
-//   kv:    s_a, s_g (C / groups + 8 columns), ring.
-// At TM = 32, kStages = 4: C = 256 apply 177 KB (one block per SM), kv
-// 129 KB; C = 128 apply 105 KB (two per SM), kv 65 KB.
+//          ring  kStages chunks, then kStages mbarriers
+//   kv:    s_a, s_g (C + 8 columns), ring.
+// C = 256, TM = 16: apply 112.5 KB, kv 96.5 KB (two blocks per SM each);
+// TM = 32: apply 145 KB, kv 129 KB (one). C = 128, TM = 32: apply 89 KB
+// (two), kv 65 KB (three).
 //
 // The f32 kernels (`stack_kv_fma`, `stack_apply_fma`) are the first
 // design, kept for f32 tokens: FMA products from shared memory, weights
@@ -87,51 +99,13 @@ constexpr int kDk = 32;  // features per head: one per lane
 constexpr float kLnEps = 1e-6f;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
-// Build-time choices, overridden with -D only to time variants
-// (tools/profile_stack.py --variant): FST_TILE forces 16 or 32 tokens per
-// bf16 block (0: `tile_tokens` chooses), FST_STAGES the ring's depth (0:
-// `ring_stages`), FST_KV_GROUPS the head groups of the kv pass, FST_TMA=0
-// the weight chunks' copies by cp.async instead of the copy engine,
-// FST_CLUSTER=2 or 4 clusters of that many token tiles that share each
-// weight chunk (every block copies 1 / FST_CLUSTER of it into all),
-// FST_COPY_SPLIT=k each span's copy cut into k bulk copies, and
-// FST_FAKE_WEIGHTS=1 no weight copies at all (wrong results: the floor of
-// everything else).
+// FST_TILE=16 or 32 forces the tokens per bf16 block (0, the default:
+// `tile_tokens` chooses); the card tests build it to reach each tile's
+// ragged edge, tools/profile_stack.py to time one against the other.
 #ifndef FST_TILE
 #define FST_TILE 0
 #endif
-#ifndef FST_KV_GROUPS
-#define FST_KV_GROUPS 1
-#endif
-#ifndef FST_STAGES
-#define FST_STAGES 0
-#endif
-#ifndef FST_TMA
-#define FST_TMA 1
-#endif
-#ifndef FST_CLUSTER
-#define FST_CLUSTER 1
-#endif
-#ifndef FST_COPY_SPLIT
-#define FST_COPY_SPLIT 1
-#endif
-#ifndef FST_FAKE_WEIGHTS
-#define FST_FAKE_WEIGHTS 0
-#endif
-#ifndef FST_PROXY_FENCE
-#define FST_PROXY_FENCE 1
-#endif
 static_assert(FST_TILE == 0 || FST_TILE == 16 || FST_TILE == 32, "a tile of 16 or 32 tokens");
-static_assert(FST_CLUSTER == 1 || FST_CLUSTER == 2 || FST_CLUSTER == 4, "clusters of 1, 2 or 4");
-static_assert(FST_CLUSTER == 1 || FST_TMA, "clusters share chunks through the copy engine");
-constexpr int kKvGroups = FST_KV_GROUPS;
-constexpr int kCluster = FST_CLUSTER;
-constexpr int kCopySplit = FST_COPY_SPLIT;
-#if FST_CLUSTER > 1
-#define FST_CLUSTER_DIMS __cluster_dims__(FST_CLUSTER, 1, 1)
-#else
-#define FST_CLUSTER_DIMS
-#endif
 constexpr int kF32Tokens = 16;  // tokens per f32 block
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
@@ -302,18 +276,24 @@ stack_ctx_combine(const float* __restrict__ part_m, const float* __restrict__ pa
   }
 }
 
-// bf16 elements of one weight chunk: 16 KB at C = 256, 8 KB below.
+// bf16 elements of one weight chunk: 16 KB at C = 256, 8 KB below
+// (-DFST_CHUNK_KB=k: k KB at every width, to time other sizes;
+// -DFST_STEP_CHUNKS=P: one barrier per P chunks).
+#ifndef FST_CHUNK_KB
+#define FST_CHUNK_KB 0
+#endif
+#ifndef FST_STEP_CHUNKS
+#define FST_STEP_CHUNKS 1
+#endif
+constexpr int kStep = FST_STEP_CHUNKS;
 template <int C>
 __host__ __device__ constexpr int chunk_elems() {
-  return C >= 256 ? 8192 : 4096;
+  return FST_CHUNK_KB ? FST_CHUNK_KB * 512 : (C >= 256 ? 8192 : 4096);
 }
 
-// Chunks in a block's ring: four, which leaves room for two 16-token
-// blocks per SM at C = 256.
-template <int C, int TM>
-__host__ __device__ constexpr int ring_stages() {
-  return FST_STAGES ? FST_STAGES : 4;
-}
+// Chunks in a block's ring: three in flight while one is read (three
+// stages measured alike, six cost the second block per SM at C = 256).
+constexpr int kStages = 4;
 
 // One product's weights: columns [col0, col0 + np) of a packed K x n
 // matrix, streamed in chunks of kc rows (chunks = K / kc).
@@ -323,27 +303,14 @@ struct Pass {
 };
 
 // The ring of S weight chunks of one block. Chunk g of the kernel's stream
-// (the passes' chunks in order) lands in slot g % S, copied by the copy
-// engine (FST_TMA, the default): thread 0 arms slot g's mbarrier with the
-// chunk's bytes and starts one bulk copy per 16-row span; every thread
-// waits on the barrier's parity (g / S) & 1. With FST_TMA=0 every thread
-// copies its share in 16-byte `cp.async`s, one commit group per chunk
-// (empty past the end of the stream), so that `cp_async_wait<S - 2>` at
-// chunk g means "my part of chunk g has landed".
-//
-// In a cluster (FST_CLUSTER > 1) every block runs the same stream: each
-// copies its 1 / kCluster share of every span into all the cluster's
-// blocks, and arms its own barrier with the whole chunk. A slot is filled
-// again only when every block has released it: at chunk g thread 0 arrives
-// on slot (g - 1)'s `empty` barrier in each block, and refills the slot
-// that chunk g - 2 freed once its own `empty` barrier says all have.
+// (the passes' chunks in order) lands in slot g % S: thread 0 arms slot
+// g's mbarrier with the chunk's bytes and starts one bulk copy (TMA) per
+// 16-row span; every thread waits on the barrier's parity (g / S) & 1.
 template <int CHUNK, int NPASS, int S>
 struct Ring {
-  static_assert(S >= 3, "a ring of at least three chunks");
-  // chunks in flight ahead of the one in use
-  static constexpr int kLead = kCluster > 1 ? S - 2 : S - 1;
+  static_assert(S >= 3 && S > kStep, "a ring of at least three chunks");
   bf16* slots;
-  unsigned long long* full;  // S mbarriers (FST_TMA), then S `empty` ones (clusters)
+  unsigned long long* full;  // S mbarriers
   Pass pass[NPASS];
 
   __device__ __forceinline__ int chunks() const {
@@ -354,67 +321,32 @@ struct Ring {
   }
 
   __device__ __forceinline__ void issue(int g) const {
-    if (FST_FAKE_WEIGHTS) return;
     bf16* dst = slots + (g % S) * CHUNK;
-#if FST_TMA
     unsigned long long* bar = full + g % S;
-#endif
 #pragma unroll
     for (int p = 0; p < NPASS; ++p) {
       if (g >= 0 && g < pass[p].chunks) {  // g: the chunk's index in pass p
         const Pass& ps = pass[p];
         const int kb0 = g * ps.kc / 16;
-#if FST_TMA
         const unsigned span_bytes = ps.np * 32;  // 16 rows of np bf16
         ltu::mbar_expect_tx(bar, span_bytes * (ps.kc / 16));
         for (int s = 0; s < ps.kc / 16; ++s) {
-          bf16* to = dst + s * ps.np * 16;
-          const bf16* from = ps.w + packed_panel(kb0 + s, ps.col0 / 32, ps.n);
-          const unsigned piece = span_bytes / (kCluster * kCopySplit);
-          const unsigned rank = kCluster > 1 ? ltu::cluster_rank() : 0;
-          for (int q = 0; q < kCopySplit; ++q) {
-            const unsigned at = (rank * kCopySplit + q) * piece / 2;  // elements
-            if (kCluster == 1) {
-              ltu::bulk_copy(to + at, from + at, piece, bar);
-            } else {
-              ltu::bulk_copy_multicast(to + at, from + at, piece, bar, (1u << kCluster) - 1);
-            }
-          }
+          ltu::bulk_copy(dst + s * ps.np * 16, ps.w + packed_panel(kb0 + s, ps.col0 / 32, ps.n),
+                         span_bytes, bar);
         }
-#else
-        const int span = ps.np * 2;  // 16-byte units per 16-row span
-        const int units = ps.kc / 16 * span;
-        for (int u = threadIdx.x; u < units; u += kThreads) {
-          const int s = u / span, w = u - s * span;
-          ltu::cp_async16(dst + u * 8, ps.w + packed_panel(kb0 + s, ps.col0 / 32, ps.n) + w * 8);
-        }
-#endif
       }
       g -= pass[p].chunks;
     }
-#if !FST_TMA
-    ltu::cp_async_commit();
-#endif
   }
 
-  // Before anything else in the kernel: the barriers and the first S - 1
-  // chunks. The caller's barrier (chunk 0's) publishes the barriers'
-  // initialisation before anyone waits on them.
-  // In a cluster, every block's barriers are initialised before any block
-  // copies into them (all threads call this).
+  // Before anything else in the kernel (thread 0): the barriers and the
+  // first S - 1 chunks. The caller's barrier (chunk 0's) publishes the
+  // barriers' initialisation before anyone waits on them.
   __device__ __forceinline__ void prologue() const {
-#if FST_TMA
-    if (threadIdx.x == 0) {
-      for (int s = 0; s < S; ++s) ltu::mbar_init(full + s, 1);
-      if (kCluster > 1) {
-        for (int s = 0; s < S; ++s) ltu::mbar_init(full + S + s, kCluster);
-      }
-      ltu::fence_mbar_init();
-    }
-    if (kCluster > 1) ltu::cluster_sync();
     if (threadIdx.x != 0) return;
-#endif
-    for (int s = 0; s < kLead; ++s) issue(s);
+    for (int s = 0; s < S; ++s) ltu::mbar_init(full + s, 1);
+    ltu::fence_mbar_init();
+    for (int s = 0; s < S - kStep; ++s) issue(s);
   }
 
   // The start of chunk g: wait for it, then (after the block barrier, which
@@ -422,30 +354,18 @@ struct Ring {
   // that slot. At chunk 0 the tile's own cp.async copies land first.
   // Returns chunk g's slot.
   __device__ __forceinline__ const bf16* next(int g, PhaseClock& ph) const {
-#if FST_TMA
     if (g == 0) {
       ltu::cp_async_wait_all();
       __syncthreads();  // the barriers are initialised
     }
-    if (!FST_FAKE_WEIGHTS) ltu::mbar_wait(full + g % S, (g / S) & 1);
-    if (FST_FAKE_WEIGHTS < 2) __syncthreads();
-    if (threadIdx.x == 0) {
-      const int c = g + kLead;  // the chunk to start, into the slot chunk c - S used
-      if (kCluster > 1) {
-        unsigned long long* empty = full + S;
-        if (g >= 1 && g - 1 + S < chunks()) {  // chunk g - 1's slot is refilled
-          for (int r = 0; r < kCluster; ++r) ltu::mbar_arrive_cluster(empty + (g - 1) % S, r);
-        }
-        if (c >= S && c < chunks()) ltu::mbar_wait(empty + c % S, ((c - S) / S) & 1);
+    if (g % kStep == 0) {
+      for (int q = g; q < g + kStep && q < chunks(); ++q) ltu::mbar_wait(full + q % S, (q / S) & 1);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        ltu::fence_proxy_async();  // the block's reads of the slot come first
+        for (int q = g + S - kStep; q < g + S; ++q) issue(q);
       }
-      if (FST_PROXY_FENCE) ltu::fence_proxy_async();  // the block's reads of the slot come first
-      issue(c);
     }
-#else
-    ltu::cp_async_wait<S - 2>();
-    __syncthreads();
-    issue(g + S - 1);
-#endif
     ph.mark(kWeights);
     return slots + (g % S) * CHUNK;
   }
@@ -465,6 +385,7 @@ __device__ __forceinline__ void gemm_pass(const R& ring, int& g, const bf16* s_a
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = warp % MG, n_base = (warp / MG) * WN;
   const bool active = n_base < NP;
+  if (kStep > 1 && g % kStep != 0) __syncthreads();  // a pass that starts mid-step
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -529,56 +450,51 @@ __device__ __forceinline__ float get(const bf16* s_a, int acpr, int r, int col) 
 // Shared-memory plan of the bf16 kernels, in bytes (see the header note).
 template <int C, int TM, bool APPLY>
 struct MmaPlan {
-  static constexpr int kStages = ring_stages<C, TM>();
-  static constexpr int kGroups = APPLY ? 1 : (C / 32 >= kKvGroups ? kKvGroups : 1);
-  static constexpr int kLdG = (APPLY ? cmin(2 * C, 256) : C / kGroups) + 8;
+  static constexpr int kLdG = (APPLY ? cmin(2 * C, 256) : C) + 8;
   static constexpr size_t a = 0;
   static constexpr size_t g = ltu::align_up(a + 2 * TM * 2 * C, 128);
   static constexpr size_t ctx = ltu::align_up(g + 4 * TM * kLdG, 128);
   static constexpr size_t ring = ltu::align_up(ctx + (APPLY ? 2 * C * kDk : 0), 128);
   static constexpr size_t bars = ltu::align_up(ring + 2 * kStages * chunk_elems<C>(), 8);
-  static constexpr size_t total = bars + 8 * kStages * (kCluster > 1 ? 2 : 1);
+  static constexpr size_t total = bars + 8 * kStages;
 };
 
-// One block per (token tile, head group, batch): the k and v projections
-// of the group's heads, the tile's K-softmax partials and its partial ctx.
+// One block per (token tile, batch): the k and v projections, the tile's
+// K-softmax partials and its partial ctx.
 template <int C, int TM>
-__global__ void FST_CLUSTER_DIMS __launch_bounds__(kThreads, C >= 256 && TM == 32 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, C >= 256 && TM == 32 ? 1 : 2)
 stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
              const float* __restrict__ vec, float* __restrict__ part_m,
              float* __restrict__ part_s, float* __restrict__ part_ctx, int n) {
   using Plan = MmaPlan<C, TM, false>;
-  constexpr int NP = C / Plan::kGroups;  // the group's features
   constexpr int ACPR = 2 * C / 8;
   constexpr int CH = chunk_elems<C>();
-  constexpr int KC = cmin(C, CH / NP);
+  constexpr int KC = cmin(C, CH / C);
   constexpr int LDG = Plan::kLdG;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_a = reinterpret_cast<bf16*>(smem + Plan::a);
   float* s_g = reinterpret_cast<float*>(smem + Plan::g);
-  const int tile = blockIdx.x, tiles = (n + TM - 1) / TM, b = blockIdx.z;
-  const int f0 = blockIdx.y * NP;
+  const int tile = blockIdx.x, tiles = gridDim.x, b = blockIdx.y;
   const int t0 = tile * TM;
-  const int count = min(TM, n - t0);  // <= 0: a cluster's padding block
-  const bool real = tile < tiles;
+  const int count = min(TM, n - t0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   PhaseClock ph;  // not flushed: the split covers the apply kernel
 
-  const Ring<CH, 2, Plan::kStages> ring{reinterpret_cast<bf16*>(smem + Plan::ring),
-                                        reinterpret_cast<unsigned long long*>(smem + Plan::bars),
-                                        {{packed, 6 * C, C + f0, NP, KC, C / KC},
-                                         {packed, 6 * C, 2 * C + f0, NP, KC, C / KC}}};
+  const Ring<CH, 2, kStages> ring{reinterpret_cast<bf16*>(smem + Plan::ring),
+                                  reinterpret_cast<unsigned long long*>(smem + Plan::bars),
+                                  {{packed, 6 * C, C, C, KC, C / KC},
+                                   {packed, 6 * C, 2 * C, C, KC, C / KC}}};
   load_tile_async<C, TM>(x + static_cast<size_t>(b) * n * C, s_a, t0, count);
   ring.prologue();
 
   int g = 0;
-  gemm_pass<TM, NP, KC, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // k
+  gemm_pass<TM, C, KC, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // k
   __syncthreads();
   // per feature: the tile's max and sum of exp; e = exp(k - m), rounded to
-  // bf16 as the ctx product's operand, into s_a's columns [C, C + NP)
+  // bf16 as the ctx product's operand, into s_a's columns [C, 2C)
   const size_t part = static_cast<size_t>(b) * tiles + tile;
-  for (int f = tid; f < NP; f += kThreads) {
-    const float bk = vec[1 * 2 * C + f0 + f];
+  for (int f = tid; f < C; f += kThreads) {
+    const float bk = vec[1 * 2 * C + f];
     float m = -INFINITY;
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
@@ -591,26 +507,24 @@ stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
       s += e;
       put(s_a, ACPR, r, C + f, e);
     }
-    if (real) {
-      part_m[part * C + f0 + f] = m;
-      part_s[part * C + f0 + f] = s;
-    }
+    part_m[part * C + f] = m;
+    part_s[part * C + f] = s;
   }
-  gemm_pass<TM, NP, KC, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // v
+  gemm_pass<TM, C, KC, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // v
   __syncthreads();
-  // v + bv in bf16 over x (columns [0, NP)), zero past count
-  for (int idx = tid; idx < TM * NP / 2; idx += kThreads) {
-    const int r = idx / (NP / 2), f = (idx - r * (NP / 2)) * 2;
+  // v + bv in bf16 over x (columns [0, C)), zero past count
+  for (int idx = tid; idx < TM * C / 2; idx += kThreads) {
+    const int r = idx / (C / 2), f = (idx - r * (C / 2)) * 2;
     const float2 v = *reinterpret_cast<const float2*>(s_g + r * LDG + f);
     const bool in = r < count;
     *reinterpret_cast<unsigned*>(s_a + swz(r, f / 8, ACPR) + f % 8) =
-        ltu::pack_bf16x2(in ? v.x + vec[2 * 2 * C + f0 + f] : 0.f,
-                         in ? v.y + vec[2 * 2 * C + f0 + f + 1] : 0.f);
+        ltu::pack_bf16x2(in ? v.x + vec[2 * 2 * C + f] : 0.f,
+                         in ? v.y + vec[2 * 2 * C + f + 1] : 0.f);
   }
   __syncthreads();
   // ctx[i][j] = sum_r e[r][i] v[r][j] per head: M = the head's 32 features
   // (two 16-row tiles), N = 32, K = the tile's tokens, e read transposed
-  for (int u = warp; u < NP / 32 * 2; u += kWarps) {
+  for (int u = warp; u < C / 32 * 2; u += kWarps) {
     const int hl = u / 2, mt = u % 2;
     float acc[4][4] = {};
 #pragma unroll
@@ -626,8 +540,7 @@ stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
         ltu::mma_bf16_16816(acc[2 * p + 1], a, bb[2], bb[3]);
       }
     }
-    const int i = f0 + hl * 32 + mt * 16 + (lane >> 2);
-    if (!real) continue;
+    const int i = hl * 32 + mt * 16 + (lane >> 2);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
@@ -637,14 +550,13 @@ stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
           make_float2(acc[j][2], acc[j][3]);
     }
   }
-  if (kCluster > 1) ltu::cluster_sync();  // no block leaves while the others may signal it
 }
 
 // One block per (token tile, batch): the rest of the layer, in place.
 // s_a's columns over the layer: x in [0, C); Q', then attn in place, in
 // [C, 2C); x1 in [C, 2C) (x is dead by then); h over [0, 2C).
 template <int C, int TM>
-__global__ void FST_CLUSTER_DIMS __launch_bounds__(kThreads, C >= 256 && TM == 32 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, C >= 256 && TM == 32 ? 1 : 2)
 stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
                 const float* __restrict__ vec, const bf16* __restrict__ ctx_panels, int n,
                 float inv_sqrt_dk) {
@@ -664,7 +576,7 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
   bf16* s_a = reinterpret_cast<bf16*>(smem + Plan::a);
   float* s_g = reinterpret_cast<float*>(smem + Plan::g);
   bf16* s_ctx = reinterpret_cast<bf16*>(smem + Plan::ctx);
-  const int b = blockIdx.z;
+  const int b = blockIdx.y;
   const int t0 = blockIdx.x * TM;
   const int count = min(TM, n - t0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -672,7 +584,7 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
 
   // the stream: q, o, W1 (one or two passes), W2
   const bf16* w2p = packed + 6 * C * C;
-  using R = Ring<CH, 3 + W1P, Plan::kStages>;
+  using R = Ring<CH, 3 + W1P, kStages>;
   const R ring = [&] {
     R r{reinterpret_cast<bf16*>(smem + Plan::ring),
         reinterpret_cast<unsigned long long*>(smem + Plan::bars), {}};
@@ -815,7 +727,6 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
   }
   ph.mark(kLn2);
   ph.flush();
-  if (kCluster > 1) ltu::cluster_sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -1100,21 +1011,20 @@ int launch_tm(const bf16* x, bf16* out, const bf16* packed, const float* vecs, f
   }
   const size_t per_layer = 8 * static_cast<size_t>(C) * C;
   const int tiles = (n + TM - 1) / TM;
-  const int blocks = (tiles + kCluster - 1) / kCluster * kCluster;  // whole clusters
-  const dim3 kv_grid(blocks, KvPlan::kGroups, batch), apply_grid(blocks, 1, batch);
+  const dim3 grid(tiles, batch);
   for (int l = 0; l < layers; ++l) {
     const bf16* p_l = packed + l * per_layer;
     const float* vec_l = vecs + static_cast<size_t>(l) * 16 * 2 * C;
     const bf16* in = l == 0 ? x : out;
-    stack_kv_mma<C, TM><<<kv_grid, kThreads, KvPlan::total, stream>>>(in, p_l, vec_l, part_m,
-                                                                        part_s, part_ctx, n);
+    stack_kv_mma<C, TM><<<grid, kThreads, KvPlan::total, stream>>>(in, p_l, vec_l, part_m, part_s,
+                                                                   part_ctx, n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     stack_ctx_combine<<<dim3(C, batch), kThreads, 0, stream>>>(part_m, part_s, part_ctx, nullptr,
                                                                panels, tiles, C);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    stack_apply_mma<C, TM><<<apply_grid, kThreads, ApplyPlan::total, stream>>>(
+    stack_apply_mma<C, TM><<<grid, kThreads, ApplyPlan::total, stream>>>(
         in, out, p_l, vec_l, panels, n, inv_sqrt_dk());
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

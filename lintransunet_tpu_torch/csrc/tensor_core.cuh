@@ -1,8 +1,9 @@
 // Warp-level bf16 tensor-core helpers shared by the probe kernels
 // (csrc/probe_taps.cu, csrc/probe_conv.cu) and the transformer stack
 // (csrc/fused_stack.cu): `ldmatrix` loads from XOR-swizzled shared-memory
-// tiles, `mma.sync` m16n8k16 with f32 accumulation, and 16-byte `cp.async`
-// copies from device to shared memory.
+// tiles, `mma.sync` m16n8k16 with f32 accumulation, and asynchronous copies
+// from device to shared memory (16-byte `cp.async`; bulk copies that
+// complete on an mbarrier).
 //
 // Tiles are stored as rows of 16-byte chunks (8 bf16). `swz` places chunk c
 // of row r so that any 8 consecutive rows read at one logical chunk land on
@@ -94,13 +95,8 @@ __device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned
                : "memory");
 }
 
-// Built with -DLTU_MBAR_WATCHDOG, a wait that lasts about a second traps,
-// so that a barrier protocol under test fails instead of hanging.
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
   unsigned done = 0;
-#ifdef LTU_MBAR_WATCHDOG
-  const long long start = clock64();
-#endif
   while (!done) {
     asm volatile(
         "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -108,9 +104,6 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
         : "=r"(done)
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
-#ifdef LTU_MBAR_WATCHDOG
-    if (!done && clock64() - start > 2000000000ll) __trap();
-#endif
   }
 }
 
@@ -122,38 +115,6 @@ __device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, unsigned
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
-}
-
-// Thread-block clusters: the same copy into the same offsets of the shared
-// memory of every block in `mask` (bit r: the block of rank r), each
-// completing on its own barrier at `bar`'s offset.
-__device__ __forceinline__ void bulk_copy_multicast(void* smem, const void* gmem, unsigned bytes,
-                                                    unsigned long long* bar, unsigned short mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-      " [%0], [%1], %2, [%3], %4;\n"
-      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
-      : "memory");
-}
-
-// One arrival on the barrier at `bar`'s offset in the block of rank `cta`.
-__device__ __forceinline__ void mbar_arrive_cluster(unsigned long long* bar, unsigned cta) {
-  asm volatile(
-      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
-      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n"
-      ::"r"(smem_addr(bar)), "r"(cta)
-      : "memory");
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
 }
 
 // Orders this thread's earlier shared-memory accesses before later copies

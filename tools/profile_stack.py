@@ -15,9 +15,7 @@ At the four token stacks of a window of the fused configuration
 * ``--variant NAME=FLAGS``: the library built again with the extra nvcc
   flags (space-separated, such as ``-DFST_TILE=16``), held against the
   plain PyTorch stack (``[check]``, at ``chip_smoke.STACK_TOL``) and timed
-  in turns with the plain build (plain, variant, variant, plain), per shape;
-* ``--unchecked NAME=FLAGS``: as ``--variant``, not held to the plain stack
-  (a build that is wrong by design, such as ``-DFST_FAKE_WEIGHTS=1``).
+  in turns with the plain build (plain, variant, variant, plain), per shape.
 
 Builds go to ``lintransunet_tpu_torch/_build/`` (git-ignored), each keyed
 on its flags; the plain build is the one the wrappers use.
@@ -145,17 +143,13 @@ def main():
                         help="clock64 phase split of the layer kernel")
     parser.add_argument("--variant", action="append", default=[],
                         help="NAME=FLAGS: a build with extra nvcc flags, timed in turns")
-    parser.add_argument("--unchecked", action="append", default=[],
-                        help="NAME=FLAGS: as --variant, without the check against plain")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         chip_smoke.fail("no CUDA device: this script runs only on an NVIDIA GPU")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
-    parse = lambda v: (v.split("=", 1)[0], tuple(v.split("=", 1)[1].split()))  # noqa: E731
-    checked = [parse(v) for v in args.variant]
-    variants = checked + [parse(v) for v in args.unchecked]
+    variants = [(v.split("=", 1)[0], tuple(v.split("=", 1)[1].split())) for v in args.variant]
     builds = [()] + [flags for _, flags in variants] + ([("-DFST_PHASES",)] if args.phases else [])
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
         list(pool.map(lambda flags: build.build_libraries("fused_stack", flags=flags), builds))
@@ -164,7 +158,7 @@ def main():
                if "registers" in line or "spill" in line]
         print(f"[build] {' '.join(flags)} ptxas: {' | '.join(log)}", flush=True)
     plain = build.load("fused_stack")
-    for name, flags in checked:
+    for name, flags in variants:
         use(build.load("fused_stack", flags))
         check(name)
     use(plain)
