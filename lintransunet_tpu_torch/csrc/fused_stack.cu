@@ -40,9 +40,9 @@
 // * `stack_pack_weights` lays the weights out once per call as bf16
 //   panels of 16 K rows x 32 columns, XOR-swizzled for `ldmatrix`
 //   (`packed_offset` is the layout rule). The chunk a product needs (KC
-//   rows x NP output columns: 16 KB at C = 256, 8 KB below) is then KC / 16
-//   contiguous spans, each one bulk copy (TMA) straight into the swizzled
-//   tile that `ldsm_x4_t` reads, completing on the slot's mbarrier.
+//   rows x NP output columns, `chunk_elems`) is then KC / 16 contiguous
+//   spans, each one bulk copy (TMA) straight into the swizzled tile that
+//   `ldsm_x4_t` reads, completing on the slot's mbarrier.
 // * The chunks of all of a kernel's products form one stream through a
 //   ring of kStages = 4 slots: while chunk g's MMAs run, chunks g + 1 ..
 //   g + 3 are in flight, across products and their epilogues. One block
@@ -51,23 +51,24 @@
 //   the projections and the FFN, e^T v (the token axis is the reduction:
 //   e is read transposed) and Q' ctx (one 32 x 32 product per head, so no
 //   head mask).
-// * 16 tokens per block where 32-token tiles would give fewer than two
-//   blocks per SM (`tile_tokens`: the window's stacks at C = 256, whose 135
-//   to 336 tiles then run two blocks per SM on all 132 SMs), else 32. The
+// * The grid fills the card (`tile_tokens`): 32-token blocks where they
+//   give every SM one, else 16-token blocks, two per SM on every SM. The
 //   8 warps split each product as (TM / 16) row groups x (8 / (TM / 16))
 //   column groups.
 // * LN1's f32 output stays in the registers of the warp that owns the row
 //   until LN2 adds it back, which leaves shared memory for the ring.
 //
 // What bounds it now (tools/profile_stack.py on an H100, PERF.md, PR 7):
-// a 16-token block at C = 256 spends ~1,300 cycles per chunk whatever the
-// ring's depth (3, 4 or 6) or the tile (16 or 32 tokens); with no weight
-// copies at all it is 17% faster, and without the per-chunk barrier too,
-// 22%. So the L2 stream is not what binds; the per-chunk work is: each B
-// element read from shared memory feeds only 16 tokens (40 KB of shared
-// memory traffic per 64 MMAs), behind short dependent MMA chains, and
-// the epilogues take a quarter of a block. Clusters that multicast each
-// chunk into two or four blocks halve the L2 reads and were 2x slower.
+// a block's step costs about the same whatever its chunk holds (16 or 32
+// tokens, 8 to 16 MMAs a warp), ~1,300 cycles at C = 256, and the ring's
+// depth (3, 4 or 6 stages) does not move it; with no weight copies at all
+// a call is 17% faster, and without the per-chunk barrier too, 22%. So the
+// L2 stream is not what binds but the per-step work of a thin tile:
+// `ldmatrix` of each B element for only 16 or 32 tokens behind short
+// dependent MMA chains; the epilogues take a quarter of a block. Hence
+// 32 KB chunks for 32-token blocks at C = 256 (half the steps), and no
+// clusters: multicasting each chunk into two or four blocks halves the L2
+// reads and was 2x slower.
 //
 // Shared memory of the bf16 kernels (TM tokens, kStages chunks):
 //   apply: s_a   TM x 2C bf16, swizzled: the A operand of every product
@@ -75,9 +76,9 @@
 //          s_ctx C x 32 bf16: ctx / s as per-head B panels
 //          ring  kStages chunks, then kStages mbarriers
 //   kv:    s_a, s_g (C + 8 columns), ring.
-// C = 256, TM = 16: apply 112.5 KB, kv 96.5 KB (two blocks per SM each);
-// TM = 32: apply 145 KB, kv 129 KB (one). C = 128, TM = 32: apply 89 KB
-// (two), kv 65 KB (three).
+// C = 256: TM = 32 (32 KB chunks) apply 209 KB, kv 193 KB, one block per
+// SM; TM = 16 (16 KB) apply 112.5 KB, kv 96.5 KB, two. C = 128, TM = 32
+// (8 KB): apply 89 KB (two), kv 65 KB (three).
 //
 // The f32 kernels (`stack_kv_fma`, `stack_apply_fma`) are the first
 // design, kept for f32 tokens: FMA products from shared memory, weights
@@ -276,23 +277,17 @@ stack_ctx_combine(const float* __restrict__ part_m, const float* __restrict__ pa
   }
 }
 
-// bf16 elements of one weight chunk: 16 KB at C = 256, 8 KB below
-// (-DFST_CHUNK_KB=k: k KB at every width, to time other sizes;
-// -DFST_STEP_CHUNKS=P: one barrier per P chunks).
-#ifndef FST_CHUNK_KB
-#define FST_CHUNK_KB 0
-#endif
-#ifndef FST_STEP_CHUNKS
-#define FST_STEP_CHUNKS 1
-#endif
-constexpr int kStep = FST_STEP_CHUNKS;
-template <int C>
+// bf16 elements of one weight chunk: at C = 256, 32 KB for a 32-token
+// block (one per SM) and 16 KB for a 16-token one (two per SM); 8 KB
+// below C = 256. Measured (PERF.md, PR 7): 32 KB chunks take 7-14% off a
+// 32-token block at C = 256 and add 10% at C = 128.
+template <int C, int TM>
 __host__ __device__ constexpr int chunk_elems() {
-  return FST_CHUNK_KB ? FST_CHUNK_KB * 512 : (C >= 256 ? 8192 : 4096);
+  return C >= 256 ? (TM == 32 ? 16384 : 8192) : 4096;
 }
 
 // Chunks in a block's ring: three in flight while one is read (three
-// stages measured alike, six cost the second block per SM at C = 256).
+// stages measured alike; six cost the second 16-token block per SM).
 constexpr int kStages = 4;
 
 // One product's weights: columns [col0, col0 + np) of a packed K x n
@@ -308,17 +303,10 @@ struct Pass {
 // 16-row span; every thread waits on the barrier's parity (g / S) & 1.
 template <int CHUNK, int NPASS, int S>
 struct Ring {
-  static_assert(S >= 3 && S > kStep, "a ring of at least three chunks");
+  static_assert(S >= 3, "a ring of at least three chunks");
   bf16* slots;
   unsigned long long* full;  // S mbarriers
   Pass pass[NPASS];
-
-  __device__ __forceinline__ int chunks() const {
-    int total = 0;
-#pragma unroll
-    for (int p = 0; p < NPASS; ++p) total += pass[p].chunks;
-    return total;
-  }
 
   __device__ __forceinline__ void issue(int g) const {
     bf16* dst = slots + (g % S) * CHUNK;
@@ -346,7 +334,7 @@ struct Ring {
     if (threadIdx.x != 0) return;
     for (int s = 0; s < S; ++s) ltu::mbar_init(full + s, 1);
     ltu::fence_mbar_init();
-    for (int s = 0; s < S - kStep; ++s) issue(s);
+    for (int s = 0; s < S - 1; ++s) issue(s);
   }
 
   // The start of chunk g: wait for it, then (after the block barrier, which
@@ -358,13 +346,11 @@ struct Ring {
       ltu::cp_async_wait_all();
       __syncthreads();  // the barriers are initialised
     }
-    if (g % kStep == 0) {
-      for (int q = g; q < g + kStep && q < chunks(); ++q) ltu::mbar_wait(full + q % S, (q / S) & 1);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        ltu::fence_proxy_async();  // the block's reads of the slot come first
-        for (int q = g + S - kStep; q < g + S; ++q) issue(q);
-      }
+    ltu::mbar_wait(full + g % S, (g / S) & 1);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      ltu::fence_proxy_async();  // the block's reads of the slot come first
+      issue(g + S - 1);
     }
     ph.mark(kWeights);
     return slots + (g % S) * CHUNK;
@@ -385,7 +371,6 @@ __device__ __forceinline__ void gemm_pass(const R& ring, int& g, const bf16* s_a
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = warp % MG, n_base = (warp / MG) * WN;
   const bool active = n_base < NP;
-  if (kStep > 1 && g % kStep != 0) __syncthreads();  // a pass that starts mid-step
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -455,7 +440,7 @@ struct MmaPlan {
   static constexpr size_t g = ltu::align_up(a + 2 * TM * 2 * C, 128);
   static constexpr size_t ctx = ltu::align_up(g + 4 * TM * kLdG, 128);
   static constexpr size_t ring = ltu::align_up(ctx + (APPLY ? 2 * C * kDk : 0), 128);
-  static constexpr size_t bars = ltu::align_up(ring + 2 * kStages * chunk_elems<C>(), 8);
+  static constexpr size_t bars = ltu::align_up(ring + 2 * kStages * chunk_elems<C, TM>(), 8);
   static constexpr size_t total = bars + 8 * kStages;
 };
 
@@ -468,7 +453,7 @@ stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
              float* __restrict__ part_s, float* __restrict__ part_ctx, int n) {
   using Plan = MmaPlan<C, TM, false>;
   constexpr int ACPR = 2 * C / 8;
-  constexpr int CH = chunk_elems<C>();
+  constexpr int CH = chunk_elems<C, TM>();
   constexpr int KC = cmin(C, CH / C);
   constexpr int LDG = Plan::kLdG;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -564,7 +549,7 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
   constexpr int C2 = 2 * C;
   constexpr int H = C / kDk;
   constexpr int ACPR = C2 / 8;
-  constexpr int CH = chunk_elems<C>();
+  constexpr int CH = chunk_elems<C, TM>();
   constexpr int NPW1 = cmin(C2, 256);  // W1's output columns per pass
   constexpr int W1P = C2 / NPW1;       // 1, or 2 at C = 256
   constexpr int KC_C = cmin(C, CH / C);
@@ -973,13 +958,15 @@ int sm_count() {
   return count;
 }
 
-// Tokens per bf16 block: 16 where 32-token tiles would give fewer than two
-// blocks per SM (the window's stacks at N <= 5376: every SM gets a block,
-// and two 16-token blocks share an SM), else 32 (N 28704, where the
-// doubled weight stream of 16-token tiles costs more). PERF.md, PR 7.
+// Tokens per bf16 block: 32 where 32-token tiles give every SM a block
+// (N 5376 and 28704 of the window's stacks), else 16, whose twice as many
+// blocks then run two per SM on every SM (N 2160 and 4096). Measured
+// (PERF.md, PR 7): a 32-token block with 32 KB chunks is 7-14% faster at
+// C = 256 than two 16-token ones, and a 16-token block alone on an SM
+// costs as much as two sharing it.
 int tile_tokens(int n, int batch) {
   if (FST_TILE) return FST_TILE;
-  return static_cast<long long>((n + 31) / 32) * batch <= 2 * sm_count() ? 16 : 32;
+  return static_cast<long long>((n + 31) / 32) * batch >= sm_count() ? 32 : 16;
 }
 
 int num_tiles(int n, int batch, int is_bf16) {

@@ -42,7 +42,7 @@ from lintransunet_tpu_torch.ops import fused_stack as fs  # noqa: E402
 # the layer kernel's phases (`Phase` in csrc/fused_stack.cu); `weights` is
 # the wait for a weight chunk and its barrier
 PHASES = ("load", "weights", "mma", "softmax_ctx", "ln1", "gelu", "ln2")
-PHASE_SHAPES = [(4096, 256), (28704, 128)]
+PHASE_SHAPES = [(4096, 256), (5376, 256), (28704, 128)]
 ITERS = 10
 
 
