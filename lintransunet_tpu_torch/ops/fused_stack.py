@@ -8,8 +8,8 @@ Port of ``lintransunet_tpu/ops/pallas_layer.py``: ``stack_layer_params``,
 ``fused_transformer_stack`` dispatches on the device of its tokens: CPU
 tensors go to ``fused_transformer_stack_reference``; CUDA tensors launch
 ``csrc/fused_stack.cu`` or raise. The kernel takes the f32 weights; in bf16
-it first rounds and packs them for the tensor cores into scratch. Eval only: the kernel has no backward, as
-in JAX.
+it first rounds and packs them for the tensor cores into scratch. Eval only:
+the kernel has no backward, as in JAX.
 """
 
 import math
@@ -119,17 +119,6 @@ def scratch_shapes(b: int, c: int, layers: int, tiles: int, is_bf16: int
     return shapes
 
 
-def scratch_layout(b: int, c: int, layers: int, tiles: int, is_bf16: int
-                   ) -> Tuple[Dict[str, int], int]:
-    """The scratch of ``scratch_shapes`` in one buffer: name -> byte offset
-    (each a multiple of 256), and the buffer's size in bytes."""
-    offsets, total = {}, 0
-    for name, (shape, dtype) in scratch_shapes(b, c, layers, tiles, is_bf16).items():
-        offsets[name] = total
-        total += -(-math.prod(shape) * dtype.itemsize // 256) * 256
-    return offsets, total
-
-
 def fused_transformer_stack(x: torch.Tensor, A: torch.Tensor, w2: torch.Tensor,
                             vecs: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B, N, C) tokens through the L layers of ``stack_layer_params``
@@ -149,14 +138,14 @@ def fused_transformer_stack(x: torch.Tensor, A: torch.Tensor, w2: torch.Tensor,
     b, n, c = x.shape
     is_bf16 = int(x.dtype == torch.bfloat16)
     out = torch.empty_like(x)
-    offsets, nbytes = scratch_layout(b, c, A.shape[0], lib.fst_num_tiles(n, b, is_bf16), is_bf16)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-    base = scratch.data_ptr()
+    scratch = {name: torch.empty(shape, dtype=dtype, device=x.device) for name, (shape, dtype)
+               in scratch_shapes(b, c, A.shape[0], lib.fst_num_tiles(n, b, is_bf16),
+                                 is_bf16).items()}
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fst_forward(
             x.data_ptr(), out.data_ptr(), A.data_ptr(), w2.data_ptr(), vecs.data_ptr(),
-            *(base + offsets[name] if name in offsets else None
+            *(scratch[name].data_ptr() if name in scratch else None
               for name in ("packed", "part_m", "part_s", "part_ctx", "ctxn")),
             b, n, c, n_heads, A.shape[0], is_bf16, stream)
     if err != 0:

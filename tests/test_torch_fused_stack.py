@@ -12,8 +12,6 @@ JAX package's, in f32 on the CPU.
   fused stack on equal their unfused selves within rtol / atol 2e-5.
 """
 
-import math
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,15 +101,3 @@ def test_scratch_shapes(is_bf16):
         want["packed"] = ((3, 8 * 128 * 128), torch.bfloat16)
         assert 8 * 128 * 128 == 128 * 6 * 128 + 2 * 128 * 128  # A then w2
     assert shapes == want
-
-
-def test_scratch_layout_packs_every_buffer():
-    shapes = fs.scratch_shapes(2, 256, 7, 135, 1)
-    offsets, nbytes = fs.scratch_layout(2, 256, 7, 135, 1)
-    spans = sorted((offsets[name], math.prod(shape) * dtype.itemsize)
-                   for name, (shape, dtype) in shapes.items())
-    assert set(offsets) == set(shapes)
-    assert all(offset % 256 == 0 for offset, _ in spans)
-    for (start, size), (following, _) in zip(spans, spans[1:]):
-        assert start + size <= following
-    assert spans[-1][0] + spans[-1][1] <= nbytes < spans[-1][0] + spans[-1][1] + 256
