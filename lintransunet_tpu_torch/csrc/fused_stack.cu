@@ -308,11 +308,7 @@ struct Ring {
   unsigned long long* full;  // S mbarriers
   Pass pass[NPASS];
 
-#ifdef FST_NOINLINE_ISSUE
-  __device__ __noinline__ void issue(int g) const {
-#else
   __device__ __forceinline__ void issue(int g) const {
-#endif
     bf16* dst = slots + (g % S) * CHUNK;
     unsigned long long* bar = full + g % S;
 #pragma unroll
