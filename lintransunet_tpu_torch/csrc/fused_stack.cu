@@ -58,7 +58,7 @@
 // * LN1's f32 output stays in the registers of the warp that owns the row
 //   until LN2 adds it back, which leaves shared memory for the ring.
 //
-// What bounds it now (tools/profile_stack.py on an H100, PERF.md, PR 7):
+// What bounds it now (tools/profile_stack.py on an H100; PERF.md, Findings):
 // a block's step costs about the same whatever its chunk holds (16 or 32
 // tokens, 8 to 16 MMAs a warp), ~1,300 cycles at C = 256, and the ring's
 // depth (3, 4 or 6 stages) does not move it; with no weight copies at all
@@ -279,7 +279,7 @@ stack_ctx_combine(const float* __restrict__ part_m, const float* __restrict__ pa
 
 // bf16 elements of one weight chunk: at C = 256, 32 KB for a 32-token
 // block (one per SM) and 16 KB for a 16-token one (two per SM); 8 KB
-// below C = 256. Measured (PERF.md, PR 7): 32 KB chunks take 7-14% off a
+// below C = 256. Measured (PERF.md, Findings): 32 KB chunks take 7-14% off a
 // 32-token block at C = 256 and add 10% at C = 128.
 template <int C, int TM>
 __host__ __device__ constexpr int chunk_elems() {
@@ -961,7 +961,7 @@ int sm_count() {
 // Tokens per bf16 block: 32 where 32-token tiles give every SM a block
 // (N 5376 and 28704 of the window's stacks), else 16, whose twice as many
 // blocks then run two per SM on every SM (N 2160 and 4096). Measured
-// (PERF.md, PR 7): a 32-token block with 32 KB chunks is 7-14% faster at
+// (PERF.md, Findings): a 32-token block with 32 KB chunks is 7-14% faster at
 // C = 256 than two 16-token ones, and a 16-token block alone on an SM
 // costs as much as two sharing it.
 int tile_tokens(int n, int batch) {
