@@ -184,24 +184,28 @@ __device__ __forceinline__ int packed_offset(int k, int col, int n) {
 }
 
 // packed[l] = the layer's A (C x 6C) then its w2 (2C x C), in bf16, packed.
+// A thread rounds 8 consecutive columns of a row, one 16-byte chunk of the
+// packed layout (row widths 6C and C are multiples of 8).
 __global__ void __launch_bounds__(kThreads)
 stack_pack_weights(const float* __restrict__ A, const float* __restrict__ w2,
                    bf16* __restrict__ packed, int c, int layers) {
   const size_t per_a = 6 * static_cast<size_t>(c) * c;
   const size_t per_layer = 8 * static_cast<size_t>(c) * c;
-  const size_t total = per_layer * layers;
-  for (size_t idx = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x; idx < total;
-       idx += static_cast<size_t>(gridDim.x) * kThreads) {
-    const size_t l = idx / per_layer, e = idx - l * per_layer;
-    bf16* dst = packed + l * per_layer;
-    if (e < per_a) {
-      const int k = static_cast<int>(e / (6 * c)), col = static_cast<int>(e % (6 * c));
-      dst[packed_offset(k, col, 6 * c)] = __float2bfloat16(A[l * per_a + e]);
-    } else {
-      const size_t e2 = e - per_a;
-      const int k = static_cast<int>(e2 / c), col = static_cast<int>(e2 % c);
-      dst[per_a + packed_offset(k, col, c)] = __float2bfloat16(w2[l * (per_layer - per_a) + e2]);
-    }
+  const size_t chunks = per_layer / 8 * layers;
+  for (size_t u = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x; u < chunks;
+       u += static_cast<size_t>(gridDim.x) * kThreads) {
+    const size_t l = u * 8 / per_layer, e = u * 8 - l * per_layer;
+    const bool in_a = e < per_a;
+    const size_t e2 = in_a ? e : e - per_a;
+    const int n = in_a ? 6 * c : c;
+    const float4* src = reinterpret_cast<const float4*>(
+        in_a ? A + l * per_a + e2 : w2 + l * (per_layer - per_a) + e2);
+    const float4 lo = src[0], hi = src[1];
+    const uint4 v = make_uint4(ltu::pack_bf16x2(lo.x, lo.y), ltu::pack_bf16x2(lo.z, lo.w),
+                               ltu::pack_bf16x2(hi.x, hi.y), ltu::pack_bf16x2(hi.z, hi.w));
+    const int k = static_cast<int>(e2 / n), col = static_cast<int>(e2 % n);
+    *reinterpret_cast<uint4*>(packed + l * per_layer + (in_a ? 0 : per_a) +
+                              packed_offset(k, col, n)) = v;
   }
 }
 
@@ -1023,7 +1027,7 @@ template <int C>
 int launch_mma(const void* x, void* out, const float* A, const float* w2, const float* vecs,
                bf16* packed, float* part_m, float* part_s, float* part_ctx, bf16* panels,
                int batch, int n, int layers, cudaStream_t stream) {
-  const size_t units = (8 * static_cast<size_t>(C) * C * layers + kThreads - 1) / kThreads;
+  const size_t units = (static_cast<size_t>(C) * C * layers + kThreads - 1) / kThreads;
   stack_pack_weights<<<static_cast<int>(units < 1024 ? units : 1024), kThreads, 0, stream>>>(
       A, w2, packed, C, layers);
   const cudaError_t err = cudaGetLastError();
