@@ -7,9 +7,9 @@ last line):
 
 1. card: ``nvidia-smi`` name and power limit, the device name, and the
    nvcc builds of the CUDA kernels from ``lintransunet_tpu_torch/csrc``
-   (one nvcc per source, all started together) with their ptxas reports,
-   the stack's per kernel, and the bf16 stack kernels' shared memory and
-   blocks per SM;
+   (one nvcc per source, all started together) with their ptxas reports
+   per kernel, and the bf16 stack kernels' grid, shared memory and blocks
+   per SM;
 2. kernel vs plain, each kernel against its plain PyTorch version at the
    shapes the main paths give it, in f32 (TF32 off) and bf16, timed with
    CUDA events in turns plain, kernel, kernel, plain, beside its bound (the
@@ -79,7 +79,6 @@ Imports nothing of jax.
 
 import ctypes
 import json
-import re
 import subprocess
 import sys
 import time
@@ -274,43 +273,19 @@ def phase_card():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in KERNEL_NAMES:
         ptxas = [line.strip() for line in kernels.build_log(name).splitlines()
-                 if "registers" in line or "spill" in line]
+                 if "entry function" in line or "registers" in line or "spill" in line]
         print(f"[card] {name} ptxas: {' | '.join(ptxas)}", flush=True)
-    for entry in ptxas_entries(kernels.build_log("fused_stack")):
-        print(f"[card] fused_stack ptxas {entry}", flush=True)
     stack, smem = kernels.load("fused_stack"), ctypes.c_int()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n, c in STACK_SHAPES:
-        tile = stack.fst_tile_tokens(n, 1)
         for apply in (0, 1):
-            blocks = stack.fst_occupancy(c, apply, tile, ctypes.byref(smem))
+            blocks = stack.fst_occupancy(c, apply, ctypes.byref(smem))
             if blocks < 1:
                 fail(f"the bf16 stack kernel at C={c} fits no block on an SM ({blocks})")
             print(f"[card] fused_stack bf16 {'apply' if apply else 'kv'} kernel at N={n} "
-                  f"C={c}: {tile}-token tiles, {stack.fst_num_tiles(n, 1, 1)} blocks, "
-                  f"{smem.value} bytes of dynamic shared memory, {blocks} block(s) per SM "
-                  f"on {sms} SMs", flush=True)
-
-
-def ptxas_entries(log):
-    """'name<template ints>: registers, spills, static shared memory' for
-    each kernel in an nvcc -Xptxas -v log."""
-    entries, name = [], None
-    for line in log.splitlines():
-        found = re.search(r"Compiling entry function '(\S+)'", line)
-        if found:
-            mangled = found.group(1)
-            m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
-            name = m.group(2)[:int(m.group(1))] if m else mangled
-            rest = m.group(2)[int(m.group(1)):] if m else ""
-            args = re.findall(r"Li(\d+)E", rest)
-            name += f"<{', '.join(args)}>" if args else ""
-        elif name and "spill" in line:
-            spill = line.strip()
-        elif name and "registers" in line:
-            entries.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
-            name = None
-    return entries
+                  f"C={c}: {stack.fst_num_tiles(n, 1)} blocks of 32 tokens, {smem.value} "
+                  f"bytes of dynamic shared memory, {blocks} block(s) per SM on {sms} SMs",
+                  flush=True)
 
 
 def phase_attention_vs_plain():

@@ -51,10 +51,12 @@
 //   the projections and the FFN, e^T v (the token axis is the reduction:
 //   e is read transposed) and Q' ctx (one 32 x 32 product per head, so no
 //   head mask).
-// * The grid fills the card (`tile_tokens`): 32-token blocks where they
-//   give every SM one, else 16-token blocks, two per SM on every SM. The
-//   8 warps split each product as (TM / 16) row groups x (8 / (TM / 16))
-//   column groups.
+// * 32 tokens a block (kTile), one block per (tile, sequence): the 8 warps
+//   split each product as 2 row groups x 4 column groups. At N 2160 and
+//   4096 (C = 256, one block per SM) that is 68 and 128 blocks, so some of
+//   the 132 SMs idle; 16-token tiles filling every SM were 12-14% slower
+//   there (PERF.md, Findings), since a block's cost is per chunk step, not
+//   per token.
 // * LN1's f32 output stays in the registers of the warp that owns the row
 //   until LN2 adds it back, which leaves shared memory for the ring.
 //
@@ -64,21 +66,20 @@
 // depth (3, 4 or 6 stages) does not move it; with no weight copies at all
 // a call is 17% faster, and without the per-chunk barrier too, 22%. So the
 // L2 stream is not what binds but the per-step work of a thin tile:
-// `ldmatrix` of each B element for only 16 or 32 tokens behind short
-// dependent MMA chains; the epilogues take a quarter of a block. Hence
-// 32 KB chunks for 32-token blocks at C = 256 (half the steps), and no
-// clusters: multicasting each chunk into two or four blocks halves the L2
-// reads and was 2x slower.
+// `ldmatrix` of each B element for only 32 tokens behind short dependent
+// MMA chains; the epilogues take a quarter of a block. Hence 32 KB chunks
+// at C = 256 (half the steps of 16 KB ones), and no clusters:
+// multicasting each chunk into two or four blocks halves the L2 reads and
+// was 2x slower.
 //
-// Shared memory of the bf16 kernels (TM tokens, kStages chunks):
-//   apply: s_a   TM x 2C bf16, swizzled: the A operand of every product
-//          s_g   TM x (min(2C, 256) + 8) f32: a product's output
+// Shared memory of the bf16 kernels (kTile tokens, kStages chunks):
+//   apply: s_a   kTile x 2C bf16, swizzled: the A operand of every product
+//          s_g   kTile x (min(2C, 256) + 8) f32: a product's output
 //          s_ctx C x 32 bf16: ctx / s as per-head B panels
 //          ring  kStages chunks, then kStages mbarriers
 //   kv:    s_a, s_g (C + 8 columns), ring.
-// C = 256: TM = 32 (32 KB chunks) apply 209 KB, kv 193 KB, one block per
-// SM; TM = 16 (16 KB) apply 112.5 KB, kv 96.5 KB, two. C = 128, TM = 32
-// (8 KB): apply 89 KB (two), kv 65 KB (three).
+// C = 256 (32 KB chunks): apply 209 KB, kv 193 KB, one block per SM.
+// C = 128 (8 KB): apply 89 KB (two), kv 65 KB (three).
 //
 // The f32 kernels (`stack_kv_fma`, `stack_apply_fma`) are the first
 // design, kept for f32 tokens: FMA products from shared memory, weights
@@ -100,13 +101,7 @@ constexpr int kDk = 32;  // features per head: one per lane
 constexpr float kLnEps = 1e-6f;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
-// FST_TILE=16 or 32 forces the tokens per bf16 block (0, the default:
-// `tile_tokens` chooses); the card tests build it to reach each tile's
-// ragged edge, tools/profile_stack.py to time one against the other.
-#ifndef FST_TILE
-#define FST_TILE 0
-#endif
-static_assert(FST_TILE == 0 || FST_TILE == 16 || FST_TILE == 32, "a tile of 16 or 32 tokens");
+constexpr int kTile = 32;       // tokens per bf16 block
 constexpr int kF32Tokens = 16;  // tokens per f32 block
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
@@ -281,17 +276,16 @@ stack_ctx_combine(const float* __restrict__ part_m, const float* __restrict__ pa
   }
 }
 
-// bf16 elements of one weight chunk: at C = 256, 32 KB for a 32-token
-// block (one per SM) and 16 KB for a 16-token one (two per SM); 8 KB
-// below C = 256. Measured (PERF.md, Findings): 32 KB chunks take 7-14% off a
-// 32-token block at C = 256 and add 10% at C = 128.
-template <int C, int TM>
+// bf16 elements of one weight chunk: 32 KB at C = 256, 8 KB below.
+// Measured (PERF.md, Findings): 32 KB chunks take 7-14% off a block at
+// C = 256 against 16 KB ones and add 10% at C = 128.
+template <int C>
 __host__ __device__ constexpr int chunk_elems() {
-  return C >= 256 ? (TM == 32 ? 16384 : 8192) : 4096;
+  return C >= 256 ? 16384 : 4096;
 }
 
 // Chunks in a block's ring: three in flight while one is read (three
-// stages measured alike; six cost the second 16-token block per SM).
+// stages measured alike, six slower).
 constexpr int kStages = 4;
 
 // One product's weights: columns [col0, col0 + np) of a packed K x n
@@ -361,13 +355,13 @@ struct Ring {
   }
 };
 
-// s_g[:, 0:NP] = s_a[:, a_col0 : a_col0 + K] (TM rows) times the pass's
+// s_g[:, 0:NP] = s_a[:, a_col0 : a_col0 + K] (kTile rows) times the pass's
 // weights, streamed through the ring as chunks g, g + 1, ... (g advances).
-// s_a: TM x 2C bf16 with ACPR = 2C / 8 swizzled chunks per row.
-template <int TM, int NP, int KC, int K, int ACPR, typename R>
+// s_a: kTile x 2C bf16 with ACPR = 2C / 8 swizzled chunks per row.
+template <int NP, int KC, int K, int ACPR, typename R>
 __device__ __forceinline__ void gemm_pass(const R& ring, int& g, const bf16* s_a, int a_col0,
                                           float* s_g, int ld_g, PhaseClock& ph) {
-  constexpr int MG = TM / 16;
+  constexpr int MG = kTile / 16;
   constexpr int NG = kWarps / MG;
   constexpr int WN = NP / NG >= 16 ? NP / NG : 16;
   constexpr int NT = WN / 8;
@@ -413,11 +407,11 @@ __device__ __forceinline__ void gemm_pass(const R& ring, int& g, const bf16* s_a
 // Starts the copies of the block's token tile into s_a's columns [0, C)
 // (cp.async, in the group that the ring's first chunk commits); rows past
 // `count` are zeros.
-template <int C, int TM>
+template <int C>
 __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ x, bf16* s_a, int t0,
                                                 int count) {
   constexpr int U = C / 8;
-  for (int u = threadIdx.x; u < TM * U; u += kThreads) {
+  for (int u = threadIdx.x; u < kTile * U; u += kThreads) {
     const int r = u / U, cu = u - r * U;
     bf16* dst = s_a + swz(r, cu, 2 * C / 8);
     if (r < count) {
@@ -437,35 +431,35 @@ __device__ __forceinline__ float get(const bf16* s_a, int acpr, int r, int col) 
 }
 
 // Shared-memory plan of the bf16 kernels, in bytes (see the header note).
-template <int C, int TM, bool APPLY>
+template <int C, bool APPLY>
 struct MmaPlan {
   static constexpr int kLdG = (APPLY ? cmin(2 * C, 256) : C) + 8;
   static constexpr size_t a = 0;
-  static constexpr size_t g = ltu::align_up(a + 2 * TM * 2 * C, 128);
-  static constexpr size_t ctx = ltu::align_up(g + 4 * TM * kLdG, 128);
+  static constexpr size_t g = ltu::align_up(a + 2 * kTile * 2 * C, 128);
+  static constexpr size_t ctx = ltu::align_up(g + 4 * kTile * kLdG, 128);
   static constexpr size_t ring = ltu::align_up(ctx + (APPLY ? 2 * C * kDk : 0), 128);
-  static constexpr size_t bars = ltu::align_up(ring + 2 * kStages * chunk_elems<C, TM>(), 8);
+  static constexpr size_t bars = ltu::align_up(ring + 2 * kStages * chunk_elems<C>(), 8);
   static constexpr size_t total = bars + 8 * kStages;
 };
 
 // One block per (token tile, batch): the k and v projections, the tile's
 // K-softmax partials and its partial ctx.
-template <int C, int TM>
-__global__ void __launch_bounds__(kThreads, C >= 256 && TM == 32 ? 1 : 2)
+template <int C>
+__global__ void __launch_bounds__(kThreads, C >= 256 ? 1 : 2)
 stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
              const float* __restrict__ vec, float* __restrict__ part_m,
              float* __restrict__ part_s, float* __restrict__ part_ctx, int n) {
-  using Plan = MmaPlan<C, TM, false>;
+  using Plan = MmaPlan<C, false>;
   constexpr int ACPR = 2 * C / 8;
-  constexpr int CH = chunk_elems<C, TM>();
+  constexpr int CH = chunk_elems<C>();
   constexpr int KC = cmin(C, CH / C);
   constexpr int LDG = Plan::kLdG;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_a = reinterpret_cast<bf16*>(smem + Plan::a);
   float* s_g = reinterpret_cast<float*>(smem + Plan::g);
   const int tile = blockIdx.x, tiles = gridDim.x, b = blockIdx.y;
-  const int t0 = tile * TM;
-  const int count = min(TM, n - t0);
+  const int t0 = tile * kTile;
+  const int count = min(kTile, n - t0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   PhaseClock ph;  // not flushed: the split covers the apply kernel
 
@@ -473,11 +467,11 @@ stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
                                   reinterpret_cast<unsigned long long*>(smem + Plan::bars),
                                   {{packed, 6 * C, C, C, KC, C / KC},
                                    {packed, 6 * C, 2 * C, C, KC, C / KC}}};
-  load_tile_async<C, TM>(x + static_cast<size_t>(b) * n * C, s_a, t0, count);
+  load_tile_async<C>(x + static_cast<size_t>(b) * n * C, s_a, t0, count);
   ring.prologue();
 
   int g = 0;
-  gemm_pass<TM, C, KC, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // k
+  gemm_pass<C, KC, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // k
   __syncthreads();
   // per feature: the tile's max and sum of exp; e = exp(k - m), rounded to
   // bf16 as the ctx product's operand, into s_a's columns [C, 2C)
@@ -486,12 +480,12 @@ stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
     const float bk = vec[1 * 2 * C + f];
     float m = -INFINITY;
 #pragma unroll
-    for (int r = 0; r < TM; ++r) {
+    for (int r = 0; r < kTile; ++r) {
       if (r < count) m = fmaxf(m, s_g[r * LDG + f] + bk);
     }
     float s = 0.f;
 #pragma unroll
-    for (int r = 0; r < TM; ++r) {
+    for (int r = 0; r < kTile; ++r) {
       const float e = r < count ? expf(s_g[r * LDG + f] + bk - m) : 0.f;
       s += e;
       put(s_a, ACPR, r, C + f, e);
@@ -499,10 +493,10 @@ stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
     part_m[part * C + f] = m;
     part_s[part * C + f] = s;
   }
-  gemm_pass<TM, C, KC, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // v
+  gemm_pass<C, KC, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // v
   __syncthreads();
   // v + bv in bf16 over x (columns [0, C)), zero past count
-  for (int idx = tid; idx < TM * C / 2; idx += kThreads) {
+  for (int idx = tid; idx < kTile * C / 2; idx += kThreads) {
     const int r = idx / (C / 2), f = (idx - r * (C / 2)) * 2;
     const float2 v = *reinterpret_cast<const float2*>(s_g + r * LDG + f);
     const bool in = r < count;
@@ -517,7 +511,7 @@ stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
     const int hl = u / 2, mt = u % 2;
     float acc[4][4] = {};
 #pragma unroll
-    for (int ks = 0; ks < TM / 16; ++ks) {
+    for (int ks = 0; ks < kTile / 16; ++ks) {
       unsigned a[4];
       ltu::ldsm_x4_t(a, s_a + swz(ks * 16 + (lane & 7) + ((lane >> 4) << 3),
                                   (C + hl * 32 + mt * 16) / 8 + ((lane >> 3) & 1), ACPR));
@@ -544,16 +538,16 @@ stack_kv_mma(const bf16* __restrict__ x, const bf16* __restrict__ packed,
 // One block per (token tile, batch): the rest of the layer, in place.
 // s_a's columns over the layer: x in [0, C); Q', then attn in place, in
 // [C, 2C); x1 in [C, 2C) (x is dead by then); h over [0, 2C).
-template <int C, int TM>
-__global__ void __launch_bounds__(kThreads, C >= 256 && TM == 32 ? 1 : 2)
+template <int C>
+__global__ void __launch_bounds__(kThreads, C >= 256 ? 1 : 2)
 stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
                 const float* __restrict__ vec, const bf16* __restrict__ ctx_panels, int n,
                 float inv_sqrt_dk) {
-  using Plan = MmaPlan<C, TM, true>;
+  using Plan = MmaPlan<C, true>;
   constexpr int C2 = 2 * C;
   constexpr int H = C / kDk;
   constexpr int ACPR = C2 / 8;
-  constexpr int CH = chunk_elems<C, TM>();
+  constexpr int CH = chunk_elems<C>();
   constexpr int NPW1 = cmin(C2, 256);  // W1's output columns per pass
   constexpr int W1P = C2 / NPW1;       // 1, or 2 at C = 256
   constexpr int KC_C = cmin(C, CH / C);
@@ -566,8 +560,8 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
   float* s_g = reinterpret_cast<float*>(smem + Plan::g);
   bf16* s_ctx = reinterpret_cast<bf16*>(smem + Plan::ctx);
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TM;
-  const int count = min(TM, n - t0);
+  const int t0 = blockIdx.x * kTile;
+  const int count = min(kTile, n - t0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   PhaseClock ph;
 
@@ -588,7 +582,7 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
   }();
   // the tile and ctx / s (already in the B layout) join the first chunk's
   // copy group
-  load_tile_async<C, TM>(x_in + static_cast<size_t>(b) * n * C, s_a, t0, count);
+  load_tile_async<C>(x_in + static_cast<size_t>(b) * n * C, s_a, t0, count);
   for (int u = tid; u < C * kDk / 8; u += kThreads) {
     ltu::cp_async16(s_ctx + u * 8, ctx_panels + static_cast<size_t>(b) * C * kDk + u * 8);
   }
@@ -596,11 +590,11 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
   ph.mark(kLoad);
 
   int g = 0;
-  gemm_pass<TM, C, KC_C, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // q = x Wq
+  gemm_pass<C, KC_C, C, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);  // q = x Wq
   __syncthreads();
   // Q' = per-head feature softmax / sqrt(d_k), in bf16 into [C, 2C): a warp
   // per token, its heads unrolled so their reductions overlap
-  for (int r = warp; r < TM; r += kWarps) {
+  for (int r = warp; r < kTile; r += kWarps) {
     float qv[H], mx[H], sum[H];
 #pragma unroll
     for (int h = 0; h < H; ++h) {
@@ -628,8 +622,8 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
   __syncthreads();
   // attn = Q' ctx, one 32 x 32 product per (16-row group, head), written
   // in place: each warp reads and writes only its own rows and head
-  for (int u = warp; u < TM / 16 * H; u += kWarps) {
-    const int rg = u % (TM / 16), h = u / (TM / 16);
+  for (int u = warp; u < kTile / 16 * H; u += kWarps) {
+    const int rg = u % (kTile / 16), h = u / (kTile / 16);
     float acc[4][4] = {};
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
@@ -658,11 +652,11 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
 
   // x1 = LN1(x + attn Wo + bo): f32 in the registers of the warp that
   // owns row r (warp + 8 k) until LN2, bf16 into s_a[:, C:2C]
-  gemm_pass<TM, C, KC_C, C, ACPR>(ring, g, s_a, C, s_g, LDG, ph);
+  gemm_pass<C, KC_C, C, ACPR>(ring, g, s_a, C, s_g, LDG, ph);
   __syncthreads();
-  float x1[TM / kWarps][PER_LANE];
+  float x1[kTile / kWarps][PER_LANE];
 #pragma unroll
-  for (int k = 0; k < TM / kWarps; ++k) {
+  for (int k = 0; k < kTile / kWarps; ++k) {
     const int r = warp + kWarps * k;
     float* v = x1[k];
 #pragma unroll
@@ -681,10 +675,10 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
   // alone; the second writes [C, 2C) after its MMAs.
 #pragma unroll
   for (int p = 0; p < W1P; ++p) {
-    gemm_pass<TM, NPW1, KC_W1, C, ACPR>(ring, g, s_a, C, s_g, LDG, ph);
+    gemm_pass<NPW1, KC_W1, C, ACPR>(ring, g, s_a, C, s_g, LDG, ph);
     __syncthreads();
 #pragma unroll 4
-    for (int idx = tid; idx < TM * NPW1 / 2; idx += kThreads) {
+    for (int idx = tid; idx < kTile * NPW1 / 2; idx += kThreads) {
       const int r = idx / (NPW1 / 2), f = (idx - r * (NPW1 / 2)) * 2, col = p * NPW1 + f;
       const float2 hv = *reinterpret_cast<const float2*>(s_g + r * LDG + f);
       *reinterpret_cast<unsigned*>(s_a + swz(r, col / 8, ACPR) + col % 8) = ltu::pack_bf16x2(
@@ -694,11 +688,11 @@ stack_apply_mma(const bf16* x_in, bf16* x_out, const bf16* __restrict__ packed,
   }
 
   // x = LN2(x1 + h W2 + b2), stored in bf16
-  gemm_pass<TM, C, KC_W2, C2, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);
+  gemm_pass<C, KC_W2, C2, ACPR>(ring, g, s_a, 0, s_g, LDG, ph);
   __syncthreads();
   bf16* out = x_out + static_cast<size_t>(b) * n * C;
 #pragma unroll
-  for (int k = 0; k < TM / kWarps; ++k) {
+  for (int k = 0; k < kTile / kWarps; ++k) {
     const int r = warp + kWarps * k;
     float v[PER_LANE];
 #pragma unroll
@@ -952,94 +946,60 @@ stack_apply_fma(const float* x_in, float* x_out, const float* __restrict__ A,
 // host
 // ---------------------------------------------------------------------------
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return count;
-}
-
-// Tokens per bf16 block: 32 where 32-token tiles give every SM a block
-// (N 5376 and 28704 of the window's stacks), else 16, whose twice as many
-// blocks then run two per SM on every SM (N 2160 and 4096). Measured
-// (PERF.md, Findings): a 32-token block with 32 KB chunks is 7-14% faster at
-// C = 256 than two 16-token ones, and a 16-token block alone on an SM
-// costs as much as two sharing it.
-int tile_tokens(int n, int batch) {
-  if (FST_TILE) return FST_TILE;
-  return static_cast<long long>((n + 31) / 32) * batch >= sm_count() ? 32 : 16;
-}
-
-int num_tiles(int n, int batch, int is_bf16) {
-  const int tn = is_bf16 ? tile_tokens(n, batch) : kF32Tokens;
+int num_tiles(int n, int is_bf16) {
+  const int tn = is_bf16 ? kTile : kF32Tokens;
   return (n + tn - 1) / tn;
 }
 
 float inv_sqrt_dk() { return static_cast<float>(1.0 / sqrt(static_cast<double>(kDk))); }
 
-template <int C, int TM>
-int launch_tm(const bf16* x, bf16* out, const bf16* packed, const float* vecs, float* part_m,
-              float* part_s, float* part_ctx, bf16* panels, int batch, int n, int layers,
-              cudaStream_t stream) {
-  using KvPlan = MmaPlan<C, TM, false>;
-  using ApplyPlan = MmaPlan<C, TM, true>;
+template <int C>
+int launch_mma(const void* x, void* out, const float* A, const float* w2, const float* vecs,
+               bf16* packed, float* part_m, float* part_s, float* part_ctx, bf16* panels,
+               int batch, int n, int layers, cudaStream_t stream) {
+  using KvPlan = MmaPlan<C, false>;
+  using ApplyPlan = MmaPlan<C, true>;
   static int ready = -1;  // the device whose kernel attributes are set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (ready != dev) {
-    err = cudaFuncSetAttribute(stack_kv_mma<C, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(stack_kv_mma<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(KvPlan::total));
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(stack_apply_mma<C, TM>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(stack_apply_mma<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(ApplyPlan::total));
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = dev;
   }
+  const size_t units = (static_cast<size_t>(C) * C * layers + kThreads - 1) / kThreads;
+  stack_pack_weights<<<static_cast<int>(units < 1024 ? units : 1024), kThreads, 0, stream>>>(
+      A, w2, packed, C, layers);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* xb = static_cast<const bf16*>(x);
+  auto* ob = static_cast<bf16*>(out);
   const size_t per_layer = 8 * static_cast<size_t>(C) * C;
-  const int tiles = (n + TM - 1) / TM;
+  const int tiles = num_tiles(n, 1);
   const dim3 grid(tiles, batch);
   for (int l = 0; l < layers; ++l) {
     const bf16* p_l = packed + l * per_layer;
     const float* vec_l = vecs + static_cast<size_t>(l) * 16 * 2 * C;
-    const bf16* in = l == 0 ? x : out;
-    stack_kv_mma<C, TM><<<grid, kThreads, KvPlan::total, stream>>>(in, p_l, vec_l, part_m, part_s,
-                                                                   part_ctx, n);
+    const bf16* in = l == 0 ? xb : ob;
+    stack_kv_mma<C><<<grid, kThreads, KvPlan::total, stream>>>(in, p_l, vec_l, part_m, part_s,
+                                                              part_ctx, n);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     stack_ctx_combine<<<dim3(C, batch), kThreads, 0, stream>>>(part_m, part_s, part_ctx, nullptr,
                                                                panels, tiles, C);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    stack_apply_mma<C, TM><<<grid, kThreads, ApplyPlan::total, stream>>>(
-        in, out, p_l, vec_l, panels, n, inv_sqrt_dk());
+    stack_apply_mma<C><<<grid, kThreads, ApplyPlan::total, stream>>>(in, ob, p_l, vec_l, panels,
+                                                                     n, inv_sqrt_dk());
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
-}
-
-template <int C>
-int launch_mma(const void* x, void* out, const float* A, const float* w2, const float* vecs,
-               bf16* packed, float* part_m, float* part_s, float* part_ctx, bf16* panels,
-               int batch, int n, int layers, cudaStream_t stream) {
-  const size_t units = (static_cast<size_t>(C) * C * layers + kThreads - 1) / kThreads;
-  stack_pack_weights<<<static_cast<int>(units < 1024 ? units : 1024), kThreads, 0, stream>>>(
-      A, w2, packed, C, layers);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* xb = static_cast<const bf16*>(x);
-  auto* ob = static_cast<bf16*>(out);
-  if (tile_tokens(n, batch) == 16) {
-    return launch_tm<C, 16>(xb, ob, packed, vecs, part_m, part_s, part_ctx, panels, batch, n,
-                            layers, stream);
-  }
-  return launch_tm<C, 32>(xb, ob, packed, vecs, part_m, part_s, part_ctx, panels, batch, n,
-                          layers, stream);
 }
 
 int launch_fma(const float* x, float* out, const float* A, const float* w2, const float* vecs,
@@ -1053,7 +1013,7 @@ int launch_fma(const float* x, float* out, const float* A, const float* w2, cons
   err = cudaFuncSetAttribute(stack_apply_fma, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(apply_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = num_tiles(n, batch, 0);
+  const int tiles = num_tiles(n, 0);
   const dim3 grid(tiles, batch);
   for (int l = 0; l < layers; ++l) {
     const float* a_l = A + static_cast<size_t>(l) * c * 6 * c;
@@ -1077,13 +1037,13 @@ int launch_fma(const float* x, float* out, const float* A, const float* w2, cons
 }
 
 // Blocks per SM that the occupancy calculator allows the bf16 kv (apply
-// == 0) or apply kernel at width C and tile TM, with its dynamic shared
-// memory in *smem_bytes; negative: a CUDA error.
-template <int C, int TM>
-int occupancy_tm(int apply, int* smem_bytes) {
-  const void* fn = apply ? reinterpret_cast<const void*>(stack_apply_mma<C, TM>)
-                         : reinterpret_cast<const void*>(stack_kv_mma<C, TM>);
-  const size_t smem = apply ? MmaPlan<C, TM, true>::total : MmaPlan<C, TM, false>::total;
+// == 0) or apply kernel at width C, with its dynamic shared memory in
+// *smem_bytes; negative: a CUDA error.
+template <int C>
+int occupancy_mma(int apply, int* smem_bytes) {
+  const void* fn = apply ? reinterpret_cast<const void*>(stack_apply_mma<C>)
+                         : reinterpret_cast<const void*>(stack_kv_mma<C>);
+  const size_t smem = apply ? MmaPlan<C, true>::total : MmaPlan<C, false>::total;
   *smem_bytes = static_cast<int>(smem);
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
@@ -1094,36 +1054,25 @@ int occupancy_tm(int apply, int* smem_bytes) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-template <int C>
-int occupancy_mma(int apply, int tile, int* smem_bytes) {
-  return tile == 16 ? occupancy_tm<C, 16>(apply, smem_bytes)
-                    : occupancy_tm<C, 32>(apply, smem_bytes);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Blocks per SM of the bf16 kv (apply == 0) or apply kernel at width c and
-// `tile` (16 or 32) tokens, and its dynamic shared memory in bytes
-// (*smem_bytes); negative: a CUDA error.
-int fst_occupancy(int c, int apply, int tile, void* smem_bytes) {
+// Blocks per SM of the bf16 kv (apply == 0) or apply kernel at width c, and
+// its dynamic shared memory in bytes (*smem_bytes); negative: a CUDA error.
+int fst_occupancy(int c, int apply, void* smem_bytes) {
   auto* smem = static_cast<int*>(smem_bytes);
-  if (tile != 16 && tile != 32) return -static_cast<int>(cudaErrorInvalidValue);
   switch (c) {
-    case 32: return occupancy_mma<32>(apply, tile, smem);
-    case 64: return occupancy_mma<64>(apply, tile, smem);
-    case 128: return occupancy_mma<128>(apply, tile, smem);
-    case 256: return occupancy_mma<256>(apply, tile, smem);
+    case 32: return occupancy_mma<32>(apply, smem);
+    case 64: return occupancy_mma<64>(apply, smem);
+    case 128: return occupancy_mma<128>(apply, smem);
+    case 256: return occupancy_mma<256>(apply, smem);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Tokens per bf16 block for a (batch, n, c) call (`tile_tokens`).
-int fst_tile_tokens(int n, int batch) { return tile_tokens(n, batch); }
-
 // Token tiles per sequence: sizes the wrapper's partial-sum scratch.
-int fst_num_tiles(int n, int batch, int is_bf16) { return num_tiles(n, batch, is_bf16); }
+int fst_num_tiles(int n, int is_bf16) { return num_tiles(n, is_bf16); }
 
 // x, out: (batch, n, c) contiguous, f32 (is_bf16 == 0) or bf16; out may not
 // alias x. A (layers, c, 6c), w2 (layers, 2c, c) and vecs (layers, 16, 2c):

@@ -44,9 +44,8 @@ SIGNATURES = {
     },
     "fused_stack": {
         "fst_forward": (_I, [_P] * 10 + [_I] * 6 + [_P]),
-        "fst_num_tiles": (_I, [_I, _I, _I]),
-        "fst_tile_tokens": (_I, [_I, _I]),
-        "fst_occupancy": (_I, [_I, _I, _I, _P]),
+        "fst_num_tiles": (_I, [_I, _I]),
+        "fst_occupancy": (_I, [_I, _I, _P]),
     },
     "probe_taps": {
         "pt_forward": (_I, [_P, _P, _P, _L] + [_I] * 7 + [_P] * 4 + [_I, _I, _P]),

@@ -139,7 +139,7 @@ def fused_transformer_stack(x: torch.Tensor, A: torch.Tensor, w2: torch.Tensor,
     is_bf16 = int(x.dtype == torch.bfloat16)
     out = torch.empty_like(x)
     scratch = {name: torch.empty(shape, dtype=dtype, device=x.device) for name, (shape, dtype)
-               in scratch_shapes(b, c, A.shape[0], lib.fst_num_tiles(n, b, is_bf16),
+               in scratch_shapes(b, c, A.shape[0], lib.fst_num_tiles(n, is_bf16),
                                  is_bf16).items()}
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

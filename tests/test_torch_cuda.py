@@ -248,23 +248,17 @@ def _check_stack(device, dtype, tol, b, n, c, layers):
 
 
 @pytest.mark.parametrize("dtype,tol,tile", [(torch.float32, 1e-5, 16),
-                                            (torch.bfloat16, 3e-2, 16),
                                             (torch.bfloat16, 3e-2, 32)])
 @pytest.mark.parametrize("c", [128, 256])
 @pytest.mark.parametrize("where", ["one_token_more", "one_token_less_than_two"])
-def test_fused_stack_ragged_tiles(cuda, monkeypatch, dtype, tol, tile, c, where):
+def test_fused_stack_ragged_tiles(cuda, dtype, tol, tile, c, where):
     """N one token past a tile, and one short of two tiles, for each tile
-    the kernels take: f32 blocks hold 16 tokens; bf16 blocks 16 or 32, as
-    ``tile_tokens`` picks by N, here forced with a build of that tile."""
-    from lintransunet_tpu_torch.kernels import build
+    the kernels take: f32 blocks hold 16 tokens, bf16 blocks 32."""
+    from lintransunet_tpu_torch import kernels
 
     n = tile + 1 if where == "one_token_more" else 2 * tile - 1
-    if dtype == torch.bfloat16:
-        lib = build.load("fused_stack", (f"-DFST_TILE={tile}",))
-        monkeypatch.setitem(build._loaded, "fused_stack", lib)
-        assert lib.fst_tile_tokens(n, 1) == tile
-    else:
-        assert build.load("fused_stack").fst_num_tiles(n, 1, 0) == (n + 15) // 16
+    is_bf16 = int(dtype == torch.bfloat16)
+    assert kernels.load("fused_stack").fst_num_tiles(n, is_bf16) == (n + tile - 1) // tile
     _check_stack(cuda, dtype, tol, 1, n, c, 2)
 
 

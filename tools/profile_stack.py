@@ -1,6 +1,6 @@
 """Where the transformer-stack kernel's time goes on one CUDA card.
 
-    python3 tools/profile_stack.py [--phases] [--variant NAME=FLAGS ...]
+    python3 tools/profile_stack.py [--phases]
 
 At the four token stacks of a window of the fused configuration
 (``chip_smoke.STACK_SHAPES``), bf16, with ``chip_smoke``'s random weights:
@@ -11,11 +11,7 @@ At the four token stacks of a window of the fused configuration
   call launches, at seven layers;
 * ``--phases``: the library built again with ``-DFST_PHASES``, which adds
   clock64 marks to the kernel that applies a layer; prints each phase's
-  share of a block's cycles and the cycles per block;
-* ``--variant NAME=FLAGS``: the library built again with the extra nvcc
-  flags (space-separated, such as ``-DFST_TILE=16``), held against the
-  plain PyTorch stack (``[check]``, at ``chip_smoke.STACK_TOL``) and timed
-  in turns with the plain build (plain, variant, variant, plain), per shape.
+  share of a block's cycles and the cycles per block.
 
 Builds go to ``lintransunet_tpu_torch/_build/`` (git-ignored), each keyed
 on its flags; the plain build is the one the wrappers use.
@@ -62,33 +58,12 @@ def flops(n, c, layers):
     return layers * n * (16 * c * c + 4 * c * fs.D_K)
 
 
-def use(lib):
-    build._loaded["fused_stack"] = lib
-
-
-def check(label):
-    """The loaded build against the plain stack at the window's shapes (seven
-    layers) and at batch 2 with a ragged N; exits if one is too far."""
-    for b, n, c, layers in [(1, n, c, 7) for n, c in chip_smoke.STACK_SHAPES] + [(2, 300, 256, 2)]:
-        x, A, w2, vecs, heads = inputs(n, c, layers)
-        x = x.expand(b, n, c).contiguous()
-        got = fs.fused_transformer_stack(x, A, w2, vecs, heads)
-        want = fs.fused_transformer_stack_reference(x, A, w2, vecs, heads)
-        torch.cuda.synchronize()
-        err, rel = chip_smoke.rel_err(got, want)
-        ok = rel <= chip_smoke.STACK_TOL[torch.bfloat16]
-        print(f"[check] {label} B={b} N={n} C={c} L={layers}: max_abs_err {err:.3e} rel "
-              f"{rel:.3e} {'ok' if ok else 'TOO FAR'}", flush=True)
-        if not ok:
-            chip_smoke.fail(f"{label} disagrees with the plain stack")
-
-
-def time_calls(label):
+def time_calls():
     for n, c in chip_smoke.STACK_SHAPES:
         for layers in (1, 7):
             args = inputs(n, c, layers)
             ms = cuda_ms(lambda: fs.fused_transformer_stack(*args), ITERS, 2)
-            print(f"[call] {label} N={n} C={c} L={layers}: {ms:.4f} ms, "
+            print(f"[call] N={n} C={c} L={layers}: {ms:.4f} ms, "
                   f"{flops(n, c, layers) / ms * 1e-9:.1f} TFLOP/s", flush=True)
 
 
@@ -117,7 +92,7 @@ def phases():
     lib = build.load("fused_stack", ("-DFST_PHASES",))
     lib.fst_phase_clocks.restype = ctypes.c_int
     lib.fst_phase_clocks.argtypes = [ctypes.c_void_p]
-    use(lib)
+    build._loaded["fused_stack"] = lib  # the wrapper launches this build
     sums = (ctypes.c_ulonglong * (len(PHASES) + 1))()
     for n, c in PHASE_SHAPES:
         args = inputs(n, c, 7)
@@ -141,38 +116,19 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", action="store_true",
                         help="clock64 phase split of the layer kernel")
-    parser.add_argument("--variant", action="append", default=[],
-                        help="NAME=FLAGS: a build with extra nvcc flags, timed in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         chip_smoke.fail("no CUDA device: this script runs only on an NVIDIA GPU")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
-    variants = [(v.split("=", 1)[0], tuple(v.split("=", 1)[1].split())) for v in args.variant]
-    builds = [()] + [flags for _, flags in variants] + ([("-DFST_PHASES",)] if args.phases else [])
+    builds = [()] + ([("-DFST_PHASES",)] if args.phases else [])
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
         list(pool.map(lambda flags: build.build_libraries("fused_stack", flags=flags), builds))
-    for _, flags in variants:
-        log = [line.strip() for line in build.build_log("fused_stack", flags).splitlines()
-               if "registers" in line or "spill" in line]
-        print(f"[build] {' '.join(flags)} ptxas: {' | '.join(log)}", flush=True)
-    plain = build.load("fused_stack")
-    for name, flags in variants:
-        use(build.load("fused_stack", flags))
-        check(name)
-    use(plain)
-    time_calls("build")
+    time_calls()
     per_kernel()
-    for name, flags in variants:
-        lib = build.load("fused_stack", flags)
-        for label, which in (("build", plain), (name, lib), (name, lib), ("build", plain)):
-            use(which)
-            time_calls(label)
-    use(plain)
     if args.phases:
         phases()
-        use(plain)
 
 
 if __name__ == "__main__":
