@@ -15,8 +15,11 @@ last line):
    CUDA events in turns plain, kernel, kernel, plain, beside its bound (the
    least time the card could take: the larger of the compulsory bytes at
    3.35 TB/s and the operations at 989 TFLOP/s in bf16, 67 TFLOP/s in f32):
-   a. linear attention at the four attention shapes plus a ragged and a
-      one-token case;
+   a. linear attention at the four attention shapes of a window in the
+      model's layout (the head-split view of a (1, N, BH*d) projection;
+      these calls make the kernels line), then contiguous at the same shapes
+      plus a ragged and a one-token case; each case also prints one call's
+      CUDA launches under ``torch.profiler`` and fails above two;
    b. the conv unit at the seven units of a window of the fused
       configuration, with ``F.conv3d`` alone (cuDNN) on the same input and
       weights timed as a yardstick: bf16 as the model runs it, f32 with
@@ -25,9 +28,10 @@ last line):
    c. the transformer stack at the four token stacks of a window, one and
       seven layers, with its executed TFLOP/s and share of its bound (no
       single PyTorch call computes a stack);
-   d. the linear-attention backward at the four attention shapes of the
-      training patch plus a ragged and a one-token case (no single PyTorch
-      call computes it);
+   d. the linear-attention backward likewise at the four attention shapes
+      of the training patch, in the model's layout and then contiguous, plus
+      a ragged and a one-token case, with one call's CUDA launches (no
+      single PyTorch call computes it);
    e. the six conv probes (``lintransunet_tpu_torch/experiments``, the H100
       counterparts of the TPU probes under ``experiments/``) at their TPU
       probes' main shapes in bf16 (``conv3d_cl_rows`` also in f32), beside
@@ -85,6 +89,7 @@ import time
 
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 
 from lintransunet_tpu_torch import engine, kernels
 from lintransunet_tpu_torch.cli.common import EvalConfig, get_criterion_list, make_eval_runner
@@ -151,6 +156,7 @@ DYNAMIC_WEIGHT = engine.get_dynamic_weight(
     epochs=1, T=12.0, warmup_step=10, weight_list=(0.05, 0.05, 0.1, 0.1, 1.0),
     initial_weight=(0.1, 0.2, 0.3, 0.4, 1.0), final_weight=(2.0, 1.5, 1.0, 1.0, 1.0))[0]
 EXTRA_SHAPES = [(8, 300, 32), (8, 1, 32)]
+MAX_LAUNCHES = 2  # CUDA launches of one attention call, forward or backward
 # The window's seven conv units in the fused configuration:
 # (name, Ca, Cb, O, (H, W, D), prologue affine on xa)
 CONV_SHAPES = [
@@ -288,13 +294,48 @@ def phase_card():
                   flush=True)
 
 
+def attention_inputs(count, bh, n, d, layout, dtype, gen):
+    """``count`` (1, BH, N, d) tensors on the card: contiguous, or (``heads``)
+    the head-split view of a contiguous (1, N, BH*d) projection, the layout
+    the model passes."""
+    if layout == "heads":
+        return [torch.randn((1, n, bh * d), generator=gen).to("cuda", dtype)
+                .view(1, n, bh, d).transpose(1, 2) for _ in range(count)]
+    return [torch.randn((1, bh, n, d), generator=gen).to("cuda", dtype) for _ in range(count)]
+
+
+def attention_cases(shapes):
+    """(shape, layout) of phases 2a and 2d: the main shapes in the model's
+    layout, then contiguous at the main shapes and the ragged and one-token
+    cases."""
+    return ([(shape, "heads") for shape in shapes]
+            + [(shape, "contiguous") for shape in shapes + EXTRA_SHAPES])
+
+
+def cuda_launches(fn):
+    """Names of the device rows (kernels, copies, memsets) of one call."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def check_launches(tag, label, names):
+    """Print one call's CUDA launches; fail unless there are one or two."""
+    short = [name.split("(")[0].split("<")[0].split()[-1] for name in names]
+    print(f"[{tag}] {label}: one call's CUDA launches: {len(names)} {short}", flush=True)
+    if not 1 <= len(names) <= MAX_LAUNCHES:
+        fail(f"{tag} {label}: a call launched {len(names)} CUDA kernels, not 1 to "
+             f"{MAX_LAUNCHES}")
+
+
 def phase_attention_vs_plain():
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     summary = Summary()
     for dtype in (torch.float32, torch.bfloat16):
-        for bh, n, d in MAIN_SHAPES + EXTRA_SHAPES:
-            q, k, v = (torch.randn((1, bh, n, d), generator=gen)
-                       .to("cuda", dtype) for _ in range(3))
+        for (bh, n, d), layout in attention_cases(MAIN_SHAPES):
+            q, k, v = attention_inputs(3, bh, n, d, layout, dtype, gen)
             got = fused.linear_attention(q, k, v)
             want = fused.linear_attention_reference(q, k, v)
             torch.cuda.synchronize()
@@ -307,19 +348,21 @@ def phase_attention_vs_plain():
             nbytes = 4 * bh * n * d * q.element_size()
             flops = 4 * bh * n * d * d
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            if (bh, n, d) in MAIN_SHAPES:
+            if layout == "heads":
                 summary.add(dtype, 8, ms, plain_ms, flops, nbytes)
             ok = rel <= TOL[dtype]
-            print(f"[attention] {str(dtype)[6:]:8s} BH={bh} N={n} d={d}: "
-                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {TOL[dtype]:g}) "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            label = f"{str(dtype)[6:]:8s} {layout:10s} BH={bh} N={n} d={d}"
+            print(f"[attention] {label}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+                  f"{TOL[dtype]:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
                   f"{bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'TOO FAR'}",
                   flush=True)
             if not ok:
-                fail(f"kernel disagrees with plain at {dtype} {(bh, n, d)}")
-    print(f"[attention] one window's 32 bf16 calls: kernel {summary.ms:.4f} ms, "
-          f"plain {summary.plain_ms:.4f} ms, bound {summary.bound_ms:.4f} ms; "
-          f"no single PyTorch call computes linear attention "
+                fail(f"kernel disagrees with plain at {dtype} {layout} {(bh, n, d)}")
+            check_launches("attention", label,
+                           cuda_launches(lambda: fused.linear_attention(q, k, v)))
+    print(f"[attention] one window's 32 bf16 calls (the model's layout): kernel "
+          f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
+          f"{summary.bound_ms:.4f} ms; no single PyTorch call computes linear attention "
           f"(scaled_dot_product_attention is softmax attention)", flush=True)
     return summary
 
@@ -452,9 +495,8 @@ def phase_attention_backward_vs_plain():
     gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
     summary = Summary()
     for dtype in (torch.float32, torch.bfloat16):
-        for bh, n, d in TRAIN_SHAPES + EXTRA_SHAPES:
-            q, k, v, g = (torch.randn((1, bh, n, d), generator=gen)
-                          .to("cuda", dtype) for _ in range(4))
+        for (bh, n, d), layout in attention_cases(TRAIN_SHAPES):
+            q, k, v, g = attention_inputs(4, bh, n, d, layout, dtype, gen)
             got = fused.linear_attention_backward(q, k, v, g)
             want = fused.linear_attention_backward_reference(q, k, v, g)
             torch.cuda.synchronize()
@@ -468,19 +510,22 @@ def phase_attention_backward_vs_plain():
             nbytes = 7 * bh * n * d * q.element_size()  # read q, k, v, g; write dq, dk, dv
             flops = 10 * bh * n * d * d                 # five (N x d) by (d x d) products
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            if (bh, n, d) in TRAIN_SHAPES:
+            if layout == "heads":
                 summary.add(dtype, 8, ms, plain_ms, flops, nbytes)
             ok = rel <= TOL[dtype]
-            print(f"[attention_bwd] {str(dtype)[6:]:8s} BH={bh} N={n} d={d}: "
-                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {TOL[dtype]:g}) "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            label = f"{str(dtype)[6:]:8s} {layout:10s} BH={bh} N={n} d={d}"
+            print(f"[attention_bwd] {label}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+                  f"{TOL[dtype]:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
                   f"{bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'TOO FAR'}",
                   flush=True)
             if not ok:
-                fail(f"backward kernel disagrees with plain at {dtype} {(bh, n, d)}")
-    print(f"[attention_bwd] one train step's 32 bf16 calls: kernel {summary.ms:.4f} ms, "
-          f"plain {summary.plain_ms:.4f} ms, bound {summary.bound_ms:.4f} ms; no "
-          f"single PyTorch call computes this backward", flush=True)
+                fail(f"backward kernel disagrees with plain at {dtype} {layout} {(bh, n, d)}")
+            check_launches("attention_bwd", label, cuda_launches(
+                lambda: fused.linear_attention_backward(q, k, v, g)))
+    print(f"[attention_bwd] one train step's 32 bf16 calls (the model's layout): kernel "
+          f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
+          f"{summary.bound_ms:.4f} ms; no single PyTorch call computes this backward",
+          flush=True)
     return summary
 
 

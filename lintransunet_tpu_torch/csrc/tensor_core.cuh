@@ -1,6 +1,7 @@
 // Warp-level bf16 tensor-core helpers shared by the probe kernels
-// (csrc/probe_taps.cu, csrc/probe_conv.cu) and the transformer stack
-// (csrc/fused_stack.cu): `ldmatrix` loads from XOR-swizzled shared-memory
+// (csrc/probe_taps.cu, csrc/probe_conv.cu), the transformer stack
+// (csrc/fused_stack.cu) and linear attention (csrc/linear_attention.cu):
+// `ldmatrix` loads from XOR-swizzled shared-memory
 // tiles, `mma.sync` m16n8k16 with f32 accumulation, and asynchronous copies
 // from device to shared memory (16-byte `cp.async`; bulk copies that
 // complete on an mbarrier).
@@ -58,6 +59,14 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
 // the source is read once per block); completes with the commit group.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+// The same, but writes 16 zero bytes and reads nothing unless `valid`
+// (`gmem` must still be a valid address).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
                : "memory");
 }
 

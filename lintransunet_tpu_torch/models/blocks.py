@@ -165,8 +165,8 @@ class MultiheadLinearAttention(nn.Module):
         b = q.shape[0]
         d_k = self.d_model // self.nhead
 
-        def split(t):  # (B, N, C) -> (B, H, N, d_k), contiguous for the kernel
-            return t.reshape(b, -1, self.nhead, d_k).transpose(1, 2).contiguous()
+        def split(t):  # (B, N, C) -> (B, H, N, d_k), a view the kernel reads in place
+            return t.reshape(b, -1, self.nhead, d_k).transpose(1, 2)
 
         q, k, v = (split(getattr(self, f"linears_{i}")(t))
                    for i, t in enumerate((q, k, v)))

@@ -2,9 +2,10 @@
 
 Port of ``lintransunet_tpu/ops/pallas_attention.py``. The forward kernel
 (``csrc/linear_attention.cu``) replaces both Pallas forms, whole-N and
-token-tiled, with one split-N design; the backward kernel in the same file
-replaces the custom VJP ``_bwd``. The file's header says why each is built
-as it is.
+token-tiled, with one design: a fold over token tiles whose last block per
+slice merges the partials, then a token kernel; the backward kernel in the
+same file replaces the custom VJP ``_bwd``. Each call is two launches. The
+file's header says why each is built as it is.
 
 ``linear_attention`` dispatches on the device of its inputs: CPU tensors go
 to ``linear_attention_reference`` (autograd differentiates its plain ops);
@@ -12,13 +13,26 @@ CUDA tensors launch the forward kernel, through ``LinearAttentionFunction``
 when a gradient is wanted, whose backward launches the backward kernel
 (``linear_attention_backward``). Nothing catches a build or launch failure
 and carries on.
+
+The kernels take each (B, H, N, d) tensor in one of two layouts: contiguous,
+or the head-split view ``t.view(B, N, H, d).transpose(1, 2)`` of a
+contiguous (B, N, H*d) projection, which is how the model passes them (no
+copies). Outputs and gradients come out in the layout of ``query``.
 """
 
+import ctypes
 import math
 
 import torch
 
-MAX_D = 32  # kMaxD in csrc/linear_attention.cu: one feature per warp lane
+MAX_D = 32  # kMaxD in csrc/linear_attention.cu: d is a multiple of 8, at most 32
+# Launch the token kernel under programmatic dependent launch: it loads its
+# first tokens while the fold finishes.
+PDL = True
+
+_library = None
+_scratch_floats = {}  # (device, bh, n, backward) -> floats of scratch a call needs
+_workspaces = {}      # (device, stream) -> (buffer, tickets, floats, tickets ptr, scratch ptr)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -61,56 +75,112 @@ def linear_attention_backward_reference(query: torch.Tensor, key: torch.Tensor,
     return dq.to(query.dtype), dk.to(key.dtype), dv.to(value.dtype)
 
 
+def layout_strides(t: torch.Tensor):
+    """t's (batch, head, token) element strides if the kernels take its
+    layout, else None: feature stride 1, 16-byte aligned, and either
+    contiguous (B, H, N, d) or the head-split view of a contiguous
+    (B, N, H*d) tensor (a dimension of size 1 may have any stride)."""
+    b, h, n, d = t.shape
+    sb, sh, sn, sf = t.stride()
+    if sf != 1 or t.data_ptr() % 16:
+        return None
+    for want in ((h * n * d, n * d, d), (n * h * d, d, h * d)):
+        if ((b == 1 or sb == want[0]) and (h == 1 or sh == want[1])
+                and (n == 1 or sn == want[2])):
+            return sb, sh, sn
+    return None
+
+
 def _check_cuda_inputs(*tensors):
+    """The kernels' arguments checked; returns the flat list of their
+    (batch, head, token) strides."""
     query = tensors[0]
-    if query.dim() != 4 or any(t.shape != query.shape for t in tensors):
+    shape, dtype, device = query.shape, query.dtype, query.device
+    if len(shape) != 4 or any(t.shape != shape for t in tensors):
         raise ValueError(f"q, k, v (and the gradient) must share one (B, H, N, d) "
                          f"shape; got {[tuple(t.shape) for t in tensors]}")
-    if query.shape[-1] > MAX_D or query.shape[-1] < 1:
-        raise ValueError(f"the CUDA kernel takes 1 <= d == d_v <= {MAX_D}; "
-                         f"got d={query.shape[-1]}")
-    if query.shape[2] < 1:
+    b, h, n, d = shape
+    if d % 8 or not 8 <= d <= MAX_D:
+        raise ValueError(f"the CUDA kernel takes d == d_v, a multiple of 8 up to "
+                         f"{MAX_D}; got d={d}")
+    if n < 1:
         raise ValueError("the CUDA kernel needs at least one token")
+    if b * h > 65535:
+        raise ValueError(f"B*H={b * h} exceeds the kernel's grid limit")
+    if any(t.dtype != dtype or t.device != device for t in tensors):
+        raise ValueError("q, k, v (and the gradient) must share one device and dtype")
+    if dtype != torch.float32 and dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, not {dtype}")
+    strides = []
     for t in tensors:
-        if t.device != query.device or t.dtype != query.dtype:
-            raise ValueError("q, k, v (and the gradient) must share one device "
-                             "and dtype")
-    if query.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, "
-                        f"not {query.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the CUDA kernel takes contiguous q, k, v")
+        s = layout_strides(t)
+        if s is None:
+            raise ValueError(
+                f"the CUDA kernel takes (B, H, N, d) contiguous or as the head-split "
+                f"view of a contiguous (B, N, H*d) tensor; got strides {t.stride()}")
+        strides += s
+    return strides
 
 
-def _launch_setup(query):
-    from lintransunet_tpu_torch import kernels
+def _lib():
+    global _library
+    if _library is None:
+        from lintransunet_tpu_torch import kernels
 
-    lib = kernels.load("linear_attention")
+        _library = kernels.load("linear_attention")
+    return _library
+
+
+def _workspace(device, stream, bh, n, backward):
+    """(tickets, scratch) pointers of the stream's workspace, grown to what a
+    (bh, n) call needs: one buffer per (device, stream), so a call allocates
+    nothing but its outputs. Calls on one stream run in order, so they can
+    share it; the tickets are zero between calls (the kernel leaves them so)."""
+    lib = _lib()
+    key = (device, bh, n, backward)
+    floats = _scratch_floats.get(key)
+    if floats is None:
+        floats = _scratch_floats[key] = lib.lta_scratch_floats(bh, n, int(backward))
+    space = _workspaces.get((device, stream))
+    if space is None or space[1] < bh or space[2] < floats:
+        tickets = -(-max(bh, 64, space[1] if space else 0) // 4) * 4  # scratch 16-byte aligned
+        floats = max(floats, space[2] if space else 0)
+        buf = torch.zeros(tickets + floats, dtype=torch.float32, device=device)
+        space = _workspaces[(device, stream)] = (buf, tickets, floats, buf.data_ptr(),
+                                                 buf.data_ptr() + 4 * tickets)
+    return space[3], space[4]
+
+
+def _launch(tensors, strides, backward):
+    """``lta_call`` on the current stream of the tensors' device: the
+    kernel's two launches."""
+    query = tensors[0]
     b, h, n, d = query.shape
-    n_split = lib.lta_num_splits(n)
-    if n_split > 65535:
-        raise ValueError(f"N={n} exceeds the kernel's grid limit")
-    return lib, b * h, n, d, n_split, dict(dtype=torch.float32, device=query.device)
+    device = query.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    switch = device != torch._C._cuda_getDevice()
+    if switch:
+        previous = torch._C._cuda_getDevice()
+        torch.cuda.set_device(device)
+    try:
+        tickets, scratch = _workspace(device, stream, b * h, n, backward)
+        args = [int(backward), int(query.dtype == torch.bfloat16), int(PDL), b * h, h, n, d,
+                stream, tickets, scratch]
+        args += [t.data_ptr() for t in tensors]
+        args += strides
+        err = _library.lta_call((ctypes.c_longlong * len(args))(*args))
+    finally:
+        if switch:
+            torch.cuda.set_device(previous)
+    if err != 0:
+        raise RuntimeError(f"linear-attention kernel launch failed: CUDA error {err}")
 
 
 def _forward_kernel(query, key, value):
-    _check_cuda_inputs(query, key, value)
-    lib, bh, n, d, n_split, f32 = _launch_setup(query)
+    strides = _check_cuda_inputs(query, key, value)
     out = torch.empty_like(query)
-    part_m = torch.empty((bh, n_split, d), **f32)
-    part_s = torch.empty((bh, n_split, d), **f32)
-    part_ctx = torch.empty((bh, n_split, d, d), **f32)
-    ctx = torch.empty((bh, d, d), **f32)
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream(query.device).cuda_stream
-        err = lib.lta_forward(
-            query.data_ptr(), key.data_ptr(), value.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_s.data_ptr(), part_ctx.data_ptr(),
-            ctx.data_ptr(), bh, n, d, int(query.dtype == torch.bfloat16),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"linear-attention kernel launch failed: CUDA "
-                           f"error {err}")
+    strides += layout_strides(out)
+    _launch((query, key, value, out), strides, False)
     linear_attention.launches += 1
     return out
 
@@ -119,30 +189,23 @@ def linear_attention_backward(query: torch.Tensor, key: torch.Tensor,
                               value: torch.Tensor, grad: torch.Tensor):
     """(dq, dk, dv), semantics of ``linear_attention_backward_reference``.
     CPU tensors take the plain version; CUDA tensors launch the backward
-    kernel. ``linear_attention_backward.launches`` counts its launches."""
+    kernel, and the gradients come out in the layout of ``query``.
+    ``linear_attention_backward.launches`` counts its calls (two CUDA
+    launches each)."""
     if query.device.type == "cpu":
         return linear_attention_backward_reference(query, key, value, grad)
     if query.device.type != "cuda":
         raise ValueError(f"no linear-attention path for {query.device}")
-    _check_cuda_inputs(query, key, value, grad)
-    lib, bh, n, d, n_split, f32 = _launch_setup(query)
-    dq, dk, dv = (torch.empty_like(query) for _ in range(3))
-    part_m = torch.empty((bh, n_split, d), **f32)
-    part_s = torch.empty((bh, n_split, d), **f32)
-    part_c = torch.empty((bh, n_split, d, d), **f32)
-    part_d = torch.empty((bh, n_split, d, d), **f32)
-    state = torch.empty((bh, lib.lta_state_floats()), **f32)
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream(query.device).cuda_stream
-        err = lib.lta_backward(
-            query.data_ptr(), key.data_ptr(), value.data_ptr(), grad.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), part_m.data_ptr(),
-            part_s.data_ptr(), part_c.data_ptr(), part_d.data_ptr(),
-            state.data_ptr(), bh, n, d, int(query.dtype == torch.bfloat16),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"linear-attention backward kernel launch failed: "
-                           f"CUDA error {err}")
+    strides = _check_cuda_inputs(query, key, value, grad)
+    b, h, n, d = query.shape
+    kw = dict(dtype=query.dtype, device=query.device)
+    if h > 1 and n > 1 and query.stride(2) == h * d:  # the head-split view
+        dq, dk, dv = torch.empty((3, b, n, h, d), **kw).transpose(2, 3)
+    else:
+        dq, dk, dv = torch.empty((3, b, h, n, d), **kw)
+    for t in (dq, dk, dv):
+        strides += layout_strides(t)
+    _launch((query, key, value, grad, dq, dk, dv), strides, True)
     linear_attention_backward.launches += 1
     return dq, dk, dv
 
@@ -163,19 +226,26 @@ class LinearAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         query, key, value = ctx.saved_tensors
-        return linear_attention_backward(query, key, value, grad.contiguous())
+        # The gradient is taken as it arrives (in the model, the head-split
+        # view); only a layout the kernel does not take (an expanded one, say)
+        # is copied.
+        if grad.is_cuda and layout_strides(grad) is None:
+            grad = grad.contiguous()
+        return linear_attention_backward(query, key, value, grad)
 
 
 def linear_attention(query: torch.Tensor, key: torch.Tensor,
                      value: torch.Tensor) -> torch.Tensor:
     """(B, H, N, d) x3 -> (B, H, N, d); semantics of
     ``linear_attention_reference``. ``linear_attention.launches`` counts the
-    forward kernel's launches (CPU calls do not count)."""
+    forward kernel's calls (two CUDA launches each; CPU calls do not
+    count)."""
     if query.device.type == "cpu":
         return linear_attention_reference(query, key, value)
     if query.device.type != "cuda":
         raise ValueError(f"no linear-attention path for {query.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (query, key, value)):
+    if torch.is_grad_enabled() and (query.requires_grad or key.requires_grad
+                                    or value.requires_grad):
         return LinearAttentionFunction.apply(query, key, value)
     return _forward_kernel(query, key, value)
 

@@ -43,6 +43,31 @@ def test_backward_matches_jax_bwd_and_vjp(shape):
         np.testing.assert_allclose(mine.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
 
 
+def _head_split(x):
+    """(B, H, N, d) numpy -> the port's layout for it in the model: the
+    head-split view of a contiguous (B, N, H*d) tensor, same values."""
+    b, h, n, d = x.shape
+    return t(x.transpose(0, 2, 1, 3).reshape(b, n, h * d)).view(b, n, h, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape", CASES)
+def test_backward_on_head_split_views_matches_jax(shape):
+    """The plain backward takes the model's views (no copies) and still
+    equals ``_bwd`` and ``jax.vjp``."""
+    q, k, v, g = _inputs(shape, seed=shape[2] + 1)
+    views = [_head_split(x) for x in (q, k, v, g)]
+    assert not views[0].is_contiguous() or shape[1] == 1
+    got = la.linear_attention_backward_reference(*views)
+    want_bwd = pallas_attention._bwd(False, tuple(map(jnp.asarray, (q, k, v))),
+                                     jnp.asarray(g))
+    _, vjp = jax.vjp(jax_ops.linear_attention, *map(jnp.asarray, (q, k, v)))
+    want_vjp = vjp(jnp.asarray(g))
+    for mine, a, b in zip(got, want_bwd, want_vjp):
+        assert mine.shape == shape and mine.dtype == torch.float32
+        np.testing.assert_allclose(mine.numpy(), np.asarray(a), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+
+
 def test_backward_keeps_the_input_dtype():
     q, k, v, g = (x.astype(np.float32) for x in _inputs((1, 2, 16, 8)))
     got = la.linear_attention_backward_reference(*(t(x).bfloat16() for x in (q, k, v, g)))

@@ -16,7 +16,7 @@ import torch
 from lintransunet_tpu import models as jm
 from lintransunet_tpu.compat import convert_state_dict
 from lintransunet_tpu_torch import models as tm
-from lintransunet_tpu_torch.compat import from_ncdhw, to_ncdhw
+from lintransunet_tpu_torch.compat import from_flax, from_ncdhw, to_ncdhw
 from torch_port_helpers import SMALL, load_port, random_params, t
 
 torch.set_num_threads(2)
@@ -40,6 +40,30 @@ def test_self_attention_layer(rng, masked):
     port = load_port(tm.SelfAttentionLayer(64, 2, 128), params)
     got = port(t(x), None if mask is None else t(mask))
     _close(got, want)
+
+
+def test_self_attention_layer_gradient(rng):
+    """The port's layer (q, k, v passed to the attention as head-split
+    views, no copies) under autograd against ``jax.grad`` of JAX's layer:
+    the input's and every parameter's gradient of a weighted sum of the
+    output."""
+    x = rng.standard_normal((2, 50, 64)).astype(np.float32)
+    w = rng.standard_normal((2, 50, 64)).astype(np.float32)
+    jmod = jm.SelfAttentionLayer(64, 2, 128)
+    params = random_params(jmod, x, None, seed=3)
+
+    def loss(p, xx):
+        return jnp.sum(jmod.apply({"params": p}, xx) * jnp.asarray(w))
+
+    grad_params, grad_x = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    port = load_port(tm.SelfAttentionLayer(64, 2, 128), params)
+    xt = t(x).requires_grad_()
+    (port(xt) * t(w)).sum().backward()
+    _close(xt.grad, grad_x)
+    want = from_flax(jax.tree_util.tree_map(np.asarray, grad_params))
+    assert set(want) == {name for name, _ in port.named_parameters()}
+    for name, p in port.named_parameters():
+        _close(p.grad, want[name].numpy())
 
 
 @pytest.mark.parametrize("masked", [False, True])

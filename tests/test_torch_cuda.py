@@ -133,6 +133,110 @@ def _rel(got, want):
     return err / max(want.float().abs().max().item(), 1e-30)
 
 
+def _heads(b, n, h, d, dtype, device, seed=0):
+    """(B, H, N, d) as the model passes it: the head-split view of a
+    contiguous (B, N, H*d) projection."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((b, n, h * d), generator=g).to(device, dtype)
+    return x.view(b, n, h, d).transpose(1, 2)
+
+
+def _same_layout(got, want):
+    """Equal strides wherever the size is above 1."""
+    return all(size == 1 or a == b for size, a, b in zip(want.shape, got.stride(), want.stride()))
+
+
+def _device_rows(fn):
+    """Names of the device rows (kernels, copies, memsets) of one call."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,n,h,d", [(1, 4096, 8, 32), (1, 28704, 4, 32), (2, 300, 3, 32),
+                                     (1, 1, 2, 32)])
+def test_kernels_read_the_head_split_view(cuda, b, n, h, d, dtype, tol):
+    """Forward and backward on the model's layout against the plain
+    versions; out and the gradients come out in the layout of q."""
+    q, k, v, g = (_heads(b, n, h, d, dtype, cuda, seed) for seed in range(4))
+    got = fused.linear_attention(q, k, v)
+    want = fused.linear_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape and _same_layout(got, q)
+    assert _rel(got, want) <= tol
+    got = fused.linear_attention_backward(q, k, v, g)
+    want = fused.linear_attention_backward_reference(q, k, v, g)
+    torch.cuda.synchronize()
+    top = max(w.float().abs().max().item() for w in want)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape and _same_layout(a, q)
+        err = (a.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        assert err <= BWD_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_calls_are_equal_to_the_bit(cuda, dtype):
+    q, k, v, g = (_heads(1, 28704, 4, 32, dtype, cuda, seed) for seed in range(4))
+    assert torch.equal(fused.linear_attention(q, k, v), fused.linear_attention(q, k, v))
+    first = fused.linear_attention_backward(q, k, v, g)
+    second = fused.linear_attention_backward(q, k, v, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("n", [1, 4096, 28704])
+def test_each_call_is_at_most_two_launches(cuda, n):
+    q, k, v, g = (_heads(1, n, 4, 32, torch.bfloat16, cuda, seed) for seed in range(4))
+    fused.linear_attention_backward(q, k, v, g)  # built and loaded
+    forward = _device_rows(lambda: fused.linear_attention(q, k, v))
+    backward = _device_rows(lambda: fused.linear_attention_backward(q, k, v, g))
+    assert 1 <= len(forward) <= 2 and 1 <= len(backward) <= 2, (forward, backward)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_module_copies_nothing(cuda, dtype):
+    """One MultiheadLinearAttention forward: the four projections and the
+    kernel's two launches, no copy of q, k, v or the output; and the kernel
+    build agrees with the plain one."""
+    from lintransunet_tpu_torch.models.blocks import MultiheadLinearAttention
+
+    module = MultiheadLinearAttention(256, 8).to(cuda, dtype)
+    x = torch.randn((1, 4096, 256), generator=torch.Generator().manual_seed(0)).to(cuda, dtype)
+    with torch.no_grad():
+        got = module(x, x, x)
+        rows = _device_rows(lambda: module(x, x, x))
+        module.attention_impl = "plain"
+        want = module(x, x, x)
+    assert not [r for r in rows if "copy" in r.lower()], rows
+    assert sum("lta_" in r for r in rows) == 2, rows
+    assert _rel(got, want) <= (5e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_kernel_rejects_other_layouts(cuda):
+    q, k, v = _qkv((1, 2, 64, 32), torch.float32, cuda)
+    with pytest.raises(ValueError):  # features not innermost
+        fused.linear_attention(*(t.transpose(1, 3).contiguous().transpose(1, 3) for t in (q, k, v)))
+    with pytest.raises(ValueError):  # heads of a wider projection (token stride 128, not 64)
+        wide = torch.randn((1, 64, 4, 32), device=cuda)[:, :, :2].transpose(1, 2)
+        fused.linear_attention(wide, wide, wide)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        odd = torch.randn(2 * 64 * 32 + 1, device=cuda)[1:].view(1, 2, 64, 32)
+        fused.linear_attention(odd, odd, odd)
+    with pytest.raises(ValueError):  # a gradient in another layout
+        fused.linear_attention_backward(q, k, v, q.transpose(1, 3).contiguous().transpose(1, 3))
+    for d in (4, 12, 20):
+        narrow = _qkv((1, 2, 64, d), torch.bfloat16, cuda)
+        with pytest.raises(ValueError):
+            fused.linear_attention(*narrow)
+        with pytest.raises(ValueError):
+            fused.linear_attention_backward(*narrow, narrow[0])
+
+
 def _conv_inputs(n, ca, cb, o, spatial, dtype, device, seed=0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     rnd = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731

@@ -162,3 +162,61 @@ def test_kernel_semantics_match_pallas_interpret(rng, monkeypatch, form):
                                       jnp.asarray(v), True)
     _close(tfused.linear_attention_reference(_t(q), _t(k), _t(v)), want)
     _close(tfused.linear_attention(_t(q), _t(k), _t(v)), want)
+
+
+def _head_split(x):
+    """(B, H, N, d) numpy -> the head-split view of a contiguous (B, N, H*d)
+    tensor with the same values: the layout the model passes."""
+    b, h, n, d = x.shape
+    return _t(x.transpose(0, 2, 1, 3).reshape(b, n, h * d)).view(b, n, h, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("form", ["whole_n", "tiled"])
+def test_kernel_semantics_on_head_split_views_match_pallas_interpret(rng, monkeypatch, form):
+    """The plain version on the model's views (no copies) against the
+    Pallas kernel in both forms."""
+    n = 300
+    if form == "tiled":
+        monkeypatch.setattr(pa, "WHOLE_N_LIMIT", 512)
+        monkeypatch.setattr(pa, "TILE_N", 256)
+        n = 1000
+    q, k, v = _qkv(rng, 2, 3, n, 32)
+    want = pa.linear_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), True)
+    views = [_head_split(x) for x in (q, k, v)]
+    assert all(tfused.layout_strides(x) == (n * 96, 32, 96) for x in views)
+    _close(tfused.linear_attention_reference(*views), want)
+    _close(tfused.linear_attention(*views), want)
+
+
+def test_kernel_layouts_and_limits():
+    """What the CUDA wrappers take, checked on CPU tensors: contiguous
+    (B, H, N, d) and the head-split view, with d a multiple of 8 up to 32;
+    anything else raises before a launch."""
+    b, h, n, d = 2, 3, 40, 16
+    heads = torch.zeros((b, n, h * d)).view(b, n, h, d).transpose(1, 2)
+    flat = torch.zeros((b, h, n, d))
+    assert tfused.layout_strides(heads) == (n * h * d, d, h * d)
+    assert tfused.layout_strides(flat) == (h * n * d, n * d, d)
+    assert len(tfused._check_cuda_inputs(heads, flat, heads, flat)) == 12
+    # size-1 dims take any stride
+    one = torch.zeros((1, n, 1 * d)).view(1, n, 1, d).transpose(1, 2)
+    assert tfused.layout_strides(one) == one.stride()[:3]
+    rejected = [
+        flat[:, :, ::2],                                     # every other token
+        flat.transpose(2, 3).contiguous().transpose(2, 3),   # features not innermost
+        torch.zeros((b, n, 2 * h, d))[:, :, :h].transpose(1, 2),  # a wider projection
+        torch.zeros(flat.numel() + 1)[1:].view(b, h, n, d),  # not 16-byte aligned
+    ]
+    for x in rejected:
+        assert tfused.layout_strides(x) is None
+        with pytest.raises(ValueError):
+            tfused._check_cuda_inputs(x, x, x)
+    for width in (4, 12, 20, 40, 64):
+        x = torch.zeros((1, 2, 8, width))
+        with pytest.raises(ValueError):
+            tfused._check_cuda_inputs(x, x, x)
+    with pytest.raises(TypeError):
+        tfused._check_cuda_inputs(flat.half(), flat.half(), flat.half())
+    with pytest.raises(ValueError):
+        tfused._check_cuda_inputs(flat, flat, flat, flat[:, :, :8])

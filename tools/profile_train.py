@@ -40,7 +40,9 @@ TOP = 25
 # kernel-name substrings -> class, ahead of the serving classes; the first
 # match wins
 CLASSES = [
-    ("linear-attention backward kernel", ("bwd_partial", "bwd_combine", "bwd_tokens")),
+    ("linear-attention backward kernel", ("lta_fold<__nv_bfloat16, true>", "lta_fold<float, true>",
+                                          "lta_bwd_tokens", "bwd_partial", "bwd_combine",
+                                          "bwd_tokens")),
     ("AdamW (foreach)", ("multi_tensor_apply", "foreach")),
     ("conv3d backward", ("dgrad", "wgrad", "convolve_sgemm_backward", "conv_depthwise3d_backward")),
     ("trilinear upsample backward", ("upsample_trilinear3d_backward",)),

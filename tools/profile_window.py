@@ -49,7 +49,8 @@ CLASSES = [
     ("transformer-stack kernel", ("stack_kv_", "stack_ctx_combine", "stack_apply_",
                                   "stack_pack_weights")),
     ("conv-unit kernel", ("conv_unit_", "stats_reduce")),
-    ("linear-attention kernel", ("ctx_partial", "ctx_combine", "attn_out")),
+    ("linear-attention kernel", ("lta_fold", "lta_out", "ctx_partial", "ctx_combine",
+                                 "attn_out")),
     ("cuDNN layout transposes", ("nhwcToNchw", "nchwToNhwc")),
     ("conv3d", ("fprop", "conv", "cudnn")),
     ("trilinear upsample", ("upsample",)),
