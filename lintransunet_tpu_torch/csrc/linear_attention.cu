@@ -91,7 +91,7 @@ constexpr int kFoldTile = 32;       // tokens per warp tile in lta_fold
 constexpr int kRowTile = 16;        // tokens per warp tile in the token kernels
 constexpr int kMaxSplits = 64;      // fold blocks per slice, at most
 #ifndef LTA_FOLD_BLOCKS_PER_SM
-#define LTA_FOLD_BLOCKS_PER_SM 2
+#define LTA_FOLD_BLOCKS_PER_SM 1
 #endif
 #ifndef LTA_TOKEN_BLOCKS_PER_SM
 #define LTA_TOKEN_BLOCKS_PER_SM 4

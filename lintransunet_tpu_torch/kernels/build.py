@@ -28,12 +28,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_LP = ctypes.POINTER(ctypes.c_longlong)
 _F = ctypes.c_float
 # C signatures of each library's entry points: name -> (restype, argtypes).
 SIGNATURES = {
     "linear_attention": {
-        "lta_call": (_I, [_LP]),
+        "lta_call": (_I, [_P]),
         "lta_scratch_floats": (_L, [_I, _I, _I]),
     },
     "conv_unit": {

@@ -20,7 +20,7 @@ contiguous (B, N, H*d) projection, which is how the model passes them (no
 copies). Outputs and gradients come out in the layout of ``query``.
 """
 
-import ctypes
+import array
 import math
 
 import torch
@@ -80,14 +80,16 @@ def layout_strides(t: torch.Tensor):
     layout, else None: feature stride 1, 16-byte aligned, and either
     contiguous (B, H, N, d) or the head-split view of a contiguous
     (B, N, H*d) tensor (a dimension of size 1 may have any stride)."""
-    b, h, n, d = t.shape
+    return _layout(t, *t.shape)
+
+
+def _layout(t, b, h, n, d):
     sb, sh, sn, sf = t.stride()
     if sf != 1 or t.data_ptr() % 16:
         return None
-    for want in ((h * n * d, n * d, d), (n * h * d, d, h * d)):
-        if ((b == 1 or sb == want[0]) and (h == 1 or sh == want[1])
-                and (n == 1 or sn == want[2])):
-            return sb, sh, sn
+    if ((b == 1 or sb == h * n * d) and (h == 1 or sh == n * d) and (n == 1 or sn == d)
+            or (b == 1 or sb == n * h * d) and (h == 1 or sh == d) and (n == 1 or sn == h * d)):
+        return sb, sh, sn
     return None
 
 
@@ -95,10 +97,10 @@ def _check_cuda_inputs(*tensors):
     """The kernels' arguments checked; returns the flat list of their
     (batch, head, token) strides."""
     query = tensors[0]
-    shape, dtype, device = query.shape, query.dtype, query.device
-    if len(shape) != 4 or any(t.shape != shape for t in tensors):
-        raise ValueError(f"q, k, v (and the gradient) must share one (B, H, N, d) "
-                         f"shape; got {[tuple(t.shape) for t in tensors]}")
+    shape, dtype, device = query.shape, query.dtype, query.get_device()
+    if len(shape) != 4:
+        raise ValueError(f"q, k, v (and the gradient) must be (B, H, N, d); got "
+                         f"{[tuple(t.shape) for t in tensors]}")
     b, h, n, d = shape
     if d % 8 or not 8 <= d <= MAX_D:
         raise ValueError(f"the CUDA kernel takes d == d_v, a multiple of 8 up to "
@@ -107,13 +109,17 @@ def _check_cuda_inputs(*tensors):
         raise ValueError("the CUDA kernel needs at least one token")
     if b * h > 65535:
         raise ValueError(f"B*H={b * h} exceeds the kernel's grid limit")
-    if any(t.dtype != dtype or t.device != device for t in tensors):
-        raise ValueError("q, k, v (and the gradient) must share one device and dtype")
+    for t in tensors:
+        if t.shape != shape:
+            raise ValueError(f"q, k, v (and the gradient) must share one (B, H, N, d) "
+                             f"shape; got {[tuple(t.shape) for t in tensors]}")
+        if t.dtype != dtype or t.get_device() != device:
+            raise ValueError("q, k, v (and the gradient) must share one device and dtype")
     if dtype != torch.float32 and dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, not {dtype}")
     strides = []
     for t in tensors:
-        s = layout_strides(t)
+        s = _layout(t, b, h, n, d)
         if s is None:
             raise ValueError(
                 f"the CUDA kernel takes (B, H, N, d) contiguous or as the head-split "
@@ -158,19 +164,18 @@ def _launch(tensors, strides, backward):
     b, h, n, d = query.shape
     device = query.get_device()
     stream = torch._C._cuda_getCurrentRawStream(device)
-    switch = device != torch._C._cuda_getDevice()
-    if switch:
-        previous = torch._C._cuda_getDevice()
+    previous = torch._C._cuda_getDevice()
+    if device != previous:
         torch.cuda.set_device(device)
     try:
         tickets, scratch = _workspace(device, stream, b * h, n, backward)
-        args = [int(backward), int(query.dtype == torch.bfloat16), int(PDL), b * h, h, n, d,
-                stream, tickets, scratch]
-        args += [t.data_ptr() for t in tensors]
-        args += strides
-        err = _library.lta_call((ctypes.c_longlong * len(args))(*args))
+        args = array.array("q", (int(backward), int(query.dtype == torch.bfloat16), int(PDL),
+                                 b * h, h, n, d, stream, tickets, scratch))
+        args.extend([t.data_ptr() for t in tensors])
+        args.extend(strides)
+        err = _library.lta_call(args.buffer_info()[0])
     finally:
-        if switch:
+        if device != previous:
             torch.cuda.set_device(previous)
     if err != 0:
         raise RuntimeError(f"linear-attention kernel launch failed: CUDA error {err}")
@@ -178,9 +183,8 @@ def _launch(tensors, strides, backward):
 
 def _forward_kernel(query, key, value):
     strides = _check_cuda_inputs(query, key, value)
-    out = torch.empty_like(query)
-    strides += layout_strides(out)
-    _launch((query, key, value, out), strides, False)
+    out = torch.empty_like(query)  # a dense view: query's strides
+    _launch((query, key, value, out), strides + strides[:3], False)
     linear_attention.launches += 1
     return out
 
@@ -198,13 +202,14 @@ def linear_attention_backward(query: torch.Tensor, key: torch.Tensor,
         raise ValueError(f"no linear-attention path for {query.device}")
     strides = _check_cuda_inputs(query, key, value, grad)
     b, h, n, d = query.shape
-    kw = dict(dtype=query.dtype, device=query.device)
-    if h > 1 and n > 1 and query.stride(2) == h * d:  # the head-split view
-        dq, dk, dv = torch.empty((3, b, n, h, d), **kw).transpose(2, 3)
+    if h > 1 and n > 1 and strides[2] == h * d:  # query is the head-split view
+        grads = torch.empty((3, b, n, h, d), dtype=query.dtype,
+                            device=query.device).transpose(2, 3)
+        strides += [n * h * d, d, h * d] * 3
     else:
-        dq, dk, dv = torch.empty((3, b, h, n, d), **kw)
-    for t in (dq, dk, dv):
-        strides += layout_strides(t)
+        grads = torch.empty((3, b, h, n, d), dtype=query.dtype, device=query.device)
+        strides += [h * n * d, n * d, d] * 3
+    dq, dk, dv = grads.unbind(0)
     _launch((query, key, value, grad, dq, dk, dv), strides, True)
     linear_attention_backward.launches += 1
     return dq, dk, dv

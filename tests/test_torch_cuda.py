@@ -146,15 +146,22 @@ def _same_layout(got, want):
     return all(size == 1 or a == b for size, a, b in zip(want.shape, got.stride(), want.stride()))
 
 
-def _device_rows(fn):
-    """Names of the device rows (kernels, copies, memsets) of one call."""
+def _device_rows(fn, calls=1):
+    """Names of the device rows (kernels, copies, memsets) of ``calls`` calls
+    of ``fn``; a profiler session that records no row at all (it now and then
+    returns none) is run again, up to three times."""
     from torch.autograd import DeviceType
 
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if rows:
+            return rows
+    return rows
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
