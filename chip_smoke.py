@@ -332,8 +332,8 @@ def check_launches(tag, label, names, calls=3):
     """Print one call's CUDA launches (of ``calls`` profiled); fail unless
     there are one or two."""
     per_call = len(names) / calls
-    short = sorted({name.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
-                    for name in names})
+    short = sorted({name.replace("(anonymous namespace)::", "").replace("void ", "", 1)
+                    .split("(")[0].strip() for name in names})
     print(f"[{tag}] {label}: CUDA launches per call {per_call:g} {short}", flush=True)
     if not 1 <= per_call <= MAX_LAUNCHES:
         fail(f"{tag} {label}: a call launched {per_call:g} CUDA kernels, not 1 to "
