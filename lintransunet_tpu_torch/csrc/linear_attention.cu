@@ -90,18 +90,8 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kFoldTile = 32;       // tokens per warp tile in lta_fold
 constexpr int kRowTile = 16;        // tokens per warp tile in the token kernels
 constexpr int kMaxSplits = 64;      // fold blocks per slice, at most
-#ifndef LTA_FOLD_BLOCKS_PER_SM
-#define LTA_FOLD_BLOCKS_PER_SM 1
-#endif
-#ifndef LTA_TOKEN_BLOCKS_PER_SM
-#define LTA_TOKEN_BLOCKS_PER_SM 4
-#endif
-#ifndef LTA_SPLIT_CAP
-#define LTA_SPLIT_CAP kMaxSplits
-#endif
-constexpr int kFoldBlocksPerSm = LTA_FOLD_BLOCKS_PER_SM;
-constexpr int kSplitCap = LTA_SPLIT_CAP;
-constexpr int kTokenBlocksPerSm = LTA_TOKEN_BLOCKS_PER_SM;
+constexpr int kFoldBlocksPerSm = 1;   // 2 was 5-7% slower a window (PERF.md, PR 8)
+constexpr int kTokenBlocksPerSm = 4;  // 2 was 10% slower, 8 the same
 constexpr int kPitch = 36;          // floats per row of an f32 32-column matrix in shared memory
 constexpr int kVec = 3 * kMaxD;     // backward state: M, 1/S, R
 
@@ -991,11 +981,11 @@ int sm_count() {
 }
 
 // Fold blocks per slice: about kFoldBlocksPerSm per SM over the slices, at
-// least one tile each, at most kSplitCap.
+// least one tile each, at most kMaxSplits.
 int fold_splits(int bh, int n) {
   const int tiles = (n + kFoldTile - 1) / kFoldTile;
   int s = (kFoldBlocksPerSm * sm_count() + bh - 1) / bh;
-  s = s < kSplitCap ? s : kSplitCap;
+  s = s < kMaxSplits ? s : kMaxSplits;
   s = s < tiles ? s : tiles;
   return s > 0 ? s : 1;
 }

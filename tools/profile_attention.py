@@ -1,6 +1,6 @@
 """Where the linear-attention kernels' time goes on one CUDA card.
 
-    python3 tools/profile_attention.py [--layout contiguous|heads]
+    python3 tools/profile_attention.py [--layout contiguous|heads] [--no-pdl]
 
 At the window's four serving shapes (``chip_smoke.MAIN_SHAPES``, forward)
 and the training patch's four (``chip_smoke.TRAIN_SHAPES``, backward), bf16,
@@ -20,7 +20,8 @@ is what the model passes. For each call it prints:
   memsets, copies), and each kernel's device time per call.
 
 Then the window's 32 forward calls and the step's 32 backward calls summed
-(8 calls at each shape). Only the wrappers' public names are used, so a
+(8 calls at each shape). ``--no-pdl`` launches the token kernel without
+programmatic dependent launch. Only the wrappers' public names are used, so a
 copy of this file runs in an older tree of the port too (``contiguous``).
 """
 
@@ -127,21 +128,14 @@ def backward_call(bh, n, d, layout, gen):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--layout", choices=("contiguous", "heads"), default="contiguous")
-    parser.add_argument("--flags", nargs="*", default=[],
-                        help="nvcc flags of a variant build (-DNAME=VALUE) to time instead")
     parser.add_argument("--no-pdl", action="store_true",
                         help="launch the token kernel without programmatic dependent launch")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         chip_smoke.fail("no CUDA device: this script runs only on an NVIDIA GPU")
-    if args.flags:
-        from lintransunet_tpu_torch import kernels
-
-        fused._library = kernels.load("linear_attention", tuple(args.flags))
     if args.no_pdl:
         fused.PDL = False
-    print(f"[config] layout {args.layout}, flags {args.flags}, pdl {not args.no_pdl}",
-          flush=True)
+    print(f"[config] layout {args.layout}, pdl {not args.no_pdl}", flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
