@@ -19,7 +19,7 @@ import torch
 from lintransunet_tpu import ops as jax_ops
 from lintransunet_tpu.ops import pallas_attention
 from lintransunet_tpu_torch.ops import linear_attention as la
-from torch_port_helpers import t
+from torch_port_helpers import head_split, t
 
 CASES = [(2, 4, 256, 32), (1, 3, 300, 32), (1, 2, 37, 8)]  # (B, H, N, d)
 
@@ -43,19 +43,12 @@ def test_backward_matches_jax_bwd_and_vjp(shape):
         np.testing.assert_allclose(mine.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
 
 
-def _head_split(x):
-    """(B, H, N, d) numpy -> the port's layout for it in the model: the
-    head-split view of a contiguous (B, N, H*d) tensor, same values."""
-    b, h, n, d = x.shape
-    return t(x.transpose(0, 2, 1, 3).reshape(b, n, h * d)).view(b, n, h, d).transpose(1, 2)
-
-
 @pytest.mark.parametrize("shape", CASES)
 def test_backward_on_head_split_views_matches_jax(shape):
     """The plain backward takes the model's views (no copies) and still
     equals ``_bwd`` and ``jax.vjp``."""
     q, k, v, g = _inputs(shape, seed=shape[2] + 1)
-    views = [_head_split(x) for x in (q, k, v, g)]
+    views = [head_split(x) for x in (q, k, v, g)]
     assert not views[0].is_contiguous() or shape[1] == 1
     got = la.linear_attention_backward_reference(*views)
     want_bwd = pallas_attention._bwd(False, tuple(map(jnp.asarray, (q, k, v))),

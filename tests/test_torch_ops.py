@@ -18,6 +18,7 @@ from lintransunet_tpu_torch import ops as tops
 from lintransunet_tpu_torch.compat import from_ncdhw, to_ncdhw
 from lintransunet_tpu_torch.ops import attention as tattn
 from lintransunet_tpu_torch.ops import linear_attention as tfused
+from torch_port_helpers import head_split
 
 torch.set_num_threads(2)
 
@@ -164,13 +165,6 @@ def test_kernel_semantics_match_pallas_interpret(rng, monkeypatch, form):
     _close(tfused.linear_attention(_t(q), _t(k), _t(v)), want)
 
 
-def _head_split(x):
-    """(B, H, N, d) numpy -> the head-split view of a contiguous (B, N, H*d)
-    tensor with the same values: the layout the model passes."""
-    b, h, n, d = x.shape
-    return _t(x.transpose(0, 2, 1, 3).reshape(b, n, h * d)).view(b, n, h, d).transpose(1, 2)
-
-
 @pytest.mark.parametrize("form", ["whole_n", "tiled"])
 def test_kernel_semantics_on_head_split_views_match_pallas_interpret(rng, monkeypatch, form):
     """The plain version on the model's views (no copies) against the
@@ -183,7 +177,7 @@ def test_kernel_semantics_on_head_split_views_match_pallas_interpret(rng, monkey
     q, k, v = _qkv(rng, 2, 3, n, 32)
     want = pa.linear_attention_pallas(jnp.asarray(q), jnp.asarray(k),
                                       jnp.asarray(v), True)
-    views = [_head_split(x) for x in (q, k, v)]
+    views = [head_split(x) for x in (q, k, v)]
     assert all(tfused.layout_strides(x) == (n * 96, 32, 96) for x in views)
     _close(tfused.linear_attention_reference(*views), want)
     _close(tfused.linear_attention(*views), want)

@@ -40,3 +40,11 @@ def load_port(port_module, params):
 
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+
+
+def head_split(x):
+    """(B, H, N, d) numpy -> the same values as the port's attention layers
+    pass them: the head-split view ``view(B, N, H, d).transpose(1, 2)`` of a
+    contiguous (B, N, H*d) tensor."""
+    b, h, n, d = x.shape
+    return t(x.transpose(0, 2, 1, 3).reshape(b, n, h * d)).view(b, n, h, d).transpose(1, 2)
