@@ -90,7 +90,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kFoldTile = 32;       // tokens per warp tile in lta_fold
 constexpr int kRowTile = 16;        // tokens per warp tile in the token kernels
 constexpr int kMaxSplits = 64;      // fold blocks per slice, at most
-constexpr int kFoldBlocksPerSm = 1;   // 2 was 5-7% slower a window (PERF.md, PR 8)
+constexpr int kFoldBlocksPerSm = 1;   // 2 was 5-7% slower over the model's calls (PERF.md)
 constexpr int kTokenBlocksPerSm = 4;  // 2 was 10% slower, 8 the same
 constexpr int kPitch = 36;          // floats per row of an f32 32-column matrix in shared memory
 constexpr int kVec = 3 * kMaxD;     // backward state: M, 1/S, R
