@@ -312,35 +312,37 @@ def attention_cases(shapes):
             + [(shape, "contiguous") for shape in shapes + EXTRA_SHAPES])
 
 
-def cuda_launches(fn, calls=3, tries=3):
-    """Names of the device rows (kernels, copies, memsets) of ``calls`` calls
-    under ``torch.profiler``, from the fullest of up to ``tries`` sessions:
-    the profiler now and then drops rows of a session (on the H100 it
-    returned none, or 4 of a backward's 6), never adds them."""
-    best = []
-    for _ in range(tries):
+def cuda_launches(fn, calls=3):
+    """(the kernel launches, the device rows) of ``calls`` calls under
+    ``torch.profiler``, by name: launches are the host's ``cudaLaunch*``
+    calls; rows are the kernels, copies and memsets the card ran, of which
+    the profiler on the H100 keeps only some now and then (none, or 4 of a
+    backward's 6)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        best = max(best, names, key=len)
-        if len(best) >= MAX_LAUNCHES * calls:
-            break
-    return best
+    events = prof.events()
+    return ([e.name for e in events
+             if e.device_type == DeviceType.CPU and e.name.startswith("cudaLaunch")],
+            [e.name for e in events if e.device_type == DeviceType.CUDA])
 
 
-def check_launches(tag, label, names, calls=3):
-    """Print one call's CUDA launches (of ``calls`` profiled); fail unless
-    there are one or two."""
-    per_call = len(names) / calls
+def check_launches(tag, label, found, calls=3):
+    """Print one call's CUDA launches (of ``calls`` profiled) and the device
+    rows kept; fail unless there are one or two launches a call and no more
+    rows than launches."""
+    launches, rows = found
+    per_call, rows_per_call = len(launches) / calls, len(rows) / calls
     short = sorted({name.replace("(anonymous namespace)::", "").replace("void ", "", 1)
-                    .split("(")[0].strip() for name in names})
-    print(f"[{tag}] {label}: CUDA launches per call {per_call:g} {short}", flush=True)
-    if not 1 <= per_call <= MAX_LAUNCHES:
-        fail(f"{tag} {label}: a call launched {per_call:g} CUDA kernels, not 1 to "
-             f"{MAX_LAUNCHES}")
+                    .split("(")[0].strip() for name in rows})
+    print(f"[{tag}] {label}: CUDA launches per call {per_call:g} (device rows kept "
+          f"{rows_per_call:g}: {short})", flush=True)
+    if not 1 <= per_call <= MAX_LAUNCHES or rows_per_call > per_call:
+        fail(f"{tag} {label}: a call launched {per_call:g} CUDA kernels ({rows_per_call:g} "
+             f"device rows), not 1 to {MAX_LAUNCHES}")
 
 
 def phase_attention_vs_plain():
