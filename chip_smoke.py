@@ -19,7 +19,8 @@ last line):
       model's layout (the head-split view of a (1, N, BH*d) projection;
       these calls make the kernels line), then contiguous at the same shapes
       plus a ragged and a one-token case; each case also prints one call's
-      CUDA launches under ``torch.profiler`` and fails above two;
+      CUDA launches (the host's ``cudaLaunch*`` calls under
+      ``torch.profiler``, ``kernels.launches``) and fails above two;
    b. the conv unit at the seven units of a window of the fused
       configuration, with ``F.conv3d`` alone (cuDNN) on the same input and
       weights timed as a yardstick: bf16 as the model runs it, f32 with
@@ -89,7 +90,6 @@ import time
 
 import torch
 import torch.nn.functional as F
-from torch.autograd import DeviceType
 
 from lintransunet_tpu_torch import engine, kernels
 from lintransunet_tpu_torch.cli.common import EvalConfig, get_criterion_list, make_eval_runner
@@ -108,6 +108,7 @@ from lintransunet_tpu_torch.experiments.common import (
     bound,
     cuda_ms,
 )
+from lintransunet_tpu_torch.kernels.launches import cuda_launches
 from lintransunet_tpu_torch.models import MaskTransUnet, init_random_
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import fused_stack as fs
@@ -312,29 +313,11 @@ def attention_cases(shapes):
             + [(shape, "contiguous") for shape in shapes + EXTRA_SHAPES])
 
 
-def cuda_launches(fn, calls=3):
-    """(the kernel launches, the device rows) of ``calls`` calls under
-    ``torch.profiler``, by name: launches are the host's ``cudaLaunch*``
-    calls; rows are the kernels, copies and memsets the card ran, of which
-    the profiler on the H100 keeps only some now and then (none, or 4 of a
-    backward's 6)."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.events()
-    return ([e.name for e in events
-             if e.device_type == DeviceType.CPU and e.name.startswith("cudaLaunch")],
-            [e.name for e in events if e.device_type == DeviceType.CUDA])
-
-
 def check_launches(tag, label, found, calls=3):
     """Print one call's CUDA launches (of ``calls`` profiled) and the device
     rows kept; fail unless there are one or two launches a call and no more
     rows than launches."""
-    launches, rows = found
+    launches, _, rows = found
     per_call, rows_per_call = len(launches) / calls, len(rows) / calls
     short = sorted({name.replace("(anonymous namespace)::", "").replace("void ", "", 1)
                     .split("(")[0].strip() for name in rows})
@@ -374,7 +357,7 @@ def phase_attention_vs_plain():
             if not ok:
                 fail(f"kernel disagrees with plain at {dtype} {layout} {(bh, n, d)}")
             check_launches("attention", label,
-                           cuda_launches(lambda: fused.linear_attention(q, k, v)))
+                           cuda_launches(lambda: fused.linear_attention(q, k, v), 3))
     print(f"[attention] one window's 32 bf16 calls (the model's layout): kernel "
           f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
           f"{summary.bound_ms:.4f} ms; no single PyTorch call computes linear attention "
@@ -536,7 +519,7 @@ def phase_attention_backward_vs_plain():
             if not ok:
                 fail(f"backward kernel disagrees with plain at {dtype} {layout} {(bh, n, d)}")
             check_launches("attention_bwd", label, cuda_launches(
-                lambda: fused.linear_attention_backward(q, k, v, g)))
+                lambda: fused.linear_attention_backward(q, k, v, g), 3))
     print(f"[attention_bwd] one train step's 32 bf16 calls (the model's layout): kernel "
           f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
           f"{summary.bound_ms:.4f} ms; no single PyTorch call computes this backward",

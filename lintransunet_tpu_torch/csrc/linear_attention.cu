@@ -12,7 +12,8 @@
 // Replaces the three Pallas TPU kernels of lintransunet_tpu/ops/pallas_attention.py:
 // the whole-N `_kernel` (pallas_call at :126) and the token-tiled pair
 // `_stats_kernel` + `_out_kernel` (pallas_calls at :206 and :233); and, as
-// `lta_backward`, the custom VJP `_bwd` (:260-290, XLA einsums on the TPU).
+// `lta_fold<T, true>` + `lta_bwd_tokens`, the custom VJP `_bwd` (:260-290,
+// XLA einsums on the TPU).
 // With s_q the feature softmax of q, s_k the token softmax of k and
 // scale = 1/sqrt(d), per slice:
 //
@@ -57,9 +58,9 @@
 //   f32 matrices or, in bf16, pre-packed `mma.sync` B fragments (hi and lo
 //   bf16 halves) in the order the token kernel's lanes read them.
 // * `lta_out` / `lta_bwd_tokens` (the second launch, under programmatic
-//   dependent launch when asked: it loads its first tokens while the fold
-//   finishes). A warp takes 16-token tiles; each lane loads 16 bytes of
-//   features 8c..8c+7 of rows g and g+8 (g = lane / 4, c = lane % 4),
+//   dependent launch: it loads its first tokens while the fold finishes).
+//   A warp takes 16-token tiles; each lane loads 16 bytes of features
+//   8c..8c+7 of rows g and g+8 (g = lane / 4, c = lane % 4),
 //   which is exactly an A fragment once the 32 features are permuted onto
 //   the k slots (pi below) and the output columns onto the n slots (sigma),
 //   so the feature softmax is a 4-lane reduction, every product is
@@ -1000,7 +1001,7 @@ int token_splits(int bh, int n) {
 }
 
 template <typename T, bool kBwd>
-int launch(Args a, int bh, int pdl, cudaStream_t stream) {
+int launch(Args a, int bh, cudaStream_t stream) {
   a.splits = fold_splits(bh, a.n);
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(a.d)));
   a.partials = a.state + static_cast<size_t>(bh) * state_floats<kBwd>();
@@ -1027,7 +1028,7 @@ int launch(Args a, int bh, int pdl, cudaStream_t stream) {
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
+  cfg.numAttrs = 1;
   if (kBwd) {
     err = cudaLaunchKernelEx(&cfg, lta_bwd_tokens<T>, a);
   } else {
@@ -1048,23 +1049,23 @@ long long lta_scratch_floats(int bh, int n, int backward) {
   return bh * (state_floats<false>() + splits * part_floats<false>());
 }
 
-// One call, forward or backward; `args` (64-bit integers):
-//   [0] backward, [1] is_bf16 (else f32), [2] pdl (launch the token kernel
-//   under programmatic dependent launch), [3] bh, [4] heads, [5] n, [6] d,
-//   [7] the cudaStream_t, [8] tickets (bh unsigned ints, zero, left zero),
-//   [9] scratch (lta_scratch_floats(bh, n, backward) floats),
-//   then the tensors' data pointers: q, k, v, out (forward) or q, k, v, g,
-//   dq, dk, dv (backward; g is the output's gradient),
-//   then each tensor's (batch, head, token) element strides, in that order.
+// One call, forward or backward, in two arrays of 64-bit integers:
+//   `call`: [0] the cudaStream_t, [1] tickets (bh unsigned ints, zero, left
+//   zero), [2] scratch (lta_scratch_floats(bh, n, backward) floats), then
+//   the tensors' data pointers: q, k, v, out (forward) or q, k, v, g, dq,
+//   dk, dv (backward; g is the output's gradient);
+//   `plan`: [0] backward, [1] is_bf16 (else f32), [2] bh, [3] heads, [4] n,
+//   [5] d, then each tensor's (batch, head, token) element strides, in the
+//   order of the pointers.
 // Every tensor is (B, H, N, d) with d % 8 == 0, d <= 32, feature stride 1
-// and 16-byte aligned rows. Two launches on the stream; returns the first
-// CUDA error, or 0.
-int lta_call(const long long* args) {
-  const bool bwd = args[0] != 0;
-  const int bh = static_cast<int>(args[3]);
+// and 16-byte aligned rows. Two launches on the stream, the token kernel
+// under programmatic dependent launch; returns the first CUDA error, or 0.
+int lta_call(const long long* call, const long long* plan) {
+  const bool bwd = plan[0] != 0;
+  const int bh = static_cast<int>(plan[2]);
   const int tensors = bwd ? 7 : 4, inputs = bwd ? 4 : 3;
-  const long long* ptrs = args + 10;
-  const long long* strides = ptrs + tensors;
+  const long long* ptrs = call + 3;
+  const long long* strides = plan + 6;
   Args a = {};
   for (int i = 0; i < tensors; ++i) {
     const Strides st = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
@@ -1076,17 +1077,16 @@ int lta_call(const long long* args) {
       a.out_s[i - inputs] = st;
     }
   }
-  a.tickets = reinterpret_cast<unsigned*>(args[8]);
-  a.state = reinterpret_cast<float*>(args[9]);
-  a.heads = static_cast<int>(args[4]);
-  a.n = static_cast<int>(args[5]);
-  a.d = static_cast<int>(args[6]);
-  const int pdl = static_cast<int>(args[2]);
-  auto stream = reinterpret_cast<cudaStream_t>(args[7]);
-  if (args[1]) {
-    return bwd ? launch<bf16, true>(a, bh, pdl, stream) : launch<bf16, false>(a, bh, pdl, stream);
+  a.tickets = reinterpret_cast<unsigned*>(call[1]);
+  a.state = reinterpret_cast<float*>(call[2]);
+  a.heads = static_cast<int>(plan[3]);
+  a.n = static_cast<int>(plan[4]);
+  a.d = static_cast<int>(plan[5]);
+  auto stream = reinterpret_cast<cudaStream_t>(call[0]);
+  if (plan[1]) {
+    return bwd ? launch<bf16, true>(a, bh, stream) : launch<bf16, false>(a, bh, stream);
   }
-  return bwd ? launch<float, true>(a, bh, pdl, stream) : launch<float, false>(a, bh, pdl, stream);
+  return bwd ? launch<float, true>(a, bh, stream) : launch<float, false>(a, bh, stream);
 }
 
 }  // extern "C"

@@ -32,7 +32,7 @@ _F = ctypes.c_float
 # C signatures of each library's entry points: name -> (restype, argtypes).
 SIGNATURES = {
     "linear_attention": {
-        "lta_call": (_I, [_P]),
+        "lta_call": (_I, [_P, _P]),
         "lta_scratch_floats": (_L, [_I, _I, _I]),
     },
     "conv_unit": {

@@ -26,13 +26,10 @@ import math
 import torch
 
 MAX_D = 32  # kMaxD in csrc/linear_attention.cu: d is a multiple of 8, at most 32
-# Launch the token kernel under programmatic dependent launch: it loads its
-# first tokens while the fold finishes.
-PDL = True
 
 _library = None
-_scratch_floats = {}  # (device, bh, n, backward) -> floats of scratch a call needs
-_workspaces = {}      # (device, stream) -> (buffer, tickets, floats, tickets ptr, scratch ptr)
+_plans = {}       # signature of q, k, v (, g) -> (plan array, bh, scratch floats)
+_workspaces = {}  # (device, stream) -> (buffer, tickets, floats, tickets ptr, scratch ptr)
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -80,12 +77,12 @@ def layout_strides(t: torch.Tensor):
     layout, else None: feature stride 1, 16-byte aligned, and either
     contiguous (B, H, N, d) or the head-split view of a contiguous
     (B, N, H*d) tensor (a dimension of size 1 may have any stride)."""
-    return _layout(t, *t.shape)
+    return None if t.data_ptr() % 16 else _layout(t, *t.shape)
 
 
 def _layout(t, b, h, n, d):
     sb, sh, sn, sf = t.stride()
-    if sf != 1 or t.data_ptr() % 16:
+    if sf != 1:
         return None
     if ((b == 1 or sb == h * n * d) and (h == 1 or sh == n * d) and (n == 1 or sn == d)
             or (b == 1 or sb == n * h * d) and (h == 1 or sh == d) and (n == 1 or sn == h * d)):
@@ -119,11 +116,12 @@ def _check_cuda_inputs(*tensors):
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, not {dtype}")
     strides = []
     for t in tensors:
-        s = _layout(t, b, h, n, d)
+        s = layout_strides(t)
         if s is None:
             raise ValueError(
                 f"the CUDA kernel takes (B, H, N, d) contiguous or as the head-split "
-                f"view of a contiguous (B, N, H*d) tensor; got strides {t.stride()}")
+                f"view of a contiguous (B, N, H*d) tensor, 16-byte aligned; got strides "
+                f"{t.stride()} at {t.data_ptr():#x}")
         strides += s
     return strides
 
@@ -137,16 +135,31 @@ def _lib():
     return _library
 
 
-def _workspace(device, stream, bh, n, backward):
+def _plan(inputs):
+    """(plan, bh, scratch floats) of a call on q, k, v (, g): ``lta_call``'s
+    sizes and strides, outputs in the layout of q. The inputs are checked
+    and the plan built once per signature (each input's shape, strides,
+    dtype and device); a call with a known signature checks only its
+    pointers' alignment (``_run``)."""
+    signature = tuple([(t.shape, t.stride(), t.dtype, t.get_device()) for t in inputs])
+    plan = _plans.get(signature)
+    if plan is None:
+        strides = _check_cuda_inputs(*inputs)
+        b, h, n, d = inputs[0].shape
+        backward = len(inputs) == 4
+        outputs = strides[:3] * (3 if backward else 1)  # torch.empty_like(q) keeps its strides
+        plan = _plans[signature] = (
+            array.array("q", [int(backward), int(inputs[0].dtype == torch.bfloat16), b * h, h,
+                              n, d] + strides + outputs),
+            b * h, _lib().lta_scratch_floats(b * h, n, int(backward)))
+    return plan
+
+
+def _workspace(device, stream, bh, floats):
     """(tickets, scratch) pointers of the stream's workspace, grown to what a
-    (bh, n) call needs: one buffer per (device, stream), so a call allocates
-    nothing but its outputs. Calls on one stream run in order, so they can
-    share it; the tickets are zero between calls (the kernel leaves them so)."""
-    lib = _lib()
-    key = (device, bh, n, backward)
-    floats = _scratch_floats.get(key)
-    if floats is None:
-        floats = _scratch_floats[key] = lib.lta_scratch_floats(bh, n, int(backward))
+    call needs: one buffer per (device, stream), so a call allocates nothing
+    but its outputs. Calls on one stream run in order, so they can share
+    it; the tickets are zero between calls (the kernel leaves them so)."""
     space = _workspaces.get((device, stream))
     if space is None or space[1] < bh or space[2] < floats:
         tickets = -(-max(bh, 64, space[1] if space else 0) // 4) * 4  # scratch 16-byte aligned
@@ -157,23 +170,23 @@ def _workspace(device, stream, bh, n, backward):
     return space[3], space[4]
 
 
-def _launch(tensors, strides, backward):
-    """``lta_call`` on the current stream of the tensors' device: the
-    kernel's two launches."""
-    query = tensors[0]
-    b, h, n, d = query.shape
-    device = query.get_device()
+def _run(planned, inputs, outputs):
+    """``lta_call`` on the current stream of the inputs' device: the
+    kernels' two launches (``planned`` is ``_plan(inputs)``)."""
+    plan, bh, floats = planned
+    ptrs = [t.data_ptr() for t in inputs]
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[-1]) % 16:  # the plan checked everything else
+        raise ValueError("the CUDA kernel takes 16-byte aligned tensors")
+    device = inputs[0].get_device()
     stream = torch._C._cuda_getCurrentRawStream(device)
     previous = torch._C._cuda_getDevice()
     if device != previous:
         torch.cuda.set_device(device)
     try:
-        tickets, scratch = _workspace(device, stream, b * h, n, backward)
-        args = array.array("q", (int(backward), int(query.dtype == torch.bfloat16), int(PDL),
-                                 b * h, h, n, d, stream, tickets, scratch))
-        args.extend([t.data_ptr() for t in tensors])
-        args.extend(strides)
-        err = _library.lta_call(args.buffer_info()[0])
+        tickets, scratch = _workspace(device, stream, bh, floats)
+        call = array.array("q", [stream, tickets, scratch] + ptrs
+                           + [t.data_ptr() for t in outputs])
+        err = _library.lta_call(call.buffer_info()[0], plan.buffer_info()[0])
     finally:
         if device != previous:
             torch.cuda.set_device(previous)
@@ -182,9 +195,10 @@ def _launch(tensors, strides, backward):
 
 
 def _forward_kernel(query, key, value):
-    strides = _check_cuda_inputs(query, key, value)
+    inputs = (query, key, value)
+    plan = _plan(inputs)
     out = torch.empty_like(query)  # a dense view: query's strides
-    _launch((query, key, value, out), strides + strides[:3], False)
+    _run(plan, inputs, (out,))
     linear_attention.launches += 1
     return out
 
@@ -196,23 +210,16 @@ def linear_attention_backward(query: torch.Tensor, key: torch.Tensor,
     kernel, and the gradients come out in the layout of ``query``.
     ``linear_attention_backward.launches`` counts its calls (two CUDA
     launches each)."""
-    if query.device.type == "cpu":
-        return linear_attention_backward_reference(query, key, value, grad)
-    if query.device.type != "cuda":
+    if not query.is_cuda:
+        if query.device.type == "cpu":
+            return linear_attention_backward_reference(query, key, value, grad)
         raise ValueError(f"no linear-attention path for {query.device}")
-    strides = _check_cuda_inputs(query, key, value, grad)
-    b, h, n, d = query.shape
-    if h > 1 and n > 1 and strides[2] == h * d:  # query is the head-split view
-        grads = torch.empty((3, b, n, h, d), dtype=query.dtype,
-                            device=query.device).transpose(2, 3)
-        strides += [n * h * d, d, h * d] * 3
-    else:
-        grads = torch.empty((3, b, h, n, d), dtype=query.dtype, device=query.device)
-        strides += [h * n * d, n * d, d] * 3
-    dq, dk, dv = grads.unbind(0)
-    _launch((query, key, value, grad, dq, dk, dv), strides, True)
+    inputs = (query, key, value, grad)
+    plan = _plan(inputs)
+    grads = (torch.empty_like(query), torch.empty_like(query), torch.empty_like(query))
+    _run(plan, inputs, grads)
     linear_attention_backward.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 class LinearAttentionFunction(torch.autograd.Function):
@@ -245,9 +252,9 @@ def linear_attention(query: torch.Tensor, key: torch.Tensor,
     ``linear_attention_reference``. ``linear_attention.launches`` counts the
     forward kernel's calls (two CUDA launches each; CPU calls do not
     count)."""
-    if query.device.type == "cpu":
-        return linear_attention_reference(query, key, value)
-    if query.device.type != "cuda":
+    if not query.is_cuda:
+        if query.device.type == "cpu":
+            return linear_attention_reference(query, key, value)
         raise ValueError(f"no linear-attention path for {query.device}")
     if torch.is_grad_enabled() and (query.requires_grad or key.requires_grad
                                     or value.requires_grad):

@@ -45,6 +45,7 @@ from lintransunet_tpu_torch.experiments import (
     inner_probe,
     rowoffset_probe,
 )
+from lintransunet_tpu_torch.kernels.launches import cuda_launches
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import fused_stack as fs
 from lintransunet_tpu_torch.ops import linear_attention as fused
@@ -150,24 +151,6 @@ def _same_layout(got, want):
     return all(size == 1 or a == b for size, a, b in zip(want.shape, got.stride(), want.stride()))
 
 
-def _device_rows(fn, calls=1):
-    """Names of the device rows (kernels, copies, memsets) of ``calls`` calls
-    of ``fn``; a profiler session that records no row at all (it now and then
-    returns none) is run again, up to three times."""
-    from torch.autograd import DeviceType
-
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if rows:
-            return rows
-    return rows
-
-
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,n,h,d", [(1, 4096, 8, 32), (1, 28704, 4, 32), (2, 300, 3, 32),
                                      (1, 1, 2, 32)])
@@ -202,29 +185,36 @@ def test_two_calls_are_equal_to_the_bit(cuda, dtype):
 
 @pytest.mark.parametrize("n", [1, 4096, 28704])
 def test_each_call_is_at_most_two_launches(cuda, n):
+    """Two CUDA launches a call, forward and backward, counted at the
+    host's launch calls over three calls."""
     q, k, v, g = (_heads(1, n, 4, 32, torch.bfloat16, cuda, seed) for seed in range(4))
     fused.linear_attention_backward(q, k, v, g)  # built and loaded
-    forward = _device_rows(lambda: fused.linear_attention(q, k, v))
-    backward = _device_rows(lambda: fused.linear_attention_backward(q, k, v, g))
-    assert 1 <= len(forward) <= 2 and 1 <= len(backward) <= 2, (forward, backward)
+    forward = cuda_launches(lambda: fused.linear_attention(q, k, v), 3).launches
+    backward = cuda_launches(lambda: fused.linear_attention_backward(q, k, v, g), 3).launches
+    assert len(forward) == 6 and len(backward) == 6, (forward, backward)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_module_copies_nothing(cuda, dtype):
-    """One MultiheadLinearAttention forward: the four projections and the
-    kernel's two launches, no copy of q, k, v or the output; and the kernel
-    build agrees with the plain one."""
+    """One MultiheadLinearAttention forward launches what its four
+    projections launch alone and the kernel's two launches, and runs no
+    copy; and the kernel build agrees with the plain one."""
     from lintransunet_tpu_torch.models.blocks import MultiheadLinearAttention
 
     module = MultiheadLinearAttention(256, 8).to(cuda, dtype)
     x = torch.randn((1, 4096, 256), generator=torch.Generator().manual_seed(0)).to(cuda, dtype)
+    projections = [getattr(module, f"linears_{i}") for i in range(4)]
     with torch.no_grad():
         got = module(x, x, x)
-        rows = _device_rows(lambda: module(x, x, x))
+        alone = cuda_launches(lambda: [p(x) for p in projections])
+        before = fused.linear_attention.launches
+        found = cuda_launches(lambda: module(x, x, x))
+        calls = fused.linear_attention.launches - before
         module.attention_impl = "plain"
         want = module(x, x, x)
-    assert not [r for r in rows if "copy" in r.lower()], rows
-    assert sum("lta_" in r for r in rows) == 2, rows
+    assert calls == 1
+    assert len(found.launches) == len(alone.launches) + 2, (found.launches, alone.launches)
+    assert not [op for op in found.ops if "copy" in op or "clone" in op], found.ops
     assert _rel(got, want) <= (5e-5 if dtype == torch.float32 else 2e-2)
 
 

@@ -214,3 +214,35 @@ def test_kernel_layouts_and_limits():
         tfused._check_cuda_inputs(flat.half(), flat.half(), flat.half())
     with pytest.raises(ValueError):
         tfused._check_cuda_inputs(flat, flat, flat, flat[:, :, :8])
+
+
+def test_kernel_plan_is_built_once_per_signature(monkeypatch):
+    """``lta_call``'s plan array, checked on CPU tensors with the library's
+    scratch size stubbed: sizes and each tensor's strides, the outputs in
+    the layout of q; one plan per signature, and a signature the kernels do
+    not take raises before any plan is kept."""
+
+    class Library:
+        @staticmethod
+        def lta_scratch_floats(bh, n, backward):
+            return 7
+
+    monkeypatch.setattr(tfused, "_library", Library)
+    monkeypatch.setattr(tfused, "_plans", {})
+    b, h, n, d = 2, 3, 40, 16
+    heads = torch.zeros((b, n, h * d)).view(b, n, h, d).transpose(1, 2)
+    flat = torch.zeros((b, h, n, d))
+    split, contiguous = [n * h * d, d, h * d], [h * n * d, n * d, d]
+    first = tfused._plan((heads, flat, heads))
+    plan, bh, floats = first
+    assert (bh, floats) == (b * h, 7)
+    assert list(plan) == [0, 0, b * h, h, n, d] + split + contiguous + split + split
+    assert torch.empty_like(heads).stride() == heads.stride()
+    plan, _, _ = tfused._plan((flat, heads, flat, heads.bfloat16().float()))
+    assert list(plan) == [1, 0, b * h, h, n, d] + contiguous + split + contiguous + split \
+        + contiguous * 3
+    assert len(tfused._plans) == 2
+    assert tfused._plan((heads.clone(), flat, heads)) is first  # another tensor, one signature
+    with pytest.raises(ValueError):
+        tfused._plan((heads, flat, flat[:, :, ::2]))
+    assert len(tfused._plans) == 2

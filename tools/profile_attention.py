@@ -1,6 +1,6 @@
 """Where the linear-attention kernels' time goes on one CUDA card.
 
-    python3 tools/profile_attention.py [--layout contiguous|heads] [--no-pdl]
+    python3 tools/profile_attention.py [--layout contiguous|heads]
 
 At the window's four serving shapes (``chip_smoke.MAIN_SHAPES``, forward)
 and the training patch's four (``chip_smoke.TRAIN_SHAPES``, backward), bf16,
@@ -16,13 +16,14 @@ is what the model passes. For each call it prints:
   card's time per call, gaps between launches included;
 * ``host``: the host's time per call over HOST_CALLS calls with no
   synchronise in between (what a call costs the launching thread);
-* ``launches``: device rows per call under ``torch.profiler`` (kernels,
-  memsets, copies), and each kernel's device time per call.
+* ``launches``: the host's ``cudaLaunch*`` calls per call under
+  ``torch.profiler``, and each kernel's device time per call from the
+  device rows the profiler kept (on the H100 now and then fewer than the
+  kernels that ran).
 
 Then the window's 32 forward calls and the step's 32 backward calls summed
-(8 calls at each shape). ``--no-pdl`` launches the token kernel without
-programmatic dependent launch. Only the wrappers' public names are used, so a
-copy of this file runs in an older tree of the port too (``contiguous``).
+(8 calls at each shape). Only the wrappers' public names are used, so a copy
+of this file runs in an older tree of the port too (``contiguous``).
 """
 
 import argparse
@@ -58,16 +59,21 @@ def make(bh, n, d, layout, gen):
 
 
 def profile_call(fn):
-    """(device rows per call, {kernel name: device us per call})."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    """(launches per call, {kernel name: device us per call})."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED_CALLS):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    launches = sum(e.device_type == DeviceType.CPU and e.name.startswith("cudaLaunch")
+                   for e in events)
     per = defaultdict(float)
-    for e in rows:
-        per[e.name] += e.time_range.elapsed_us() / PROFILED_CALLS
-    return len(rows) / PROFILED_CALLS, per
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            per[e.name] += e.time_range.elapsed_us() / PROFILED_CALLS
+    return launches / PROFILED_CALLS, per
 
 
 def busy_us(fn):
@@ -128,14 +134,10 @@ def backward_call(bh, n, d, layout, gen):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--layout", choices=("contiguous", "heads"), default="contiguous")
-    parser.add_argument("--no-pdl", action="store_true",
-                        help="launch the token kernel without programmatic dependent launch")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         chip_smoke.fail("no CUDA device: this script runs only on an NVIDIA GPU")
-    if args.no_pdl:
-        fused.PDL = False
-    print(f"[config] layout {args.layout}, pdl {not args.no_pdl}", flush=True)
+    print(f"[config] layout {args.layout}", flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
