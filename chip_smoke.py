@@ -614,7 +614,7 @@ def probe_cases(inp):
     xc, kc = inp["halo"]
     kc_lib = conv_prototype.library_weight(kc)
     cases.append(dict(
-        name="conv3d_cl", what=f"#6 halo tile, x {conv_prototype.SHAPE} -> "
+        name="conv3d_cl", what=f"#6, x {conv_prototype.SHAPE} -> "
                                f"{conv_prototype.N_OUT}",
         run=lambda: conv_prototype.conv3d_cl(xc, kc),
         plain=lambda: conv_prototype.conv3d_cl_reference(xc, kc),
@@ -626,7 +626,7 @@ def probe_cases(inp):
                       else conv_retired.inputs(shape, n_out, device, dtype))
         kr_lib, br_lib = conv_prototype.library_weight(kr), br.to(dtype)
         cases.append(dict(
-            name="conv3d_cl_rows", what=f"#7 rows, {label} {shape} -> {n_out} "
+            name="conv3d_cl_rows", what=f"#7 with bias, {label} {shape} -> {n_out} "
                                         f"{str(dtype)[6:]}",
             run=lambda xp=xp, kr=kr, br=br: conv_retired.conv3d_cl_rows(xp, kr, br),
             plain=lambda xp=xp, kr=kr, br=br: conv_retired.conv3d_cl_rows_reference(xp, kr, br),

@@ -1,5 +1,5 @@
-// Channels-last 3x3x3 stride-1 convolution probe for Hopper (sm_90a), in two
-// staging designs, bound with ctypes.
+// Channels-last 3x3x3 stride-1 convolution probe for Hopper (sm_90a), bound
+// with ctypes.
 //
 //   out[n, h, w, d, o] = bias[o] + sum_{dh, dw, dp, c} x[n, h + dh - 1, w + dw - 1,
 //                                                      d + dp - 1, c] * k[dh, dw, dp, c, o]
@@ -17,8 +17,11 @@
 //     `_kernel` (pallas_call at :149): the tile flattened to rows, each
 //     (dh, dw) tap a row offset that is a multiple of D, and three
 //     depth-shifted copies staged so that no tap reads at an offset of one
-//     row. Its outputs for the W halo columns (computed and thrown away on
-//     the TPU) are not computed here: a warp's 16 rows lie at one (h, w).
+//     row, which the TPU could not do. They are not carried over: here a
+//     one-row shift of the swizzled halo tile costs no more than an aligned
+//     read, and the copies tripled the staging (3.0 ms against the halo
+//     tile's 1.25 ms on an H100, PERF.md section 6). Its outputs for the W
+//     halo columns (computed and thrown away on the TPU) are not computed.
 //
 // What bounds it on this card: operations at C = O = 64 or more (27 C
 // products per output value, ~800 FLOP per compulsory byte in bf16). The
@@ -27,12 +30,9 @@
 // * A block owns th x tw x D output positions (th * tw * D = 128, 16 rows
 //   per warp) and NT = 64 or 128 output channels. Input channels go through
 //   in chunks of 64 bytes (32 bf16 or 16 f32).
-// * `halo` (kRows = false): per chunk the block stages the (th + 2) x
-//   (tw + 2) x (D + 2) halo once; tap (dh, dw, dp) reads the rows of the
-//   warp's positions shifted by dp (one row), dw and dh.
-// * `rows` (kRows = true): per chunk the block stages three copies of the
-//   (th + 2) x (tw + 2) x D tile, copy dp holding depth d + dp - 1; tap
-//   (dh, dw, dp) reads copy dp at a row offset that is a multiple of D.
+// * Per chunk the block stages the (th + 2) x (tw + 2) x (D + 2) halo once;
+//   tap (dh, dw, dp) reads the rows of the warp's positions shifted by dp
+//   (one row), dw and dh.
 // * bf16: `mma.sync` m16n8k16 through `ldmatrix` from XOR-swizzled tiles
 //   (csrc/tensor_core.cuh), whose swizzle makes a one-row shift as cheap as
 //   an aligned read; weights go through one dh (9 taps) at a time. f32: one
@@ -73,31 +73,29 @@ __host__ __device__ constexpr int chunk_elems() {
 template <typename T>
 __host__ __device__ constexpr bool is_bf16() { return std::is_same<T, bf16>::value; }
 
-// staged positions per buffer and the number of buffers
-__host__ __device__ inline int positions(const ConvArgs& a, bool rows) {
-  return (a.th + 2) * (a.tw + 2) * (rows ? a.d : a.d + 2);
+// staged halo positions
+__host__ __device__ inline int positions(const ConvArgs& a) {
+  return (a.th + 2) * (a.tw + 2) * (a.d + 2);
 }
 
 template <typename T>
-__host__ __device__ inline size_t buffer_bytes(const ConvArgs& a, bool rows) {
+__host__ __device__ inline size_t buffer_bytes(const ConvArgs& a) {
   const size_t row_bytes = is_bf16<T>() ? kChunkBytes : kF32Stride * sizeof(float);
-  return ltu::align_up(positions(a, rows) * row_bytes, 128);
+  return ltu::align_up(positions(a) * row_bytes, 128);
 }
 
 template <typename T>
-__host__ __device__ inline size_t smem_bytes(const ConvArgs& a, bool rows, int nt) {
-  return (rows ? 3 : 1) * buffer_bytes<T>(a, rows) +
-         sizeof(T) * 9 * static_cast<size_t>(chunk_elems<T>()) * nt;
+__host__ __device__ inline size_t smem_bytes(const ConvArgs& a, int nt) {
+  return buffer_bytes<T>(a) + sizeof(T) * 9 * static_cast<size_t>(chunk_elems<T>()) * nt;
 }
 
-template <typename T, int NT, bool kRows>
+template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads) conv_cl_kernel(const ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int KC = chunk_elems<T>();
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte piece
-  const int P = positions(a, kRows);
-  const size_t buf_bytes = buffer_bytes<T>(a, kRows);
-  T* s_w = reinterpret_cast<T*>(smem + (kRows ? 3 : 1) * buf_bytes);
+  const int P = positions(a);
+  T* s_w = reinterpret_cast<T*>(smem + buffer_bytes<T>(a));
 
   const int tiles_w = a.w / a.tw;
   const int h0 = (blockIdx.x / tiles_w) * a.th;
@@ -125,26 +123,24 @@ __global__ void __launch_bounds__(kThreads) conv_cl_kernel(const ConvArgs a) {
 
   for (int c0 = 0; c0 < a.c; c0 += KC) {
     __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < (kRows ? 3 : 1) * P * kPieces; i += kThreads) {
+    for (int i = tid; i < P * kPieces; i += kThreads) {
       const int piece = i % kPieces;
-      const int pos = (i / kPieces) % P;
-      const int b = i / (kPieces * P);
-      const int dd = pos % (kRows ? a.d : a.d + 2);
-      const int r = pos / (kRows ? a.d : a.d + 2);
+      const int pos = i / kPieces;
+      const int dd = pos % (a.d + 2);
+      const int r = pos / (a.d + 2);
       const int gw = w0 + r % (a.tw + 2) - 1;
       const int gh = h0 + r / (a.tw + 2) - 1;
-      const int gd = kRows ? dd + b - 1 : dd - 1;
+      const int gd = dd - 1;
       uint4 v = make_uint4(0, 0, 0, 0);
       if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.w && gd >= 0 && gd < a.d) {
         v = *reinterpret_cast<const uint4*>(
             x + (((static_cast<long long>(n) * a.h + gh) * a.w + gw) * a.d + gd) * a.c + c0 +
             piece * kVec);
       }
-      unsigned char* buf = smem + b * buf_bytes;
       if constexpr (kMma) {
-        *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(buf) + ltu::swz(pos, piece, kPieces)) = v;
+        *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(smem) + ltu::swz(pos, piece, kPieces)) = v;
       } else {
-        float* dst = reinterpret_cast<float*>(buf) + pos * kF32Stride + piece * 4;
+        float* dst = reinterpret_cast<float*>(smem) + pos * kF32Stride + piece * 4;
         dst[0] = __uint_as_float(v.x);
         dst[1] = __uint_as_float(v.y);
         dst[2] = __uint_as_float(v.z);
@@ -170,14 +166,13 @@ __global__ void __launch_bounds__(kThreads) conv_cl_kernel(const ConvArgs a) {
       for (int j = 0; j < 9; ++j) {
         const int kw = j / 3, kd = j % 3;
         const int cell = (hl + kh) * (a.tw + 2) + wl + kw;
-        const int row = kRows ? cell * a.d + dl : cell * (a.d + 2) + dl + kd;
-        const unsigned char* buf = smem + (kRows ? kd : 0) * buf_bytes;
+        const int row = cell * (a.d + 2) + dl + kd;
         if constexpr (kMma) {
-          ltu::warp_mma<KC, NT>(acc, reinterpret_cast<const bf16*>(buf), row,
+          ltu::warp_mma<KC, NT>(acc, reinterpret_cast<const bf16*>(smem), row,
                                 reinterpret_cast<const bf16*>(s_w) + j * KC * NT, 0, NT / 16,
                                 lane);
         } else {
-          const float* ar = reinterpret_cast<const float*>(buf) + row * kF32Stride;
+          const float* ar = reinterpret_cast<const float*>(smem) + row * kF32Stride;
           const float* wr = reinterpret_cast<const float*>(s_w) + j * KC * NT + og * OPT;
 #pragma unroll 4
           for (int k = 0; k < KC; ++k) {
@@ -220,22 +215,22 @@ __global__ void __launch_bounds__(kThreads) conv_cl_kernel(const ConvArgs a) {
   }
 }
 
-template <typename T, int NT, bool kRows>
+template <typename T, int NT>
 int launch(const ConvArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(a, kRows, NT);
+  const size_t smem = smem_bytes<T>(a, NT);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(conv_cl_kernel<T, NT, kRows>,
+  cudaError_t err = cudaFuncSetAttribute(conv_cl_kernel<T, NT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.h / a.th) * (a.w / a.tw), a.n, a.o / NT);
-  conv_cl_kernel<T, NT, kRows><<<grid, kThreads, smem, stream>>>(a);
+  conv_cl_kernel<T, NT><<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kRows>
+template <typename T>
 int dispatch(const ConvArgs& a, cudaStream_t s) {
-  return a.o % 128 == 0 ? launch<T, 128, kRows>(a, s) : launch<T, 64, kRows>(a, s);
+  return a.o % 128 == 0 ? launch<T, 128>(a, s) : launch<T, 64>(a, s);
 }
 
 }  // namespace
@@ -243,31 +238,29 @@ int dispatch(const ConvArgs& a, cudaStream_t s) {
 extern "C" {
 
 // Shared memory of one block; the wrapper checks it against the limit.
-int pc_smem_bytes(int d, int th, int tw, int o, int rows, int is_bf16) {
+int pc_smem_bytes(int d, int th, int tw, int o, int is_bf16) {
   ConvArgs a{};
   a.d = d;
   a.th = th;
   a.tw = tw;
   const int nt = o % 128 == 0 ? 128 : 64;
-  return static_cast<int>(is_bf16 ? smem_bytes<bf16>(a, rows != 0, nt)
-                                  : smem_bytes<float>(a, rows != 0, nt));
+  return static_cast<int>(is_bf16 ? smem_bytes<bf16>(a, nt) : smem_bytes<float>(a, nt));
 }
 
 // x (n, h, w, d, c) and out (n, h, w, d, o) channels-last, k (3, 3, 3, c, o),
 // all contiguous and of one dtype (bf16 if is_bf16, else f32); bias (o,)
 // f32 or null. th * tw * d == 128, th | h, tw | w, d % 16 == 0, c % 32 == 0
-// (bf16) or c % 16 == 0 (f32), o % 64 == 0. rows: 0 for the halo design,
-// 1 for the depth-shifted copies. Returns the CUDA error (0 on success).
+// (bf16) or c % 16 == 0 (f32), o % 64 == 0. Returns the CUDA error (0 on
+// success).
 int pc_forward(const void* x, const void* k, const void* bias, void* out, int n, int h, int w,
-               int d, int c, int o, int th, int tw, int rows, int is_bf16, void* stream) {
+               int d, int c, int o, int th, int tw, int is_bf16, void* stream) {
   if (th * tw * d != kM || h % th || w % tw || d % 16 || o % 64 ||
       c % (is_bf16 ? 32 : 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ConvArgs a{x, k, static_cast<const float*>(bias), out, n, h, w, d, c, o, th, tw};
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return rows ? dispatch<bf16, true>(a, s) : dispatch<bf16, false>(a, s);
-  return rows ? dispatch<float, true>(a, s) : dispatch<float, false>(a, s);
+  return is_bf16 ? dispatch<bf16>(a, s) : dispatch<float>(a, s);
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@ counterpart of ``experiments/pallas_conv_prototype.py`` (``pallas_conv`` ->
 ``conv3d_cl(x, k)`` is the stride-1, padding-1 convolution of x (H, W, D, C)
 with k (3, 3, 3, C, O) (HWDIO), no bias, as the probe's reference
 ``jax.lax.conv_general_dilated(..., ('NHWDC', 'HWDIO', 'NHWDC'))`` (:117).
-Design (``csrc/probe_conv.cu``, ``halo``): per chunk of input channels a
+Design (``csrc/probe_conv.cu``): per chunk of input channels a
 block stages its halo tile once and reads the 27 taps as shifted rows of
 it. The TPU prototype's depth-parity fold (D pairs folded into 2C lanes to
 fill 128 lanes, at twice the FLOPs) is not carried over.
@@ -57,7 +57,7 @@ def default_tile(d: int):
     return 1, 128 // d
 
 
-def run_conv(x, k, bias, th, tw, rows):
+def run_conv(x, k, bias, th, tw):
     """Check CUDA inputs (x (N, H, W, D, C)) and launch ``probe_conv.cu``
     once (uncounted)."""
     from lintransunet_tpu_torch import kernels
@@ -85,7 +85,7 @@ def run_conv(x, k, bias, th, tw, rows):
                          f"takes th * tw * D = 128, th | H, tw | W, O % 64 == 0 and C % "
                          f"{32 if is_bf16 else 16} == 0")
     lib = kernels.load("probe_conv")
-    smem = lib.pc_smem_bytes(d, th, tw, o, int(rows), int(is_bf16))
+    smem = lib.pc_smem_bytes(d, th, tw, o, int(is_bf16))
     if smem > common.SMEM_LIMIT:
         raise ValueError(f"th={th}, tw={tw}, D={d}, O={o} needs {smem} bytes of shared "
                          f"memory; a block has {common.SMEM_LIMIT}")
@@ -94,7 +94,7 @@ def run_conv(x, k, bias, th, tw, rows):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.pc_forward(x.data_ptr(), k.data_ptr(),
                              None if bias is None else bias.data_ptr(), out.data_ptr(),
-                             n, h, w, d, c, o, th, tw, int(rows), int(is_bf16), stream)
+                             n, h, w, d, c, o, th, tw, int(is_bf16), stream)
     if err != 0:
         raise RuntimeError(f"probe_conv kernel launch failed: CUDA error {err}")
     return out
@@ -108,7 +108,7 @@ def conv3d_cl(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         return conv3d_cl_reference(x, k)
     if x.dim() != 4:
         raise ValueError(f"x must be (H, W, D, C); got {tuple(x.shape)}")
-    out = run_conv(x[None], k, None, *default_tile(x.shape[2]), rows=False)[0]
+    out = run_conv(x[None], k, None, *default_tile(x.shape[2]))[0]
     conv3d_cl.launches += 1
     return out
 

@@ -1,17 +1,20 @@
-"""A channels-last 3x3x3 conv from row-flattened tiles with depth-shifted
-copies: the H100 counterpart of ``experiments/pallas_conv_retired.py``
-(``packed_conv3d_stride1_pallas`` -> ``_kernel``, pallas_call at :149).
+"""The packed stride-1 3x3x3 conv with bias: the H100 counterpart of
+``experiments/pallas_conv_retired.py`` (``packed_conv3d_stride1_pallas`` ->
+``_kernel``, pallas_call at :149).
 
 ``conv3d_cl_rows(xp, k, bias, th, tw)`` is the stride-1, padding-1 conv of
 xp (N, H2, W2, D, C4) with k (3, 3, 3, C4, O4) plus bias (O4,), as
 ``lintransunet_tpu/ops/packed_conv.py`` ``packed_conv3d_stride1`` (:267)
-computes it. Design (``csrc/probe_conv.cu``, ``rows``): the block's
-(th + 2) x (tw + 2) x D tile is flattened to rows, each (dh, dw) tap is a
-row offset that is a multiple of D, and three depth-shifted copies are
-staged so that no tap reads at an offset of one row. The TPU kernel's
-8 x 8 tiles do not fit a block's shared memory: here th * tw * D = 128
-(default th = 1, tw = 128 / D). Its W-halo outputs, computed and dropped
-on the TPU, are not computed.
+computes it. The kernel is the one that computes #6 (``csrc/probe_conv.cu``,
+``conv_prototype.run_conv``), with the bias added in its epilogue. The TPU
+kernel's design is not carried over: it flattened the tile to rows, made
+each (dh, dw) tap a row offset that is a multiple of D, and staged three
+depth-shifted copies so that no tap read at an offset of one row, which the
+TPU could not do. On the H100 the swizzled halo tile makes a one-row shift
+as cheap as an aligned read, and the copies tripled the staging: the rows
+design took 3.0 ms where the halo tile took 1.25 ms on the same shape, 2.4x
+(PERF.md section 6, PR 4). The TPU kernel's W-halo outputs, computed and
+dropped on the TPU, are not computed.
 
 bf16 operands sum in f32 and store bf16 (the bias is rounded to the
 input's dtype first, as the TPU kernel does); f32 runs FMA in f32. CPU
@@ -19,7 +22,7 @@ tensors take the plain version; CUDA tensors launch the kernel or raise.
 
 ``python -m lintransunet_tpu_torch.experiments.conv_retired`` runs the
 flagship's level-0 packed shape (C4 = O4 = 64) and the 8C-lane shape
-(C4 = O4 = 128) on the card, beside ``F.conv3d`` and the halo design.
+(C4 = O4 = 128) on the card, beside ``F.conv3d``.
 """
 
 from typing import Optional
@@ -59,7 +62,7 @@ def conv3d_cl_rows(xp: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tenso
         return conv3d_cl_rows_reference(xp, k, bias)
     if th is None or tw is None:
         th, tw = default_tile(xp.shape[3])
-    out = run_conv(xp, k, _bias(bias, xp.dtype), th, tw, rows=True)
+    out = run_conv(xp, k, _bias(bias, xp.dtype), th, tw)
     conv3d_cl_rows.launches += 1
     return out
 
@@ -88,14 +91,10 @@ def main():
         kw = library_weight(k)
         b16 = bias.bfloat16()
         flops, nbytes = conv_costs(xp, k)
-        th, tw = default_tile(shape[3])
-        rows_ms = common.cuda_ms(lambda: conv3d_cl_rows(xp, k, bias))
-        halo_ms = common.cuda_ms(lambda: run_conv(xp, k, bias, th, tw, rows=False))
+        ms = common.cuda_ms(lambda: conv3d_cl_rows(xp, k, bias))
         lib_ms = common.cuda_ms(lambda: library_conv(xp, kw, b16))
-        print(common.rate_line(f"rows, {label} {shape} bf16 -> O4={n_out}", rows_ms,
-                               flops, nbytes, lib_ms), flush=True)
-        print(common.rate_line(f"halo, {label} {shape} bf16 -> O4={n_out}", halo_ms,
-                               flops, nbytes, lib_ms), flush=True)
+        print(common.rate_line(f"{label} {shape} bf16 -> O4={n_out}", ms, flops, nbytes,
+                               lib_ms), flush=True)
 
 
 if __name__ == "__main__":

@@ -50,8 +50,8 @@ SIGNATURES = {
         "pt_smem_bytes": (_I, [_I, _I, _I]),
     },
     "probe_conv": {
-        "pc_forward": (_I, [_P, _P, _P, _P] + [_I] * 10 + [_P]),
-        "pc_smem_bytes": (_I, [_I] * 6),
+        "pc_forward": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
+        "pc_smem_bytes": (_I, [_I] * 5),
     },
     "probe_stats": {
         "ps_lane_sums": (_I, [_P, _P, _I, _I, _I, _I, _I, _F, _P]),
