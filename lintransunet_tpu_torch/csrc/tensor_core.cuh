@@ -2,15 +2,19 @@
 // (csrc/probe_taps.cu, csrc/probe_conv.cu), the transformer stack
 // (csrc/fused_stack.cu) and linear attention (csrc/linear_attention.cu):
 // `ldmatrix` loads from XOR-swizzled shared-memory
-// tiles, `mma.sync` m16n8k16 with f32 accumulation, and asynchronous copies
+// tiles, `mma.sync` m16n8k16 with f32 accumulation, asynchronous copies
 // from device to shared memory (16-byte `cp.async`; bulk copies that
-// complete on an mbarrier).
+// complete on an mbarrier), and the warpgroup MMA (`wgmma`, sm_90a) with A
+// from registers and B from shared memory.
 //
 // Tiles are stored as rows of 16-byte chunks (8 bf16). `swz` places chunk c
 // of row r so that any 8 consecutive rows read at one logical chunk land on
 // 8 different 16-byte bank groups: an `ldmatrix` phase (8 row addresses) is
 // then free of bank conflicts whatever row it starts at, so an operand read
-// at a shifted row offset costs no more than an aligned one.
+// at a shifted row offset costs no more than an aligned one. For rows of 32,
+// 64 or 128 bytes it is the tensor cores' own 32-, 64- or 128-byte swizzle
+// (16-byte chunk index XOR address bits 7 and up), so a `wgmma` descriptor
+// reads such a tile where it starts on a 1,024-byte boundary.
 
 #pragma once
 
@@ -161,6 +165,72 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT / 8][4], const __nv_bfl
       mma_bf16_16816(acc[2 * p + 1], a, b[2], b[3]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Warpgroup MMA (`wgmma`): the four warps of a warpgroup (warps 4g .. 4g + 3)
+// issue one 64-row product together, asynchronously. Order: write the A
+// registers (and zero the accumulators), `wgmma_fence`, the `wgmma`s,
+// `wgmma_commit`, then `wgmma_wait<N>` before the accumulators or the A
+// registers are touched again or B's shared memory is rewritten.
+// ---------------------------------------------------------------------------
+
+// Descriptor of a K-major B tile in shared memory: row n holds output n's K
+// values, `row_bytes` (64 or 128) of them, swizzled as `swz` does; 8-row
+// groups 8 * row_bytes apart; the tile starts on a 1,024-byte boundary.
+// K step k16 of a row starts 32 bytes further: add (32 * step) >> 4 to the
+// descriptor (start address, bits 0-13, in 16-byte units).
+__device__ __forceinline__ unsigned long long wgmma_desc_kmajor(const void* tile,
+                                                                int row_bytes) {
+  unsigned long long desc = (smem_addr(tile) & 0x3FFFF) >> 4;                 // start address
+  desc |= 1ull << 16;                                     // leading byte offset: unused (1)
+  desc |= static_cast<unsigned long long>(8 * row_bytes >> 4) << 32;  // stride byte offset
+  desc |= static_cast<unsigned long long>(row_bytes == 128 ? 1 : 2) << 62;  // 128 / 64 B
+  return desc;
+}
+
+// Orders this warpgroup's register writes before the `wgmma`s that read them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of this warpgroup's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of `d` across a commit or wait.
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) += a (64 x 16, bf16) * B (16 x 64, bf16, by `desc_b`,
+// K-major). Each warp of the warpgroup gives its 16 rows of A as the A
+// fragment of `mma.sync` m16n8k16 (`ldsm_x4` of a row-major tile) and gets
+// its 16 rows of d as that instruction's accumulators: columns 8t .. 8t + 7
+// in d[4t .. 4t + 3].
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (&a)[4],
+                                                unsigned long long desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 }  // namespace ltu

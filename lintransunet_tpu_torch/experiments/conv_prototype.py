@@ -5,10 +5,13 @@ counterpart of ``experiments/pallas_conv_prototype.py`` (``pallas_conv`` ->
 ``conv3d_cl(x, k)`` is the stride-1, padding-1 convolution of x (H, W, D, C)
 with k (3, 3, 3, C, O) (HWDIO), no bias, as the probe's reference
 ``jax.lax.conv_general_dilated(..., ('NHWDC', 'HWDIO', 'NHWDC'))`` (:117).
-Design (``csrc/probe_conv.cu``): per chunk of input channels a
-block stages its halo tile once and reads the 27 taps as shifted rows of
-it. The TPU prototype's depth-parity fold (D pairs folded into 2C lanes to
-fill 128 lanes, at twice the FLOPs) is not carried over.
+Design (``csrc/probe_conv.cu``): a persistent block per SM walks output
+tiles of 4 x 4 x 32 positions and 64 channels; per chunk of 32 input
+channels it stages the tile's halo once, asynchronously, while the previous
+chunk's products run, and reads the 27 taps as shifted rows of it; the
+weights, packed once per call (``pack_weights``), stream through a ring of
+bulk copies. The TPU prototype's depth-parity fold (D pairs folded into 2C
+lanes to fill 128 lanes, at twice the FLOPs) is not carried over.
 
 bf16 operands sum in f32 and store bf16; f32 runs FMA in f32. CPU tensors
 take ``conv3d_cl_reference``; CUDA tensors launch the kernel or raise.
@@ -50,51 +53,89 @@ def library_weight(k):
     return k.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
 
 
-def default_tile(d: int):
-    """(th, tw): th * tw * D = 128 output positions per block."""
-    if d % 16 or 128 % d:
-        raise ValueError(f"D={d}: the kernel takes D in 16, 32, 64 or 128")
-    return 1, 128 // d
+# The bf16 kernel's weight layout: output groups of NT, input chunks of KC
+# channels (64-byte rows), the halo's row swizzle
+NT, KC = 64, 32
+PIECES = KC // 8                 # 16-byte pieces in a row of one output's KC channels
 
 
-def run_conv(x, k, bias, th, tw):
-    """Check CUDA inputs (x (N, H, W, D, C)) and launch ``probe_conv.cu``
-    once (uncounted)."""
-    from lintransunet_tpu_torch import kernels
+def _piece_order(device):
+    """(rows, pieces) indices: row n's stored piece p holds logical piece
+    p ^ ((n >> 1) & 3), the 64-byte swizzle of ``ltu::swz`` (and of the
+    tensor cores' descriptors); XOR is its own inverse."""
+    n = torch.arange(NT, device=device)[:, None]
+    return n, torch.arange(PIECES, device=device)[None, :] ^ ((n >> 1) & (PIECES - 1))
 
+
+def pack_weights(k):
+    """k (3, 3, 3, C, O) -> the bf16 kernel's weights: bf16 (O / 64, C / 32,
+    3 (kh), 3 (kd), 3 (kw), 64 outputs, 32 channels), each output's 32
+    channels one swizzled 64-byte row (K-major), so that each (chunk, kh,
+    kd) is one contiguous 12 KB copy of its three kw taps."""
+    c, o = k.shape[3], k.shape[4]
+    t = k.to(torch.bfloat16).reshape(3, 3, 3, c // KC, PIECES, 8, o // NT, NT)
+    t = t.permute(6, 3, 0, 2, 1, 7, 4, 5)         # og, ch, kh, kd, kw, n, piece, 8
+    rows, order = _piece_order(k.device)
+    return t[..., rows, order, :].reshape(o // NT, c // KC, 3, 3, 3, NT, KC).contiguous()
+
+
+def unpack_weights(packed):
+    """The inverse of ``pack_weights``: (3, 3, 3, C, O) bf16."""
+    g, chunks = packed.shape[:2]
+    t = packed.reshape(g, chunks, 3, 3, 3, NT, PIECES, 8)
+    rows, order = _piece_order(packed.device)
+    t = t[..., rows, order, :]                   # og, ch, kh, kd, kw, n, piece, 8
+    return t.permute(2, 4, 3, 1, 6, 7, 0, 5).reshape(3, 3, 3, chunks * KC, g * NT)
+
+
+def check_inputs(x, k, bias):
+    """Raise ``ValueError`` or ``TypeError`` on what ``probe_conv.cu`` does
+    not take (x (N, H, W, D, C), k (3, 3, 3, C, O), bias (O,) f32 or None);
+    return whether the call is bf16."""
     if x.dim() != 5 or k.dim() != 5 or tuple(k.shape[:4]) != (3, 3, 3, x.shape[4]):
         raise ValueError(f"x must be (N, H, W, D, C) and k (3, 3, 3, C, O); got "
                          f"{tuple(x.shape)}, {tuple(k.shape)}")
-    tensors = [x, k] + ([] if bias is None else [bias])
-    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
-        raise ValueError("every input must be on one CUDA device")
     if x.dtype not in (torch.bfloat16, torch.float32) or k.dtype != x.dtype:
         raise TypeError(f"the kernel takes bf16 or f32 x and k of one dtype; got "
                         f"{x.dtype}, {k.dtype}")
     if not (x.is_contiguous() and k.is_contiguous()):
         raise ValueError("the kernel takes contiguous x and k")
-    n, h, w, d, c = x.shape
+    _, _, w, d, c = x.shape
     o = k.shape[4]
     if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (o,)
                              or not bias.is_contiguous()):
         raise ValueError(f"bias must be a contiguous f32 ({o},) tensor")
     is_bf16 = x.dtype == torch.bfloat16
-    if (th * tw * d != 128 or h % th or w % tw or d % 16 or o % 64
-            or c % (32 if is_bf16 else 16) or n > 65535):
-        raise ValueError(f"x {tuple(x.shape)} -> O={o} with th={th}, tw={tw}: the kernel "
-                         f"takes th * tw * D = 128, th | H, tw | W, O % 64 == 0 and C % "
-                         f"{32 if is_bf16 else 16} == 0")
+    if x.numel() == 0 or o % NT or c % (KC if is_bf16 else 16):
+        raise ValueError(f"x {tuple(x.shape)} -> O={o}: the kernel takes O % {NT} == 0 and "
+                         f"C % {KC if is_bf16 else 16} == 0")
+    if not is_bf16 and (d % 16 or 128 % d or w % (128 // d)):
+        raise ValueError(f"x {tuple(x.shape)}: the f32 kernel takes D in 16, 32, 64 or 128 "
+                         f"and W a multiple of 128 / D")
+    return is_bf16
+
+
+def run_conv(x, k, bias):
+    """Check CUDA inputs and launch ``probe_conv.cu`` once (uncounted). bf16
+    packs the weights first, inside the call."""
+    from lintransunet_tpu_torch import kernels
+
+    is_bf16 = check_inputs(x, k, bias)
+    tensors = [x, k] + ([] if bias is None else [bias])
+    if any(t.device.type != "cuda" or t.device != x.device for t in tensors):
+        raise ValueError("every input must be on one CUDA device")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    n, h, w, d, c = x.shape
+    o = k.shape[4]
     lib = kernels.load("probe_conv")
-    smem = lib.pc_smem_bytes(d, th, tw, o, int(is_bf16))
-    if smem > common.SMEM_LIMIT:
-        raise ValueError(f"th={th}, tw={tw}, D={d}, O={o} needs {smem} bytes of shared "
-                         f"memory; a block has {common.SMEM_LIMIT}")
+    weights = pack_weights(k) if is_bf16 else k
     out = torch.empty((n, h, w, d, o), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pc_forward(x.data_ptr(), k.data_ptr(),
+        err = lib.pc_forward(x.data_ptr(), weights.data_ptr(),
                              None if bias is None else bias.data_ptr(), out.data_ptr(),
-                             n, h, w, d, c, o, th, tw, int(is_bf16), stream)
+                             n, h, w, d, c, o, int(is_bf16), stream)
     if err != 0:
         raise RuntimeError(f"probe_conv kernel launch failed: CUDA error {err}")
     return out
@@ -102,13 +143,13 @@ def run_conv(x, k, bias, th, tw):
 
 def conv3d_cl(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """3x3x3 conv, stride 1, padding 1, of x (H, W, D, C) with k (3, 3, 3,
-    C, O): (H, W, D, O) in x's dtype (bf16 or f32). The kernel's tile is
-    1 x (128 / D) x D positions. ``conv3d_cl.launches`` counts launches."""
+    C, O): (H, W, D, O) in x's dtype (bf16 or f32). ``conv3d_cl.launches``
+    counts launches."""
     if x.device.type == "cpu":
         return conv3d_cl_reference(x, k)
     if x.dim() != 4:
         raise ValueError(f"x must be (H, W, D, C); got {tuple(x.shape)}")
-    out = run_conv(x[None], k, None, *default_tile(x.shape[2]))[0]
+    out = run_conv(x[None], k, None)[0]
     conv3d_cl.launches += 1
     return out
 

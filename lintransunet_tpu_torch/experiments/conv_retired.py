@@ -2,7 +2,7 @@
 ``experiments/pallas_conv_retired.py`` (``packed_conv3d_stride1_pallas`` ->
 ``_kernel``, pallas_call at :149).
 
-``conv3d_cl_rows(xp, k, bias, th, tw)`` is the stride-1, padding-1 conv of
+``conv3d_cl_rows(xp, k, bias)`` is the stride-1, padding-1 conv of
 xp (N, H2, W2, D, C4) with k (3, 3, 3, C4, O4) plus bias (O4,), as
 ``lintransunet_tpu/ops/packed_conv.py`` ``packed_conv3d_stride1`` (:267)
 computes it. The kernel is the one that computes #6 (``csrc/probe_conv.cu``,
@@ -33,7 +33,6 @@ from lintransunet_tpu_torch.experiments import common
 from lintransunet_tpu_torch.experiments.conv_prototype import (
     conv3d_cl_reference,
     conv_costs,
-    default_tile,
     library_conv,
     library_weight,
     run_conv,
@@ -53,16 +52,14 @@ def conv3d_cl_rows_reference(xp, k, bias=None):
     return conv3d_cl_reference(xp, k, _bias(bias, xp.dtype))
 
 
-def conv3d_cl_rows(xp: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                   th: Optional[int] = None, tw: Optional[int] = None) -> torch.Tensor:
+def conv3d_cl_rows(xp: torch.Tensor, k: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """xp (N, H2, W2, D, C4) conv k (3, 3, 3, C4, O4) + bias (O4,): (N, H2,
     W2, D, O4) in xp's dtype (bf16 or f32). ``conv3d_cl_rows.launches``
     counts launches."""
     if xp.device.type == "cpu":
         return conv3d_cl_rows_reference(xp, k, bias)
-    if th is None or tw is None:
-        th, tw = default_tile(xp.shape[3])
-    out = run_conv(xp, k, _bias(bias, xp.dtype), th, tw)
+    out = run_conv(xp, k, _bias(bias, xp.dtype))
     conv3d_cl_rows.launches += 1
     return out
 

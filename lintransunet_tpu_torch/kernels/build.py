@@ -50,8 +50,8 @@ SIGNATURES = {
         "pt_smem_bytes": (_I, [_I, _I, _I]),
     },
     "probe_conv": {
-        "pc_forward": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
-        "pc_smem_bytes": (_I, [_I] * 5),
+        "pc_forward": (_I, [_P, _P, _P, _P] + [_I] * 7 + [_P]),
+        "pc_wgmma_product": (_I, [_P, _P, _P, _I, _I, _P]),
     },
     "probe_stats": {
         "ps_lane_sums": (_I, [_P, _P, _I, _I, _I, _I, _I, _F, _P]),

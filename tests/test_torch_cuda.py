@@ -45,6 +45,7 @@ from lintransunet_tpu_torch.experiments import (
     inner_probe,
     rowoffset_probe,
 )
+from lintransunet_tpu_torch import kernels
 from lintransunet_tpu_torch.kernels.launches import cuda_launches
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import fused_stack as fs
@@ -519,21 +520,71 @@ def test_conv3d_cl_matches_plain(cuda, dtype, shape, n_out):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,n_out,tile", [
-    ((2, 16, 8, 64, 64), 64, None),     # the level-0 packed C4 = O4 = 64
-    ((1, 8, 8, 64, 128), 128, None),    # the 8C-lane C4 = O4 = 128
-    ((1, 6, 8, 32, 32), 64, (2, 2)),
+@pytest.mark.parametrize("shape,n_out", [
+    ((2, 16, 8, 64, 64), 64),     # the level-0 packed C4 = O4 = 64
+    ((1, 8, 8, 64, 128), 128),    # the 8C-lane C4 = O4 = 128
+    ((1, 6, 8, 32, 32), 64),
 ])
-def test_conv3d_cl_rows_matches_plain(cuda, dtype, shape, n_out, tile):
+def test_conv3d_cl_rows_matches_plain(cuda, dtype, shape, n_out):
     xp, k, bias = conv_retired.inputs(shape, n_out, cuda, dtype)
-    th, tw = tile or (None, None)
     before = conv_retired.conv3d_cl_rows.launches
-    got = conv_retired.conv3d_cl_rows(xp, k, bias, th, tw)
+    got = conv_retired.conv3d_cl_rows(xp, k, bias)
     torch.cuda.synchronize()
     assert conv_retired.conv3d_cl_rows.launches == before + 1
     want = conv_retired.conv3d_cl_rows_reference(xp, k, bias)
     assert got.dtype == dtype and got.shape == shape[:4] + (n_out,)
     assert _rel(got, want) <= PROBE_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape,n_out", [
+    ((1, 7, 9, 16, 32), 64),      # H, W not multiples of 4; D 16: half a d tile
+    ((1, 5, 6, 48, 64), 128),     # D 48: one and a half d tiles
+    ((1, 1, 3, 5, 96), 64),       # one ragged tile, three chunks
+])
+def test_conv3d_cl_rows_ragged_tiles(cuda, shape, n_out):
+    xp, k, bias = conv_retired.inputs(shape, n_out, cuda)
+    got = conv_retired.conv3d_cl_rows(xp, k, bias)
+    want = conv_retired.conv3d_cl_rows_reference(xp, k, bias)
+    assert got.shape == shape[:4] + (n_out,)
+    assert _rel(got, want) <= PROBE_TOL[torch.bfloat16]
+    for edge in ((slice(None), -1), (slice(None), slice(None), -1), (..., -1, slice(None))):
+        assert _rel(got[edge], want[edge]) <= PROBE_TOL[torch.bfloat16]  # last h, w, d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_conv3d_cl_rows_batch_two(cuda, dtype, with_bias):
+    xp, k, bias = conv_retired.inputs((2, 8, 12, 32, 64), 64, cuda, dtype)
+    bias = bias if with_bias else None
+    got = conv_retired.conv3d_cl_rows(xp, k, bias)
+    want = conv_retired.conv3d_cl_rows_reference(xp, k, bias)
+    for b in (0, 1):
+        assert _rel(got[b], want[b]) <= PROBE_TOL[dtype]
+
+
+@pytest.mark.parametrize("k,row_bytes", [(16, 64), (16, 128), (64, 64), (64, 128)])
+def test_wgmma_product_matches_matmul(cuda, k, row_bytes):
+    """``ltu::wgmma_m64n64k16`` alone (``pc_wgmma_product``): A from registers,
+    B by a descriptor of a K-major tile with a 64- or 128-byte swizzle, k / 16
+    descriptor steps (four at k 64). Exact bf16 products summed in f32 in
+    another order: 1e-5 of max |plain|."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    a = torch.randn((64, k), generator=g).to(cuda, torch.bfloat16)
+    bt = torch.randn((64, k), generator=g).to(cuda, torch.bfloat16)
+    out = torch.empty((64, 64), device=cuda)
+    err = kernels.load("probe_conv").pc_wgmma_product(
+        a.data_ptr(), bt.data_ptr(), out.data_ptr(), k, row_bytes,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert _rel(out, torch.matmul(a.float(), bt.float().t())) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_probes_are_deterministic(cuda, dtype):
+    xp, k, bias = conv_retired.inputs((1, 16, 16, 64, 64), 64, cuda, dtype)
+    first = conv_retired.conv3d_cl_rows(xp, k, bias)
+    assert torch.equal(first, conv_retired.conv3d_cl_rows(xp, k, bias))
 
 
 @pytest.mark.parametrize("shape,scale", [((4, 16, 8, 256), 1.0), ((2, 24, 16, 128), 0.7),
@@ -564,7 +615,14 @@ def test_probes_reject_what_they_do_not_take(cuda):
         dot_probe.tap_sum(x, w, offsets=[0] * 8 + [4000])         # window too large
     xc, k = conv_prototype.inputs((8, 8, 64, 64), 64, cuda)
     with pytest.raises(ValueError):
-        conv_retired.conv3d_cl_rows(xc[None], k, None, 1, 1)      # th * tw * D != 128
+        conv_retired.conv3d_cl_rows(xc[None, ..., :48], k[..., :48, :], None)  # not contiguous
+    with pytest.raises(ValueError):
+        conv_prototype.conv3d_cl(xc[..., :48].contiguous(), k[..., :48, :].contiguous())  # C % 32
+    with pytest.raises(ValueError):
+        conv_retired.conv3d_cl_rows(xc[None, :, :, :48].float().contiguous(), k.float(),
+                                    None)                               # f32 D 48
+    with pytest.raises(ValueError):
+        conv_prototype.conv3d_cl(xc, k[..., :32].contiguous())          # O % 64
     with pytest.raises(TypeError):
         conv_prototype.conv3d_cl(xc, k.float())
     with pytest.raises(TypeError):

@@ -108,6 +108,64 @@ def test_conv_rows_matches_jax(retired, reference):
     assert _err(got, want) <= F32_TOL
 
 
+# ---- the bf16 kernel's packed weights and the wrappers' checks (#6, #7) ----
+
+@pytest.mark.parametrize("c,o", [(32, 64), (64, 64), (128, 64), (32, 128), (64, 128),
+                                 (128, 128)])
+def test_pack_weights_matches_rounded_weights(c, o):
+    """Packed, the weights are the bf16-rounded weights at the addresses the
+    kernel reads (each output's 32 channels one 64-byte row, its 16-byte
+    pieces swizzled by ``ltu::swz``); unpacked, they are those weights."""
+    rng = np.random.default_rng(9)
+    k = torch.from_numpy(rng.standard_normal((3, 3, 3, c, o)).astype(np.float32))
+    packed = conv_prototype.pack_weights(k)
+    assert packed.dtype == torch.bfloat16
+    assert packed.shape == (o // 64, c // 32, 3, 3, 3, 64, 32)
+    rounded = k.bfloat16()
+    assert torch.equal(conv_prototype.unpack_weights(packed), rounded)
+    og, ch, kh, kd, kw, n, col = np.meshgrid(*(np.arange(m) for m in packed.shape),
+                                             indexing="ij")
+    channel = ch * 32 + ((col // 8) ^ ((n >> 1) & 3)) * 8 + col % 8
+    want = rounded[torch.from_numpy(kh), torch.from_numpy(kw), torch.from_numpy(kd),
+                   torch.from_numpy(channel), torch.from_numpy(og * 64 + n)]
+    assert torch.equal(packed, want)
+
+
+def _conv_case(shape, n_out, dtype=torch.float32, k_dtype=None):
+    x = torch.zeros(shape, dtype=dtype)
+    k = torch.zeros((3, 3, 3, shape[-1], n_out), dtype=k_dtype or dtype)
+    return x, k
+
+
+@pytest.mark.parametrize("case,error", [
+    (lambda: (*_conv_case((1, 4, 4, 16, 48), 64, torch.bfloat16), None), ValueError),  # C % 32
+    (lambda: (*_conv_case((1, 4, 4, 16, 32), 96, torch.bfloat16), None), ValueError),  # O % 64
+    (lambda: (*_conv_case((1, 4, 4, 48, 16), 64), None), ValueError),   # f32 D not in 16..128
+    (lambda: (*_conv_case((1, 4, 6, 32, 16), 64), None), ValueError),   # f32 W % (128 / D)
+    (lambda: (*_conv_case((4, 4, 16, 32), 64), None), ValueError),      # x not 5-D
+    (lambda: (_conv_case((1, 4, 8, 16, 64), 64)[0][:, :, ::2],
+              _conv_case((1, 4, 4, 16, 64), 64)[1], None), ValueError),  # not contiguous
+    (lambda: (*_conv_case((1, 4, 4, 16, 32), 64, torch.bfloat16),
+              torch.zeros(64, dtype=torch.bfloat16)), ValueError),      # bias not f32
+    (lambda: (*_conv_case((1, 4, 4, 16, 32), 64, torch.float16), None), TypeError),
+    (lambda: (*_conv_case((1, 4, 4, 16, 32), 64, torch.bfloat16, torch.float32), None),
+     TypeError),                                                        # mixed dtypes
+])
+def test_conv_wrapper_rejects_what_the_kernel_does_not_take(case, error):
+    """The checks ahead of every probe_conv launch, on the CPU; the card test
+    ``test_probes_reject_what_they_do_not_take`` holds the wrappers to them."""
+    x, k, bias = case()
+    with pytest.raises(error):
+        conv_prototype.check_inputs(x, k, bias)
+
+
+def test_conv_wrapper_takes_ragged_bf16_shapes_and_wants_the_card():
+    x, k = _conv_case((2, 7, 9, 48, 64), 128, torch.bfloat16)
+    assert conv_prototype.check_inputs(x, k, torch.zeros(128)) is True
+    with pytest.raises(ValueError):     # CPU tensors never reach the kernel
+        conv_prototype.run_conv(x, k, None)
+
+
 # ---- #6 experiments/pallas_conv_prototype.py (its reference, :117) ----------
 
 @pytest.mark.parametrize("shape,n_out", [((8, 8, 16, 16), 16), ((6, 10, 8, 8), 24)])
