@@ -47,12 +47,15 @@
 //   flight while one is read: a tile reads each weight once per chunk, not
 //   once per 128 outputs as the first probe did (0.8 GB of L2 traffic a call
 //   at the main shape, from 2.6).
-// * MMA: warp w owns the 16 positions along d starting at 16 (w % 2) at h
-//   row w / 2, in each of the tile's 4 w columns: four 16-row A tiles, all
-//   64 outputs (128 f32 accumulators a thread). Per (kh, kd) and 16
-//   channels it loads the 6 halo columns' A fragments once (`ldmatrix` at
-//   shifted rows) and uses each for up to three kw taps; B fragments come
-//   from the K-major slot by `ldmatrix` (no transpose): `mma.sync` m16n8k16.
+// * MMA: `wgmma` m64n64k16, A from registers, B from the slot by
+//   descriptor (ltu::wgmma_m64n64k16). Warp w owns the 16 positions along d
+//   starting at 16 (w % 2) at h row w / 2, in each of the tile's 4 w
+//   columns; the four warps of a warpgroup make one 64-row A tile a column,
+//   all 64 outputs (4 x 32 f32 accumulators a thread). Per (kh, kd) and 16
+//   channels a warp loads the 6 halo columns' A fragments once (`ldmatrix`
+//   at shifted rows, the m16n8k16 A layout that a register-A `wgmma` takes
+//   warp by warp) and uses each for up to three kw taps: 12 `wgmma`s a
+//   commit, waited for before the fragments are loaded again.
 // * Epilogue: bias, rounding to bf16 through shared memory (the tile's
 //   spent halo buffer), then 16-byte channels-last stores.
 //
@@ -163,9 +166,9 @@ struct Ring {
   }
 };
 
-// acc[j] += the (kh, kd) group's three kw taps for the warp's A tile j
-// (output column j), over the chunk's 32 channels. Tap (kh, kw, kd) of
-// column j reads halo column j + kw.
+// acc[j] += the (kh, kd) group's three kw taps for the warpgroup's 64-row
+// A tile j (output column j: each warp's 16 rows), over the chunk's 32
+// channels. Tap (kh, kw, kd) of column j reads halo column j + kw.
 __device__ __forceinline__ void mma_group(float (&acc)[kTW][kNT / 2], const bf16* halo,
                                           const bf16* slot, int kh, int kd, int warp, int lane) {
   const int r0 = (warp / 2 + kh) * kHW * kHD + (warp % 2) * 16 + kd + (lane & 15);
@@ -176,23 +179,18 @@ __device__ __forceinline__ void mma_group(float (&acc)[kTW][kNT / 2], const bf16
     for (int c = 0; c < kHW; ++c) {
       ltu::ldsm_x4(af[c], halo + ltu::swz(r0 + c * kHD, ks * 2 + (lane >> 4), kCpr));
     }
+    ltu::wgmma_fence();
 #pragma unroll
     for (int kw = 0; kw < 3; ++kw) {
-      const bf16* tap = slot + kw * kTapElems;
+      const unsigned long long desc =
+          ltu::wgmma_desc_kmajor(slot + kw * kTapElems, 2 * kKC) + ks * 2;  // + 32 bytes a k16
 #pragma unroll
-      for (int p = 0; p < kNT / 16; ++p) {
-        unsigned b[4];
-        ltu::ldsm_x4(b, tap + ltu::swz(p * 16 + ((lane >> 4) << 3) + (lane & 7),
-                                       ks * 2 + ((lane >> 3) & 1), kCpr));
-#pragma unroll
-        for (int j = 0; j < kTW; ++j) {
-          ltu::mma_bf16_16816(*reinterpret_cast<float(*)[4]>(&acc[j][8 * p]), af[j + kw], b[0],
-                              b[1]);
-          ltu::mma_bf16_16816(*reinterpret_cast<float(*)[4]>(&acc[j][8 * p + 4]), af[j + kw],
-                              b[2], b[3]);
-        }
-      }
+      for (int j = 0; j < kTW; ++j) ltu::wgmma_m64n64k16(acc[j], af[j + kw], desc);
     }
+    ltu::wgmma_commit();
+    ltu::wgmma_wait<0>();  // af is rewritten next, the slot after the group
+#pragma unroll
+    for (int j = 0; j < kTW; ++j) ltu::wgmma_fence_operand(acc[j]);
   }
 }
 
