@@ -8,7 +8,8 @@ last line):
 1. card: ``nvidia-smi`` name and power limit, the device name, and the
    nvcc builds of the CUDA kernels from ``lintransunet_tpu_torch/csrc``
    (one nvcc per source, all started together) with their ptxas reports
-   per kernel, and the bf16 stack kernels' grid, shared memory and blocks
+   per kernel (the conv probes' bf16 kernel's registers and spills on a line
+   of their own), and the bf16 stack kernels' grid, shared memory and blocks
    per SM;
 2. kernel vs plain, each kernel against its plain PyTorch version at the
    shapes the main paths give it, in f32 (TF32 off) and bf16, timed with
@@ -37,7 +38,9 @@ last line):
       counterparts of the TPU probes under ``experiments/``) at their TPU
       probes' main shapes in bf16 (``conv3d_cl_rows`` also in f32), beside
       the library call that computes the same function where there is one
-      (``einsum``, ``F.conv3d`` in ``channels_last_3d``, ``torch.var_mean``);
+      (``einsum``, ``F.conv3d`` in ``channels_last_3d``, ``torch.var_mean``),
+      each with the kernel's and the library call's TFLOP/s and the
+      kernel's share of its bound;
 3. the default path at full width: the flagship ``MaskTransUnet`` (random
    weights from a seed, f32 parameters, bf16 compute) behind
    ``make_eval_runner`` answers three 512 x 512 x 144 volumes (5 windows
@@ -282,6 +285,7 @@ def phase_card():
         ptxas = [line.strip() for line in kernels.build_log(name).splitlines()
                  if "entry function" in line or "registers" in line or "spill" in line]
         print(f"[card] {name} ptxas: {' | '.join(ptxas)}", flush=True)
+    print(f"[card] probe_conv bf16 kernel (conv_mma) ptxas: {conv_mma_ptxas()}", flush=True)
     stack, smem = kernels.load("fused_stack"), ctypes.c_int()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n, c in STACK_SHAPES:
@@ -293,6 +297,17 @@ def phase_card():
                   f"C={c}: {stack.fst_num_tiles(n, 1)} blocks of 32 tokens, {smem.value} "
                   f"bytes of dynamic shared memory, {blocks} block(s) per SM on {sms} SMs",
                   flush=True)
+
+
+def conv_mma_ptxas():
+    """The register and spill lines of the conv probes' bf16 kernel in
+    ``probe_conv``'s build log."""
+    lines = [line.strip() for line in kernels.build_log("probe_conv").splitlines()]
+    for i, line in enumerate(lines):
+        if "entry function" in line and "conv_mma" in line:
+            found = [ln for ln in lines[i + 1:i + 6] if "spill" in ln or "registers" in ln]
+            return " | ".join(found[:2])
+    return "not in the build log"
 
 
 def attention_inputs(count, bh, n, d, layout, dtype, gen):
@@ -672,8 +687,10 @@ def phase_probes_vs_plain(cases):
         bound_ms, bound_by = bound(flops, nbytes, case["dtype"])
         ok = rel <= case["tol"]
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        rates = f" ({flops / ms * 1e-9:.1f} TFLOP/s" + (
+            "" if library_ms is None else f", library {flops / library_ms * 1e-9:.1f}") + ")"
         print(f"[probe] {case['name']} {case['what']}: max_abs_err {err:.3e} rel "
-              f"{rel:.3e} (tol {case['tol']:g}){rounding} kernel {ms:.4f} ms plain "
+              f"{rel:.3e} (tol {case['tol']:g}){rounding} kernel {ms:.4f} ms{rates} plain "
               f"{plain_ms:.4f} ms library {lib} bound {bound_ms:.4f} ms ({bound_by}), "
               f"kernel at {bound_ms / ms * 100:.1f}% of it {'ok' if ok else 'TOO FAR'}",
               flush=True)

@@ -43,10 +43,11 @@
 //   of 64][chunk][kh, kd][kw][64 outputs][32 channels], each output's 32
 //   channels a 64-byte row, K-major, swizzled as `ltu::swz` (the hardware's
 //   64-byte swizzle). Per (chunk, kh, kd) the three kw taps' 12 KB go
-//   through a four-slot ring of bulk copies (TMA) on mbarriers, three in
-//   flight while one is read: a tile reads each weight once per chunk, not
-//   once per 128 outputs as the first probe did (0.8 GB of L2 traffic a call
-//   at the main shape, from 2.6).
+//   through a four-slot ring of bulk copies (TMA) on mbarriers: two slots
+//   in flight ahead of the one being read, the fourth still read by the
+//   previous group's last `wgmma`s. A tile reads each weight once per chunk,
+//   not once per 128 outputs as the first probe did (0.8 GB of L2 traffic a
+//   call at the main shape, from 2.6).
 // * MMA: `wgmma` m64n64k16, A from registers, B from the slot by
 //   descriptor (ltu::wgmma_m64n64k16). Warp w owns the 16 positions along d
 //   starting at 16 (w % 2) at h row w / 2, in each of the tile's 4 w
@@ -55,7 +56,14 @@
 //   channels a warp loads the 6 halo columns' A fragments once (`ldmatrix`
 //   at shifted rows, the m16n8k16 A layout that a register-A `wgmma` takes
 //   warp by warp) and uses each for up to three kw taps: 12 `wgmma`s a
-//   commit, waited for before the fragments are loaded again.
+//   commit, two commits a group, each waited for only when its fragment
+//   registers are loaded again, a group later (`wgmma_wait<1>`), so the
+//   tensor cores run on across the groups' barriers.
+// * Tried on the H100 and lost (PERF.md section 6, PR 10): waiting for each
+//   step before the next (6-7% slower), one wait a group (5% slower), the
+//   halo's copies spread over six groups between a step's issue and its wait
+//   (10-11% slower), and per-slot release barriers in place of the block
+//   barrier between groups (5% slower).
 // * Epilogue: bias, rounding to bf16 through shared memory (the tile's
 //   spent halo buffer), then 16-byte channels-last stores.
 //
@@ -90,6 +98,9 @@ constexpr int kGroups = 9;                                 // (kh, kd) slots per
 constexpr int kTapElems = kNT * kKC;                       // one tap's weights of a chunk
 constexpr int kSlotElems = 3 * kTapElems;                  // the three kw taps
 constexpr int kSlots = 4;
+// slots in flight ahead of the one read: the previous group's last step may
+// still read its own
+constexpr int kLookahead = kSlots - 2;
 constexpr size_t kHaloBytes = ltu::align_up(sizeof(bf16) * kHalo * kKC, 1024);
 constexpr size_t kRingOffset = 2 * kHaloBytes;
 constexpr size_t kBarOffset = kRingOffset + kSlots * sizeof(bf16) * kSlotElems;
@@ -166,32 +177,53 @@ struct Ring {
   }
 };
 
-// acc[j] += the (kh, kd) group's three kw taps for the warpgroup's 64-row
-// A tile j (output column j: each warp's 16 rows), over the chunk's 32
-// channels. Tap (kh, kw, kd) of column j reads halo column j + kw.
+// The A fragments of chunk step ks (16 channels) for halo columns 0..5 of
+// the warp's rows, from row r0 (`ldmatrix` at any row).
+__device__ __forceinline__ void load_a(unsigned (&af)[kHW][4], const bf16* halo, int r0, int ks,
+                                       int lane) {
+#pragma unroll
+  for (int c = 0; c < kHW; ++c) {
+    ltu::ldsm_x4(af[c], halo + ltu::swz(r0 + c * kHD, ks * 2 + (lane >> 4), kCpr));
+  }
+}
+
+// acc[j] += step ks of the three kw taps in `slot` for the warpgroup's
+// 64-row A tile j (output column j, each warp's 16 rows): column j of tap
+// kw reads halo column j + kw. One commit group of 12 `wgmma`s.
+__device__ __forceinline__ void issue_step(float (&acc)[kTW][kNT / 2],
+                                           const unsigned (&af)[kHW][4], const bf16* slot,
+                                           int ks) {
+  ltu::wgmma_fence();
+#pragma unroll
+  for (int kw = 0; kw < 3; ++kw) {
+    const unsigned long long desc =
+        ltu::wgmma_desc_kmajor(slot + kw * kTapElems, 2 * kKC) + ks * 2;  // + 32 bytes a k16
+#pragma unroll
+    for (int j = 0; j < kTW; ++j) ltu::wgmma_m64n64k16(acc[j], af[j + kw], desc);
+  }
+  ltu::wgmma_commit();
+}
+
+// One (kh, kd) group over the chunk's 32 channels, two commit groups. On
+// return this group's second step may still run: the caller's next group
+// waits for it before it reloads af1, and the ring rewrites a slot only two
+// groups after its last read.
 __device__ __forceinline__ void mma_group(float (&acc)[kTW][kNT / 2], const bf16* halo,
                                           const bf16* slot, int kh, int kd, int warp, int lane) {
   const int r0 = (warp / 2 + kh) * kHW * kHD + (warp % 2) * 16 + kd + (lane & 15);
+  unsigned af0[kHW][4], af1[kHW][4];
+  load_a(af0, halo, r0, 0, lane);  // the previous group's first step is done
+  issue_step(acc, af0, slot, 0);
+  ltu::wgmma_wait<1>();            // the previous group's second step is done
+  load_a(af1, halo, r0, 1, lane);
+  issue_step(acc, af1, slot, 1);
+  ltu::wgmma_wait<1>();            // this group's first step is done
+}
+
+__device__ __forceinline__ void wait_acc(float (&acc)[kTW][kNT / 2]) {
+  ltu::wgmma_wait<0>();
 #pragma unroll
-  for (int ks = 0; ks < kKC / 16; ++ks) {
-    unsigned af[kHW][4];
-#pragma unroll
-    for (int c = 0; c < kHW; ++c) {
-      ltu::ldsm_x4(af[c], halo + ltu::swz(r0 + c * kHD, ks * 2 + (lane >> 4), kCpr));
-    }
-    ltu::wgmma_fence();
-#pragma unroll
-    for (int kw = 0; kw < 3; ++kw) {
-      const unsigned long long desc =
-          ltu::wgmma_desc_kmajor(slot + kw * kTapElems, 2 * kKC) + ks * 2;  // + 32 bytes a k16
-#pragma unroll
-      for (int j = 0; j < kTW; ++j) ltu::wgmma_m64n64k16(acc[j], af[j + kw], desc);
-    }
-    ltu::wgmma_commit();
-    ltu::wgmma_wait<0>();  // af is rewritten next, the slot after the group
-#pragma unroll
-    for (int j = 0; j < kTW; ++j) ltu::wgmma_fence_operand(acc[j]);
-  }
+  for (int j = 0; j < kTW; ++j) ltu::wgmma_fence_operand(acc[j]);
 }
 
 // Bias, rounding to bf16 into s_out ([512 positions][64 outputs], 128-byte
@@ -218,7 +250,8 @@ __device__ __forceinline__ void epilogue(const float (&acc)[kTW][kNT / 2], bf16*
   __syncthreads();
   for (int i = tid; i < kM * (kNT / 8); i += kThreads) {
     const int piece = i % (kNT / 8), pos = i / (kNT / 8);
-    const int gd = it.d0 + pos % kTD, gw = it.w0 + (pos / kTD) % kTW, gh = it.h0 + pos / (kTD * kTW);
+    const int gd = it.d0 + pos % kTD, gw = it.w0 + (pos / kTD) % kTW;
+    const int gh = it.h0 + pos / (kTD * kTW);
     if (gh >= a.h || gw >= a.w_ || gd >= a.d) continue;
     *reinterpret_cast<uint4*>(
         a.out + (((static_cast<long long>(it.n) * a.h + gh) * a.w_ + gw) * a.d + gd) * a.o + o0 +
@@ -238,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv_mma(const MmaArgs a) {
   if (tid == 0) {
     for (int i = 0; i < kSlots; ++i) ltu::mbar_init(ring.full + i, 1);
     ltu::fence_mbar_init();
-    for (int g = 0; g < kSlots - 1; ++g) ring.issue(g);
+    for (int g = 0; g < kLookahead; ++g) ring.issue(g);
   }
   if (stages > 0) stage_halo(halo(0), a, item_at(a, blockIdx.x), 0, tid);
   __syncthreads();  // the barriers are initialised
@@ -258,12 +291,12 @@ __global__ void __launch_bounds__(kThreads, 1) conv_mma(const MmaArgs a) {
       const int g = s * kGroups + grp;
       if (grp == 0) ltu::cp_async_wait_all();  // this stage's halo, own copies
       ltu::mbar_wait(ring.full + g % kSlots, (g / kSlots) & 1);
-      // every thread's halo copies have landed, and the block is done with
-      // slot g - 1 and (at grp 0) with the other halo buffer
+      // every thread's halo copies have landed, the block is done with slot
+      // g - 2 and (at grp 0) with the other halo buffer
       __syncthreads();
       if (tid == 0) {
-        ltu::fence_proxy_async();  // the block's reads of the slot come first
-        ring.issue(g + kSlots - 1);
+        ltu::fence_proxy_async();  // the block's earlier accesses come before the copy
+        ring.issue(g + kLookahead);
       }
       if (grp == 0 && s + 1 < stages) {
         const int s1 = s + 1;
@@ -274,6 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv_mma(const MmaArgs a) {
                 lane);
     }
     if (ch == a.chunks - 1) {
+      wait_acc(acc);
       __syncthreads();  // the halo buffer's readers are done
       epilogue(acc, halo(s), a, it, tid, warp, lane);
     }

@@ -20,6 +20,8 @@ take ``conv3d_cl_reference``; CUDA tensors launch the kernel or raise.
 probe's shape (C = 64, 128 x 128 x 64) on the card, beside ``F.conv3d``.
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -54,17 +56,28 @@ def library_weight(k):
 
 
 # The bf16 kernel's weight layout: output groups of NT, input chunks of KC
-# channels (64-byte rows), the halo's row swizzle
+# channels (64-byte rows)
 NT, KC = 64, 32
 PIECES = KC // 8                 # 16-byte pieces in a row of one output's KC channels
 
 
-def _piece_order(device):
-    """(rows, pieces) indices: row n's stored piece p holds logical piece
-    p ^ ((n >> 1) & 3), the 64-byte swizzle of ``ltu::swz`` (and of the
-    tensor cores' descriptors); XOR is its own inverse."""
-    n = torch.arange(NT, device=device)[:, None]
-    return n, torch.arange(PIECES, device=device)[None, :] ^ ((n >> 1) & (PIECES - 1))
+def _packed_layout(c, o):
+    """For each element of the packed weights (see ``pack_weights``), its
+    flat index in k (3, 3, 3, C, O). Row n's stored 16-byte piece p holds
+    logical piece p ^ ((n >> 1) & 3): the 64-byte swizzle of ``ltu::swz``
+    and of the tensor cores' descriptors."""
+    t = torch.arange(27 * c * o).reshape(3, 3, 3, c // KC, PIECES, 8, o // NT, NT)
+    t = t.permute(6, 3, 0, 2, 1, 7, 4, 5)         # og, ch, kh, kd, kw, n, piece, 8
+    n = torch.arange(NT)[:, None]
+    order = torch.arange(PIECES)[None, :] ^ ((n >> 1) & (PIECES - 1))
+    return t[..., n, order, :].reshape(o // NT, c // KC, 3, 3, 3, NT, KC)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(c, o, device):
+    """``_packed_layout`` flattened, on ``device``, made once: packing a
+    call's weights is then one gather."""
+    return _packed_layout(c, o).reshape(-1).to(device)
 
 
 def pack_weights(k):
@@ -73,19 +86,17 @@ def pack_weights(k):
     channels one swizzled 64-byte row (K-major), so that each (chunk, kh,
     kd) is one contiguous 12 KB copy of its three kw taps."""
     c, o = k.shape[3], k.shape[4]
-    t = k.to(torch.bfloat16).reshape(3, 3, 3, c // KC, PIECES, 8, o // NT, NT)
-    t = t.permute(6, 3, 0, 2, 1, 7, 4, 5)         # og, ch, kh, kd, kw, n, piece, 8
-    rows, order = _piece_order(k.device)
-    return t[..., rows, order, :].reshape(o // NT, c // KC, 3, 3, 3, NT, KC).contiguous()
+    flat = k.to(torch.bfloat16).reshape(-1).index_select(0, _pack_index(c, o, k.device))
+    return flat.view(o // NT, c // KC, 3, 3, 3, NT, KC)
 
 
 def unpack_weights(packed):
     """The inverse of ``pack_weights``: (3, 3, 3, C, O) bf16."""
     g, chunks = packed.shape[:2]
-    t = packed.reshape(g, chunks, 3, 3, 3, NT, PIECES, 8)
-    rows, order = _piece_order(packed.device)
-    t = t[..., rows, order, :]                   # og, ch, kh, kd, kw, n, piece, 8
-    return t.permute(2, 4, 3, 1, 6, 7, 0, 5).reshape(3, 3, 3, chunks * KC, g * NT)
+    c, o = chunks * KC, g * NT
+    k = torch.empty(27 * c * o, dtype=packed.dtype, device=packed.device)
+    k[_pack_index(c, o, packed.device)] = packed.reshape(-1)
+    return k.view(3, 3, 3, c, o)
 
 
 def check_inputs(x, k, bias):
