@@ -6,11 +6,12 @@ CUDA card.
 At #6's shape (``conv_prototype.SHAPE`` -> ``N_OUT``) and #7's two shapes
 (``conv_retired.SHAPES``, with bias), bf16, on the modules' seeded inputs:
 CUDA-event ms per call of the plain build and of each ``--variant`` build
-(the source built again with ``-D<FLAG>``; each output must be the plain
-build's to the bit), taken in turns (the builds in
-order, then in reverse, ``--rounds`` times), each with TFLOP/s and its share
-of the bound; beside them ``F.conv3d`` on the same data and the weight
-packing alone (``conv_prototype.pack_weights``, inside every bf16 call).
+(the source built again with ``-D<FLAG>``; a variant whose output is not
+the plain build's to the bit is flagged), taken in turns (the builds in
+order, then in reverse, ``--rounds`` times), each with TFLOP/s and its
+share of the bound; beside them ``F.conv3d`` on the same data and the
+weight packing alone (``conv_prototype.pack_weights``, inside every bf16
+call).
 Builds go to ``lintransunet_tpu_torch/_build/`` (git-ignored), each keyed on
 its flags; the plain build is the one the wrappers use.
 """
