@@ -11,13 +11,18 @@ the plain build's to the bit is flagged), taken in turns (the builds in
 order, then in reverse, ``--rounds`` times), each with TFLOP/s and its
 share of the bound; beside them ``F.conv3d`` on the same data and the
 weight packing alone (``conv_prototype.pack_weights``, inside every bf16
-call).
+call). Last, ``[2e]`` lines time #6's plain build as ``chip_smoke.py``
+phase 2e does (windows of 10 calls from an idle card, in turns with the f32
+plain version) and apart from it, with ``F.conv3d`` in the same spots and
+the SM clock after each window.
 Builds go to ``lintransunet_tpu_torch/_build/`` (git-ignored), each keyed on
 its flags; the plain build is the one the wrappers use.
 """
 
 import argparse
+import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -46,6 +51,33 @@ def cases():
                     lambda xp=xp, kpw=kpw, b16=b16: conv_prototype.library_conv(xp, kpw, b16),
                     xp, kp))
     return out
+
+
+def sm_clock():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip()
+
+
+def smoke_conditions():
+    """#6 timed in the spots that ``chip_smoke.py`` phase 2e and the
+    ``main()`` use, the kernel and ``F.conv3d`` alike."""
+    x, k = conv_prototype.inputs(conv_prototype.SHAPE, conv_prototype.N_OUT, "cuda")
+    kw = conv_prototype.library_weight(k)
+    calls = {"kernel": lambda: conv_prototype.conv3d_cl(x, k),
+             "F.conv3d": lambda: conv_prototype.library_conv(x[None], kw)}
+    plain = lambda: conv_prototype.conv3d_cl_reference(x, k)  # noqa: E731
+    for name, fn in calls.items():
+        spots = {"20 calls after 3 (main())": lambda: common.cuda_ms(fn, ITERS, 3),
+                 "10 calls from an idle card": lambda: common.cuda_ms(fn, 10, 0),
+                 "10 calls after 10 f32 plain calls": lambda: (common.cuda_ms(plain, 10, 0),
+                                                               common.cuda_ms(fn, 10, 0))[1]}
+        for spot, timed in spots.items():
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+            ms = timed()
+            print(f"[2e] #6 {name}, {spot}: {ms:.4f} ms, SM clock after {sm_clock()}",
+                  flush=True)
 
 
 def main():
@@ -95,6 +127,7 @@ def main():
         pack_ms = common.cuda_ms(lambda: conv_prototype.pack_weights(k), ITERS, 3)
         print(f"[library] {label}: F.conv3d {lib_ms:.4f} ms; pack_weights alone "
               f"{pack_ms:.4f} ms", flush=True)
+    smoke_conditions()
 
 
 if __name__ == "__main__":
