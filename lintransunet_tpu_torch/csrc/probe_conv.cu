@@ -110,41 +110,6 @@ static_assert(kWarps == 2 * kTH && kTD == 32, "warp w: h row w / 2, 16 d from 16
 static_assert(sizeof(bf16) * kM * kNT <= kHaloBytes, "the epilogue fits in a halo buffer");
 static_assert(kMmaSmem <= kSmemLimit, "shared memory");
 
-// clock64 phase split of the bf16 kernel, built only with -DPC_PHASES
-// (tools/profile_conv_probes.py --phases): lane 0 of each warp adds the
-// cycles between marks to its phase; pc_phase_clocks reads and clears the
-// sums. kRing: thread 0 starting a weight copy and the block's halo copies.
-enum Phase { kHaloWait, kWeightsWait, kBarrier, kRing, kLoadA, kIssue, kMmaWait, kEpilogue,
-             kPhases };
-#ifdef PC_PHASES
-__device__ unsigned long long g_phase[kPhases + 1];
-struct PhaseClock {
-  long long t;
-  long long acc[kPhases];
-  __device__ PhaseClock() {
-    t = clock64();
-    for (int i = 0; i < kPhases; ++i) acc[i] = 0;
-  }
-  __device__ void mark(int i) {
-    const long long now = clock64();
-    acc[i] += now - t;
-    t = now;
-  }
-  __device__ void flush() {
-    if ((threadIdx.x & 31) != 0) return;
-    for (int i = 0; i < kPhases; ++i) {
-      atomicAdd(&g_phase[i], static_cast<unsigned long long>(acc[i]));
-    }
-    atomicAdd(&g_phase[kPhases], 1ull);
-  }
-};
-#else
-struct PhaseClock {
-  __device__ void mark(int) {}
-  __device__ void flush() {}
-};
-#endif
-
 struct MmaArgs {
   const bf16* x;      // (N, H, W, D, C)
   const bf16* w;      // packed, see above
@@ -177,12 +142,7 @@ __device__ __forceinline__ Item item_at(const MmaArgs& a, int item) {
 __device__ __forceinline__ void stage_halo(bf16* buf, const MmaArgs& a, const Item& it, int ch,
                                            int tid) {
   const bf16* x = a.x + ch * kKC;
-#if defined(PC_HALF)
-  if (tid < kThreads / 2) return;
-  for (int i = tid - kThreads / 2; i < kHalo * kCpr; i += kThreads / 2) {
-#else
   for (int i = tid; i < kHalo * kCpr; i += kThreads) {
-#endif
     const int piece = i % kCpr, pos = i / kCpr;
     const int dd = pos % kHD, r = pos / kHD;
     const int gh = it.h0 + r / kHW - 1, gw = it.w0 + r % kHW - 1, gd = it.d0 + dd - 1;
@@ -249,22 +209,15 @@ __device__ __forceinline__ void issue_step(float (&acc)[kTW][kNT / 2],
 // waits for it before it reloads af1, and the ring rewrites a slot only two
 // groups after its last read.
 __device__ __forceinline__ void mma_group(float (&acc)[kTW][kNT / 2], const bf16* halo,
-                                          const bf16* slot, int kh, int kd, int warp, int lane,
-                                          PhaseClock& ph) {
+                                          const bf16* slot, int kh, int kd, int warp, int lane) {
   const int r0 = (warp / 2 + kh) * kHW * kHD + (warp % 2) * 16 + kd + (lane & 15);
   unsigned af0[kHW][4], af1[kHW][4];
   load_a(af0, halo, r0, 0, lane);  // the previous group's first step is done
-  ph.mark(kLoadA);
   issue_step(acc, af0, slot, 0);
-  ph.mark(kIssue);
   ltu::wgmma_wait<1>();            // the previous group's second step is done
-  ph.mark(kMmaWait);
   load_a(af1, halo, r0, 1, lane);
-  ph.mark(kLoadA);
   issue_step(acc, af1, slot, 1);
-  ph.mark(kIssue);
   ltu::wgmma_wait<1>();            // this group's first step is done
-  ph.mark(kMmaWait);
 }
 
 __device__ __forceinline__ void wait_acc(float (&acc)[kTW][kNT / 2]) {
@@ -323,7 +276,6 @@ __global__ void __launch_bounds__(kThreads, 1) conv_mma(const MmaArgs a) {
   if (stages > 0) stage_halo(halo(0), a, item_at(a, blockIdx.x), 0, tid);
   __syncthreads();  // the barriers are initialised
 
-  PhaseClock ph;
   float acc[kTW][kNT / 2];
   for (int s = 0; s < stages; ++s) {
     const int ch = s % a.chunks;
@@ -338,40 +290,28 @@ __global__ void __launch_bounds__(kThreads, 1) conv_mma(const MmaArgs a) {
     for (int grp = 0; grp < kGroups; ++grp) {
       const int g = s * kGroups + grp;
       if (grp == 0) ltu::cp_async_wait_all();  // this stage's halo, own copies
-      ph.mark(kHaloWait);
       ltu::mbar_wait(ring.full + g % kSlots, (g / kSlots) & 1);
-      ph.mark(kWeightsWait);
       // every thread's halo copies have landed, the block is done with slot
       // g - 2 and (at grp 0) with the other halo buffer
       __syncthreads();
-      ph.mark(kBarrier);
       if (tid == 0) {
         ltu::fence_proxy_async();  // the block's earlier accesses come before the copy
         ring.issue(g + kLookahead);
       }
-#if defined(PC_STAGGER)
-      if (grp == static_cast<int>(blockIdx.x % (kGroups - 1)) && s + 1 < stages) {
-#elif defined(PC_NOHALO)
-      if (grp == 0 && s + 1 < 2) {  // timing only: later stages reuse stale halos
-#else
       if (grp == 0 && s + 1 < stages) {
-#endif
         const int s1 = s + 1;
         stage_halo(halo(s1), a, item_at(a, blockIdx.x + (s1 / a.chunks) * gridDim.x),
                    s1 % a.chunks, tid);
       }
-      ph.mark(kRing);
       mma_group(acc, halo(s), ring.slots + (g % kSlots) * kSlotElems, grp / 3, grp % 3, warp,
-                lane, ph);
+                lane);
     }
     if (ch == a.chunks - 1) {
       wait_acc(acc);
       __syncthreads();  // the halo buffer's readers are done
       epilogue(acc, halo(s), a, it, tid, warp, lane);
-      ph.mark(kEpilogue);
     }
   }
-  ph.flush();
 }
 
 // ---------------------------------------------------------------------------
@@ -601,17 +541,5 @@ int pc_forward(const void* x, const void* k, const void* bias, void* out, int n,
                   kFM / d};
   return a.o % 128 == 0 ? launch_fma<128>(a, s) : launch_fma<64>(a, s);
 }
-
-#ifdef PC_PHASES
-// Copies the phase sums (kPhases cycle counts, then the warp count) to host
-// memory `out` (kPhases + 1 uint64) and clears them.
-int pc_phase_clocks(void* out) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
-  const unsigned long long zero[kPhases + 1] = {};
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
-  return static_cast<int>(err);
-}
-#endif
 
 }  // extern "C"

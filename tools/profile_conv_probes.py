@@ -1,7 +1,7 @@
 """Time the conv probes' kernel (#6 and #7, ``csrc/probe_conv.cu``) on one
 CUDA card.
 
-    python3 tools/profile_conv_probes.py [--variant FLAG ...] [--rounds N] [--phases]
+    python3 tools/profile_conv_probes.py [--variant FLAG ...] [--rounds N]
 
 At #6's shape (``conv_prototype.SHAPE`` -> ``N_OUT``) and #7's two shapes
 (``conv_retired.SHAPES``, with bias), bf16, on the modules' seeded inputs:
@@ -14,15 +14,12 @@ weight packing alone (``conv_prototype.pack_weights``, inside every bf16
 call). Last, ``[2e]`` lines time #6's plain build as ``chip_smoke.py``
 phase 2e does (windows of 10 calls from an idle card, in turns with the f32
 plain version) and apart from it, with ``F.conv3d`` in the same spots and
-the SM clock after each window. ``--phases`` adds the clock64 phase split
-of the bf16 kernel (a ``-DPC_PHASES`` build): each phase's share of the
-warps' cycles and the cycles per warp, at the three shapes.
+the SM clock after each window.
 Builds go to ``lintransunet_tpu_torch/_build/`` (git-ignored), each keyed on
 its flags; the plain build is the one the wrappers use.
 """
 
 import argparse
-import ctypes
 import subprocess
 import sys
 import time
@@ -83,40 +80,12 @@ def smoke_conditions():
                   flush=True)
 
 
-# the bf16 kernel's phases (`Phase` in csrc/probe_conv.cu)
-PHASES = ("halo_wait", "weights_wait", "barrier", "ring", "load_a", "issue", "mma_wait",
-          "epilogue")
-
-
-def phases(flags):
-    lib = build.load("probe_conv", flags)
-    lib.pc_phase_clocks.restype = ctypes.c_int
-    lib.pc_phase_clocks.argtypes = [ctypes.c_void_p]
-    build._loaded["probe_conv"] = lib  # the wrapper launches this build
-    sums = (ctypes.c_ulonglong * (len(PHASES) + 1))()
-    for label, run, _, _, _ in cases():
-        run()
-        if lib.pc_phase_clocks(ctypes.addressof(sums)) != 0:
-            raise SystemExit("pc_phase_clocks failed")
-        for _ in range(3):
-            run()
-        if lib.pc_phase_clocks(ctypes.addressof(sums)) != 0:
-            raise SystemExit("pc_phase_clocks failed")
-        cycles = list(sums[:len(PHASES)])
-        total = sum(cycles)
-        shares = ", ".join(f"{name} {cyc / total * 100:.1f}%" for name, cyc in zip(PHASES, cycles))
-        print(f"[phases] [{' '.join(flags)}] {label}: {total / sums[len(PHASES)]:.0f} cycles per warp over 3 calls "
-              f"({sums[len(PHASES)]} warps): {shares}", flush=True)
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--variant", action="append", default=[],
                         help="-D flags (without -D, comma-separated) of a build to time "
                              "beside the plain build")
     parser.add_argument("--rounds", type=int, default=2)
-    parser.add_argument("--phases", action="store_true",
-                        help="clock64 phase split of the bf16 kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script runs only on an NVIDIA GPU")
@@ -124,10 +93,8 @@ def main():
     print(common.card(), flush=True)
     builds = [()] + [tuple(f"-D{flag}" for flag in variant.split(","))
                      for variant in args.variant]
-    extra = [flags + ("-DPC_PHASES",) for flags in builds] if args.phases else []
-    with ThreadPoolExecutor(len(builds + extra)) as pool:  # one nvcc per build, all at once
-        list(pool.map(lambda flags: build.build_libraries("probe_conv", flags=flags),
-                      builds + extra))
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
+        list(pool.map(lambda flags: build.build_libraries("probe_conv", flags=flags), builds))
     for flags in builds:
         ptxas = [line.strip() for line in build.build_log("probe_conv", flags).splitlines()
                  if "conv_mma" in line or "registers" in line or "spill" in line
@@ -161,8 +128,6 @@ def main():
         print(f"[library] {label}: F.conv3d {lib_ms:.4f} ms; pack_weights alone "
               f"{pack_ms:.4f} ms", flush=True)
     smoke_conditions()
-    for flags in extra:
-        phases(flags)
 
 
 if __name__ == "__main__":
