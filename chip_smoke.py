@@ -285,7 +285,6 @@ def phase_card():
         ptxas = [line.strip() for line in kernels.build_log(name).splitlines()
                  if "entry function" in line or "registers" in line or "spill" in line]
         print(f"[card] {name} ptxas: {' | '.join(ptxas)}", flush=True)
-    print(f"[card] probe_conv bf16 kernel (conv_mma) ptxas: {conv_mma_ptxas()}", flush=True)
     stack, smem = kernels.load("fused_stack"), ctypes.c_int()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n, c in STACK_SHAPES:
@@ -297,17 +296,6 @@ def phase_card():
                   f"C={c}: {stack.fst_num_tiles(n, 1)} blocks of 32 tokens, {smem.value} "
                   f"bytes of dynamic shared memory, {blocks} block(s) per SM on {sms} SMs",
                   flush=True)
-
-
-def conv_mma_ptxas():
-    """The register and spill lines of the conv probes' bf16 kernel in
-    ``probe_conv``'s build log."""
-    lines = [line.strip() for line in kernels.build_log("probe_conv").splitlines()]
-    for i, line in enumerate(lines):
-        if "entry function" in line and "conv_mma" in line:
-            found = [ln for ln in lines[i + 1:i + 6] if "spill" in ln or "registers" in ln]
-            return " | ".join(found[:2])
-    return "not in the build log"
 
 
 def attention_inputs(count, bh, n, d, layout, dtype, gen):

@@ -90,15 +90,6 @@ def pack_weights(k):
     return flat.view(o // NT, c // KC, 3, 3, 3, NT, KC)
 
 
-def unpack_weights(packed):
-    """The inverse of ``pack_weights``: (3, 3, 3, C, O) bf16."""
-    g, chunks = packed.shape[:2]
-    c, o = chunks * KC, g * NT
-    k = torch.empty(27 * c * o, dtype=packed.dtype, device=packed.device)
-    k[_pack_index(c, o, packed.device)] = packed.reshape(-1)
-    return k.view(3, 3, 3, c, o)
-
-
 def check_inputs(x, k, bias):
     """Raise ``ValueError`` or ``TypeError`` on what ``probe_conv.cu`` does
     not take (x (N, H, W, D, C), k (3, 3, 3, C, O), bias (O,) f32 or None);
@@ -198,6 +189,8 @@ def main():
     lib_ms = common.cuda_ms(lambda: library_conv(x[None], kw))
     print(common.rate_line(f"halo tile, x {SHAPE} bf16 -> O={N_OUT}", ms, flops, nbytes,
                            lib_ms), flush=True)
+    pack_ms = common.cuda_ms(lambda: pack_weights(k))
+    print(f"pack_weights alone (inside every bf16 call): {pack_ms:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

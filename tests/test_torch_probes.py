@@ -122,7 +122,9 @@ def test_pack_weights_matches_rounded_weights(c, o):
     assert packed.dtype == torch.bfloat16
     assert packed.shape == (o // 64, c // 32, 3, 3, 3, 64, 32)
     rounded = k.bfloat16()
-    assert torch.equal(conv_prototype.unpack_weights(packed), rounded)
+    unpacked = torch.empty(27 * c * o, dtype=torch.bfloat16)
+    unpacked[conv_prototype._packed_layout(c, o).reshape(-1)] = packed.reshape(-1)
+    assert torch.equal(unpacked.view(3, 3, 3, c, o), rounded)
     og, ch, kh, kd, kw, n, col = np.meshgrid(*(np.arange(m) for m in packed.shape),
                                              indexing="ij")
     channel = ch * 32 + ((col // 8) ^ ((n >> 1) & 3)) * 8 + col % 8
