@@ -8,8 +8,9 @@ last line):
 1. card: ``nvidia-smi`` name and power limit, the device name, and the
    nvcc builds of the CUDA kernels from ``lintransunet_tpu_torch/csrc``
    (one nvcc per source, all started together) with their ptxas reports
-   per kernel (the conv probes' bf16 kernel's registers and spills on a line
-   of their own), and the bf16 stack kernels' grid, shared memory and blocks
+   per kernel (the probes' tensor-core kernels, ``conv_mma`` and each
+   instance of ``taps_fold``, with their registers and spills on a line of
+   their own), and the bf16 stack kernels' grid, shared memory and blocks
    per SM;
 2. kernel vs plain, each kernel against its plain PyTorch version at the
    shapes the main paths give it, in f32 (TF32 off) and bf16, timed with
@@ -38,9 +39,13 @@ last line):
       counterparts of the TPU probes under ``experiments/``) at their TPU
       probes' main shapes in bf16 (``conv3d_cl_rows`` also in f32), beside
       the library call that computes the same function where there is one
-      (``einsum``, ``F.conv3d`` in ``channels_last_3d``, ``torch.var_mean``),
-      each with the kernel's and the library call's TFLOP/s and the
-      kernel's share of its bound;
+      (``einsum``; for the row-offset probe's B and C ``F.conv1d`` with
+      dilation on the taps folded per offset, the fold inside the call;
+      ``F.conv3d`` in ``channels_last_3d``; ``torch.var_mean``), plain,
+      kernel and library call timed alike (warmed, then 10-call windows in
+      turns plain, kernel, library, library, kernel, plain), each with the
+      kernel's and the library call's TFLOP/s and the kernel's share of its
+      bound;
 3. the default path at full width: the flagship ``MaskTransUnet`` (random
    weights from a seed, f32 parameters, bf16 compute) behind
    ``make_eval_runner`` answers three 512 x 512 x 144 volumes (5 windows
@@ -87,6 +92,7 @@ Imports nothing of jax.
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -110,6 +116,7 @@ from lintransunet_tpu_torch.experiments.common import (
     PEAK_FLOPS,
     bound,
     cuda_ms,
+    in_turns,
 )
 from lintransunet_tpu_torch.kernels.launches import cuda_launches
 from lintransunet_tpu_torch.models import MaskTransUnet, init_random_
@@ -127,6 +134,9 @@ N_VOLUMES = 3
 WINDOWS_PER_VOLUME = 5      # depth 144, roi depth 64, overlap 0.6
 KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "probe_taps",
                 "probe_conv", "probe_stats")
+# The probes' tensor-core kernels whose registers and spills phase 1 prints
+# on a line each: (library, kernel)
+PROBE_MMA_KERNELS = (("probe_conv", "conv_mma"), ("probe_taps", "taps_fold"))
 # The probes: name -> (kernel source, the TPU kernel's pallas_call it replaces)
 PROBES = {"tap_sum": ("probe_taps", "experiments/pallas_dot_probe.py:41"),
           "row_offset_sum": ("probe_taps", "experiments/pallas_rowoffset_probe.py:53"),
@@ -264,6 +274,22 @@ class Summary:
                 "library_ms": self.library_ms}
 
 
+def kernel_ptxas(name, kernel):
+    """'<instance>: N registers, S bytes spill stores, L bytes spill loads' for
+    each instance of ``kernel`` in library ``name``'s ptxas report."""
+    found, current = [], None
+    for line in kernels.build_log(name).splitlines():
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            current = entry.group(1) if kernel in entry.group(1) else None
+            if current:
+                args = ",".join(re.findall(r"L[ib](\d+)E", current.split(kernel, 1)[1]))
+                found.append([f"{kernel}<{args}>" if args else kernel])
+        elif current and ("spill" in line or "registers" in line):
+            found[-1].append(line.split(":", 1)[-1].strip())
+    return [" ".join(parts) for parts in found] or ["not in the build log"]
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -285,6 +311,8 @@ def phase_card():
         ptxas = [line.strip() for line in kernels.build_log(name).splitlines()
                  if "entry function" in line or "registers" in line or "spill" in line]
         print(f"[card] {name} ptxas: {' | '.join(ptxas)}", flush=True)
+    for name, kernel in PROBE_MMA_KERNELS:
+        print(f"[card] {kernel} ptxas: {'; '.join(kernel_ptxas(name, kernel))}", flush=True)
     stack, smem = kernels.load("fused_stack"), ctypes.c_int()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for n, c in STACK_SHAPES:
@@ -589,21 +617,19 @@ def probe_cases(inp):
         tol=TOL[bf16], dtype=bf16, entry=True))
     cases.append(dict(
         name="tap_sum", what="#10 variant E, bf16 accumulation",
-        run=lambda: dot_probe.tap_sum(x, w, acc_dtype=bf16, staging="per_tap"),
+        run=lambda: dot_probe.tap_sum(x, w, acc_dtype=bf16),
         plain=lambda: dot_probe.tap_sum_reference(x, w, acc_dtype=bf16),
         f32_acc=lambda: dot_probe.tap_sum_reference(x, w), library=None,
         costs=dot_probe.tap_sum_costs(x, w, acc_dtype=bf16), tol=PROBE_E_TOL, dtype=bf16))
     xr, wr = inp["rows"]
     for variant, offsets in rowoffset_probe.OFFSETS.items():
-        for staging in ("window", "per_tap"):
-            cases.append(dict(
-                name="row_offset_sum", what=f"#8 {variant} [{staging}]",
-                run=lambda o=offsets, st=staging: rowoffset_probe.row_offset_sum(
-                    xr, wr, o, staging=st),
-                plain=lambda o=offsets: rowoffset_probe.row_offset_sum_reference(xr, wr, o),
-                library=None, costs=dot_probe.tap_sum_costs(xr, wr, rowoffset_probe.M, offsets),
-                tol=TOL[bf16], dtype=bf16,
-                entry=variant == ROW_OFFSET_MAIN and staging == "window"))
+        cases.append(dict(
+            name="row_offset_sum", what=f"#8 {variant}",
+            run=lambda o=offsets: rowoffset_probe.row_offset_sum(xr, wr, o),
+            plain=lambda o=offsets: rowoffset_probe.row_offset_sum_reference(xr, wr, o),
+            library=rowoffset_probe.library_call(xr, wr, offsets),
+            costs=dot_probe.tap_sum_costs(xr, wr, rowoffset_probe.M, offsets),
+            tol=TOL[bf16], dtype=bf16, entry=variant == ROW_OFFSET_MAIN))
     z, kp, ku, kd = inp["inner"]
     ke = inner_probe.pack_weights(kp, ku, kd)
     for strategy in inner_probe.STRATEGIES:
@@ -669,8 +695,11 @@ def phase_probes_vs_plain(cases):
                 fail(f"{case['what']}: the kernel's output sits at {share:.3f} of the gap "
                      f"between the bf16- and the f32-accumulated sums: no bf16 rounding")
         del got, want
-        ms, plain_ms = pkkp(case["plain"], case["run"])
-        library_ms = None if case["library"] is None else cuda_ms(case["library"], ITERS, 2)
+        # kernel and library call timed alike: warmed, then 10-call windows
+        # in turns plain, kernel, library, library, kernel, plain
+        timed = [case["plain"], case["run"]] + ([case["library"]] if case["library"] else [])
+        plain_ms, ms, *lib = in_turns(timed, ITERS)
+        library_ms = lib[0] if lib else None
         flops, nbytes = case["costs"]
         bound_ms, bound_by = bound(flops, nbytes, case["dtype"])
         ok = rel <= case["tol"]

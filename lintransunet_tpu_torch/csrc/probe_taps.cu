@@ -1,15 +1,12 @@
-// Tap-sum probe kernel for Hopper (sm_90a), bound with ctypes.
+// Tap-sum probe kernels for Hopper (sm_90a), bound with ctypes.
 //
 // For each group g of a bf16 operand A and per-tap bf16 weights W (T, K, N):
 //
 //   out[g, r, n] = sum_t sum_k A[g, r + off[t], k] * W[t, k, n],  0 <= r < m
 //
 // with rows of A outside [0, rows) read as zero, summed in f32 and stored
-// as bf16. Column k of a row of A sits at a per-chunk base (`colbase`), so
-// one operand can be spliced from several planes without a copy (the
-// level-0 "paired" layout of the inner-loop probe), and a chunk of K can be
-// restricted to a range of output columns (a block-diagonal W whose zero
-// blocks are skipped).
+// as bf16 (or, `bf16_acc`, each tap's product rounded to bf16 and added to
+// a bf16 sum).
 //
 // Replaces three TPU probe kernels, which compute this function:
 //   experiments/pallas_dot_probe.py `bench` (pallas_call at :41): offsets 0;
@@ -18,28 +15,60 @@
 //   experiments/pallas_inner_probe.py `make_kernel` (pallas_call at :226):
 //     one conv tap step on the paired layout, 9 (dh, dw) taps.
 //
-// What bounds it on this card: operations at every probe shape (each row
-// of A is used by all N columns and all taps: 100-1000 FLOP per compulsory
-// byte, above the H100's ~295 FLOP/byte bf16 ridge). This first design
-// keeps a tensor-core inner loop simple and measurable, not fast:
+// `taps_fold` (#8, #10; `pt_tap_sum`). What bounds it on this card: bytes
+// at the probes' shapes once the taps are folded (the function needs one
+// product per distinct offset: #10 A ~60 FLOP per compulsory byte, #8 ~95,
+// under the H100's ~295 bf16 ridge); operations where every tap counts
+// (bf16 accumulation). Its design:
+// * Taps folded per distinct offset, in the prologue. Taps at one row
+//   offset sum to one product of their summed weight: a lone tap's bf16
+//   weight is used as it is; two or more are summed in f32 and split into
+//   hi = bf16(sum) and lo = bf16(sum - hi), two products that hold the
+//   result to ~2^-16 of the f32 sum of the exact products (a bf16 fold alone
+//   would move some outputs by an ulp). bf16 accumulation is not folded:
+//   each tap's rounding is the function. The wrapper plans the products
+//   (`dot_probe.tap_plan`; `fold_taps_reference` is the fold's plain
+//   version).
+// * Resident weights: each block builds the folded weights of its column
+//   tile once, from L2 into shared memory, K-major with the 128-byte swizzle
+//   (`ltu::swz`), while its first A tiles are in flight. Where they do not
+//   fit at any column tile, each item's weights are folded anew before it
+//   runs (no probe shape needs that).
+// * Shifted tiles, not a window: a tile is 128 output rows (16 a warp) and
+//   NT <= 128 columns; per distinct offset and 64-wide K chunk the block
+//   stages rows [m0 + off, m0 + off + 128) into a swizzled tile by 16-byte
+//   `cp.async` with zero fill outside [0, rows) and past K. A row is 2 K
+//   bytes, so an offset of 577 rows is as aligned as one of 576, and a row
+//   of A is read once per distinct offset (again from L2), not (128 + span)
+//   / 128 times.
+// * A ring of 2-3 such items, each landing while the previous one's
+//   products run; the ring runs on across tiles, so the next tile's loads
+//   overlap this tile's epilogue.
+// * Persistent grid: one block per SM (or more where they fit), each on one
+//   column tile, walking row tiles in order within a group, so that the
+//   neighbouring tiles' shifted reads hit L2 (a #8 group spans 2.9 MB).
+// * Products: `mma.sync` m16n8k16, A by `ldmatrix` from the shifted tile, B
+//   by `ldmatrix` from the K-major weight tile, f32 accumulators.
+// * bf16 accumulation: where the whole of K fits in one item, A is staged
+//   once for all taps at one offset and each tap's product goes into a
+//   fresh accumulator, rounded to bf16 and added into the running bf16 sum
+//   in registers; otherwise each (tap, K chunk) is an item of its own.
 //
-// * A block owns 128 output rows (16 per warp) and NT <= 128 columns. K goes
-//   through in chunks of 32; `mma.sync` m16n8k16 via `ldmatrix` from
-//   XOR-swizzled shared memory (csrc/tensor_core.cuh), f32 accumulators.
+// `taps_window` (#11; `pt_forward`), PR 4's kernel, kept for the inner-loop
+// probe until its own redesign. Column k of a row of A sits at a per-chunk
+// base (`colbase`), so one operand can be spliced from several planes
+// without a copy (the level-0 "paired" layout), and a chunk of K can be
+// restricted to a range of output columns (a block-diagonal W whose zero
+// blocks are skipped). A block owns 128 output rows and NT <= 128 columns;
+// K goes through in chunks of 32 on `mma.sync`.
 // * Staging mode `window`: per K chunk, the block stages the union of its
 //   taps' rows once, [m0 + min off, m0 + 128 + max off), and every tap
-//   reads its operand at a shifted row of it. The swizzle is keyed on the
-//   staged row, so a shift that is not a multiple of 8 rows reads without
-//   bank conflicts. Weights go through 9 taps at a time.
+//   reads its operand at a shifted row of it. Weights go through 9 taps at
+//   a time.
 // * Mode `im2col`: the same window, but each run of three taps at
 //   consecutive offsets (one dh of a 3x3 conv) first copies its three
 //   shifted row slices into aligned panels, a K = 3 x 32 im2col in shared
 //   memory; then the products read the panels.
-// * Mode `per_tap`: per tap and K chunk, the block stages the tap's own 128
-//   rows (re-read from L2 for every tap) and the tap's weights. The only
-//   mode with bf16 accumulation (each tap's f32 product rounded to bf16,
-//   then added to a bf16 sum), which needs each tap's product whole.
-// * No wgmma, TMA or multi-stage pipeline: a later PR's work.
 
 #include "common.cuh"
 #include "tensor_core.cuh"
@@ -57,7 +86,7 @@ constexpr int kMaxTaps = 32;
 constexpr int kMaxChunks = 64;    // K up to 2048
 constexpr int kSmemLimit = 232448;
 
-enum Mode { kWindow = 0, kIm2col = 1, kPerTap = 2, kPerTapBf16Acc = 3 };
+enum Mode { kWindow = 0, kIm2col = 1 };
 
 struct Args {
   const bf16* x;
@@ -139,7 +168,7 @@ __host__ __device__ constexpr int a_tile_elems(int rows) {
 
 template <int NT, bool kPanels>
 __global__ void __launch_bounds__(kThreads) taps_window(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   const int wrows = kBM + a.omax - a.omin;
   bf16* s_a = reinterpret_cast<bf16*>(smem);
   bf16* s_w = s_a + a_tile_elems(wrows);
@@ -190,56 +219,7 @@ __global__ void __launch_bounds__(kThreads) taps_window(const Args a) {
   store_out<NT>(a, acc, m0, n0);
 }
 
-template <int NT, bool kBf16Acc>
-__global__ void __launch_bounds__(kThreads) taps_per_tap(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* s_a = reinterpret_cast<bf16*>(smem);
-  bf16* s_w = s_a + a_tile_elems(kBM);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.z * NT;
-  const bf16* xg = a.x + static_cast<long long>(blockIdx.y) * a.gstride;
-  float acc[NT / 8][4], tap[NT / 8][4];
-#pragma unroll
-  for (int j = 0; j < NT / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = tap[j][e] = 0.f;
-  }
-
-  const int chunks = (a.k + kKC - 1) / kKC;
-  for (int t = 0; t < a.taps; ++t) {
-    for (int kc = 0; kc < chunks; ++kc) {
-      int p_lo, p_hi;
-      pair_range<NT>(a, kc, n0, p_lo, p_hi);
-      __syncthreads();
-      stage_a(s_a, a, xg, m0 + a.off[t], kBM, kc);
-      stage_w<NT>(s_w, a, t, kc, n0);
-      __syncthreads();
-      if constexpr (kBf16Acc) {
-        ltu::warp_mma<kKC, NT>(tap, s_a, warp * 16, s_w, p_lo, p_hi, lane);
-      } else {
-        ltu::warp_mma<kKC, NT>(acc, s_a, warp * 16, s_w, p_lo, p_hi, lane);
-      }
-    }
-    if constexpr (kBf16Acc) {
-      // acc = bf16(acc + bf16(tap)): the sum of two bf16 values, rounded
-#pragma unroll
-      for (int j = 0; j < NT / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[j][e] = ltu::round_to<bf16>(acc[j][e] + ltu::round_to<bf16>(tap[j][e]));
-          tap[j][e] = 0.f;
-        }
-      }
-    }
-  }
-  store_out<NT>(a, acc, m0, n0);
-}
-
 size_t smem_bytes(int mode, int nt, int span) {
-  if (mode == kPerTap || mode == kPerTapBf16Acc) {
-    return sizeof(bf16) * (a_tile_elems(kBM) + kKC * nt);
-  }
   return sizeof(bf16) * (a_tile_elems(kBM + span) + kTG * kKC * nt +
                          (mode == kIm2col ? 3 * kBM * kKC : 0));
 }
@@ -261,9 +241,361 @@ int dispatch_mode(const Args& a, int groups, int mode, cudaStream_t s) {
   switch (mode) {
     case kWindow: return launch(taps_window<NT, false>, a, groups, NT, mode, s);
     case kIm2col: return launch(taps_window<NT, true>, a, groups, NT, mode, s);
-    case kPerTap: return launch(taps_per_tap<NT, false>, a, groups, NT, mode, s);
-    case kPerTapBf16Acc: return launch(taps_per_tap<NT, true>, a, groups, NT, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// taps_fold: the tap sum with taps folded per distinct offset (#8, #10)
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 128;                   // output rows per tile, 16 a warp
+constexpr int kKT = 64;                      // K per A sub-tile and weight tile
+constexpr int kATile = kRows * kKT;          // elements of one A sub-tile (16 KB)
+constexpr int kMaxD = 32;                    // distinct offsets
+constexpr int kMaxP = 32;                    // products (hi and lo count two)
+constexpr int kPlanHeader = 16;
+constexpr int kPlanInts = kPlanHeader + 8 * 32;
+
+// How a tile's items run: folded f32 sum (an item is one distinct offset at
+// one K chunk); bf16 accumulation with the whole of K in one item (an item
+// is one distinct offset, all its taps); bf16 accumulation by (tap, chunk).
+enum TapMode { kFold = 0, kWhole = 1, kSplit = 2 };
+// What a product's weight is: its one tap's as it is, or the hi or lo part
+// of its taps' f32 sum.
+enum Part { kAsIs = 0, kHi = 1, kLo = 2 };
+
+struct TapArgs {
+  const bf16* x;       // (groups, rows, k) contiguous
+  const bf16* w;       // (taps, k, n) contiguous
+  bf16* out;           // (groups, m, n) contiguous
+  int groups, rows, m, k, n;
+  int nt;              // columns per tile
+  int nkc;             // 64-wide K chunks (K padded with zeros)
+  int col_tiles, row_tiles;
+  int mode, streamed, slots, nsub, items;
+  int nd, np;
+  int w_offset;        // bytes from the start of shared memory to the weights
+  int d_off[kMaxD];    // distinct offset d's rows, and its products
+  int d_p0[kMaxD], d_np[kMaxD];
+  int p_d[kMaxP], p_part[kMaxP], p_t0[kMaxP], p_nt[kMaxP];  // taps tap_idx[t0 .. t0 + nt)
+  int tap_idx[kMaxP];
+};
+
+struct TapItem {
+  int d, kc, p0, np;
+  bool tap_last;  // bf16 accumulation by (tap, chunk): the tap's last chunk
+};
+
+__device__ __forceinline__ TapItem item_at(const TapArgs& a, int i) {
+  TapItem it;
+  if (a.mode == kSplit) {
+    it.p0 = i / a.nkc;
+    it.np = 1;
+    it.kc = i % a.nkc;
+    it.d = a.p_d[it.p0];
+  } else {
+    it.d = a.mode == kFold ? i % a.nd : i;
+    it.kc = a.mode == kFold ? i / a.nd : 0;
+    it.p0 = a.d_p0[it.d];
+    it.np = a.d_np[it.d];
+  }
+  it.tap_last = it.kc == a.nkc - 1;
+  return it;
+}
+
+// The block's j-th tile: (group, first output row); its column tile is
+// blockIdx.x % col_tiles throughout.
+__device__ __forceinline__ void tile_at(const TapArgs& a, int j, int& g, int& m0) {
+  const int per_col = gridDim.x / a.col_tiles;
+  const int rt = blockIdx.x / a.col_tiles + j * per_col;
+  g = rt / a.row_tiles;
+  m0 = (rt % a.row_tiles) * kRows;
+}
+
+// Step s's item into ring slot `slot`: rows [m0 + off, m0 + off + 128) of
+// its K chunks; one commit group per thread (the caller commits).
+__device__ __forceinline__ void stage_item(bf16* slot, const TapArgs& a, int s, int tid) {
+  int g, m0;
+  tile_at(a, s / a.items, g, m0);
+  const TapItem it = item_at(a, s % a.items);
+  const bf16* xg = a.x + static_cast<long long>(g) * a.rows * a.k;
+  const int r0 = m0 + a.d_off[it.d];
+  for (int i = tid; i < a.nsub * kRows * 8; i += kThreads) {
+    const int c = i & 7, r = (i >> 3) & (kRows - 1), sub = i >> 10;
+    const int gr = r0 + r, gk = (it.kc + sub) * kKT + c * 8;
+    const bool valid = gr >= 0 && gr < a.rows && gk < a.k;
+    const bf16* src = valid ? xg + static_cast<long long>(gr) * a.k + gk : a.x;
+    ltu::cp_async16_zfill(slot + sub * kATile + ltu::swz(r, c, 8), src, valid);
+  }
+}
+
+// The weights of products [p_lo, p_hi) at K chunks [c_lo, c_hi), columns
+// [n0, n0 + NT), into shared memory: tile (p, c), NT rows of 64 K values
+// (K-major, rows of 128 bytes swizzled by `ltu::swz`), at dst + ((p - p_lo)
+// * (c_hi - c_lo) + c - c_lo) * NT * 64. A hi product writes its lo
+// partner's tile too. Zeros past K.
+template <int NT>
+__device__ __forceinline__ void fold_weights(bf16* dst, const TapArgs& a, int n0, int p_lo,
+                                             int p_hi, int c_lo, int c_hi, int tid) {
+  const int nc = c_hi - c_lo;
+  const int units = (p_hi - p_lo) * nc * NT;  // 8 K x 8 columns each
+  for (int u = tid; u < units; u += kThreads) {
+    const int p = p_lo + u / (nc * NT);
+    const int part = a.p_part[p];
+    if (part == kLo) continue;  // written with its hi partner
+    const int c = c_lo + (u / NT) % nc, n8 = (u % NT) >> 3, k8 = u & 7;
+    const int gk = c * kKT + k8 * 8;
+    float sum[8][8];  // [k][column]
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) sum[j][q] = 0.f;
+    }
+    if (gk < a.k) {
+      for (int q = 0; q < a.p_nt[p]; ++q) {
+        const bf16* src = a.w + (static_cast<long long>(a.tap_idx[a.p_t0[p] + q]) * a.k + gk) *
+                          a.n + n0 + n8 * 8;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + static_cast<long long>(j) * a.n));
+          const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+          for (int col = 0; col < 8; ++col) sum[j][col] += __bfloat162float(e[col]);
+        }
+      }
+    }
+    bf16* hi = dst + ((p - p_lo) * nc + c - c_lo) * NT * kKT;
+    bf16* lo = hi + nc * NT * kKT;  // product p + 1
+#pragma unroll
+    for (int col = 0; col < 8; ++col) {
+      const int row = n8 * 8 + col;
+      uint4 vh, vl;
+      unsigned* h = reinterpret_cast<unsigned*>(&vh);
+      unsigned* l = reinterpret_cast<unsigned*>(&vl);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float s0 = sum[2 * j][col], s1 = sum[2 * j + 1][col];
+        h[j] = ltu::pack_bf16x2(s0, s1);
+        l[j] = ltu::pack_bf16x2(s0 - ltu::round_to<bf16>(s0), s1 - ltu::round_to<bf16>(s1));
+      }
+      *reinterpret_cast<uint4*>(hi + ltu::swz(row, k8, 8)) = vh;
+      if (part == kHi) *reinterpret_cast<uint4*>(lo + ltu::swz(row, k8, 8)) = vl;
+    }
+  }
+}
+
+// `ltu::mma_bf16_16816` on four accumulators of a flat array
+__device__ __forceinline__ void mma(float& d0, float& d1, float& d2, float& d3,
+                                    const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc (the warp's 16 rows x NT columns) += the A sub-tile's rows [16 warp,
+// 16 warp + 16) times weight tile `b` (K-major, NT x 64), over 64 K.
+template <int NT>
+__device__ __forceinline__ void product(float (&acc)[NT / 2], const bf16* a_tile, const bf16* b,
+                                        int warp, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < kKT / 16; ++ks) {
+    unsigned af[4];
+    ltu::ldsm_x4(af, a_tile + ltu::swz(warp * 16 + (lane & 15), ks * 2 + (lane >> 4), 8));
+#pragma unroll
+    for (int pr = 0; pr < NT / 16; ++pr) {
+      unsigned bf[4];
+      ltu::ldsm_x4(bf, b + ltu::swz(pr * 16 + ((lane >> 4) << 3) + (lane & 7),
+                                    ks * 2 + ((lane >> 3) & 1), 8));
+      mma(acc[8 * pr], acc[8 * pr + 1], acc[8 * pr + 2], acc[8 * pr + 3], af, bf[0], bf[1]);
+      mma(acc[8 * pr + 4], acc[8 * pr + 5], acc[8 * pr + 6], acc[8 * pr + 7], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// The warp's 16 rows of the tile, rounded to bf16; rows past m are not stored.
+template <int NT>
+__device__ __forceinline__ void store_tile(const TapArgs& a, const float (&v)[NT / 2], int g,
+                                           int m0, int n0, int warp, int lane) {
+  bf16* og = a.out + static_cast<long long>(g) * a.m * a.n + n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + warp * 16 + (lane >> 2) + 8 * h;
+    if (r >= a.m) continue;
+#pragma unroll
+    for (int t = 0; t < NT / 8; ++t) {
+      *reinterpret_cast<unsigned*>(og + static_cast<long long>(r) * a.n + 8 * t) =
+          ltu::pack_bf16x2(v[4 * t + 2 * h], v[4 * t + 2 * h + 1]);
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&v)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[i] = 0.f;
+}
+
+// sum = bf16(sum + bf16(acc)), the sum of two bf16 values rounded; acc = 0
+template <int R>
+__device__ __forceinline__ void round_add(float (&sum)[R], float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    sum[i] = ltu::round_to<bf16>(sum[i] + ltu::round_to<bf16>(acc[i]));
+    acc[i] = 0.f;
+  }
+}
+
+template <int NT, bool kBf16Acc>
+__global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int slot_elems = a.nsub * kATile;
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* wts = reinterpret_cast<bf16*>(smem + a.w_offset);
+  const int n0 = (blockIdx.x % a.col_tiles) * NT;
+  const int per_col = gridDim.x / a.col_tiles;
+  const int tiles = (a.groups * a.row_tiles - static_cast<int>(blockIdx.x) / a.col_tiles +
+                     per_col - 1) / per_col;
+  const int steps = tiles * a.items;
+  const int ahead = a.slots - 1;
+
+  for (int s = 0; s < ahead; ++s) {
+    if (s < steps) stage_item(ring + s * slot_elems, a, s, tid);
+    ltu::cp_async_commit();
+  }
+  if (!a.streamed) {
+    fold_weights<NT>(wts, a, n0, 0, a.np, 0, a.nkc, tid);
+    ltu::fence_proxy_async();
+  }
+
+  float acc[NT / 2], sum[kBf16Acc ? NT / 2 : 1];
+  zero(acc);
+  zero(sum);
+  for (int s = 0; s < steps; ++s) {
+    if (ahead == 1) {
+      ltu::cp_async_wait<0>();
+    } else {
+      ltu::cp_async_wait<1>();
+    }
+    // every thread's copies of step s have landed; the block is done with
+    // step s - 1's slot, which step s + ahead now fills
+    __syncthreads();
+    if (s + ahead < steps) stage_item(ring + ((s + ahead) % a.slots) * slot_elems, a, s + ahead, tid);
+    ltu::cp_async_commit();
+
+    const int i = s % a.items;
+    const TapItem it = item_at(a, i);
+    const bf16* a_tile = ring + (s % a.slots) * slot_elems;
+    if (a.streamed) {
+      fold_weights<NT>(wts, a, n0, it.p0, it.p0 + it.np, it.kc, it.kc + 1, tid);
+      ltu::fence_proxy_async();
+      __syncthreads();
+    }
+    // weight tile of product p at K chunk c
+    auto wtile = [&](int p, int c) {
+      return a.streamed ? wts + (p - it.p0) * NT * kKT : wts + (p * a.nkc + c) * NT * kKT;
+    };
+    if constexpr (kBf16Acc) {
+      if (a.mode == kWhole) {  // every tap at this offset over all of K
+        for (int p = it.p0; p < it.p0 + it.np; ++p) {
+          for (int c = 0; c < a.nsub; ++c) {
+            product<NT>(acc, a_tile + c * kATile, wtile(p, c), warp, lane);
+          }
+          round_add(sum, acc);
+        }
+      } else {
+        product<NT>(acc, a_tile, wtile(it.p0, it.kc), warp, lane);
+        if (it.tap_last) round_add(sum, acc);
+      }
+    } else {
+      for (int p = it.p0; p < it.p0 + it.np; ++p) product<NT>(acc, a_tile, wtile(p, it.kc), warp, lane);
+    }
+    if (i == a.items - 1) {
+      int g, m0;
+      tile_at(a, s / a.items, g, m0);
+      if constexpr (kBf16Acc) {
+        store_tile<NT>(a, sum, g, m0, n0, warp, lane);
+        zero(sum);
+      } else {
+        store_tile<NT>(a, acc, g, m0, n0, warp, lane);
+        zero(acc);
+      }
+    }
+  }
+}
+
+template <int NT, bool kBf16Acc>
+int launch_fold(const TapArgs& a, int smem, cudaStream_t stream) {
+  static unsigned long long attribute_set = 0;  // per instantiation, a bit per device
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!(attribute_set >> device & 1)) {
+    err = cudaFuncSetAttribute(taps_fold<NT, kBf16Acc>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attribute_set |= 1ull << device;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, taps_fold<NT, kBf16Acc>, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long row_tiles = static_cast<long long>(a.groups) * a.row_tiles;
+  long long per_col = static_cast<long long>(sms) * per_sm / a.col_tiles;
+  per_col = per_col < 1 ? 1 : (per_col > row_tiles ? row_tiles : per_col);
+  taps_fold<NT, kBf16Acc><<<static_cast<int>(per_col * a.col_tiles), kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int dispatch_fold(const TapArgs& a, bool bf16_acc, int smem, cudaStream_t s) {
+  return bf16_acc ? launch_fold<NT, true>(a, smem, s) : launch_fold<NT, false>(a, smem, s);
+}
+
+
+// One warpgroup: out (64 x N, f32) = a (64 x k, bf16, row-major) times B,
+// given K-major as bt (N x k, bf16), by `ltu::wgmma_m64k16<N>`: A from
+// registers (`ldmatrix`), B staged as one tile of N rows of 64 K values
+// (128-byte rows, swizzled), zeros past k, read at k / 16 descriptor steps.
+// The card test of each `wgmma` width alone.
+template <int N>
+__global__ void __launch_bounds__(128) wgmma_product(const bf16* a, const bf16* bt, float* out,
+                                                     int k) {
+  __shared__ __align__(1024) bf16 s_a[64 * kKT];
+  __shared__ __align__(1024) bf16 s_b[N * kKT];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < (64 + N) * 8; i += 128) {
+    const int r = i / 8, c = i % 8;
+    const bool is_a = r < 64;
+    const int row = is_a ? r : r - 64;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (c * 8 < k) v = *reinterpret_cast<const uint4*>((is_a ? a : bt) + row * k + c * 8);
+    *reinterpret_cast<uint4*>((is_a ? s_a : s_b) + ltu::swz(row, c, 8)) = v;
+  }
+  ltu::fence_proxy_async();  // the stores of B come before the tensor cores' reads
+  __syncthreads();
+  float d[N / 2];
+  zero(d);
+  for (int step = 0; step < k / 16; ++step) {
+    unsigned af[4];
+    ltu::ldsm_x4(af, s_a + ltu::swz(warp * 16 + (lane & 15), step * 2 + (lane >> 4), 8));
+    ltu::wgmma_fence();
+    ltu::wgmma_m64k16<N>(d, af, ltu::wgmma_desc_kmajor(s_b, 128) + step * 2);
+    ltu::wgmma_commit();
+    ltu::wgmma_wait<0>();
+    ltu::wgmma_fence_operand(d);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int row = warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
+    out[row * N + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)] = d[i];
   }
 }
 
@@ -283,8 +615,8 @@ int pt_smem_bytes(int mode, int n_tile, int span) {
 // (groups, m, n) contiguous. off: taps row offsets; colbase, nlo, nhi:
 // ceil(k / 32) entries each (nlo, nhi multiples of 16). n_tile in {16, 32,
 // 64, 128} divides n; k and every colbase are multiples of 8. mode: 0
-// window, 1 im2col (taps a multiple of 3), 2 per tap, 3 per tap with bf16
-// accumulation. Launches on `stream`; returns the CUDA error (0 on success).
+// window, 1 im2col (taps a multiple of 3). Launches on `stream`; returns the
+// CUDA error (0 on success).
 int pt_forward(const void* x, const void* w, void* out, long long gstride, int rstride,
                int rows, int m, int k, int n, int groups, int taps, const int* off,
                const int* colbase, const int* nlo, const int* nhi, int n_tile, int mode,
@@ -325,6 +657,92 @@ int pt_forward(const void* x, const void* w, void* out, long long gstride, int r
     case 128: return dispatch_mode<128>(a, groups, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+
+// The tap sum on `taps_fold`. x: bf16 (groups, rows, k), w: bf16 (taps, k,
+// n), out: bf16 (groups, m, n), all contiguous. plan: `dot_probe.tap_plan`'s
+// kPlanInts ints: a header (k, n, column tile, 64-wide K chunks, column
+// tiles, mode, streamed, ring slots, sub-tiles a slot, items a tile,
+// distinct offsets, products, the weights' byte offset in shared memory,
+// shared memory bytes, bf16 accumulation) and eight tables of 32 (each
+// distinct offset's rows, first product and product count; each product's
+// distinct offset, part, first tap and tap count; the taps by product).
+// Launches on `stream`; returns the CUDA error (0 on success).
+int pt_tap_sum(const void* x, const void* w, void* out, int groups, int rows, int m,
+               const int* plan, void* stream) {
+  const int* h = plan;
+  TapArgs a{};
+  a.x = static_cast<const bf16*>(x);
+  a.w = static_cast<const bf16*>(w);
+  a.out = static_cast<bf16*>(out);
+  a.groups = groups;
+  a.rows = rows;
+  a.m = m;
+  a.k = h[0];
+  a.n = h[1];
+  a.nt = h[2];
+  a.nkc = h[3];
+  a.col_tiles = h[4];
+  a.mode = h[5];
+  a.streamed = h[6];
+  a.slots = h[7];
+  a.nsub = h[8];
+  a.items = h[9];
+  a.nd = h[10];
+  a.np = h[11];
+  a.w_offset = h[12];
+  const int smem = h[13], bf16_acc = h[14];
+  a.row_tiles = (m + kRows - 1) / kRows;
+  if (groups < 1 || m < 1 || rows < 1 || a.k < 8 || a.k % 8 || a.nkc != (a.k + kKT - 1) / kKT ||
+      a.n % a.nt || a.col_tiles != a.n / a.nt || a.nd < 1 || a.nd > kMaxD || a.np < 1 ||
+      a.np > kMaxP || a.slots < 2 || a.slots > 3 || a.nsub < 1 || a.nsub > 4 || a.items < 1 ||
+      smem > kSmemLimit || a.w_offset % 1024 || (a.mode == kWhole && a.nsub != a.nkc) ||
+      static_cast<long long>(groups) * a.row_tiles > (1LL << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int* t = h + kPlanHeader;
+  for (int i = 0; i < kMaxD; ++i) {
+    a.d_off[i] = t[i];
+    a.d_p0[i] = t[32 + i];
+    a.d_np[i] = t[64 + i];
+  }
+  for (int i = 0; i < kMaxP; ++i) {
+    a.p_d[i] = t[96 + i];
+    a.p_part[i] = t[128 + i];
+    a.p_t0[i] = t[160 + i];
+    a.p_nt[i] = t[192 + i];
+    a.tap_idx[i] = t[224 + i];
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (a.nt) {
+    case 16: return dispatch_fold<16>(a, bf16_acc, smem, s);
+    case 32: return dispatch_fold<32>(a, bf16_acc, smem, s);
+    case 64: return dispatch_fold<64>(a, bf16_acc, smem, s);
+    case 128: return dispatch_fold<128>(a, bf16_acc, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int pt_plan_ints() { return kPlanInts; }
+
+// out (64, n) f32 = a (64, k) @ bt (n, k)^T, bf16 operands, on one
+// warpgroup by `wgmma` m64nNk16 (`wgmma_product`); n in {16, 32, 64, 128},
+// k in {16, 32, 48, 64}. Returns the CUDA error (0 on success).
+int pt_wgmma_product(const void* a, const void* bt, void* out, int n, int k, void* stream) {
+  if (k < 16 || k > kKT || k % 16) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pa = static_cast<const bf16*>(a);
+  auto pb = static_cast<const bf16*>(bt);
+  auto po = static_cast<float*>(out);
+  switch (n) {
+    case 16: wgmma_product<16><<<1, 128, 0, s>>>(pa, pb, po, k); break;
+    case 32: wgmma_product<32><<<1, 128, 0, s>>>(pa, pb, po, k); break;
+    case 64: wgmma_product<64><<<1, 128, 0, s>>>(pa, pb, po, k); break;
+    case 128: wgmma_product<128><<<1, 128, 0, s>>>(pa, pb, po, k); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@
 // tiles, `mma.sync` m16n8k16 with f32 accumulation, asynchronous copies
 // from device to shared memory (16-byte `cp.async`; bulk copies that
 // complete on an mbarrier), and the warpgroup MMA (`wgmma`, sm_90a) with A
-// from registers and B from shared memory.
+// from registers and B from shared memory, 16, 32, 64 or 128 columns wide.
 //
 // Tiles are stored as rows of 16-byte chunks (8 bf16). `swz` places chunk c
 // of row r so that any 8 consecutive rows read at one logical chunk land on
@@ -205,9 +205,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // Keeps the compiler from moving accesses of `d` across a commit or wait.
-__device__ __forceinline__ void wgmma_fence_operand(float (&d)[32]) {
+template <int R>
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 64, f32) += a (64 x 16, bf16) * B (16 x 64, bf16, by `desc_b`,
@@ -235,6 +236,94 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 16, f32) += a (64 x 16, bf16) * B (16 x 16, bf16, by `desc_b`,
+// K-major), as `wgmma_m64n64k16` with 16 columns: d[4t .. 4t + 3] hold
+// columns 8t .. 8t + 7.
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], const unsigned (&a)[4],
+                                               unsigned long long desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 32, f32) += a (64 x 16, bf16) * B (16 x 32, bf16, by `desc_b`,
+// K-major), as `wgmma_m64n64k16` with 32 columns: d[4t .. 4t + 3] hold
+// columns 8t .. 8t + 7.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const unsigned (&a)[4],
+                                               unsigned long long desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128, f32) += a (64 x 16, bf16) * B (16 x 128, bf16, by `desc_b`,
+// K-major), as `wgmma_m64n64k16` with 128 columns: d[4t .. 4t + 3] hold
+// columns 8t .. 8t + 7.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const unsigned (&a)[4],
+                                               unsigned long long desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The `wgmma` of width N (16, 32, 64 or 128 columns; N / 2 accumulators).
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], const unsigned (&a)[4],
+                                             unsigned long long desc_b) {
+  if constexpr (N == 16) {
+    wgmma_m64n16k16(d, a, desc_b);
+  } else if constexpr (N == 32) {
+    wgmma_m64n32k16(d, a, desc_b);
+  } else if constexpr (N == 64) {
+    wgmma_m64n64k16(d, a, desc_b);
+  } else {
+    static_assert(N == 128, "wgmma widths 16, 32, 64, 128");
+    wgmma_m64n128k16(d, a, desc_b);
+  }
 }
 
 }  // namespace ltu

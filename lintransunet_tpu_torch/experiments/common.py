@@ -33,6 +33,20 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fns, iters=20, warmup=2):
+    """Mean ms of each of ``fns`` timed alike: each warmed by ``warmup``
+    calls, then ``iters``-call windows in the order given and again in
+    reverse (for a kernel and its library call: kernel, library, library,
+    kernel), each window's mean averaged over its two turns."""
+    for fn in fns:
+        cuda_ms(fn, warmup, warmup=0)
+    order = list(range(len(fns)))
+    times = [0.0] * len(fns)
+    for i in order + order[::-1]:
+        times[i] += cuda_ms(fns[i], iters, warmup=0) / 2
+    return times
+
+
 def card():
     """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(

@@ -10,14 +10,27 @@ the TPU probe's kernel. ``acc_dtype=torch.bfloat16`` rounds each product to
 bf16 and sums in bf16, as variant E does: Hopper's tensor cores accumulate
 bf16 products only in f32, so this is a rounding after each tap, not a
 cheaper multiply-add. CPU tensors take ``tap_sum_reference``; CUDA tensors
-launch ``csrc/probe_taps.cu`` or raise. The same kernel serves
-``rowoffset_probe`` and ``inner_probe``.
+launch ``taps_fold`` in ``csrc/probe_taps.cu`` or raise. The same kernel
+serves ``rowoffset_probe``; ``inner_probe`` runs the file's older
+``taps_window`` kernel through ``launch_taps``.
+
+The kernel folds the taps per distinct offset (``tap_plan`` lays out the
+products, ``fold_taps_reference`` is the fold's plain version): the taps at
+one offset sum, in f32, to one weight split into bf16 hi and lo, two
+products that hold the result to ~2^-16 of the f32 sum of the exact
+products, so variant A (9 taps at offset 0) runs 2 products, not 9. Each
+block keeps its folded weights in shared memory and stages, per distinct
+offset and 64-wide K chunk, the 128 rows its tile reads there.
 
 ``python -m lintransunet_tpu_torch.experiments.dot_probe`` times variants
-A-F of the TPU probe and the conv unit's own GEMM shapes on the card.
+A-F of the TPU probe and the conv unit's own GEMM shapes on the card, each
+beside ``torch.einsum`` timed alike (variant E beside none: no PyTorch call
+rounds after each tap).
 """
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -25,17 +38,25 @@ import torch.nn.functional as F
 
 from lintransunet_tpu_torch.experiments import common
 
-KC = 32                       # K per chunk the kernel stages
+KC = 32                       # K per chunk ``taps_window`` stages
 MAX_TAPS = 32
 MAX_K = 2048
-MODES = {"window": 0, "im2col": 1, "per_tap": 2, "per_tap_bf16_acc": 3}
+MODES = {"window": 0, "im2col": 1}
+# taps_fold: 128 output rows a tile, 64-wide K chunks (A sub-tiles of 16 KB)
+TILE_ROWS, K_TILE = 128, 64
+A_TILE_BYTES = TILE_ROWS * K_TILE * 2
+FOLD, WHOLE, SPLIT = 0, 1, 2  # how a tile's items run (csrc/probe_taps.cu TapMode)
+AS_IS, HI, LO = 0, 1, 2       # a product's weight (Part)
+PLAN_HEADER, PLAN_TABLE = 16, 32
 
 
 def shifted_rows(x: torch.Tensor, off: int, m: int) -> torch.Tensor:
     """Rows [off, off + m) of x along dim 1, zeros where they fall outside."""
-    rows = x.shape[1]
-    lo, hi = max(0, -off), max(0, off + m - rows)
-    part = x[:, off + lo:off + m - hi]
+    start, stop = max(0, off), min(x.shape[1], off + m)
+    if start >= stop:
+        return x.new_zeros((x.shape[0], m) + tuple(x.shape[2:]))
+    part = x[:, start:stop]
+    lo, hi = start - off, off + m - stop
     return F.pad(part, (0, 0, lo, hi)) if lo or hi else part
 
 
@@ -59,6 +80,127 @@ def n_tile(n: int) -> int:
     if n in (16, 32, 64) or n % 128 == 0:
         return min(n, 128)
     raise ValueError(f"the kernel takes N in 16, 32, 64 or a multiple of 128; got {n}")
+
+
+def fold_taps_reference(w, offsets):
+    """What ``taps_fold``'s prologue computes: (distinct offsets in order of
+    first appearance, hi, lo), hi and lo (D, K, N) bf16. A lone tap's weight
+    is hi as it is (lo 0); two or more taps sum in f32, in tap order, to s,
+    and hi = bf16(s), lo = bf16(s - hi). w: (T, K, N) bf16."""
+    distinct = list(dict.fromkeys(int(o) for o in offsets))
+    his, los = [], []
+    for off in distinct:
+        taps = [t for t, o in enumerate(offsets) if o == off]
+        if len(taps) == 1:
+            his.append(w[taps[0]])
+            los.append(torch.zeros_like(w[0]))
+            continue
+        acc = torch.zeros(w.shape[1:], dtype=torch.float32, device=w.device)
+        for t in taps:
+            acc = acc + w[t].float()
+        hi = acc.to(torch.bfloat16)
+        his.append(hi)
+        los.append((acc - hi.float()).to(torch.bfloat16))
+    return distinct, torch.stack(his), torch.stack(los)
+
+
+@dataclasses.dataclass(frozen=True)
+class TapPlan:
+    """How ``taps_fold`` runs one signature: the column tile, the mode,
+    whether the weights are folded per item (they do not fit in shared
+    memory at any column tile), the A ring's slots and 64-wide sub-tiles a
+    slot, items a tile, the distinct offsets, the products (distinct offset
+    index, part, taps), shared memory bytes, and the C plan."""
+    nt: int
+    mode: int
+    streamed: bool
+    slots: int
+    nsub: int
+    items: int
+    offsets: tuple
+    products: tuple
+    smem: int
+    ints: object = dataclasses.field(compare=False, repr=False)
+
+
+def column_tiles(n):
+    """The column tiles that divide n, largest first."""
+    nt = n_tile(n)
+    while nt >= 16:
+        yield nt
+        nt //= 2
+
+
+@functools.lru_cache(maxsize=256)
+def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
+    """The products and the shared-memory layout of one ``taps_fold`` call.
+
+    Summed in f32, each distinct offset is one product (a lone tap) or two
+    (hi and lo of its taps' sum). With bf16 accumulation every tap is a
+    product, in tap order, and the offsets that stage A are the runs of
+    consecutive taps at one offset (all 9 of variant E are one run), so the
+    bf16 sum rounds in the function's order. The folded weights (products x
+    K padded to 64 x the column tile, bf16) stay resident beside an A ring
+    of 16 KB slots, at the largest column tile where they fit (bf16
+    accumulation first tries the whole of K in one item, two slots); else
+    each item folds its own."""
+    if bf16_acc:
+        runs = [[offsets[0], [0]]]
+        for t, off in enumerate(offsets[1:], 1):
+            if off == runs[-1][0]:
+                runs[-1][1].append(t)
+            else:
+                runs.append([off, [t]])
+        distinct = tuple(off for off, _ in runs)
+        d_taps = [tuple(taps) for _, taps in runs]
+    else:
+        distinct = tuple(dict.fromkeys(offsets))
+        d_taps = [tuple(t for t, o in enumerate(offsets) if o == off) for off in distinct]
+    products = []
+    for d, taps in enumerate(d_taps):
+        if bf16_acc:
+            products += [(d, AS_IS, (t,)) for t in taps]
+        elif len(taps) == 1:
+            products.append((d, AS_IS, taps))
+        else:
+            products += [(d, HI, taps), (d, LO, taps)]
+    nkc = -(-k // K_TILE)
+    by_tap = SPLIT if bf16_acc else FOLD
+    choice = None
+    for nt in column_tiles(n):
+        w_bytes = len(products) * nkc * nt * K_TILE * 2
+        options = ([(WHOLE, 2, nkc)] if bf16_acc and nkc <= 4 else []) + [(by_tap, 3, 1),
+                                                                           (by_tap, 2, 1)]
+        for mode, slots, nsub in options:
+            if slots * nsub * A_TILE_BYTES + w_bytes <= common.SMEM_LIMIT:
+                choice = (nt, mode, False, slots, nsub, w_bytes)
+                break
+        if choice:
+            break
+    if choice is None:  # an item's products (at most 2) folded before it runs
+        nt = n_tile(n)
+        choice = (nt, by_tap, True, 3, 1, 2 * nt * K_TILE * 2)
+    nt, mode, streamed, slots, nsub, w_bytes = choice
+    items = {FOLD: nkc * len(distinct), WHOLE: len(distinct), SPLIT: len(products) * nkc}[mode]
+    w_offset = slots * nsub * A_TILE_BYTES
+    tables = [[0] * PLAN_TABLE for _ in range(8)]
+    d_off, d_p0, d_np, p_d, p_part, p_t0, p_nt, tap_idx = tables
+    starts = []
+    for d, taps in enumerate(d_taps):
+        d_off[d] = distinct[d]
+        starts.append(sum(len(t) for t in d_taps[:d]))
+        tap_idx[starts[d]:starts[d] + len(taps)] = taps
+    for p, (d, part, taps) in enumerate(products):
+        if d_np[d] == 0:
+            d_p0[d] = p
+        d_np[d] += 1
+        p_d[p], p_part[p], p_nt[p] = d, part, len(taps)
+        p_t0[p] = starts[d] + d_taps[d].index(taps[0])
+    header = [k, n, nt, nkc, n // nt, mode, int(streamed), slots, nsub, items, len(distinct),
+              len(products), w_offset, w_offset + w_bytes, int(bf16_acc), 0]
+    values = header + [v for table in tables for v in table]
+    return TapPlan(nt, mode, streamed, slots, nsub, items, distinct, tuple(products),
+                   w_offset + w_bytes, (ctypes.c_int * len(values))(*values))
 
 
 def launch_taps(x, w, out, offsets, *, gstride, rstride, rows, k, colbase, nlo, nhi, mode):
@@ -111,50 +253,41 @@ def check_taps(x, w, offsets, m):
     n_tile(w.shape[2])
 
 
-def run_tap_sum(x, w, offsets, m, acc_dtype=torch.float32, staging="window"):
-    """Check CUDA inputs and launch the kernel once (uncounted)."""
+def run_tap_sum(x, w, offsets, m, acc_dtype=torch.float32):
+    """Check CUDA inputs and launch ``taps_fold`` once (uncounted)."""
     check_cuda(x, w)
     check_taps(x, w, offsets, m)
     if acc_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"acc_dtype must be float32 or bfloat16, not {acc_dtype}")
-    if staging not in ("window", "im2col", "per_tap"):
-        raise ValueError(f"unknown staging {staging!r}")
-    if acc_dtype == torch.bfloat16:
-        if staging != "per_tap":
-            raise ValueError("bf16 accumulation needs each tap's product whole: staging='per_tap'")
-        mode = "per_tap_bf16_acc"
-    else:
-        mode = staging
-    if mode == "im2col" and len(offsets) % 3:
-        raise ValueError("im2col takes the taps in threes")
+    from lintransunet_tpu_torch import kernels
+
     g, rows, k = x.shape
     n = w.shape[2]
-    chunks = -(-k // KC)
+    plan = tap_plan(k, n, tuple(offsets), acc_dtype == torch.bfloat16)
     out = torch.empty((g, m, n), dtype=x.dtype, device=x.device)
-    launch_taps(x, w, out, offsets, gstride=rows * k, rstride=k, rows=rows, k=k,
-                colbase=[c * KC for c in range(chunks)], nlo=[0] * chunks,
-                nhi=[n] * chunks, mode=mode)
+    lib = kernels.load("probe_taps")
+    with torch.cuda.device(x.device):
+        err = lib.pt_tap_sum(x.data_ptr(), w.data_ptr(), out.data_ptr(), g, rows, m, plan.ints,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"probe_taps tap-sum launch failed: CUDA error {err}")
     return out
 
 
 def tap_sum(x: torch.Tensor, w: torch.Tensor, offsets: Optional[Sequence[int]] = None,
-            m: Optional[int] = None, acc_dtype: torch.dtype = torch.float32,
-            staging: str = "window") -> torch.Tensor:
+            m: Optional[int] = None, acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """sum_t x[:, off_t : off_t + m] @ w[t] (rows outside x are zero).
 
     x: (G, R, K) bf16; w: (T, K, N) bf16; offsets: T row offsets (default
     0); m: output rows (default R). Returns (G, m, N) bf16, summed in f32,
     or with ``acc_dtype=torch.bfloat16`` each tap rounded to bf16 and
-    summed in bf16. ``staging``: 'window' (the union of the taps' rows
-    staged once per K chunk), 'im2col' (the same, then aligned copies of
-    each three taps' rows), or 'per_tap' (each tap's rows staged anew);
-    bf16 accumulation runs per tap. ``tap_sum.launches`` counts launches.
+    summed in bf16. ``tap_sum.launches`` counts launches.
     """
     offsets = [0] * w.shape[0] if offsets is None else [int(o) for o in offsets]
     m = x.shape[1] if m is None else int(m)
     if x.device.type == "cpu":
         return tap_sum_reference(x, w, offsets, m, acc_dtype)
-    out = run_tap_sum(x, w, offsets, m, acc_dtype, staging)
+    out = run_tap_sum(x, w, offsets, m, acc_dtype)
     tap_sum.launches += 1
     return out
 
@@ -176,10 +309,13 @@ def tap_sum_costs(x, w, m=None, offsets=None, acc_dtype=torch.float32):
     return 2 * g * m * products * k * n, 2 * (x.numel() + w.numel() + g * m * n)
 
 
-def executed_flops(x, w, m=None):
-    """FLOPs of the products the kernel runs: every tap's."""
+def executed_flops(x, w, m=None, offsets=None, acc_dtype=torch.float32):
+    """FLOPs of the products ``taps_fold`` runs (``tap_plan``'s products over
+    K, unpadded)."""
     g, rows, k = x.shape
-    return 2 * g * (rows if m is None else m) * w.shape[0] * k * w.shape[2]
+    offsets = (0,) * w.shape[0] if offsets is None else tuple(offsets)
+    products = len(tap_plan(k, w.shape[2], offsets, acc_dtype == torch.bfloat16).products)
+    return 2 * g * (rows if m is None else m) * products * k * w.shape[2]
 
 
 # Variant E's rounding must be there: the kernel's output sits nearer the
@@ -224,19 +360,23 @@ def library(x, w):
     return torch.einsum("gmk,tkn->gmn", x, w)
 
 
-def measure(name, x, w, acc_dtype=torch.float32, staging="window"):
-    """The kernel, the einsum, and cuBLAS on the same products: x (G M, K)
-    @ the taps' weights side by side (K, T N), the tap sum left out."""
-    ms = common.cuda_ms(lambda: tap_sum(x, w, acc_dtype=acc_dtype, staging=staging))
-    lib_ms = common.cuda_ms(lambda: library(x, w))
+def measure(name, x, w, acc_dtype=torch.float32):
+    """The kernel beside the einsum (f32 accumulation only), timed alike in
+    turns, and cuBLAS on every tap's product: x (G M, K) @ the taps' weights
+    side by side (K, T N), the tap sum left out."""
+    fns = [lambda: tap_sum(x, w, acc_dtype=acc_dtype)]
+    if acc_dtype == torch.float32:
+        fns.append(lambda: library(x, w))
+    ms, *lib_ms = common.in_turns(fns)
     flops, nbytes = tap_sum_costs(x, w, acc_dtype=acc_dtype)
-    run = executed_flops(x, w)
-    print(common.rate_line(name, ms, flops, nbytes, lib_ms, executed_flops=run), flush=True)
+    run = executed_flops(x, w, acc_dtype=acc_dtype)
+    print(common.rate_line(name, ms, flops, nbytes, *lib_ms, executed_flops=run), flush=True)
     x2, w2 = x.reshape(-1, x.shape[2]), w.permute(1, 0, 2).reshape(x.shape[2], -1)
+    every = 2 * x2.shape[0] * x2.shape[1] * w2.shape[1]
     gemm_ms = common.cuda_ms(lambda: x2 @ w2)
-    print(common.rate_line("  cuBLAS, the same products without the tap sum", gemm_ms,
-                           run, 2 * (x.numel() + w.numel() + x2.shape[0] * w2.shape[1]),
-                           executed_flops=run), flush=True)
+    print(common.rate_line("  cuBLAS, every tap's product, no tap sum", gemm_ms, every,
+                           2 * (x.numel() + w.numel() + x2.shape[0] * w2.shape[1]),
+                           executed_flops=every), flush=True)
 
 
 def main():
@@ -251,9 +391,7 @@ def main():
     print(f"variants of the TPU probe, x ({GROUPS}, {M}, K) bf16:", flush=True)
     for name, taps, k, n, acc in VARIANTS:
         x, w = inputs(GROUPS, M, k, taps, n, device)
-        stagings = ("per_tap",) if acc == torch.bfloat16 else ("window", "per_tap")
-        for staging in stagings:
-            measure(f"{name} [{staging}]", x, w, acc, staging)
+        measure(name, x, w, acc)
     print(f"the conv unit's shapes, x ({CONV_GROUPS}, {M}, K) bf16 (one 128x128x64 "
           f"volume's voxels):", flush=True)
     for c_in, c_out in CONV_SHAPES:

@@ -13,7 +13,7 @@ centre plane z[1] and its depth neighbours; with z2 = z flattened to
 with rows outside [0, rows) zero (the clipped slices that ``_dot_pad``
 (:46) zero-pads), summed in f32 and stored as bf16. A batch of windows
 (B, 3, hbo + 2, WC, L) runs in one launch. Three strategies of the same
-function, each a mode of ``csrc/probe_taps.cu`` on the operand
+function, each a mode of ``taps_window`` (``csrc/probe_taps.cu``) on the operand
 ze = [z1 | z0[:, C4:] | z2[:, :C4]] (K = 2L), read in place from z:
 
 * ``dots27``: per-tap MMA from shifted shared-memory rows; the zero
@@ -27,7 +27,9 @@ ze = [z1 | z0[:, C4:] | z2[:, :C4]] (K = 2L), read in place from z:
 
 The TPU probe's ``base9`` computes another function (no dw shift, no
 neighbour taps); ``main()`` times it as ``dot_probe.tap_sum`` on the centre
-plane. The TPU probe repeated one VMEM-resident window; one window of
+plane, which runs the file's ``taps_fold`` kernel (3 distinct offsets, the
+taps at each folded into hi and lo) where the three strategies run
+``taps_window``. The TPU probe repeated one VMEM-resident window; one window of
 1,632 output rows fills 13 blocks of 128 rows out of 132 SMs, so the
 H100 probe runs BATCH independent windows.
 
@@ -183,7 +185,7 @@ def main():
     ms = common.cuda_ms(lambda: dot_probe.tap_sum(centre, kp9, offsets, HBO * WC))
     base_flops, base_bytes = dot_probe.tap_sum_costs(centre, kp9, HBO * WC, offsets)
     print(common.rate_line("base9 (centre plane, no dw shift)", ms, base_flops, base_bytes,
-                           executed_flops=dot_probe.executed_flops(centre, kp9, HBO * WC)),
+                           executed_flops=dot_probe.executed_flops(centre, kp9, HBO * WC, offsets)),
           flush=True)
 
 

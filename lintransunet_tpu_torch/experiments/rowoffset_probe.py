@@ -2,24 +2,32 @@
 ``experiments/pallas_rowoffset_probe.py`` (``build`` -> ``make_kernel``,
 pallas_call at :53).
 
-``row_offset_sum(x, w, offsets, m, staging)`` is ``dot_probe.tap_sum`` at the
-TPU probe's shapes: out[g] = sum_t x[g, off_t : off_t + M] @ w[t] over 9
-taps, with the probe's three offset lists (A: all 0, B: k * 576, C: k * 577).
+``row_offset_sum(x, w, offsets, m)`` is ``dot_probe.tap_sum`` at the TPU
+probe's shapes: out[g] = sum_t x[g, off_t : off_t + M] @ w[t] over 9 taps,
+with the probe's three offset lists (A: all 0, B: k * 576, C: k * 577).
 
 The TPU question was whether a sublane-aligned row offset feeds the matrix
-unit without a copy. On the H100 the tap operand goes through shared
-memory, and the TPU tile (11520 x 128 bf16, 2.9 MB) does not fit in a
-block's 227 KB, so the questions become: what does an offset that is not a
-multiple of 8 rows cost against an XOR-swizzled layout (``window``: the
-union of the taps' rows staged once per K chunk of 32, every tap read at a
-shifted row), and what does re-reading each tap's rows from L2 cost
-(``per_tap``)? Variant A is the upper bound, as on the TPU.
+unit without a copy. On the H100 a row of x is 2 K = 256 bytes, so every
+row offset is 16-byte aligned: an offset of 577 rows is as aligned as one
+of 576, and a `cp.async` copy of the shifted rows into an XOR-swizzled tile
+costs the same at either. What costs is how often a row is read: the
+kernel (``taps_fold``, ``csrc/probe_taps.cu``) folds the 9 taps into one
+product per distinct offset (two, hi and lo, where taps share it) and
+stages, per distinct offset, only the 128 rows a tile reads there, so a row
+is read once per distinct offset (from L2 after the first). Variant A is
+the upper bound, as on the TPU.
 
-``python -m lintransunet_tpu_torch.experiments.rowoffset_probe`` runs the
-three variants in both stagings on the card.
+``python -m lintransunet_tpu_torch.experiments.rowoffset_probe`` times the
+three variants on the card, each beside one PyTorch call timed alike:
+``torch.einsum`` for A, and for B and C ``F.conv1d`` with kernel 3 and
+dilation 576 or 577 on the taps folded per offset (the fold, and the
+transpose of x to conv1d's (G, K, R) layout that the call makes, inside
+the timed call; the output left in conv1d's (G, N, M) layout, a transposed
+view).
 """
 
 import torch
+import torch.nn.functional as F
 
 from lintransunet_tpu_torch.experiments import common, dot_probe
 
@@ -39,22 +47,44 @@ def row_offset_sum_reference(x, w, offsets, m=M):
     return dot_probe.tap_sum_reference(x, w, offsets, m)
 
 
-def row_offset_sum(x: torch.Tensor, w: torch.Tensor, offsets, m: int = M,
-                   staging: str = "window") -> torch.Tensor:
+def row_offset_sum(x: torch.Tensor, w: torch.Tensor, offsets, m: int = M) -> torch.Tensor:
     """sum_t x[:, off_t : off_t + m] @ w[t] in f32, stored as bf16.
 
     x: (G, R, K) bf16; w: (T, K, N) bf16. CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/probe_taps.cu`` (through
-    ``dot_probe.run_tap_sum``) or raise. ``row_offset_sum.launches`` counts
-    this probe's launches."""
+    version; CUDA tensors launch ``taps_fold`` (``csrc/probe_taps.cu``,
+    through ``dot_probe.run_tap_sum``) or raise. ``row_offset_sum.launches``
+    counts this probe's launches."""
     if x.device.type == "cpu":
         return row_offset_sum_reference(x, w, offsets, m)
-    out = dot_probe.run_tap_sum(x, w, [int(o) for o in offsets], m, staging=staging)
+    out = dot_probe.run_tap_sum(x, w, [int(o) for o in offsets], m)
     row_offset_sum.launches += 1
     return out
 
 
 row_offset_sum.launches = 0
+
+
+def library_call(x, w, offsets, m=M):
+    """One PyTorch call with the same function, as a function of no
+    arguments: ``torch.einsum`` where every offset is 0; where the distinct
+    offsets are 0, d, 2d, ..., ``F.conv1d`` with dilation d on the taps
+    folded per offset (summed in f32, rounded to bf16, as the einsum folds
+    in bf16), the fold and x's transpose inside the call."""
+    distinct = sorted(set(offsets))
+    if distinct == [0]:
+        return lambda: torch.einsum("gmk,tkn->gmn", x[:, :m], w)
+    step = distinct[1]
+    if distinct != [i * step for i in range(len(distinct))]:
+        raise ValueError(f"no single PyTorch call sums taps at offsets {distinct}")
+    taps = [torch.tensor([t for t, o in enumerate(offsets) if o == d], device=w.device)
+            for d in distinct]
+    span = m + step * (len(distinct) - 1)
+
+    def call():
+        folded = torch.stack([w.index_select(0, t).float().sum(0) for t in taps]).to(w.dtype)
+        y = F.conv1d(x[:, :span].transpose(1, 2), folded.permute(2, 1, 0), dilation=step)
+        return y.transpose(1, 2)
+    return call
 
 
 def inputs(groups, rows, device, seed=0):
@@ -76,15 +106,15 @@ def main():
                   f"{tuple(out.shape)} max |out| {out.float().abs().max().item():.3f}")
         return
     x, w = inputs(GROUPS, M_PAD, device)
-    run = dot_probe.executed_flops(x, w, M)
-    print(f"x ({GROUPS}, {M_PAD}, {K}) bf16, w (9, {K}, {N}), M = {M}; no single "
-          f"PyTorch call computes a sum of row-shifted products", flush=True)
+    print(f"x ({GROUPS}, {M_PAD}, {K}) bf16, w (9, {K}, {N}), M = {M}; library: einsum (A), "
+          f"F.conv1d on the folded taps (B, C)", flush=True)
     for name, offsets in OFFSETS.items():
         flops, nbytes = dot_probe.tap_sum_costs(x, w, M, offsets)
-        for staging in ("window", "per_tap"):
-            ms = common.cuda_ms(lambda: row_offset_sum(x, w, offsets, staging=staging))
-            print(common.rate_line(f"{name} [{staging}]", ms, flops, nbytes,
-                                   executed_flops=run), flush=True)
+        ms, lib_ms = common.in_turns([lambda: row_offset_sum(x, w, offsets),
+                                      library_call(x, w, offsets)])
+        print(common.rate_line(name, ms, flops, nbytes, lib_ms,
+                               executed_flops=dot_probe.executed_flops(x, w, M, offsets)),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -448,42 +448,73 @@ def _probe_taps(groups, rows, k, taps, n, device, seed=0):
     return x, w
 
 
-@pytest.mark.parametrize("taps,k,n,acc,staging", [
-    (9, 128, 64, torch.float32, "window"),      # variant A
-    (9, 128, 64, torch.float32, "per_tap"),
-    (9, 128, 128, torch.float32, "im2col"),     # variant B's shape
-    (1, 1152, 64, torch.float32, "window"),     # variant C
-    (9, 128, 64, torch.bfloat16, "per_tap"),    # variant E
-    (27, 128, 128, torch.float32, "window"),    # variant F
-    (27, 16, 16, torch.float32, "window"),      # the conv unit's smallest taps
-    (1, 27 * 32, 32, torch.float32, "window"),  # tap-folded K = 27 C_in
+# Offset lists of the tap-sum card tests, by name, for ``taps`` taps.
+TAP_OFFSETS = {
+    "zero": lambda taps: [0] * taps,
+    "k576": lambda taps: [k * 576 for k in range(3)] * (taps // 3),       # 3 distinct
+    "k577": lambda taps: [k * 577 for k in range(3)] * (taps // 3),
+    "distinct": lambda taps: [5 * t + t % 3 for t in range(taps)],
+    "negative": lambda taps: [-37 * t - 1 for t in range(taps)],           # rows before 0
+    "past_r": lambda taps: [0] * (taps - 1) + [4000],                       # a tap wholly past R
+}
+
+
+@pytest.mark.parametrize("taps,k,n,offsets,acc", [
+    (9, 128, 64, "zero", torch.float32),        # variant A: one distinct offset, hi and lo
+    (9, 128, 64, "zero", torch.bfloat16),       # variant E: the whole of K in one item
+    (1, 1152, 64, "zero", torch.float32),       # variant C: a lone tap, 18 K chunks resident
+    (27, 128, 128, "zero", torch.float32),      # variant F
+    (9, 128, 64, "k576", torch.float32),
+    (9, 128, 64, "k577", torch.float32),        # #8 C
+    (9, 128, 64, "k577", torch.bfloat16),       # bf16 accumulation, one run a tap
+    (9, 128, 32, "distinct", torch.float32),
+    (9, 128, 128, "negative", torch.float32),
+    (9, 128, 64, "past_r", torch.float32),      # PR 4's kernel refused it (window too large)
+    (9, 16, 16, "past_r", torch.float32),
+    (9, 1152, 64, "k577", torch.float32),       # weights folded per item (too large to keep)
+    (9, 1152, 64, "zero", torch.bfloat16),      # bf16 accumulation by (tap, K chunk)
+    (27, 16, 16, "zero", torch.float32),        # the conv unit's smallest taps
+    (1, 27 * 32, 32, "zero", torch.float32),    # tap-folded K = 27 C_in
 ])
-def test_tap_sum_matches_plain(cuda, taps, k, n, acc, staging):
+def test_tap_sum_matches_plain(cuda, taps, k, n, offsets, acc):
+    """``taps_fold`` on 3 groups of 4173 rows and a ragged m (4123 = 32 x 128
+    + 27), one launch a call; bf16 accumulation also nearer the
+    bf16-accumulated sum than the f32 one."""
     x, w = _probe_taps(3, 4096 + 77, k, taps, n, cuda)
+    offs, m = TAP_OFFSETS[offsets](taps), 4096 + 27
     before = dot_probe.tap_sum.launches
-    got = dot_probe.tap_sum(x, w, acc_dtype=acc, staging=staging)
+    got = dot_probe.tap_sum(x, w, offs, m, acc_dtype=acc)
     torch.cuda.synchronize()
     assert dot_probe.tap_sum.launches == before + 1
-    want = dot_probe.tap_sum_reference(x, w, acc_dtype=acc)
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    want = dot_probe.tap_sum_reference(x, w, offs, m, acc_dtype=acc)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (3, m, n)
     assert _rel(got, want) <= (1e-2 if acc == torch.bfloat16 else 2e-2)
+    assert _rel(got[:, -27:], want[:, -27:]) <= (1e-2 if acc == torch.bfloat16 else 2e-2)
     if acc == torch.bfloat16:  # nearer the bf16-accumulated sum than the f32 one
-        f32_acc = dot_probe.tap_sum_reference(x, w)
+        f32_acc = dot_probe.tap_sum_reference(x, w, offs, m)
         assert dot_probe.bf16_rounding_share(got, want, f32_acc) <= dot_probe.E_ROUNDING_SHARE
 
 
-@pytest.mark.parametrize("staging", ["window", "per_tap"])
+def test_tap_sum_is_one_launch(cuda):
+    x, w = _probe_taps(2, 1000, 128, 9, 64, cuda)
+    offsets = TAP_OFFSETS["k577"](9)
+    dot_probe.tap_sum(x, w, offsets, 400)
+    assert len(cuda_launches(lambda: dot_probe.tap_sum(x, w, offsets, 400)).launches) == 1
+
+
 @pytest.mark.parametrize("variant", sorted(rowoffset_probe.OFFSETS))
-def test_row_offset_sum_matches_plain(cuda, variant, staging):
+def test_row_offset_sum_matches_plain(cuda, variant):
     x, w = rowoffset_probe.inputs(2, rowoffset_probe.M_PAD, cuda)
     offsets = rowoffset_probe.OFFSETS[variant]
     before = rowoffset_probe.row_offset_sum.launches
-    got = rowoffset_probe.row_offset_sum(x, w, offsets, staging=staging)
+    got = rowoffset_probe.row_offset_sum(x, w, offsets)
     torch.cuda.synchronize()
     assert rowoffset_probe.row_offset_sum.launches == before + 1
     want = rowoffset_probe.row_offset_sum_reference(x, w, offsets)
     assert got.shape == (2, rowoffset_probe.M, rowoffset_probe.N)
     assert _rel(got, want) <= PROBE_TOL[torch.bfloat16]
+    lib = rowoffset_probe.library_call(x, w, offsets)()
+    assert _rel(lib, want) <= PROBE_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("strategy", inner_probe.STRATEGIES)
@@ -580,6 +611,25 @@ def test_wgmma_product_matches_matmul(cuda, k, row_bytes):
     assert _rel(out, torch.matmul(a.float(), bt.float().t())) <= 1e-5
 
 
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("n", [16, 32, 64, 128])
+def test_wgmma_widths_match_matmul(cuda, n, k):
+    """``ltu::wgmma_m64k16<N>`` alone (``pt_wgmma_product``), each width the
+    tap-sum kernel takes: A from registers, B by a descriptor of a K-major
+    tile of N rows with the 128-byte swizzle, k / 16 descriptor steps.
+    Exact bf16 products summed in f32 in another order: 1e-5 of max
+    |plain|."""
+    g = torch.Generator(device="cpu").manual_seed(13)
+    a = torch.randn((64, k), generator=g).to(cuda, torch.bfloat16)
+    bt = torch.randn((n, k), generator=g).to(cuda, torch.bfloat16)
+    out = torch.empty((64, n), device=cuda)
+    err = kernels.load("probe_taps").pt_wgmma_product(
+        a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, k, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert _rel(out, torch.matmul(a.float(), bt.float().t())) <= 1e-5
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_probes_are_deterministic(cuda, dtype):
     xp, k, bias = conv_retired.inputs((1, 16, 16, 64, 64), 64, cuda, dtype)
@@ -608,11 +658,13 @@ def test_probes_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         dot_probe.tap_sum(x[:, ::2], w)
     with pytest.raises(ValueError):
-        dot_probe.tap_sum(x, w[:8], staging="im2col")
+        dot_probe.tap_sum(x, w, offsets=[0] * 8)                  # 8 offsets, 9 taps
     with pytest.raises(ValueError):
-        dot_probe.tap_sum(x, w, acc_dtype=torch.bfloat16)        # needs per_tap
+        dot_probe.tap_sum(x, w, acc_dtype=torch.float16)
     with pytest.raises(ValueError):
-        dot_probe.tap_sum(x, w, offsets=[0] * 8 + [4000])         # window too large
+        dot_probe.tap_sum(x, w[..., :48].contiguous())             # N 48
+    with pytest.raises(ValueError):
+        dot_probe.tap_sum(x[..., :12].contiguous(), w[:, :12].contiguous())  # K 12
     xc, k = conv_prototype.inputs((8, 8, 64, 64), 64, cuda)
     with pytest.raises(ValueError):
         conv_retired.conv3d_cl_rows(xc[None, ..., :48], k[..., :48, :], None)  # not contiguous

@@ -377,3 +377,126 @@ def test_tap_sum_offsets_pad_with_zeros():
     padded = torch.nn.functional.pad(x, (0, 0, 2, 3))
     want = padded[:, 0:10] @ w[0] + padded[:, 5:15] @ w[1]
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---- #8 and #10: taps_fold's fold (dot_probe.fold_taps_reference) ----------
+
+def _folded_sum(x, w, offsets, m):
+    """sum over distinct offsets of x[off] @ hi + x[off] @ lo, in f32: what
+    ``taps_fold`` computes before its final rounding."""
+    distinct, hi, lo = dot_probe.fold_taps_reference(w, offsets)
+    acc = torch.zeros((x.shape[0], m, w.shape[2]))
+    for d, off in enumerate(distinct):
+        rows = dot_probe.shifted_rows(x, off, m).float()
+        acc = acc + rows @ hi[d].float() + rows @ lo[d].float()
+    return acc
+
+
+@pytest.mark.parametrize("variant", sorted(rowoffset_probe.OFFSETS))
+def test_fold_taps_matches_jax_rowoffset(rowoffset, variant):
+    """#8: the folded sum of bf16-valued inputs against the TPU probe's 9
+    dots in f32 (its pallas_call in interpret mode)."""
+    offsets = rowoffset_probe.OFFSETS[variant]
+    rng = np.random.default_rng(3)
+    x, x_j = _pair(rng.standard_normal((2, rowoffset.M_PAD, rowoffset.K)), jnp.bfloat16)
+    w, w_j = _pair(rng.standard_normal((9, rowoffset.K, rowoffset.N)) * 0.05, jnp.bfloat16)
+    want = _rowoffset_jax(rowoffset, offsets, x_j.astype(jnp.float32), w_j.astype(jnp.float32))
+    got = _folded_sum(x, w, offsets, rowoffset.M)
+    assert _err(got, want) <= F32_TOL
+
+
+@pytest.mark.parametrize("name,taps,k,n,acc", [v for v in dot_probe.VARIANTS
+                                               if v[4] == torch.float32])
+def test_fold_taps_matches_jax_dot(name, taps, k, n, acc):
+    """#10: the folded sum of bf16-valued inputs against ``bench``'s taps
+    summed in f32 (``_dot_jax``)."""
+    rng = np.random.default_rng(9)
+    x, x_j = _pair(rng.standard_normal((2, 64, k)), jnp.bfloat16)
+    w, w_j = _pair(rng.standard_normal((taps, k, n)) * 0.05, jnp.bfloat16)
+    want = _dot_jax(x_j.astype(jnp.float32), w_j.astype(jnp.float32), jnp.float32)
+    got = _folded_sum(x, w, [0] * taps, 64)
+    assert _err(got, want) <= F32_TOL
+
+
+def test_fold_taps_splits_only_shared_offsets():
+    """A lone tap keeps its weight (lo 0); taps that share an offset fold to
+    hi + lo, which rounds back to the f32 sum's bf16 value and holds it to
+    2^-16 of each sum."""
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.standard_normal((4, 16, 16)).astype(np.float32)).bfloat16()
+    distinct, hi, lo = dot_probe.fold_taps_reference(w, [5, 0, 5, 7])
+    assert distinct == [5, 0, 7]
+    assert torch.equal(hi[1], w[1]) and torch.equal(hi[2], w[3])
+    assert not lo[1].any() and not lo[2].any()
+    s = w[0].float() + w[2].float()
+    assert torch.equal(hi[0], s.bfloat16())
+    assert ((hi[0].float() + lo[0].float() - s).abs() <= s.abs() * 2.0 ** -16).all()
+
+
+# what each probe shape's plan must be: (k, n, offsets, bf16 acc) -> (column
+# tile, mode, products); every one keeps its folded weights resident
+PROBE_PLANS = [
+    ((128, 64, (0,) * 9, False), (64, dot_probe.FOLD, 2)),           # #10 A
+    ((128, 128, (0,) * 9, False), (128, dot_probe.FOLD, 2)),         # #10 B
+    ((1152, 64, (0,), False), (64, dot_probe.FOLD, 1)),              # #10 C
+    ((1152, 128, (0,), False), (64, dot_probe.FOLD, 1)),             # #10 D: two column tiles
+    ((128, 64, (0,) * 9, True), (64, dot_probe.WHOLE, 9)),           # #10 E
+    ((128, 128, (0,) * 27, False), (128, dot_probe.FOLD, 2)),        # #10 F
+    ((128, 64, tuple(rowoffset_probe.OFFSETS["B. 9 dots, aligned offsets (k*576)"]), False),
+     (64, dot_probe.FOLD, 6)),
+    ((128, 64, tuple(rowoffset_probe.OFFSETS["C. 9 dots, misaligned offsets (k*577)"]), False),
+     (64, dot_probe.FOLD, 6)),
+    ((27 * 64, 32, (0,), False), (32, dot_probe.FOLD, 1)),           # tap-folded conv K
+]
+
+
+@pytest.mark.parametrize("signature,want", PROBE_PLANS)
+def test_tap_plan_keeps_probe_weights_resident(signature, want):
+    plan = dot_probe.tap_plan(*signature)
+    assert (plan.nt, plan.mode, len(plan.products)) == want
+    assert not plan.streamed and plan.smem <= 232448
+
+
+def test_tap_plan_tables():
+    """The C plan: header, then each distinct offset's rows and products,
+    each product's offset, part and taps; bf16 accumulation keeps tap order
+    in runs of one offset."""
+    plan = dot_probe.tap_plan(128, 64, (0, 577, 1154) * 3, False)
+    ints = list(plan.ints)
+    assert ints[:15] == [128, 64, 64, 2, 1, dot_probe.FOLD, 0, 3, 1, 6, 3, 6, 49152, 147456, 0]
+    table = ints[dot_probe.PLAN_HEADER:]
+    assert table[:3] == [0, 577, 1154] and table[32:35] == [0, 2, 4] and table[64:67] == [2, 2, 2]
+    assert table[128:134] == [dot_probe.HI, dot_probe.LO] * 3
+    assert table[224:233] == [0, 3, 6, 1, 4, 7, 2, 5, 8]
+    runs = dot_probe.tap_plan(128, 64, (0, 577, 1154) * 3, True)
+    assert runs.offsets == (0, 577, 1154) * 3 and runs.mode == dot_probe.WHOLE
+    assert [p[2] for p in runs.products] == [(t,) for t in range(9)]
+    big = dot_probe.tap_plan(2048, 128, tuple(range(32)), False)
+    assert big.streamed and big.nt == 128
+
+
+@pytest.mark.parametrize("offsets", [[-400, 0, 3], [2, 301, -5], [-301, 300]])
+def test_tap_sum_reads_zeros_wholly_outside(offsets):
+    """A tap whose rows lie wholly before 0 or past R reads only zeros."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((1, 300, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((len(offsets), 8, 16)).astype(np.float32))
+    got = dot_probe.tap_sum(x, w, offsets=offsets, m=300)
+    padded = torch.nn.functional.pad(x, (0, 0, 700, 700))
+    want = sum(padded[:, 700 + o:1000 + o] @ w[t] for t, o in enumerate(offsets))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", sorted(rowoffset_probe.OFFSETS))
+def test_row_offset_library_call_matches_plain(variant):
+    """The library yardstick of #8 (einsum, or F.conv1d with dilation on the
+    folded taps) computes the probe's function: f32 inputs, so the fold
+    rounds only the folded weights to the inputs' dtype (f32 here)."""
+    offsets = [o // 64 for o in rowoffset_probe.OFFSETS[variant]]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 200, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((9, 16, 8)).astype(np.float32) * 0.05)
+    got = rowoffset_probe.library_call(x, w, offsets, 160)()
+    want = rowoffset_probe.row_offset_sum_reference(x, w, offsets, 160)
+    assert got.shape == want.shape
+    assert _err(got, want.numpy()) <= F32_TOL
