@@ -136,7 +136,8 @@ KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "probe_taps",
                 "probe_conv", "probe_stats")
 # The probes' tensor-core kernels whose registers and spills phase 1 prints
 # on a line each: (library, kernel)
-PROBE_MMA_KERNELS = (("probe_conv", "conv_mma"), ("probe_taps", "taps_fold"))
+PROBE_MMA_KERNELS = (("probe_conv", "conv_mma"), ("probe_taps", "taps_fold"),
+                     ("probe_taps", "taps_fold_weights"))
 # The probes: name -> (kernel source, the TPU kernel's pallas_call it replaces)
 PROBES = {"tap_sum": ("probe_taps", "experiments/pallas_dot_probe.py:41"),
           "row_offset_sum": ("probe_taps", "experiments/pallas_rowoffset_probe.py:53"),
@@ -281,9 +282,10 @@ def kernel_ptxas(name, kernel):
     for line in kernels.build_log(name).splitlines():
         entry = re.search(r"entry function '(\w+)'", line)
         if entry:
-            current = entry.group(1) if kernel in entry.group(1) else None
+            named = re.search(rf"{len(kernel)}{kernel}[IE]", entry.group(1))
+            current = entry.group(1) if named else None
             if current:
-                args = ",".join(re.findall(r"L[ib](\d+)E", current.split(kernel, 1)[1]))
+                args = ",".join(re.findall(r"L[ib](\d+)E", current[named.end() - 1:]))
                 found.append([f"{kernel}<{args}>" if args else kernel])
         elif current and ("spill" in line or "registers" in line):
             found[-1].append(line.split(":", 1)[-1].strip())

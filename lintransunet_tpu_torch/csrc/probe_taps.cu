@@ -20,39 +20,54 @@
 // product per distinct offset: #10 A ~60 FLOP per compulsory byte, #8 ~95,
 // under the H100's ~295 bf16 ridge); operations where every tap counts
 // (bf16 accumulation). Its design:
-// * Taps folded per distinct offset, in the prologue. Taps at one row
-//   offset sum to one product of their summed weight: a lone tap's bf16
-//   weight is used as it is; two or more are summed in f32 and split into
-//   hi = bf16(sum) and lo = bf16(sum - hi), two products that hold the
-//   result to ~2^-16 of the f32 sum of the exact products (a bf16 fold alone
-//   would move some outputs by an ulp). bf16 accumulation is not folded:
-//   each tap's rounding is the function. The wrapper plans the products
-//   (`dot_probe.tap_plan`; `fold_taps_reference` is the fold's plain
-//   version).
-// * Resident weights: each block builds the folded weights of its column
-//   tile once, from L2 into shared memory, K-major with the 128-byte swizzle
-//   (`ltu::swz`), while its first A tiles are in flight. Where they do not
-//   fit at any column tile, each item's weights are folded anew before it
-//   runs (no probe shape needs that).
-// * Shifted tiles, not a window: a tile is 128 output rows (16 a warp) and
-//   NT <= 128 columns; per distinct offset and 64-wide K chunk the block
-//   stages rows [m0 + off, m0 + off + 128) into a swizzled tile by 16-byte
-//   `cp.async` with zero fill outside [0, rows) and past K. A row is 2 K
-//   bytes, so an offset of 577 rows is as aligned as one of 576, and a row
-//   of A is read once per distinct offset (again from L2), not (128 + span)
-//   / 128 times.
-// * A ring of 2-3 such items, each landing while the previous one's
-//   products run; the ring runs on across tiles, so the next tile's loads
-//   overlap this tile's epilogue.
-// * Persistent grid: one block per SM (or more where they fit), each on one
-//   column tile, walking row tiles in order within a group, so that the
-//   neighbouring tiles' shifted reads hit L2 (a #8 group spans 2.9 MB).
-// * Products: `mma.sync` m16n8k16, A by `ldmatrix` from the shifted tile, B
-//   by `ldmatrix` from the K-major weight tile, f32 accumulators.
+// * Taps folded per distinct offset. Taps at one row offset sum to one
+//   product of their summed weight: a lone tap's bf16 weight is used as it
+//   is; two or more are summed in f32 and split into hi = bf16(sum) and lo =
+//   bf16(sum - hi), two products that hold the result to ~2^-16 of the f32
+//   sum of the exact products (a bf16 fold alone would move some outputs by
+//   an ulp). bf16 accumulation is not folded: each tap's rounding is the
+//   function. The wrapper plans the products (`dot_probe.tap_plan`;
+//   `fold_taps_reference` is the fold's plain version).
+// * The fold is a launch of its own, `taps_fold_weights`, before the main
+//   kernel: it writes every column tile's folded weights once, K-major and
+//   swizzled as the main kernel keeps them, into a scratch. Folded in each
+//   block's prologue instead, every one of 132 blocks read all the raw taps
+//   from L2 (147 KB at #10 A), 11-39k cycles of a block (PERF.md).
+// * `taps_fold` runs under programmatic dependent launch: it stages its
+//   first A items while the fold runs, then one thread waits for the fold
+//   (`griddepcontrol.wait`) and bulk-copies the block's folded tiles into
+//   shared memory in one copy (resident, the largest column tile where they
+//   fit). Where they fit at no column tile, each item's tiles come by a bulk
+//   copy through a ring of weight slots one slot longer than the A ring, so
+//   that a slot is refilled only after the item that read it is done.
+// * Shifted tiles, not a window: a tile is 128 output rows (two warpgroups
+//   of 64) and NT <= 128 columns; per distinct offset and 64-wide K chunk
+//   the block stages rows [m0 + off, m0 + off + 128) into a tile swizzled by
+//   `ltu::swz`, by 16-byte `cp.async` with zero fill outside [0, rows) and
+//   past K. A row is 2 K bytes, so an offset of 577 rows is as aligned as
+//   one of 576, and a row of A is read once per distinct offset (again from
+//   L2), not (128 + span) / 128 times. A ring of 2-4 such items runs on
+//   across tiles, so the next tile's loads overlap this tile's epilogue.
+// * Persistent grid: one block per SM, each on one column tile, walking row
+//   tiles in order within a group, so that the neighbouring tiles' shifted
+//   reads hit L2 (a #8 group spans 2.9 MB).
+// * Products: `wgmma` m64nNTk16 (NT 16, 32, 64 or 128), A from registers
+//   (each warp's `ldmatrix` fragments of the shifted tile), B by descriptor
+//   from the K-major weight tile, f32 accumulators in registers. An item's
+//   64 K of every product is one commit group, its `wgmma`s round-robin over
+//   up to 4 independent accumulators (one chain of dependent 64 x 64 x 16
+//   products runs at their latency, not their rate), waited for only when
+//   its fragment registers are loaded again two items later
+//   (`wgmma_wait<1>`). A fresh sum starts by the `wgmma` scale-d predicate,
+//   so no other instruction writes the accumulators.
+// * Epilogue: the accumulators summed, rounded to bf16 through the spent
+//   ring slot, and stored as 16-byte row segments.
 // * bf16 accumulation: where the whole of K fits in one item, A is staged
-//   once for all taps at one offset and each tap's product goes into a
-//   fresh accumulator, rounded to bf16 and added into the running bf16 sum
-//   in registers; otherwise each (tap, K chunk) is an item of its own.
+//   once for each run of consecutive taps at one offset and each tap's
+//   product goes into a fresh accumulator, rounded to bf16 and added into
+//   the running bf16 sum in registers; otherwise each (tap, K chunk) is an
+//   item of its own. The taps keep their order, so the sum rounds in the
+//   function's order.
 //
 // `taps_window` (#11; `pt_forward`), PR 4's kernel, kept for the inner-loop
 // probe until its own redesign. Column k of a row of A sits at a per-chunk
@@ -69,6 +84,8 @@
 //   consecutive offsets (one dh of a 3x3 conv) first copies its three
 //   shifted row slices into aligned panels, a K = 3 x 32 im2col in shared
 //   memory; then the products read the panels.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "tensor_core.cuh"
@@ -255,8 +272,12 @@ constexpr int kKT = 64;                      // K per A sub-tile and weight tile
 constexpr int kATile = kRows * kKT;          // elements of one A sub-tile (16 KB)
 constexpr int kMaxD = 32;                    // distinct offsets
 constexpr int kMaxP = 32;                    // products (hi and lo count two)
-constexpr int kPlanHeader = 16;
-constexpr int kPlanInts = kPlanHeader + 8 * 32;
+constexpr int kPlanHeader = 20;
+constexpr int kMaxDevices = 64;
+// Shared memory: the A ring from 0, the weights (resident, or a ring of
+// slots) below kTapSmem, the weights' mbarriers at kTapSmem.
+constexpr int kTapSmem = kSmemLimit - 1024;
+constexpr int kPlanInts = kPlanHeader + 10 * 32;
 
 // How a tile's items run: folded f32 sum (an item is one distinct offset at
 // one K chunk); bf16 accumulation with the whole of K in one item (an item
@@ -275,160 +296,264 @@ struct TapArgs {
   int nkc;             // 64-wide K chunks (K padded with zeros)
   int col_tiles, row_tiles;
   int mode, streamed, slots, nsub, items;
-  int nd, np;
+  int nd, np, ng;
   int w_offset;        // bytes from the start of shared memory to the weights
   int d_off[kMaxD];    // distinct offset d's rows, and its products
   int d_p0[kMaxD], d_np[kMaxD];
   int p_d[kMaxP], p_part[kMaxP], p_t0[kMaxP], p_nt[kMaxP];  // taps tap_idx[t0 .. t0 + nt)
   int tap_idx[kMaxP];
+  int g_p[kMaxP];      // fold group g's first product (a lone tap, hi, or one tap)
+  int p_g[kMaxP];      // product p's fold group
 };
 
-struct TapItem {
-  int d, kc, p0, np;
-  bool tap_last;  // bf16 accumulation by (tap, chunk): the tap's last chunk
-};
+// A walk over a block's steps: the step's item (its index i in the tile,
+// distinct offset d, K chunk kc, products [p0, p0 + np)) and its tile (the
+// block's j-th: group g, first output row m0; column tile blockIdx.x %
+// col_tiles throughout), one step at a time, dividing only at a tile's
+// start.
+struct Cursor {
+  int i, j, g, m0, d, kc, p0, np;
 
-__device__ __forceinline__ TapItem item_at(const TapArgs& a, int i) {
-  TapItem it;
-  if (a.mode == kSplit) {
-    it.p0 = i / a.nkc;
-    it.np = 1;
-    it.kc = i % a.nkc;
-    it.d = a.p_d[it.p0];
-  } else {
-    it.d = a.mode == kFold ? i % a.nd : i;
-    it.kc = a.mode == kFold ? i / a.nd : 0;
-    it.p0 = a.d_p0[it.d];
-    it.np = a.d_np[it.d];
+  __device__ __forceinline__ void tile(const TapArgs& a) {
+    const int rt = blockIdx.x / a.col_tiles + j * (gridDim.x / a.col_tiles);
+    g = rt / a.row_tiles;
+    m0 = (rt % a.row_tiles) * kRows;
   }
-  it.tap_last = it.kc == a.nkc - 1;
-  return it;
-}
+  __device__ __forceinline__ void products(const TapArgs& a) {
+    if (a.mode == kSplit) {
+      np = 1;
+      d = a.p_d[p0];
+    } else {
+      p0 = a.d_p0[d];
+      np = a.d_np[d];
+    }
+  }
+  __device__ __forceinline__ void start(const TapArgs& a) {
+    i = j = d = kc = p0 = 0;
+    tile(a);
+    products(a);
+  }
+  __device__ __forceinline__ void next(const TapArgs& a) {
+    if (++i == a.items) {
+      i = d = kc = p0 = 0;
+      ++j;
+      tile(a);
+    } else if (a.mode == kFold) {  // for each chunk, each distinct offset
+      if (++d == a.nd) {
+        d = 0;
+        ++kc;
+      }
+    } else if (a.mode == kWhole) {  // each run of taps, all of K
+      ++d;
+    } else if (++kc == a.nkc) {  // each tap, each chunk
+      kc = 0;
+      ++p0;
+    }
+    products(a);
+  }
+  // bf16 accumulation by (tap, chunk): the tap's last chunk
+  __device__ __forceinline__ bool tap_last(const TapArgs& a) const { return kc == a.nkc - 1; }
+};
 
-// The block's j-th tile: (group, first output row); its column tile is
-// blockIdx.x % col_tiles throughout.
-__device__ __forceinline__ void tile_at(const TapArgs& a, int j, int& g, int& m0) {
-  const int per_col = gridDim.x / a.col_tiles;
-  const int rt = blockIdx.x / a.col_tiles + j * per_col;
-  g = rt / a.row_tiles;
-  m0 = (rt % a.row_tiles) * kRows;
-}
-
-// Step s's item into ring slot `slot`: rows [m0 + off, m0 + off + 128) of
+// The cursor's item into ring slot `slot`: rows [m0 + off, m0 + off + 128) of
 // its K chunks; one commit group per thread (the caller commits).
-__device__ __forceinline__ void stage_item(bf16* slot, const TapArgs& a, int s, int tid) {
-  int g, m0;
-  tile_at(a, s / a.items, g, m0);
-  const TapItem it = item_at(a, s % a.items);
-  const bf16* xg = a.x + static_cast<long long>(g) * a.rows * a.k;
-  const int r0 = m0 + a.d_off[it.d];
+__device__ __forceinline__ void stage_item(bf16* slot, const TapArgs& a, const Cursor& c,
+                                           int tid) {
+  const bf16* xg = a.x + static_cast<long long>(c.g) * a.rows * a.k;
+  const int r0 = c.m0 + a.d_off[c.d];
   for (int i = tid; i < a.nsub * kRows * 8; i += kThreads) {
-    const int c = i & 7, r = (i >> 3) & (kRows - 1), sub = i >> 10;
-    const int gr = r0 + r, gk = (it.kc + sub) * kKT + c * 8;
+    const int ch = i & 7, r = (i >> 3) & (kRows - 1), sub = i >> 10;
+    const int gr = r0 + r, gk = (c.kc + sub) * kKT + ch * 8;
     const bool valid = gr >= 0 && gr < a.rows && gk < a.k;
     const bf16* src = valid ? xg + static_cast<long long>(gr) * a.k + gk : a.x;
-    ltu::cp_async16_zfill(slot + sub * kATile + ltu::swz(r, c, 8), src, valid);
+    ltu::cp_async16_zfill(slot + sub * kATile + ltu::swz(r, ch, 8), src, valid);
   }
 }
 
-// The weights of products [p_lo, p_hi) at K chunks [c_lo, c_hi), columns
-// [n0, n0 + NT), into shared memory: tile (p, c), NT rows of 64 K values
-// (K-major, rows of 128 bytes swizzled by `ltu::swz`), at dst + ((p - p_lo)
-// * (c_hi - c_lo) + c - c_lo) * NT * 64. A hi product writes its lo
-// partner's tile too. Zeros past K.
-template <int NT>
-__device__ __forceinline__ void fold_weights(bf16* dst, const TapArgs& a, int n0, int p_lo,
-                                             int p_hi, int c_lo, int c_hi, int tid) {
-  const int nc = c_hi - c_lo;
-  const int units = (p_hi - p_lo) * nc * NT;  // 8 K x 8 columns each
-  for (int u = tid; u < units; u += kThreads) {
-    const int p = p_lo + u / (nc * NT);
-    const int part = a.p_part[p];
-    if (part == kLo) continue;  // written with its hi partner
-    const int c = c_lo + (u / NT) % nc, n8 = (u % NT) >> 3, k8 = u & 7;
-    const int gk = c * kKT + k8 * 8;
-    float sum[8][8];  // [k][column]
+// An 8 x 8 block over lanes l = lane % 8 of each 8 lanes, v[c] = M[l][c] on
+// entry, v[r] = M[r][l] on return: three rounds swapping the off-diagonal
+// s x s blocks between lanes l and l ^ s.
+__device__ __forceinline__ void transpose8(float (&v)[8], int l) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int s = 4; s >= 1; s >>= 1) {
+    const bool upper = l & s;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) sum[j][q] = 0.f;
-    }
-    if (gk < a.k) {
-      for (int q = 0; q < a.p_nt[p]; ++q) {
-        const bf16* src = a.w + (static_cast<long long>(a.tap_idx[a.p_t0[p] + q]) * a.k + gk) *
-                          a.n + n0 + n8 * 8;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + static_cast<long long>(j) * a.n));
-          const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-          for (int col = 0; col < 8; ++col) sum[j][col] += __bfloat162float(e[col]);
-        }
+    for (int c = 0; c < 8; ++c) {
+      if (c & s) continue;
+      const float got = __shfl_xor_sync(ltu::kFullMask, upper ? v[c] : v[c | s], s);
+      if (upper) {
+        v[c] = got;
+      } else {
+        v[c | s] = got;
       }
-    }
-    bf16* hi = dst + ((p - p_lo) * nc + c - c_lo) * NT * kKT;
-    bf16* lo = hi + nc * NT * kKT;  // product p + 1
-#pragma unroll
-    for (int col = 0; col < 8; ++col) {
-      const int row = n8 * 8 + col;
-      uint4 vh, vl;
-      unsigned* h = reinterpret_cast<unsigned*>(&vh);
-      unsigned* l = reinterpret_cast<unsigned*>(&vl);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float s0 = sum[2 * j][col], s1 = sum[2 * j + 1][col];
-        h[j] = ltu::pack_bf16x2(s0, s1);
-        l[j] = ltu::pack_bf16x2(s0 - ltu::round_to<bf16>(s0), s1 - ltu::round_to<bf16>(s1));
-      }
-      *reinterpret_cast<uint4*>(hi + ltu::swz(row, k8, 8)) = vh;
-      if (part == kHi) *reinterpret_cast<uint4*>(lo + ltu::swz(row, k8, 8)) = vl;
     }
   }
 }
 
-// `ltu::mma_bf16_16816` on four accumulators of a flat array
-__device__ __forceinline__ void mma(float& d0, float& d1, float& d2, float& d3,
-                                    const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// Elements of one weight tile: NT rows (output columns) of 64 K values.
+template <int NT>
+constexpr int kTileElems = NT * kKT;
+
+// The fold, one launch before taps_fold: every column tile's folded weights
+// into `folded`, tile (column tile ct, K chunk kc, product p) at folded +
+// ((ct * nkc + kc) * np + p) * NT * 64, each NT rows of 64 K values
+// (K-major, 128-byte rows swizzled by `ltu::swz`), as taps_fold keeps them
+// in shared memory; zeros past K. A thread sums row k of 8 columns of one
+// fold group (a lone tap's product, a hi and lo pair, or one tap under bf16
+// accumulation) over its taps in f32, in tap order, 8 loads in flight; the
+// 8 lanes of rows k8 * 8 .. + 7 transpose their 8 x 8 block by shuffles and
+// each stores one 16-byte K-major row segment (and its lo partner's).
+template <int NT>
+__global__ void __launch_bounds__(kThreads) taps_fold_weights(const TapArgs a, bf16* folded) {
+  pdl_trigger();  // taps_fold may start staging A; it waits for this grid before the weights
+  const int u = blockIdx.x * kThreads + threadIdx.x;
+  const int units = a.col_tiles * a.ng * a.nkc * kKT * (NT / 8);
+  const bool live = u < units;  // whole warps: units is a multiple of 128
+  int r = live ? u : 0;
+  const int l = r & 7;
+  r >>= 3;
+  const int n8 = r % (NT / 8);
+  r /= NT / 8;
+  const int k8 = r % 8;
+  r /= 8;
+  const int kc = r % a.nkc;
+  r /= a.nkc;
+  const int g = r % a.ng, ct = r / a.ng, p = a.g_p[g];
+  const int k = kc * kKT + k8 * 8 + l;
+  float sum[8] = {};
+  if (live && k < a.k) {
+    const bf16* src = a.w + static_cast<long long>(k) * a.n + ct * NT + n8 * 8;
+    const int* taps = a.tap_idx + a.p_t0[p];
+#pragma unroll 8
+    for (int q = 0; q < a.p_nt[p]; ++q) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+          src + static_cast<long long>(taps[q]) * a.k * a.n));
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int col = 0; col < 8; ++col) sum[col] += __bfloat162float(e[col]);
+    }
+  }
+  transpose8(sum, l);  // sum[j]: row k8 * 8 + j, column n8 * 8 + l
+  if (!live) return;
+  uint4 vh, vl;
+  unsigned* h = reinterpret_cast<unsigned*>(&vh);
+  unsigned* lw = reinterpret_cast<unsigned*>(&vl);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    h[j] = ltu::pack_bf16x2(sum[2 * j], sum[2 * j + 1]);
+    lw[j] = ltu::pack_bf16x2(sum[2 * j] - ltu::round_to<bf16>(sum[2 * j]),
+                             sum[2 * j + 1] - ltu::round_to<bf16>(sum[2 * j + 1]));
+  }
+  bf16* hi = folded + (static_cast<long long>(ct * a.nkc + kc) * a.np + p) * kTileElems<NT>;
+  const int e = ltu::swz(n8 * 8 + l, k8, 8);
+  *reinterpret_cast<uint4*>(hi + e) = vh;
+  if (a.p_part[p] == kHi) *reinterpret_cast<uint4*>(hi + kTileElems<NT> + e) = vl;  // p + 1
 }
 
-// acc (the warp's 16 rows x NT columns) += the A sub-tile's rows [16 warp,
-// 16 warp + 16) times weight tile `b` (K-major, NT x 64), over 64 K.
-template <int NT>
-__device__ __forceinline__ void product(float (&acc)[NT / 2], const bf16* a_tile, const bf16* b,
-                                        int warp, int lane) {
+// Keeps the registers of a set of A fragments live, unchanged, up to this
+// point: a `wgmma` may still read them after its instruction has issued.
+__device__ __forceinline__ void keep(unsigned (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    asm volatile("" : "+r"(r[i][0]), "+r"(r[i][1]), "+r"(r[i][2]), "+r"(r[i][3]));
+  }
+}
+
+// acc (+)= the A sub-tile's 128 rows times weight tiles b0 (and b1 when np
+// is 2; K-major, NT x 64) over 64 K, by `wgmma` m64nNTk16: each warpgroup
+// its 64 rows, each warp's 16 as its `ldmatrix` fragments, all four k16
+// steps' fragments (set SET) loaded first, and the 4 np `wgmma`s one commit
+// group. The `wgmma`s go round-robin to NA independent accumulators (their
+// sum is the result): one accumulator would make them a chain, each
+// waiting for the last, at a 64 x 64 x 16 product's latency rather than its
+// rate. `fresh` starts a new sum: each accumulator's first `wgmma` ignores
+// it (scale-d 0), so no other instruction writes the accumulators, which
+// would make ptxas serialise the `wgmma`s. Calls alternate the two fragment
+// sets; a call waits only for the call before the last (`wgmma_wait<1>`),
+// the one that read its set, so one call's products run while the next
+// call's barrier, copies and fragment loads go on.
+template <int NT, int NA, int SET>
+__device__ __forceinline__ void product(float (&acc)[NA][NT / 2], unsigned (&af)[2][4][4],
+                                        const bf16* a_tile, const bf16* b0, const bf16* b1,
+                                        int np, bool fresh, int warp, int lane) {
+  ltu::wgmma_wait<1>();
+  keep(af[SET]);
 #pragma unroll
   for (int ks = 0; ks < kKT / 16; ++ks) {
-    unsigned af[4];
-    ltu::ldsm_x4(af, a_tile + ltu::swz(warp * 16 + (lane & 15), ks * 2 + (lane >> 4), 8));
+    ltu::ldsm_x4(af[SET][ks],
+                 a_tile + ltu::swz(warp * 16 + (lane & 15), ks * 2 + (lane >> 4), 8));
+  }
 #pragma unroll
-    for (int pr = 0; pr < NT / 16; ++pr) {
-      unsigned bf[4];
-      ltu::ldsm_x4(bf, b + ltu::swz(pr * 16 + ((lane >> 4) << 3) + (lane & 7),
-                                    ks * 2 + ((lane >> 3) & 1), 8));
-      mma(acc[8 * pr], acc[8 * pr + 1], acc[8 * pr + 2], acc[8 * pr + 3], af, bf[0], bf[1]);
-      mma(acc[8 * pr + 4], acc[8 * pr + 5], acc[8 * pr + 6], acc[8 * pr + 7], af, bf[2], bf[3]);
-    }
+  for (int q = 0; q < NA; ++q) ltu::wgmma_fence_operand(acc[q]);
+  ltu::wgmma_fence();
+  const unsigned long long d0 = ltu::wgmma_desc_kmajor(b0, 128);
+  // the j-th `wgmma` of the call: accumulator j % NA, fresh for the first NA
+  auto mma = [&](int j, unsigned long long desc, int ks) {
+    ltu::wgmma_m64k16<NT>(acc[j % NA], af[SET][ks], desc + 2 * ks, !(fresh && j < NA));
+  };
+  if (np > 1) {
+    const unsigned long long d1 = ltu::wgmma_desc_kmajor(b1, 128);
+#pragma unroll
+    for (int ks = 0; ks < kKT / 16; ++ks) mma(ks, d0, ks);
+#pragma unroll
+    for (int ks = 0; ks < kKT / 16; ++ks) mma(kKT / 16 + ks, d1, ks);
+    ltu::wgmma_commit();
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < kKT / 16; ++ks) mma(ks, d0, ks);
+    ltu::wgmma_commit();
+  }
+#pragma unroll
+  for (int q = 0; q < NA; ++q) ltu::wgmma_fence_operand(acc[q]);
+}
+
+// Waits for every `wgmma` of this warpgroup; then tot = the accumulators' sum.
+template <int NA, int R>
+__device__ __forceinline__ void wait_sum(float (&acc)[NA][R], float (&tot)[R]) {
+  ltu::wgmma_wait<0>();
+#pragma unroll
+  for (int q = 0; q < NA; ++q) ltu::wgmma_fence_operand(acc[q]);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    tot[i] = acc[0][i];
+#pragma unroll
+    for (int q = 1; q < NA; ++q) tot[i] += acc[q][i];
   }
 }
 
-// The warp's 16 rows of the tile, rounded to bf16; rows past m are not stored.
+// The tile (each warp's 16 rows of v), rounded to bf16, through `stage` (a
+// 16 KB ring slot: 128 rows of up to 64 columns, swizzled) into 16-byte
+// stores of whole row segments, 64 columns at a time; rows past m are not
+// stored. Every thread calls it: the block's reads of the slot come first.
 template <int NT>
-__device__ __forceinline__ void store_tile(const TapArgs& a, const float (&v)[NT / 2], int g,
-                                           int m0, int n0, int warp, int lane) {
-  bf16* og = a.out + static_cast<long long>(g) * a.m * a.n + n0 + 2 * (lane & 3);
+__device__ __forceinline__ void store_tile(const TapArgs& a, const float (&v)[NT / 2],
+                                           bf16* stage, int g, int m0, int n0, int tid) {
+  constexpr int kCols = NT < kKT ? NT : kKT, kCpr = kCols / 8;
+  const int warp = tid >> 5, lane = tid & 31;
+  bf16* og = a.out + static_cast<long long>(g) * a.m * a.n + n0;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = m0 + warp * 16 + (lane >> 2) + 8 * h;
-    if (r >= a.m) continue;
+  for (int cb = 0; cb < NT; cb += kCols) {
+    __syncthreads();  // the slot's (or the last columns') readers are done
 #pragma unroll
-    for (int t = 0; t < NT / 8; ++t) {
-      *reinterpret_cast<unsigned*>(og + static_cast<long long>(r) * a.n + 8 * t) =
-          ltu::pack_bf16x2(v[4 * t + 2 * h], v[4 * t + 2 * h + 1]);
+    for (int t = 0; t < kCpr; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + (lane >> 2) + 8 * h, j = cb / 8 + t;
+        *reinterpret_cast<unsigned*>(stage + ltu::swz(r, t, kCpr) + 2 * (lane & 3)) =
+            ltu::pack_bf16x2(v[4 * j + 2 * h], v[4 * j + 2 * h + 1]);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < kRows * kCpr; i += kThreads) {
+      const int r = i / kCpr, c = i % kCpr;
+      if (m0 + r >= a.m) continue;
+      *reinterpret_cast<uint4*>(og + static_cast<long long>(m0 + r) * a.n + cb + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + ltu::swz(r, c, kCpr));
     }
   }
 }
@@ -439,124 +564,197 @@ __device__ __forceinline__ void zero(float (&v)[R]) {
   for (int i = 0; i < R; ++i) v[i] = 0.f;
 }
 
-// sum = bf16(sum + bf16(acc)), the sum of two bf16 values rounded; acc = 0
+// sum = bf16(sum + bf16(acc)), the sum of two bf16 values rounded (first:
+// sum = bf16(acc))
 template <int R>
-__device__ __forceinline__ void round_add(float (&sum)[R], float (&acc)[R]) {
+__device__ __forceinline__ void round_add(float (&sum)[R], const float (&acc)[R], bool first) {
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    sum[i] = ltu::round_to<bf16>(sum[i] + ltu::round_to<bf16>(acc[i]));
-    acc[i] = 0.f;
+    sum[i] = ltu::round_to<bf16>((first ? 0.f : sum[i]) + ltu::round_to<bf16>(acc[i]));
   }
 }
 
+// Independent accumulators of `product`: as many as keep them within 128
+// registers a thread (64 where a bf16 sum of the same size lives beside
+// them), at most 4 (an item's 4 k16 steps).
 template <int NT, bool kBf16Acc>
-__global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a) {
+constexpr int kAccumulators = (kBf16Acc ? 128 : 256) / NT < 4 ? (kBf16Acc ? 128 : 256) / NT : 4;
+
+template <int NT, bool kBf16Acc, bool kStreamed>
+__global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const bf16* folded) {
+  constexpr int NA = kAccumulators<NT, kBf16Acc>;
+  constexpr int kTile = kTileElems<NT>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int slot_elems = a.nsub * kATile;
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* wts = reinterpret_cast<bf16*>(smem + a.w_offset);
-  const int n0 = (blockIdx.x % a.col_tiles) * NT;
+  // the weights' barriers: one (resident), or one per weight slot (streamed)
+  auto* wbar = reinterpret_cast<unsigned long long*>(smem + kTapSmem);
+  const int wslots = a.slots + 1;  // streamed: a slot is refilled two steps after its last read
+  const int ct = blockIdx.x % a.col_tiles, n0 = ct * NT;
+  const bf16* wsrc = folded + static_cast<long long>(ct) * a.nkc * a.np * kTile;
   const int per_col = gridDim.x / a.col_tiles;
   const int tiles = (a.groups * a.row_tiles - static_cast<int>(blockIdx.x) / a.col_tiles +
                      per_col - 1) / per_col;
   const int steps = tiles * a.items;
   const int ahead = a.slots - 1;
+  if (tid == 0) {
+    for (int i = 0; i < (kStreamed ? wslots : 1); ++i) ltu::mbar_init(wbar + i, 1);
+    ltu::fence_mbar_init();
+  }
+  __syncthreads();
 
-  for (int s = 0; s < ahead; ++s) {
-    if (s < steps) stage_item(ring + s * slot_elems, a, s, tid);
+  Cursor st, cu;  // the next step to stage, the step to run
+  st.start(a);
+  cu.start(a);
+  // step s's weights (streamed): its products' tiles at its K chunk, one copy
+  auto stage_weights = [&](int s) {
+    ltu::fence_proxy_async();  // the block's earlier reads come before the copy
+    const unsigned bytes = static_cast<unsigned>(st.np * kTile * 2);
+    ltu::mbar_expect_tx(wbar + s % wslots, bytes);
+    ltu::bulk_copy(wts + (s % wslots) * 2 * kTile, wsrc + (st.kc * a.np + st.p0) * kTile, bytes,
+                   wbar + s % wslots);
+  };
+  for (int s = 0; s < ahead; ++s) {  // A does not wait for the fold
+    if (s < steps) stage_item(ring + s * slot_elems, a, st, tid);
     ltu::cp_async_commit();
+    if (kStreamed && tid == 0 && s < steps) {
+      if (s == 0) pdl_wait();
+      stage_weights(s);
+    }
+    st.next(a);
   }
-  if (!a.streamed) {
-    fold_weights<NT>(wts, a, n0, 0, a.np, 0, a.nkc, tid);
-    ltu::fence_proxy_async();
+  if (!kStreamed && tid == 0) {  // the block's folded weights, one copy once the fold is done
+    pdl_wait();
+    const unsigned bytes = static_cast<unsigned>(a.nkc * a.np * kTile * 2);
+    ltu::mbar_expect_tx(wbar, bytes);
+    ltu::bulk_copy(wts, wsrc, bytes, wbar);
   }
+  if (!kStreamed) ltu::mbar_wait(wbar, 0);
 
-  float acc[NT / 2], sum[kBf16Acc ? NT / 2 : 1];
-  zero(acc);
-  zero(sum);
-  for (int s = 0; s < steps; ++s) {
+  float acc[NA][NT / 2], tot[NT / 2], sum[kBf16Acc ? NT / 2 : 1];
+  unsigned af[2][4][4] = {};
+  // step s: its item's A landed, the next copies issued, its products; item
+  // s reads fragment set s % 2 (SET), so the loop runs steps in pairs
+  auto step = [&](int s, auto set) {
+    constexpr int SET = decltype(set)::value;
     if (ahead == 1) {
       ltu::cp_async_wait<0>();
-    } else {
+    } else if (ahead == 2) {
       ltu::cp_async_wait<1>();
+    } else {
+      ltu::cp_async_wait<2>();
     }
     // every thread's copies of step s have landed; the block is done with
     // step s - 1's slot, which step s + ahead now fills
     __syncthreads();
-    if (s + ahead < steps) stage_item(ring + ((s + ahead) % a.slots) * slot_elems, a, s + ahead, tid);
-    ltu::cp_async_commit();
-
-    const int i = s % a.items;
-    const TapItem it = item_at(a, i);
-    const bf16* a_tile = ring + (s % a.slots) * slot_elems;
-    if (a.streamed) {
-      fold_weights<NT>(wts, a, n0, it.p0, it.p0 + it.np, it.kc, it.kc + 1, tid);
-      ltu::fence_proxy_async();
-      __syncthreads();
+    if (s + ahead < steps) {
+      stage_item(ring + ((s + ahead) % a.slots) * slot_elems, a, st, tid);
+      if (kStreamed && tid == 0) stage_weights(s + ahead);
     }
+    ltu::cp_async_commit();
+    st.next(a);
+
+    const bf16* a_tile = ring + (s % a.slots) * slot_elems;
+    if constexpr (kStreamed) ltu::mbar_wait(wbar + s % wslots, (s / wslots) & 1);
     // weight tile of product p at K chunk c
     auto wtile = [&](int p, int c) {
-      return a.streamed ? wts + (p - it.p0) * NT * kKT : wts + (p * a.nkc + c) * NT * kKT;
+      return kStreamed ? wts + ((s % wslots) * 2 + p - cu.p0) * kTile
+                       : wts + (c * a.np + p) * kTile;
     };
     if constexpr (kBf16Acc) {
-      if (a.mode == kWhole) {  // every tap at this offset over all of K
-        for (int p = it.p0; p < it.p0 + it.np; ++p) {
-          for (int c = 0; c < a.nsub; ++c) {
-            product<NT>(acc, a_tile + c * kATile, wtile(p, c), warp, lane);
+      if (a.mode == kWhole) {  // every tap of this run over all of K
+        for (int p = cu.p0; p < cu.p0 + cu.np; ++p) {
+          for (int c = 0; c < a.nsub; c += 2) {
+            product<NT, NA, 0>(acc, af, a_tile + c * kATile, wtile(p, c), nullptr, 1, c == 0,
+                               warp, lane);
+            if (c + 1 < a.nsub) {
+              product<NT, NA, 1>(acc, af, a_tile + (c + 1) * kATile, wtile(p, c + 1), nullptr,
+                                 1, false, warp, lane);
+            }
           }
-          round_add(sum, acc);
+          wait_sum(acc, tot);
+          round_add(sum, tot, cu.i == 0 && p == cu.p0);
         }
       } else {
-        product<NT>(acc, a_tile, wtile(it.p0, it.kc), warp, lane);
-        if (it.tap_last) round_add(sum, acc);
+        product<NT, NA, SET>(acc, af, a_tile, wtile(cu.p0, cu.kc), nullptr, 1, cu.kc == 0, warp,
+                             lane);
+        if (cu.tap_last(a)) {
+          wait_sum(acc, tot);
+          round_add(sum, tot, cu.p0 == 0);  // the tile's first tap
+        }
       }
     } else {
-      for (int p = it.p0; p < it.p0 + it.np; ++p) product<NT>(acc, a_tile, wtile(p, it.kc), warp, lane);
+      product<NT, NA, SET>(acc, af, a_tile, wtile(cu.p0, cu.kc), wtile(cu.p0 + 1, cu.kc), cu.np,
+                           cu.i == 0, warp, lane);
     }
-    if (i == a.items - 1) {
-      int g, m0;
-      tile_at(a, s / a.items, g, m0);
+    if (cu.i == a.items - 1) {  // the slot read this step is spent: the stores' stage
+      bf16* stage = ring + (s % a.slots) * slot_elems;
       if constexpr (kBf16Acc) {
-        store_tile<NT>(a, sum, g, m0, n0, warp, lane);
-        zero(sum);
+        store_tile<NT>(a, sum, stage, cu.g, cu.m0, n0, tid);
       } else {
-        store_tile<NT>(a, acc, g, m0, n0, warp, lane);
-        zero(acc);
+        wait_sum(acc, tot);
+        store_tile<NT>(a, tot, stage, cu.g, cu.m0, n0, tid);
       }
     }
+    cu.next(a);
+  };
+  int s = 0;
+  for (; s + 1 < steps; s += 2) {
+    step(s, std::integral_constant<int, 0>{});
+    step(s + 1, std::integral_constant<int, 1>{});
   }
+  if (s < steps) step(s, std::integral_constant<int, 0>{});
 }
 
-template <int NT, bool kBf16Acc>
-int launch_fold(const TapArgs& a, int smem, cudaStream_t stream) {
-  static unsigned long long attribute_set = 0;  // per instantiation, a bit per device
-  int device = 0, sms = 0, per_sm = 0;
+template <int NT, bool kBf16Acc, bool kStreamed>
+int launch_fold(const TapArgs& a, bf16* folded, cudaStream_t stream) {
+  // per instantiation and device, once: the shared-memory attribute and the
+  // SM count (a block takes all of an SM's shared memory: one block an SM)
+  static int sms[kMaxDevices];
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!(attribute_set >> device & 1)) {
-    err = cudaFuncSetAttribute(taps_fold<NT, kBf16Acc>,
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[device] == 0) {
+    err = cudaFuncSetAttribute(taps_fold<NT, kBf16Acc, kStreamed>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attribute_set |= 1ull << device;
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, taps_fold<NT, kBf16Acc>, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int units = a.col_tiles * a.ng * a.nkc * kKT * (NT / 8);
+  taps_fold_weights<NT><<<(units + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a, folded);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
   const long long row_tiles = static_cast<long long>(a.groups) * a.row_tiles;
-  long long per_col = static_cast<long long>(sms) * per_sm / a.col_tiles;
+  long long per_col = sms[device] / a.col_tiles;
   per_col = per_col < 1 ? 1 : (per_col > row_tiles ? row_tiles : per_col);
-  taps_fold<NT, kBf16Acc><<<static_cast<int>(per_col * a.col_tiles), kThreads, smem, stream>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(per_col * a.col_tiles));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemLimit;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, taps_fold<NT, kBf16Acc, kStreamed>, a,
+                           static_cast<const bf16*>(folded));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NT>
-int dispatch_fold(const TapArgs& a, bool bf16_acc, int smem, cudaStream_t s) {
-  return bf16_acc ? launch_fold<NT, true>(a, smem, s) : launch_fold<NT, false>(a, smem, s);
+int dispatch_fold(const TapArgs& a, bool bf16_acc, bf16* folded, cudaStream_t s) {
+  if (a.streamed) {
+    return bf16_acc ? launch_fold<NT, true, true>(a, folded, s)
+                    : launch_fold<NT, false, true>(a, folded, s);
+  }
+  return bf16_acc ? launch_fold<NT, true, false>(a, folded, s)
+                  : launch_fold<NT, false, false>(a, folded, s);
 }
 
 
@@ -660,17 +858,20 @@ int pt_forward(const void* x, const void* w, void* out, long long gstride, int r
 }
 
 
-// The tap sum on `taps_fold`. x: bf16 (groups, rows, k), w: bf16 (taps, k,
-// n), out: bf16 (groups, m, n), all contiguous. plan: `dot_probe.tap_plan`'s
-// kPlanInts ints: a header (k, n, column tile, 64-wide K chunks, column
-// tiles, mode, streamed, ring slots, sub-tiles a slot, items a tile,
-// distinct offsets, products, the weights' byte offset in shared memory,
-// shared memory bytes, bf16 accumulation) and eight tables of 32 (each
-// distinct offset's rows, first product and product count; each product's
-// distinct offset, part, first tap and tap count; the taps by product).
-// Launches on `stream`; returns the CUDA error (0 on success).
-int pt_tap_sum(const void* x, const void* w, void* out, int groups, int rows, int m,
-               const int* plan, void* stream) {
+// The tap sum: `taps_fold_weights`, then `taps_fold` under programmatic
+// dependent launch. x: bf16 (groups, rows, k), w: bf16 (taps, k, n), out:
+// bf16 (groups, m, n), all contiguous; folded: bf16 scratch of n * 64 * K
+// chunks * products elements for the folded weights. plan:
+// `dot_probe.tap_plan`'s kPlanInts ints: a header (k, n, column tile,
+// 64-wide K chunks, column tiles, mode, streamed, ring slots, sub-tiles a
+// slot, items a tile, distinct offsets, products, the weights' byte offset
+// in shared memory and their bytes, bf16 accumulation, fold groups) and ten
+// tables of 32 (each distinct offset's rows, first product and product
+// count; each product's distinct offset, part, first tap and tap count; the
+// taps by product; each fold group's first product; each product's fold
+// group). Launches on `stream`; returns the CUDA error (0 on success).
+int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups, int rows,
+               int m, const int* plan, void* stream) {
   const int* h = plan;
   TapArgs a{};
   a.x = static_cast<const bf16*>(x);
@@ -692,12 +893,14 @@ int pt_tap_sum(const void* x, const void* w, void* out, int groups, int rows, in
   a.nd = h[10];
   a.np = h[11];
   a.w_offset = h[12];
-  const int smem = h[13], bf16_acc = h[14];
+  const int w_bytes = h[13], bf16_acc = h[14];
+  a.ng = h[15];
   a.row_tiles = (m + kRows - 1) / kRows;
   if (groups < 1 || m < 1 || rows < 1 || a.k < 8 || a.k % 8 || a.nkc != (a.k + kKT - 1) / kKT ||
       a.n % a.nt || a.col_tiles != a.n / a.nt || a.nd < 1 || a.nd > kMaxD || a.np < 1 ||
-      a.np > kMaxP || a.slots < 2 || a.slots > 3 || a.nsub < 1 || a.nsub > 4 || a.items < 1 ||
-      smem > kSmemLimit || a.w_offset % 1024 || (a.mode == kWhole && a.nsub != a.nkc) ||
+      a.np > kMaxP || a.ng < 1 || a.ng > a.np || a.slots < 2 || a.slots > 4 || a.nsub < 1 || a.nsub > 4 || a.items < 1 ||
+      a.w_offset % 1024 || a.w_offset < a.slots * a.nsub * kATile * 2 ||
+      a.w_offset + w_bytes > kTapSmem || (a.mode == kWhole && a.nsub != a.nkc) ||
       static_cast<long long>(groups) * a.row_tiles > (1LL << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -713,18 +916,22 @@ int pt_tap_sum(const void* x, const void* w, void* out, int groups, int rows, in
     a.p_t0[i] = t[160 + i];
     a.p_nt[i] = t[192 + i];
     a.tap_idx[i] = t[224 + i];
+    a.g_p[i] = t[256 + i];
+    a.p_g[i] = t[288 + i];
   }
   auto s = static_cast<cudaStream_t>(stream);
+  auto fold = static_cast<bf16*>(folded);
   switch (a.nt) {
-    case 16: return dispatch_fold<16>(a, bf16_acc, smem, s);
-    case 32: return dispatch_fold<32>(a, bf16_acc, smem, s);
-    case 64: return dispatch_fold<64>(a, bf16_acc, smem, s);
-    case 128: return dispatch_fold<128>(a, bf16_acc, smem, s);
+    case 16: return dispatch_fold<16>(a, bf16_acc, fold, s);
+    case 32: return dispatch_fold<32>(a, bf16_acc, fold, s);
+    case 64: return dispatch_fold<64>(a, bf16_acc, fold, s);
+    case 128: return dispatch_fold<128>(a, bf16_acc, fold, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 int pt_plan_ints() { return kPlanInts; }
+
 
 // out (64, n) f32 = a (64, k) @ bt (n, k)^T, bf16 operands, on one
 // warpgroup by `wgmma` m64nNk16 (`wgmma_product`); n in {16, 32, 64, 128},

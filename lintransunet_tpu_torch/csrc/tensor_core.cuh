@@ -212,12 +212,12 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[R]) {
 }
 
 // d (64 x 64, f32) += a (64 x 16, bf16) * B (16 x 64, bf16, by `desc_b`,
-// K-major). Each warp of the warpgroup gives its 16 rows of A as the A
-// fragment of `mma.sync` m16n8k16 (`ldsm_x4` of a row-major tile) and gets
-// its 16 rows of d as that instruction's accumulators: columns 8t .. 8t + 7
-// in d[4t .. 4t + 3].
+// K-major; with scale_d 0, d = a * B). Each warp of the warpgroup gives its
+// 16 rows of A as the A fragment of `mma.sync` m16n8k16 (`ldsm_x4` of a
+// row-major tile) and gets its 16 rows of d as that instruction's
+// accumulators: columns 8t .. 8t + 7 in d[4t .. 4t + 3].
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (&a)[4],
-                                                unsigned long long desc_b) {
+                                                unsigned long long desc_b, int scale_d = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -235,14 +235,14 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // d (64 x 16, f32) += a (64 x 16, bf16) * B (16 x 16, bf16, by `desc_b`,
 // K-major), as `wgmma_m64n64k16` with 16 columns: d[4t .. 4t + 3] hold
 // columns 8t .. 8t + 7.
 __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], const unsigned (&a)[4],
-                                               unsigned long long desc_b) {
+                                               unsigned long long desc_b, int scale_d = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -251,14 +251,14 @@ __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], const unsigned (&
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // d (64 x 32, f32) += a (64 x 16, bf16) * B (16 x 32, bf16, by `desc_b`,
 // K-major), as `wgmma_m64n64k16` with 32 columns: d[4t .. 4t + 3] hold
 // columns 8t .. 8t + 7.
 __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const unsigned (&a)[4],
-                                               unsigned long long desc_b) {
+                                               unsigned long long desc_b, int scale_d = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -270,14 +270,14 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const unsigned (
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // d (64 x 128, f32) += a (64 x 16, bf16) * B (16 x 128, bf16, by `desc_b`,
 // K-major), as `wgmma_m64n64k16` with 128 columns: d[4t .. 4t + 3] hold
 // columns 8t .. 8t + 7.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const unsigned (&a)[4],
-                                               unsigned long long desc_b) {
+                                               unsigned long long desc_b, int scale_d = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -307,22 +307,25 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const unsigned 
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // The `wgmma` of width N (16, 32, 64 or 128 columns; N / 2 accumulators).
+// scale_d 0 writes d = a * B, ignoring d: a fresh sum with no instruction
+// but the `wgmma` writing the accumulators (a zeroing store between
+// `wgmma`s makes ptxas serialise them).
 template <int N>
 __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], const unsigned (&a)[4],
-                                             unsigned long long desc_b) {
+                                             unsigned long long desc_b, int scale_d = 1) {
   if constexpr (N == 16) {
-    wgmma_m64n16k16(d, a, desc_b);
+    wgmma_m64n16k16(d, a, desc_b, scale_d);
   } else if constexpr (N == 32) {
-    wgmma_m64n32k16(d, a, desc_b);
+    wgmma_m64n32k16(d, a, desc_b, scale_d);
   } else if constexpr (N == 64) {
-    wgmma_m64n64k16(d, a, desc_b);
+    wgmma_m64n64k16(d, a, desc_b, scale_d);
   } else {
     static_assert(N == 128, "wgmma widths 16, 32, 64, 128");
-    wgmma_m64n128k16(d, a, desc_b);
+    wgmma_m64n128k16(d, a, desc_b, scale_d);
   }
 }
 

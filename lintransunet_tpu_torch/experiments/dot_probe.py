@@ -18,9 +18,12 @@ The kernel folds the taps per distinct offset (``tap_plan`` lays out the
 products, ``fold_taps_reference`` is the fold's plain version): the taps at
 one offset sum, in f32, to one weight split into bf16 hi and lo, two
 products that hold the result to ~2^-16 of the f32 sum of the exact
-products, so variant A (9 taps at offset 0) runs 2 products, not 9. Each
-block keeps its folded weights in shared memory and stages, per distinct
-offset and 64-wide K chunk, the 128 rows its tile reads there.
+products, so variant A (9 taps at offset 0) runs 2 products, not 9. A call
+is two CUDA launches and counts one: the fold writes the folded weights to
+a scratch kept per (device, stream), then ``taps_fold``, under programmatic
+dependent launch, copies its column tile's weights into shared memory and
+stages, per distinct offset and 64-wide K chunk, the 128 rows its tile
+reads there, for `wgmma`.
 
 ``python -m lintransunet_tpu_torch.experiments.dot_probe`` times variants
 A-F of the TPU probe and the conv unit's own GEMM shapes on the card, each
@@ -45,9 +48,10 @@ MODES = {"window": 0, "im2col": 1}
 # taps_fold: 128 output rows a tile, 64-wide K chunks (A sub-tiles of 16 KB)
 TILE_ROWS, K_TILE = 128, 64
 A_TILE_BYTES = TILE_ROWS * K_TILE * 2
+TAP_SMEM = common.SMEM_LIMIT - 1024  # the ring and the weights; the fold's barrier above
 FOLD, WHOLE, SPLIT = 0, 1, 2  # how a tile's items run (csrc/probe_taps.cu TapMode)
 AS_IS, HI, LO = 0, 1, 2       # a product's weight (Part)
-PLAN_HEADER, PLAN_TABLE = 16, 32
+PLAN_HEADER, PLAN_TABLE = 20, 32
 
 
 def shifted_rows(x: torch.Tensor, off: int, m: int) -> torch.Tensor:
@@ -107,10 +111,11 @@ def fold_taps_reference(w, offsets):
 @dataclasses.dataclass(frozen=True)
 class TapPlan:
     """How ``taps_fold`` runs one signature: the column tile, the mode,
-    whether the weights are folded per item (they do not fit in shared
+    whether the weights stream through a ring (they do not fit in shared
     memory at any column tile), the A ring's slots and 64-wide sub-tiles a
     slot, items a tile, the distinct offsets, the products (distinct offset
-    index, part, taps), shared memory bytes, and the C plan."""
+    index, part, taps), the shared memory the ring and the weights take, the
+    elements of the folded weights' scratch, and the C plan."""
     nt: int
     mode: int
     streamed: bool
@@ -120,6 +125,7 @@ class TapPlan:
     offsets: tuple
     products: tuple
     smem: int
+    folded: int
     ints: object = dataclasses.field(compare=False, repr=False)
 
 
@@ -141,9 +147,9 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     consecutive taps at one offset (all 9 of variant E are one run), so the
     bf16 sum rounds in the function's order. The folded weights (products x
     K padded to 64 x the column tile, bf16) stay resident beside an A ring
-    of 16 KB slots, at the largest column tile where they fit (bf16
-    accumulation first tries the whole of K in one item, two slots); else
-    each item folds its own."""
+    of 2-4 slots of 16 KB, at the largest column tile where they fit, with
+    the most slots that fit (bf16 accumulation first tries the whole of K in
+    one item, two slots); else each item folds its own."""
     if bf16_acc:
         runs = [[offsets[0], [0]]]
         for t, off in enumerate(offsets[1:], 1):
@@ -169,22 +175,22 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     choice = None
     for nt in column_tiles(n):
         w_bytes = len(products) * nkc * nt * K_TILE * 2
-        options = ([(WHOLE, 2, nkc)] if bf16_acc and nkc <= 4 else []) + [(by_tap, 3, 1),
-                                                                           (by_tap, 2, 1)]
+        options = ([(WHOLE, 2, nkc)] if bf16_acc and nkc <= 4 else []) + [
+            (by_tap, slots, 1) for slots in (4, 3, 2)]
         for mode, slots, nsub in options:
-            if slots * nsub * A_TILE_BYTES + w_bytes <= common.SMEM_LIMIT:
+            if slots * nsub * A_TILE_BYTES + w_bytes <= TAP_SMEM:
                 choice = (nt, mode, False, slots, nsub, w_bytes)
                 break
         if choice:
             break
-    if choice is None:  # an item's products (at most 2) folded before it runs
+    if choice is None:  # each item's products (at most 2) copied in before it runs
         nt = n_tile(n)
-        choice = (nt, by_tap, True, 3, 1, 2 * nt * K_TILE * 2)
+        choice = (nt, by_tap, True, 3, 1, (3 + 1) * 2 * nt * K_TILE * 2)
     nt, mode, streamed, slots, nsub, w_bytes = choice
     items = {FOLD: nkc * len(distinct), WHOLE: len(distinct), SPLIT: len(products) * nkc}[mode]
-    w_offset = slots * nsub * A_TILE_BYTES
-    tables = [[0] * PLAN_TABLE for _ in range(8)]
-    d_off, d_p0, d_np, p_d, p_part, p_t0, p_nt, tap_idx = tables
+    w_offset = (TAP_SMEM - w_bytes) // 1024 * 1024  # the weights at the top
+    tables = [[0] * PLAN_TABLE for _ in range(10)]
+    d_off, d_p0, d_np, p_d, p_part, p_t0, p_nt, tap_idx, g_p, p_g = tables
     starts = []
     for d, taps in enumerate(d_taps):
         d_off[d] = distinct[d]
@@ -196,11 +202,17 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
         d_np[d] += 1
         p_d[p], p_part[p], p_nt[p] = d, part, len(taps)
         p_t0[p] = starts[d] + d_taps[d].index(taps[0])
+    groups = [p for p, (_, part, _) in enumerate(products) if part != LO]  # one fold each
+    for g, p in enumerate(groups):
+        g_p[g], p_g[p] = p, g
+        if products[p][1] == HI:
+            p_g[p + 1] = g
     header = [k, n, nt, nkc, n // nt, mode, int(streamed), slots, nsub, items, len(distinct),
-              len(products), w_offset, w_offset + w_bytes, int(bf16_acc), 0]
+              len(products), w_offset, w_bytes, int(bf16_acc), len(groups), 0, 0, 0, 0]
     values = header + [v for table in tables for v in table]
     return TapPlan(nt, mode, streamed, slots, nsub, items, distinct, tuple(products),
-                   w_offset + w_bytes, (ctypes.c_int * len(values))(*values))
+                   slots * nsub * A_TILE_BYTES + w_bytes, len(products) * nkc * K_TILE * n,
+                   (ctypes.c_int * len(values))(*values))
 
 
 def launch_taps(x, w, out, offsets, *, gstride, rstride, rows, k, colbase, nlo, nhi, mode):
@@ -254,7 +266,8 @@ def check_taps(x, w, offsets, m):
 
 
 def run_tap_sum(x, w, offsets, m, acc_dtype=torch.float32):
-    """Check CUDA inputs and launch ``taps_fold`` once (uncounted)."""
+    """Check CUDA inputs and run the tap sum once (uncounted): the fold
+    launch into a scratch of the folded weights, then ``taps_fold``."""
     check_cuda(x, w)
     check_taps(x, w, offsets, m)
     if acc_dtype not in (torch.float32, torch.bfloat16):
@@ -266,12 +279,30 @@ def run_tap_sum(x, w, offsets, m, acc_dtype=torch.float32):
     plan = tap_plan(k, n, tuple(offsets), acc_dtype == torch.bfloat16)
     out = torch.empty((g, m, n), dtype=x.dtype, device=x.device)
     lib = kernels.load("probe_taps")
-    with torch.cuda.device(x.device):
-        err = lib.pt_tap_sum(x.data_ptr(), w.data_ptr(), out.data_ptr(), g, rows, m, plan.ints,
-                             torch.cuda.current_stream(x.device).cuda_stream)
+    if x.device.index == torch.cuda.current_device():
+        err = _launch(lib, x, w, out, plan, g, rows, m)
+    else:
+        with torch.cuda.device(x.device):
+            err = _launch(lib, x, w, out, plan, g, rows, m)
     if err != 0:
         raise RuntimeError(f"probe_taps tap-sum launch failed: CUDA error {err}")
     return out
+
+
+# The folded weights' scratch of each (device, stream): the fold launch
+# writes it and ``taps_fold`` reads it, in stream order, so one call's use
+# ends before the next call's fold starts.
+_FOLDED = {}
+
+
+def _launch(lib, x, w, out, plan, g, rows, m):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    key = (x.device.index, stream)
+    folded = _FOLDED.get(key)
+    if folded is None or folded.numel() < plan.folded:
+        folded = _FOLDED[key] = torch.empty(plan.folded, dtype=torch.bfloat16, device=x.device)
+    return lib.pt_tap_sum(x.data_ptr(), w.data_ptr(), out.data_ptr(), folded.data_ptr(), g, rows,
+                          m, plan.ints, stream)
 
 
 def tap_sum(x: torch.Tensor, w: torch.Tensor, offsets: Optional[Sequence[int]] = None,

@@ -495,11 +495,15 @@ def test_tap_sum_matches_plain(cuda, taps, k, n, offsets, acc):
         assert dot_probe.bf16_rounding_share(got, want, f32_acc) <= dot_probe.E_ROUNDING_SHARE
 
 
-def test_tap_sum_is_one_launch(cuda):
+def test_tap_sum_is_the_fold_then_the_products(cuda):
+    """One call counts one launch of the probe and makes two CUDA launches:
+    the fold, then ``taps_fold`` under programmatic dependent launch."""
     x, w = _probe_taps(2, 1000, 128, 9, 64, cuda)
     offsets = TAP_OFFSETS["k577"](9)
     dot_probe.tap_sum(x, w, offsets, 400)
-    assert len(cuda_launches(lambda: dot_probe.tap_sum(x, w, offsets, 400)).launches) == 1
+    before = dot_probe.tap_sum.launches
+    assert len(cuda_launches(lambda: dot_probe.tap_sum(x, w, offsets, 400)).launches) == 2
+    assert dot_probe.tap_sum.launches == before + 1
 
 
 @pytest.mark.parametrize("variant", sorted(rowoffset_probe.OFFSETS))

@@ -454,20 +454,23 @@ PROBE_PLANS = [
 def test_tap_plan_keeps_probe_weights_resident(signature, want):
     plan = dot_probe.tap_plan(*signature)
     assert (plan.nt, plan.mode, len(plan.products)) == want
-    assert not plan.streamed and plan.smem <= 232448
+    assert not plan.streamed and plan.smem <= dot_probe.TAP_SMEM
 
 
 def test_tap_plan_tables():
     """The C plan: header, then each distinct offset's rows and products,
-    each product's offset, part and taps; bf16 accumulation keeps tap order
-    in runs of one offset."""
+    each product's offset, part and taps, and the fold groups (a hi and lo
+    pair is one); bf16 accumulation keeps tap order in runs of one
+    offset."""
     plan = dot_probe.tap_plan(128, 64, (0, 577, 1154) * 3, False)
     ints = list(plan.ints)
-    assert ints[:15] == [128, 64, 64, 2, 1, dot_probe.FOLD, 0, 3, 1, 6, 3, 6, 49152, 147456, 0]
+    assert ints[:16] == [128, 64, 64, 2, 1, dot_probe.FOLD, 0, 4, 1, 6, 3, 6, 133120, 98304, 0,
+                         3]
     table = ints[dot_probe.PLAN_HEADER:]
     assert table[:3] == [0, 577, 1154] and table[32:35] == [0, 2, 4] and table[64:67] == [2, 2, 2]
     assert table[128:134] == [dot_probe.HI, dot_probe.LO] * 3
     assert table[224:233] == [0, 3, 6, 1, 4, 7, 2, 5, 8]
+    assert table[256:259] == [0, 2, 4] and table[288:294] == [0, 0, 1, 1, 2, 2]  # fold groups
     runs = dot_probe.tap_plan(128, 64, (0, 577, 1154) * 3, True)
     assert runs.offsets == (0, 577, 1154) * 3 and runs.mode == dot_probe.WHOLE
     assert [p[2] for p in runs.products] == [(t,) for t in range(9)]
