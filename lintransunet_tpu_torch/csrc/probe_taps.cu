@@ -277,7 +277,6 @@ constexpr int kMaxDevices = 64;
 // Shared memory: the A ring from 0, the weights (resident, or a ring of
 // slots) below kTapSmem, the weights' mbarriers at kTapSmem.
 constexpr int kTapSmem = kSmemLimit - 1024;
-constexpr int kPlanInts = kPlanHeader + 10 * 32;
 
 // How a tile's items run: folded f32 sum (an item is one distinct offset at
 // one K chunk); bf16 accumulation with the whole of K in one item (an item
@@ -303,7 +302,6 @@ struct TapArgs {
   int p_d[kMaxP], p_part[kMaxP], p_t0[kMaxP], p_nt[kMaxP];  // taps tap_idx[t0 .. t0 + nt)
   int tap_idx[kMaxP];
   int g_p[kMaxP];      // fold group g's first product (a lone tap, hi, or one tap)
-  int p_g[kMaxP];      // product p's fold group
 };
 
 // A walk over a block's steps: the step's item (its index i in the tile,
@@ -862,14 +860,13 @@ int pt_forward(const void* x, const void* w, void* out, long long gstride, int r
 // dependent launch. x: bf16 (groups, rows, k), w: bf16 (taps, k, n), out:
 // bf16 (groups, m, n), all contiguous; folded: bf16 scratch of n * 64 * K
 // chunks * products elements for the folded weights. plan:
-// `dot_probe.tap_plan`'s kPlanInts ints: a header (k, n, column tile,
+// `dot_probe.tap_plan`'s ints: a header of 20 (k, n, column tile,
 // 64-wide K chunks, column tiles, mode, streamed, ring slots, sub-tiles a
 // slot, items a tile, distinct offsets, products, the weights' byte offset
-// in shared memory and their bytes, bf16 accumulation, fold groups) and ten
+// in shared memory and their bytes, bf16 accumulation, fold groups) and nine
 // tables of 32 (each distinct offset's rows, first product and product
 // count; each product's distinct offset, part, first tap and tap count; the
-// taps by product; each fold group's first product; each product's fold
-// group). Launches on `stream`; returns the CUDA error (0 on success).
+// taps by product; each fold group's first product). Launches on `stream`; returns the CUDA error (0 on success).
 int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups, int rows,
                int m, const int* plan, void* stream) {
   const int* h = plan;
@@ -917,7 +914,6 @@ int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups
     a.p_nt[i] = t[192 + i];
     a.tap_idx[i] = t[224 + i];
     a.g_p[i] = t[256 + i];
-    a.p_g[i] = t[288 + i];
   }
   auto s = static_cast<cudaStream_t>(stream);
   auto fold = static_cast<bf16*>(folded);
@@ -930,7 +926,6 @@ int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups
   }
 }
 
-int pt_plan_ints() { return kPlanInts; }
 
 
 // out (64, n) f32 = a (64, k) @ bt (n, k)^T, bf16 operands, on one

@@ -189,8 +189,8 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     nt, mode, streamed, slots, nsub, w_bytes = choice
     items = {FOLD: nkc * len(distinct), WHOLE: len(distinct), SPLIT: len(products) * nkc}[mode]
     w_offset = (TAP_SMEM - w_bytes) // 1024 * 1024  # the weights at the top
-    tables = [[0] * PLAN_TABLE for _ in range(10)]
-    d_off, d_p0, d_np, p_d, p_part, p_t0, p_nt, tap_idx, g_p, p_g = tables
+    tables = [[0] * PLAN_TABLE for _ in range(9)]
+    d_off, d_p0, d_np, p_d, p_part, p_t0, p_nt, tap_idx, g_p = tables
     starts = []
     for d, taps in enumerate(d_taps):
         d_off[d] = distinct[d]
@@ -204,9 +204,7 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
         p_t0[p] = starts[d] + d_taps[d].index(taps[0])
     groups = [p for p, (_, part, _) in enumerate(products) if part != LO]  # one fold each
     for g, p in enumerate(groups):
-        g_p[g], p_g[p] = p, g
-        if products[p][1] == HI:
-            p_g[p + 1] = g
+        g_p[g] = p
     header = [k, n, nt, nkc, n // nt, mode, int(streamed), slots, nsub, items, len(distinct),
               len(products), w_offset, w_bytes, int(bf16_acc), len(groups), 0, 0, 0, 0]
     values = header + [v for table in tables for v in table]

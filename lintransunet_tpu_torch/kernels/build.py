@@ -49,7 +49,6 @@ SIGNATURES = {
         "pt_forward": (_I, [_P, _P, _P, _L] + [_I] * 7 + [_P] * 4 + [_I, _I, _P]),
         "pt_smem_bytes": (_I, [_I, _I, _I]),
         "pt_tap_sum": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P]),
-        "pt_plan_ints": (_I, []),
         "pt_wgmma_product": (_I, [_P, _P, _P, _I, _I, _P]),
     },
     "probe_conv": {
