@@ -46,7 +46,7 @@ MAX_TAPS = 32
 MAX_K = 2048
 MODES = {"window": 0, "im2col": 1}
 # taps_fold: 128 output rows a tile, 64-wide K chunks (A sub-tiles of 16 KB)
-TILE_ROWS, K_TILE = 128, 64
+TILE_ROWS, K_TILE, THREADS = 128, 64, 256
 A_TILE_BYTES = TILE_ROWS * K_TILE * 2
 TAP_SMEM = common.SMEM_LIMIT - 1024  # the ring and the weights; the fold's barrier above
 FOLD, WHOLE, SPLIT = 0, 1, 2  # how a tile's items run (csrc/probe_taps.cu TapMode)
@@ -147,9 +147,10 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     consecutive taps at one offset (all 9 of variant E are one run), so the
     bf16 sum rounds in the function's order. The folded weights (products x
     K padded to 64 x the column tile, bf16) stay resident beside an A ring
-    of 2-4 slots of 16 KB, at the largest column tile where they fit, with
-    the most slots that fit (bf16 accumulation first tries the whole of K in
-    one item, two slots); else each item folds its own."""
+    of 2-4 slots of 16 KB (and, with bf16 accumulation, the running sums),
+    at the largest column tile where they fit, with the most slots that fit
+    (bf16 accumulation first tries the whole of K in one item, two slots);
+    else each item's tiles stream through a ring."""
     if bf16_acc:
         runs = [[offsets[0], [0]]]
         for t, off in enumerate(offsets[1:], 1):
@@ -172,13 +173,21 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
             products += [(d, HI, taps), (d, LO, taps)]
     nkc = -(-k // K_TILE)
     by_tap = SPLIT if bf16_acc else FOLD
+
+    def layout(nt, slots, nsub, w_bytes):
+        """(ring bytes, running sums' bytes, weights' offset) if they fit."""
+        ring = slots * nsub * A_TILE_BYTES
+        sums = nt * THREADS if bf16_acc else 0  # NT / 4 bf16 pairs a thread
+        w_offset = (TAP_SMEM - w_bytes) // 1024 * 1024  # the weights at the top
+        return (ring, sums, w_offset) if ring + sums <= w_offset else None
+
     choice = None
     for nt in column_tiles(n):
         w_bytes = len(products) * nkc * nt * K_TILE * 2
         options = ([(WHOLE, 2, nkc)] if bf16_acc and nkc <= 4 else []) + [
             (by_tap, slots, 1) for slots in (4, 3, 2)]
         for mode, slots, nsub in options:
-            if slots * nsub * A_TILE_BYTES + w_bytes <= TAP_SMEM:
+            if layout(nt, slots, nsub, w_bytes):
                 choice = (nt, mode, False, slots, nsub, w_bytes)
                 break
         if choice:
@@ -187,8 +196,8 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
         nt = n_tile(n)
         choice = (nt, by_tap, True, 3, 1, (3 + 1) * 2 * nt * K_TILE * 2)
     nt, mode, streamed, slots, nsub, w_bytes = choice
+    ring, sums, w_offset = layout(nt, slots, nsub, w_bytes)
     items = {FOLD: nkc * len(distinct), WHOLE: len(distinct), SPLIT: len(products) * nkc}[mode]
-    w_offset = (TAP_SMEM - w_bytes) // 1024 * 1024  # the weights at the top
     tables = [[0] * PLAN_TABLE for _ in range(9)]
     d_off, d_p0, d_np, p_d, p_part, p_t0, p_nt, tap_idx, g_p = tables
     starts = []
@@ -206,10 +215,10 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     for g, p in enumerate(groups):
         g_p[g] = p
     header = [k, n, nt, nkc, n // nt, mode, int(streamed), slots, nsub, items, len(distinct),
-              len(products), w_offset, w_bytes, int(bf16_acc), len(groups), 0, 0, 0, 0]
+              len(products), w_offset, w_bytes, int(bf16_acc), len(groups), ring, 0, 0, 0]
     values = header + [v for table in tables for v in table]
     return TapPlan(nt, mode, streamed, slots, nsub, items, distinct, tuple(products),
-                   slots * nsub * A_TILE_BYTES + w_bytes, len(products) * nkc * K_TILE * n,
+                   ring + sums + w_bytes, len(products) * nkc * K_TILE * n,
                    (ctypes.c_int * len(values))(*values))
 
 
