@@ -87,10 +87,11 @@ def n_tile(n: int) -> int:
 
 
 def fold_taps_reference(w, offsets):
-    """What ``taps_fold``'s prologue computes: (distinct offsets in order of
-    first appearance, hi, lo), hi and lo (D, K, N) bf16. A lone tap's weight
-    is hi as it is (lo 0); two or more taps sum in f32, in tap order, to s,
-    and hi = bf16(s), lo = bf16(s - hi). w: (T, K, N) bf16."""
+    """What the fold launch (``taps_fold_weights``) computes: (distinct
+    offsets in order of first appearance, hi, lo), hi and lo (D, K, N) bf16.
+    A lone tap's weight is hi as it is (lo 0); two or more taps sum in f32,
+    in tap order, to s, and hi = bf16(s), lo = bf16(s - hi). w: (T, K, N)
+    bf16."""
     distinct = list(dict.fromkeys(int(o) for o in offsets))
     his, los = [], []
     for off in distinct:
