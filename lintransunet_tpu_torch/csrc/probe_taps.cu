@@ -65,8 +65,9 @@
 // * bf16 accumulation: where the whole of K fits in one item, A is staged
 //   once for each run of consecutive taps at one offset and each tap's
 //   product goes into a fresh accumulator, rounded to bf16 and added into
-//   the running bf16 sum in registers; otherwise each (tap, K chunk) is an
-//   item of its own. The taps keep their order, so the sum rounds in the
+//   the running bf16 sum, kept in shared memory (in registers it makes ptxas
+//   serialise the `wgmma`s); otherwise each (tap, K chunk) is an item of its
+//   own. The taps keep their order, so the sum rounds in the
 //   function's order.
 //
 // `taps_window` (#11; `pt_forward`), PR 4's kernel, kept for the inner-loop
@@ -274,8 +275,9 @@ constexpr int kMaxD = 32;                    // distinct offsets
 constexpr int kMaxP = 32;                    // products (hi and lo count two)
 constexpr int kPlanHeader = 20;
 constexpr int kMaxDevices = 64;
-// Shared memory: the A ring from 0, the weights (resident, or a ring of
-// slots) below kTapSmem, the weights' mbarriers at kTapSmem.
+// Shared memory: the A ring from 0, then (bf16 accumulation) the running
+// sums, the weights (resident, or a ring of slots) below kTapSmem, the
+// weights' mbarriers at kTapSmem.
 constexpr int kTapSmem = kSmemLimit - 1024;
 
 // How a tile's items run: folded f32 sum (an item is one distinct offset at
@@ -297,6 +299,7 @@ struct TapArgs {
   int mode, streamed, slots, nsub, items;
   int nd, np, ng;
   int w_offset;        // bytes from the start of shared memory to the weights
+  int sum_offset;      // bf16 accumulation: bytes to the running sums (after the ring)
   int d_off[kMaxD];    // distinct offset d's rows, and its products
   int d_p0[kMaxD], d_np[kMaxD];
   int p_d[kMaxP], p_part[kMaxP], p_t0[kMaxP], p_nt[kMaxP];  // taps tap_idx[t0 .. t0 + nt)
@@ -562,13 +565,34 @@ __device__ __forceinline__ void zero(float (&v)[R]) {
   for (int i = 0; i < R; ++i) v[i] = 0.f;
 }
 
-// sum = bf16(sum + bf16(acc)), the sum of two bf16 values rounded (first:
-// sum = bf16(acc))
+// sum = bf16(sum + bf16(t)), the sum of two bf16 values rounded (first:
+// sum = bf16(t)). The thread's R running sums live in shared memory as R / 2
+// bf16 pairs at sum[j * kThreads + tid]: carried in registers from `wgmma`
+// to `wgmma`, ptxas serialises every `wgmma` of the kernel (its note C7513).
 template <int R>
-__device__ __forceinline__ void round_add(float (&sum)[R], const float (&acc)[R], bool first) {
+__device__ __forceinline__ void round_add(unsigned* sum, const float (&t)[R], bool first,
+                                          int tid) {
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    sum[i] = ltu::round_to<bf16>((first ? 0.f : sum[i]) + ltu::round_to<bf16>(acc[i]));
+  for (int j = 0; j < R / 2; ++j) {
+    float lo = 0.f, hi = 0.f;
+    if (!first) {
+      const unsigned v = sum[j * kThreads + tid];
+      lo = __bfloat162float(reinterpret_cast<const __nv_bfloat162*>(&v)->x);
+      hi = __bfloat162float(reinterpret_cast<const __nv_bfloat162*>(&v)->y);
+    }
+    sum[j * kThreads + tid] = ltu::pack_bf16x2(lo + ltu::round_to<bf16>(t[2 * j]),
+                                               hi + ltu::round_to<bf16>(t[2 * j + 1]));
+  }
+}
+
+// The thread's running sums (round_add) as floats.
+template <int R>
+__device__ __forceinline__ void load_sum(float (&t)[R], const unsigned* sum, int tid) {
+#pragma unroll
+  for (int j = 0; j < R / 2; ++j) {
+    const unsigned v = sum[j * kThreads + tid];
+    t[2 * j] = __bfloat162float(reinterpret_cast<const __nv_bfloat162*>(&v)->x);
+    t[2 * j + 1] = __bfloat162float(reinterpret_cast<const __nv_bfloat162*>(&v)->y);
   }
 }
 
@@ -631,7 +655,8 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
   }
   if (!kStreamed) ltu::mbar_wait(wbar, 0);
 
-  float acc[NA][NT / 2], tot[NT / 2], sum[kBf16Acc ? NT / 2 : 1];
+  float acc[NA][NT / 2], tot[NT / 2];
+  auto* sum = reinterpret_cast<unsigned*>(smem + a.sum_offset);  // bf16 accumulation
   unsigned af[2][4][4] = {};
   // step s: its item's A landed, the next copies issued, its products; item
   // s reads fragment set s % 2 (SET), so the loop runs steps in pairs
@@ -662,41 +687,25 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
                        : wts + (c * a.np + p) * kTile;
     };
     if constexpr (kBf16Acc) {
-#ifdef PT_NO_SPLIT
-      if (true) {
-#else
       if (a.mode == kWhole) {  // every tap of this run over all of K
-#endif
         for (int p = cu.p0; p < cu.p0 + cu.np; ++p) {
           for (int c = 0; c < a.nsub; c += 2) {
-#ifdef PT_NO_FRESH
-            product<NT, NA, 0>(acc, af, a_tile + c * kATile, wtile(p, c), nullptr, 1, false,
-                               warp, lane);
-#else
             product<NT, NA, 0>(acc, af, a_tile + c * kATile, wtile(p, c), nullptr, 1, c == 0,
                                warp, lane);
-#endif
             if (c + 1 < a.nsub) {
               product<NT, NA, 1>(acc, af, a_tile + (c + 1) * kATile, wtile(p, c + 1), nullptr,
                                  1, false, warp, lane);
             }
           }
           wait_sum(acc, tot);
-#if defined(PT_ROUND_PLAIN)
-#pragma unroll
-          for (int i = 0; i < NT / 2; ++i) sum[i] += tot[i];
-#elif defined(PT_ROUND_ACC)
-          round_add(sum, acc[0], cu.i == 0 && p == cu.p0);
-#elif !defined(PT_NO_ROUND)
-          round_add(sum, tot, cu.i == 0 && p == cu.p0);
-#endif
+          round_add(sum, tot, cu.i == 0 && p == cu.p0, tid);
         }
       } else {
         product<NT, NA, SET>(acc, af, a_tile, wtile(cu.p0, cu.kc), nullptr, 1, cu.kc == 0, warp,
                              lane);
         if (cu.tap_last(a)) {
           wait_sum(acc, tot);
-          round_add(sum, tot, cu.p0 == 0);  // the tile's first tap
+          round_add(sum, tot, cu.p0 == 0, tid);  // the tile's first tap
         }
       }
     } else {
@@ -706,7 +715,8 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
     if (cu.i == a.items - 1) {  // the slot read this step is spent: the stores' stage
       bf16* stage = ring + (s % a.slots) * slot_elems;
       if constexpr (kBf16Acc) {
-        store_tile<NT>(a, sum, stage, cu.g, cu.m0, n0, tid);
+        load_sum(tot, sum, tid);
+        store_tile<NT>(a, tot, stage, cu.g, cu.m0, n0, tid);
       } else {
         wait_sum(acc, tot);
         store_tile<NT>(a, tot, stage, cu.g, cu.m0, n0, tid);
@@ -879,10 +889,12 @@ int pt_forward(const void* x, const void* w, void* out, long long gstride, int r
 // `dot_probe.tap_plan`'s ints: a header of 20 (k, n, column tile,
 // 64-wide K chunks, column tiles, mode, streamed, ring slots, sub-tiles a
 // slot, items a tile, distinct offsets, products, the weights' byte offset
-// in shared memory and their bytes, bf16 accumulation, fold groups) and nine
-// tables of 32 (each distinct offset's rows, first product and product
-// count; each product's distinct offset, part, first tap and tap count; the
-// taps by product; each fold group's first product). Launches on `stream`; returns the CUDA error (0 on success).
+// in shared memory and their bytes, bf16 accumulation, fold groups, the
+// running sums' byte offset in shared memory) and nine tables of 32 (each
+// distinct offset's rows, first product and product count; each product's
+// distinct offset, part, first tap and tap count; the taps by product; each
+// fold group's first product). Launches on `stream`; returns the CUDA error
+// (0 on success).
 int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups, int rows,
                int m, const int* plan, void* stream) {
   const int* h = plan;
@@ -908,12 +920,15 @@ int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups
   a.w_offset = h[12];
   const int w_bytes = h[13], bf16_acc = h[14];
   a.ng = h[15];
+  a.sum_offset = h[16];
   a.row_tiles = (m + kRows - 1) / kRows;
+  const int ring_bytes = a.slots * a.nsub * kATile * 2;
   if (groups < 1 || m < 1 || rows < 1 || a.k < 8 || a.k % 8 || a.nkc != (a.k + kKT - 1) / kKT ||
       a.n % a.nt || a.col_tiles != a.n / a.nt || a.nd < 1 || a.nd > kMaxD || a.np < 1 ||
-      a.np > kMaxP || a.ng < 1 || a.ng > a.np || a.slots < 2 || a.slots > 4 || a.nsub < 1 || a.nsub > 4 || a.items < 1 ||
-      a.w_offset % 1024 || a.w_offset < a.slots * a.nsub * kATile * 2 ||
-      a.w_offset + w_bytes > kTapSmem || (a.mode == kWhole && a.nsub != a.nkc) ||
+      a.np > kMaxP || a.ng < 1 || a.ng > a.np || a.slots < 2 || a.slots > 4 || a.nsub < 1 ||
+      a.nsub > 4 || a.items < 1 || (a.mode == kWhole && a.nsub != a.nkc) ||
+      a.w_offset % 1024 || a.w_offset < ring_bytes || a.w_offset + w_bytes > kTapSmem ||
+      (bf16_acc && (a.sum_offset < ring_bytes || a.sum_offset + a.nt * kThreads > a.w_offset)) ||
       static_cast<long long>(groups) * a.row_tiles > (1LL << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
