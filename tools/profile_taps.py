@@ -70,8 +70,12 @@ def kernel_us(fn):
         for _ in range(10):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0][-40:]: e.device_time_total / 10
-            for e in prof.key_averages() if e.device_time_total > 0}
+    times = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            times[name.split("(")[0][:40]] = e.device_time_total / 10
+    return times
 
 
 def main():
