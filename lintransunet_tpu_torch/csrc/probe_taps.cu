@@ -32,7 +32,7 @@
 //   kernel: it writes every column tile's folded weights once, K-major and
 //   swizzled as the main kernel keeps them, into a scratch. Folded in each
 //   block's prologue instead, every one of 132 blocks read all the raw taps
-//   from L2 (147 KB at #10 A), 11-39k cycles of a block (PERF.md).
+//   from L2 (147 KB at #10 A), the longest part of a block (PERF.md).
 // * `taps_fold` runs under programmatic dependent launch: it stages its
 //   first A items while the fold runs, then one thread waits for the fold
 //   (`griddepcontrol.wait`) and bulk-copies the block's folded tiles into
@@ -70,13 +70,13 @@
 //   own. The taps keep their order, so the sum rounds in the
 //   function's order.
 //
-// `taps_window` (#11; `pt_forward`), PR 4's kernel, kept for the inner-loop
-// probe until its own redesign. Column k of a row of A sits at a per-chunk
-// base (`colbase`), so one operand can be spliced from several planes
-// without a copy (the level-0 "paired" layout), and a chunk of K can be
-// restricted to a range of output columns (a block-diagonal W whose zero
-// blocks are skipped). A block owns 128 output rows and NT <= 128 columns;
-// K goes through in chunks of 32 on `mma.sync`.
+// `taps_window` (#11; `pt_forward`), the first H100 kernel of these probes,
+// kept for the inner-loop probe until its own redesign. Column k of a row of
+// A sits at a per-chunk base (`colbase`), so one operand can be spliced from
+// several planes without a copy (the level-0 "paired" layout), and a chunk
+// of K can be restricted to a range of output columns (a block-diagonal W
+// whose zero blocks are skipped). A block owns 128 output rows and NT <= 128
+// columns; K goes through in chunks of 32 on `mma.sync`.
 // * Staging mode `window`: per K chunk, the block stages the union of its
 //   taps' rows once, [m0 + min off, m0 + 128 + max off), and every tap
 //   reads its operand at a shifted row of it. Weights go through 9 taps at

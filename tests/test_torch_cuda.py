@@ -469,7 +469,7 @@ TAP_OFFSETS = {
     (9, 128, 64, "k577", torch.bfloat16),       # bf16 accumulation, one run a tap
     (9, 128, 32, "distinct", torch.float32),
     (9, 128, 128, "negative", torch.float32),
-    (9, 128, 64, "past_r", torch.float32),      # PR 4's kernel refused it (window too large)
+    (9, 128, 64, "past_r", torch.float32),      # the window kernel refused it (too large)
     (9, 16, 16, "past_r", torch.float32),
     (9, 1152, 64, "k577", torch.float32),       # weights folded per item (too large to keep)
     (9, 1152, 64, "zero", torch.bfloat16),      # bf16 accumulation by (tap, K chunk)
