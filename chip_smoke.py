@@ -115,6 +115,7 @@ from lintransunet_tpu_torch.experiments.common import (
     HBM_BYTES_PER_S,
     PEAK_FLOPS,
     bound,
+    card_line,
     cuda_ms,
     in_turns,
 )
@@ -607,8 +608,9 @@ def probe_path(inp):
 def probe_cases(inp):
     """One dict per probe comparison on ``probe_inputs()`` (and #7 also in
     f32): the kernel's call, its plain version, the library call (or None),
-    (FLOPs the function needs, compulsory bytes), the tolerance, and whether
-    it is the probe's row of the kernels line."""
+    (FLOPs the function needs, compulsory bytes), the tolerance, whether it
+    is the probe's row of the kernels line, and whether its card time is
+    printed beside its events (``card``: the tap sums, host-bound by events)."""
     bf16, f32, device = torch.bfloat16, torch.float32, "cuda"
     cases = []
     x, w = inp["dot"]
@@ -616,13 +618,14 @@ def probe_cases(inp):
         name="tap_sum", what="#10 variant A, 9 taps (16 x 4096, 128) @ (128, 64)",
         run=lambda: dot_probe.tap_sum(x, w), plain=lambda: dot_probe.tap_sum_reference(x, w),
         library=lambda: dot_probe.library(x, w), costs=dot_probe.tap_sum_costs(x, w),
-        tol=TOL[bf16], dtype=bf16, entry=True))
+        tol=TOL[bf16], dtype=bf16, entry=True, card=True))
     cases.append(dict(
         name="tap_sum", what="#10 variant E, bf16 accumulation",
         run=lambda: dot_probe.tap_sum(x, w, acc_dtype=bf16),
         plain=lambda: dot_probe.tap_sum_reference(x, w, acc_dtype=bf16),
         f32_acc=lambda: dot_probe.tap_sum_reference(x, w), library=None,
-        costs=dot_probe.tap_sum_costs(x, w, acc_dtype=bf16), tol=PROBE_E_TOL, dtype=bf16))
+        costs=dot_probe.tap_sum_costs(x, w, acc_dtype=bf16), tol=PROBE_E_TOL, dtype=bf16,
+        card=True))
     xr, wr = inp["rows"]
     for variant, offsets in rowoffset_probe.OFFSETS.items():
         cases.append(dict(
@@ -631,7 +634,7 @@ def probe_cases(inp):
             plain=lambda o=offsets: rowoffset_probe.row_offset_sum_reference(xr, wr, o),
             library=rowoffset_probe.library_call(xr, wr, offsets),
             costs=dot_probe.tap_sum_costs(xr, wr, rowoffset_probe.M, offsets),
-            tol=TOL[bf16], dtype=bf16, entry=variant == ROW_OFFSET_MAIN))
+            tol=TOL[bf16], dtype=bf16, entry=variant == ROW_OFFSET_MAIN, card=True))
     z, kp, ku, kd = inp["inner"]
     ke = inner_probe.pack_weights(kp, ku, kd)
     for strategy in inner_probe.STRATEGIES:
@@ -713,6 +716,9 @@ def phase_probes_vs_plain(cases):
               f"{plain_ms:.4f} ms library {lib} bound {bound_ms:.4f} ms ({bound_by}), "
               f"kernel at {bound_ms / ms * 100:.1f}% of it {'ok' if ok else 'TOO FAR'}",
               flush=True)
+        if case.get("card"):  # host-bound by events: the card's own time beside them
+            print(f"[probe] {case['name']} {case['what']}:"
+                  f"{card_line(case['run'], case['library'])}", flush=True)
         if not ok:
             fail(f"probe kernel disagrees with plain: {case['name']} {case['what']}")
         if case.get("entry"):

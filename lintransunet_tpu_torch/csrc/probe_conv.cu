@@ -448,50 +448,54 @@ int launch_mma(MmaArgs a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// One warpgroup: out (64 x 64, f32) = a (64 x k, bf16, row-major) times B,
-// given K-major as bt (64 x k, bf16), by `ltu::wgmma_m64n64k16`: A from
-// registers (`ldmatrix`), B staged in tiles of 64 rows of `row_bytes` (64 or
+// One warpgroup: out (64 x N, f32) = a (64 x k, bf16, row-major) times B,
+// given K-major as bt (N x k, bf16), by `ltu::wgmma_m64k16<N>`: A from
+// registers (`ldmatrix`), B staged in tiles of N rows of `row_bytes` (64 or
 // 128) bytes, zeros past k, and read at k / 16 descriptor steps. The card
-// test of the helper alone.
+// test of each `wgmma` width alone (the conv takes N 64, the tap sums 16, 32,
+// 64 and 128).
+template <int N>
 __global__ void __launch_bounds__(128) wgmma_product(const bf16* a, const bf16* bt, float* out,
                                                      int k, int row_bytes) {
   __shared__ __align__(1024) bf16 s_a[64 * 64];
-  __shared__ __align__(1024) bf16 s_b[64 * 64];
+  __shared__ __align__(1024) bf16 s_b[N * 64];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cpr = row_bytes / 16, k_tile = row_bytes / 2;
-  for (int i = tid; i < 64 * 8; i += 128) {
+  for (int i = tid; i < (64 + N) * 8; i += 128) {
     const int r = i / 8, piece = i % 8;
-    uint4 va = make_uint4(0, 0, 0, 0), vb = va;
-    if (piece * 8 < k) {
-      va = *reinterpret_cast<const uint4*>(a + r * k + piece * 8);
-      vb = *reinterpret_cast<const uint4*>(bt + r * k + piece * 8);
+    const bool is_a = r < 64;
+    const int row = is_a ? r : r - 64;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (piece * 8 < k) v = *reinterpret_cast<const uint4*>((is_a ? a : bt) + row * k + piece * 8);
+    if (is_a) {
+      *reinterpret_cast<uint4*>(s_a + ltu::swz(row, piece, 8)) = v;
+    } else {
+      *reinterpret_cast<uint4*>(s_b + (piece / cpr) * N * k_tile +
+                                ltu::swz(row, piece % cpr, cpr)) = v;
     }
-    *reinterpret_cast<uint4*>(s_a + ltu::swz(r, piece, 8)) = va;
-    *reinterpret_cast<uint4*>(s_b + (piece / cpr) * 64 * k_tile + ltu::swz(r, piece % cpr, cpr)) =
-        vb;
   }
   ltu::fence_proxy_async();  // the stores of B come before the tensor cores' reads
   __syncthreads();
-  float d[32];
+  float d[N / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
   for (int step = 0; step < k / 16; ++step) {
     unsigned af[4];
     ltu::ldsm_x4(af, s_a + ltu::swz(warp * 16 + (lane & 15), step * 2 + (lane >> 4), 8));
     const int byte = step * 32;
     const unsigned long long desc =
-        ltu::wgmma_desc_kmajor(s_b + (byte / row_bytes) * 64 * k_tile, row_bytes) +
+        ltu::wgmma_desc_kmajor(s_b + (byte / row_bytes) * N * k_tile, row_bytes) +
         ((byte % row_bytes) >> 4);
     ltu::wgmma_fence();
-    ltu::wgmma_m64n64k16(d, af, desc);
+    ltu::wgmma_m64k16<N>(d, af, desc);
     ltu::wgmma_commit();
     ltu::wgmma_wait<0>();
     ltu::wgmma_fence_operand(d);
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int row = warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
-    out[row * 64 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)] = d[i];
+    out[row * N + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)] = d[i];
   }
 }
 
@@ -499,17 +503,26 @@ __global__ void __launch_bounds__(128) wgmma_product(const bf16* a, const bf16* 
 
 extern "C" {
 
-// out (64, 64) f32 = a (64, k) @ bt (64, k)^T, bf16 operands, on one
-// warpgroup by `wgmma` (`wgmma_product`); k in {16, 32, 64}, row_bytes 64 or
-// 128. Returns the CUDA error (0 on success).
-int pc_wgmma_product(const void* a, const void* bt, void* out, int k, int row_bytes,
+// out (64, n) f32 = a (64, k) @ bt (n, k)^T, bf16 operands, on one
+// warpgroup by `wgmma` m64nNk16 (`wgmma_product`); n in {16, 32, 64, 128},
+// k in {16, 32, 48, 64}, row_bytes 64 or 128. Returns the CUDA error (0 on
+// success).
+int pc_wgmma_product(const void* a, const void* bt, void* out, int n, int k, int row_bytes,
                      void* stream) {
-  if ((k != 16 && k != 32 && k != 64) || (row_bytes != 64 && row_bytes != 128)) {
+  if (k < 16 || k > 64 || k % 16 || (row_bytes != 64 && row_bytes != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  wgmma_product<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(bt), static_cast<float*>(out), k,
-      row_bytes);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pa = static_cast<const bf16*>(a);
+  auto pb = static_cast<const bf16*>(bt);
+  auto po = static_cast<float*>(out);
+  switch (n) {
+    case 16: wgmma_product<16><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes); break;
+    case 32: wgmma_product<32><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes); break;
+    case 64: wgmma_product<64><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes); break;
+    case 128: wgmma_product<128><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

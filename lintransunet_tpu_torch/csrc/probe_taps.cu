@@ -38,16 +38,22 @@
 //   (`griddepcontrol.wait`) and bulk-copies the block's folded tiles into
 //   shared memory in one copy (resident, the largest column tile where they
 //   fit). Where they fit at no column tile, each item's tiles come by a bulk
-//   copy through a ring of weight slots one slot longer than the A ring, so
-//   that a slot is refilled only after the item that read it is done.
+//   copy through a ring of weight slots two longer than the A ring: at step
+//   s the copy for step s + ahead (ahead = A slots - 1) refills the slot
+//   that step s - 3 read, whose `wgmma`s every warpgroup has retired (its
+//   `wgmma_wait<1>` at step s - 1) before the barrier that the copy follows.
+//   One slot fewer would refill step s - 2's slot, which step s - 1's wait
+//   leaves in flight.
 // * Shifted tiles, not a window: a tile is 128 output rows (two warpgroups
 //   of 64) and NT <= 128 columns; per distinct offset and 64-wide K chunk
 //   the block stages rows [m0 + off, m0 + off + 128) into a tile swizzled by
 //   `ltu::swz`, by 16-byte `cp.async` with zero fill outside [0, rows) and
 //   past K. A row is 2 K bytes, so an offset of 577 rows is as aligned as
 //   one of 576, and a row of A is read once per distinct offset (again from
-//   L2), not (128 + span) / 128 times. A ring of 2-4 such items runs on
-//   across tiles, so the next tile's loads overlap this tile's epilogue.
+//   L2), not (128 + span) / 128 times. A ring of 2-8 such items (as many
+//   as fit beside the weights: all of a block's A at #10 A while the fold
+//   runs) runs on across tiles, so the next tile's loads overlap this
+//   tile's epilogue.
 // * Persistent grid: one block per SM, each on one column tile, walking row
 //   tiles in order within a group, so that the neighbouring tiles' shifted
 //   reads hit L2 (a #8 group spans 2.9 MB).
@@ -273,6 +279,7 @@ constexpr int kKT = 64;                      // K per A sub-tile and weight tile
 constexpr int kATile = kRows * kKT;          // elements of one A sub-tile (16 KB)
 constexpr int kMaxD = 32;                    // distinct offsets
 constexpr int kMaxP = 32;                    // products (hi and lo count two)
+constexpr int kMaxSlots = 8;                 // A ring slots (7 items ahead)
 constexpr int kPlanHeader = 20;
 constexpr int kMaxDevices = 64;
 // Shared memory: the A ring from 0, then (bf16 accumulation) the running
@@ -559,12 +566,6 @@ __device__ __forceinline__ void store_tile(const TapArgs& a, const float (&v)[NT
   }
 }
 
-template <int R>
-__device__ __forceinline__ void zero(float (&v)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) v[i] = 0.f;
-}
-
 // sum = bf16(sum + bf16(t)), the sum of two bf16 values rounded (first:
 // sum = bf16(t)). The thread's R running sums live in shared memory as R / 2
 // bf16 pairs at sum[j * kThreads + tid]: carried in registers from `wgmma`
@@ -613,7 +614,8 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
   bf16* wts = reinterpret_cast<bf16*>(smem + a.w_offset);
   // the weights' barriers: one (resident), or one per weight slot (streamed)
   auto* wbar = reinterpret_cast<unsigned long long*>(smem + kTapSmem);
-  const int wslots = a.slots + 1;  // streamed: a slot is refilled two steps after its last read
+  // streamed: the slot step s + ahead fills is step s - 3's (retired; see the note above)
+  const int wslots = a.slots + 2;
   const int ct = blockIdx.x % a.col_tiles, n0 = ct * NT;
   const bf16* wsrc = folded + static_cast<long long>(ct) * a.nkc * a.np * kTile;
   const int per_col = gridDim.x / a.col_tiles;
@@ -662,12 +664,14 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
   // s reads fragment set s % 2 (SET), so the loop runs steps in pairs
   auto step = [&](int s, auto set) {
     constexpr int SET = decltype(set)::value;
-    if (ahead == 1) {
-      ltu::cp_async_wait<0>();
-    } else if (ahead == 2) {
-      ltu::cp_async_wait<1>();
-    } else {
-      ltu::cp_async_wait<2>();
+    switch (ahead) {  // step s's group, with ahead - 1 later ones left in flight
+      case 1: ltu::cp_async_wait<0>(); break;
+      case 2: ltu::cp_async_wait<1>(); break;
+      case 3: ltu::cp_async_wait<2>(); break;
+      case 4: ltu::cp_async_wait<3>(); break;
+      case 5: ltu::cp_async_wait<4>(); break;
+      case 6: ltu::cp_async_wait<5>(); break;
+      default: ltu::cp_async_wait<6>(); break;
     }
     // every thread's copies of step s have landed; the block is done with
     // step s - 1's slot, which step s + ahead now fills
@@ -782,45 +786,6 @@ int dispatch_fold(const TapArgs& a, bool bf16_acc, bf16* folded, cudaStream_t s)
 }
 
 
-// One warpgroup: out (64 x N, f32) = a (64 x k, bf16, row-major) times B,
-// given K-major as bt (N x k, bf16), by `ltu::wgmma_m64k16<N>`: A from
-// registers (`ldmatrix`), B staged as one tile of N rows of 64 K values
-// (128-byte rows, swizzled), zeros past k, read at k / 16 descriptor steps.
-// The card test of each `wgmma` width alone.
-template <int N>
-__global__ void __launch_bounds__(128) wgmma_product(const bf16* a, const bf16* bt, float* out,
-                                                     int k) {
-  __shared__ __align__(1024) bf16 s_a[64 * kKT];
-  __shared__ __align__(1024) bf16 s_b[N * kKT];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int i = tid; i < (64 + N) * 8; i += 128) {
-    const int r = i / 8, c = i % 8;
-    const bool is_a = r < 64;
-    const int row = is_a ? r : r - 64;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (c * 8 < k) v = *reinterpret_cast<const uint4*>((is_a ? a : bt) + row * k + c * 8);
-    *reinterpret_cast<uint4*>((is_a ? s_a : s_b) + ltu::swz(row, c, 8)) = v;
-  }
-  ltu::fence_proxy_async();  // the stores of B come before the tensor cores' reads
-  __syncthreads();
-  float d[N / 2];
-  zero(d);
-  for (int step = 0; step < k / 16; ++step) {
-    unsigned af[4];
-    ltu::ldsm_x4(af, s_a + ltu::swz(warp * 16 + (lane & 15), step * 2 + (lane >> 4), 8));
-    ltu::wgmma_fence();
-    ltu::wgmma_m64k16<N>(d, af, ltu::wgmma_desc_kmajor(s_b, 128) + step * 2);
-    ltu::wgmma_commit();
-    ltu::wgmma_wait<0>();
-    ltu::wgmma_fence_operand(d);
-  }
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const int row = warp * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
-    out[row * N + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)] = d[i];
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -925,10 +890,11 @@ int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups
   const int ring_bytes = a.slots * a.nsub * kATile * 2;
   if (groups < 1 || m < 1 || rows < 1 || a.k < 8 || a.k % 8 || a.nkc != (a.k + kKT - 1) / kKT ||
       a.n % a.nt || a.col_tiles != a.n / a.nt || a.nd < 1 || a.nd > kMaxD || a.np < 1 ||
-      a.np > kMaxP || a.ng < 1 || a.ng > a.np || a.slots < 2 || a.slots > 4 || a.nsub < 1 ||
+      a.np > kMaxP || a.ng < 1 || a.ng > a.np || a.slots < 2 || a.slots > kMaxSlots || a.nsub < 1 ||
       a.nsub > 4 || a.items < 1 || (a.mode == kWhole && a.nsub != a.nkc) ||
       a.w_offset % 1024 || a.w_offset < ring_bytes || a.w_offset + w_bytes > kTapSmem ||
       (bf16_acc && (a.sum_offset < ring_bytes || a.sum_offset + a.nt * kThreads > a.w_offset)) ||
+      (a.streamed && w_bytes < (a.slots + 2) * 2 * a.nt * kKT * 2) ||
       static_cast<long long>(groups) * a.row_tiles > (1LL << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -955,27 +921,6 @@ int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups
     case 128: return dispatch_fold<128>(a, bf16_acc, fold, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-
-
-// out (64, n) f32 = a (64, k) @ bt (n, k)^T, bf16 operands, on one
-// warpgroup by `wgmma` m64nNk16 (`wgmma_product`); n in {16, 32, 64, 128},
-// k in {16, 32, 48, 64}. Returns the CUDA error (0 on success).
-int pt_wgmma_product(const void* a, const void* bt, void* out, int n, int k, void* stream) {
-  if (k < 16 || k > kKT || k % 16) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto pa = static_cast<const bf16*>(a);
-  auto pb = static_cast<const bf16*>(bt);
-  auto po = static_cast<float*>(out);
-  switch (n) {
-    case 16: wgmma_product<16><<<1, 128, 0, s>>>(pa, pb, po, k); break;
-    case 32: wgmma_product<32><<<1, 128, 0, s>>>(pa, pb, po, k); break;
-    case 64: wgmma_product<64><<<1, 128, 0, s>>>(pa, pb, po, k); break;
-    case 128: wgmma_product<128><<<1, 128, 0, s>>>(pa, pb, po, k); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

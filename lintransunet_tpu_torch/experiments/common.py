@@ -1,8 +1,10 @@
-"""What the probes' ``main()``s share: the card's peaks, CUDA-event timing,
-the bound, and the command line."""
+"""What the probes' ``main()``s share: the card's peaks, CUDA-event timing
+(back to back from the host, or the card's own time behind a sleep, and the
+host's time a call), the bound, and the command line."""
 
 import argparse
 import subprocess
+import time
 
 import torch
 
@@ -45,6 +47,72 @@ def in_turns(fns, iters=20, warmup=2):
     for i in order + order[::-1]:
         times[i] += cuda_ms(fns[i], iters, warmup=0) / 2
     return times
+
+
+SLEEP_CYCLES = 200_000_000  # ~0.1 s of the card: longer than a window of calls takes to issue
+
+
+def _behind_sleep(fn, iters):
+    """Runs ``fn`` once, then queues ``iters`` calls behind a
+    ``torch.cuda._sleep``: (events after the sleep, the host's seconds to
+    issue the calls). The calls then run back to back on the card whatever
+    the host's speed."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issued = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return start, end, issued
+
+
+def card_ms(fn, iters=50):
+    """The card's ms per call, gaps between launches included: ``iters``
+    calls queued behind a sleep, timed by events."""
+    start, end, _ = _behind_sleep(fn, iters)
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=50):
+    """The host's µs per call, the card kept busy so that no call waits:
+    what a call costs the launching thread."""
+    return _behind_sleep(fn, iters)[2] / iters * 1e6
+
+
+def kernel_us(fn, iters=10):
+    """{kernel name: device µs per call} from ``torch.profiler``'s device rows."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            times[name.split("(")[0][:40]] = e.device_time_total / iters
+    return times
+
+
+def card_line(kernel, library=None, kernels=False):
+    """One printed line of card and host times: the kernel's call and the
+    library call (where given) each by ``card_ms`` and ``host_us``; with
+    ``kernels``, the kernel call's device time by kernel (``kernel_us``)."""
+    card = f"  card: kernel {card_ms(kernel):.4f} ms"
+    host = f"host: kernel {host_us(kernel):.1f} us"
+    if library is not None:
+        card += f", library {card_ms(library):.4f} ms"
+        host += f", library {host_us(library):.1f} us"
+    line = f"{card}; {host}"
+    if kernels:
+        line += "; device: " + ", ".join(f"{k} {v:.2f} us" for k, v in kernel_us(kernel).items())
+    return line
 
 
 def card():

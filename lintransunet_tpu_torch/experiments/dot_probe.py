@@ -28,7 +28,9 @@ reads there, for `wgmma`.
 ``python -m lintransunet_tpu_torch.experiments.dot_probe`` times variants
 A-F of the TPU probe and the conv unit's own GEMM shapes on the card, each
 beside ``torch.einsum`` timed alike (variant E beside none: no PyTorch call
-rounds after each tap).
+rounds after each tap): by events over calls back to back from the host,
+then by the card's own time with the calls queued behind a sleep, the
+host's time a call, and each launch's device time.
 """
 
 import ctypes
@@ -52,6 +54,7 @@ TAP_SMEM = common.SMEM_LIMIT - 1024  # the ring and the weights; the fold's barr
 FOLD, WHOLE, SPLIT = 0, 1, 2  # how a tile's items run (csrc/probe_taps.cu TapMode)
 AS_IS, HI, LO = 0, 1, 2       # a product's weight (Part)
 PLAN_HEADER, PLAN_TABLE = 20, 32
+MAX_SLOTS = 8                 # A ring slots (csrc/probe_taps.cu kMaxSlots)
 
 
 def shifted_rows(x: torch.Tensor, off: int, m: int) -> torch.Tensor:
@@ -148,10 +151,12 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     consecutive taps at one offset (all 9 of variant E are one run), so the
     bf16 sum rounds in the function's order. The folded weights (products x
     K padded to 64 x the column tile, bf16) stay resident beside an A ring
-    of 2-4 slots of 16 KB (and, with bf16 accumulation, the running sums),
-    at the largest column tile where they fit, with the most slots that fit
-    (bf16 accumulation first tries the whole of K in one item, two slots);
-    else each item's tiles stream through a ring."""
+    of 2 to MAX_SLOTS slots of 16 KB a K chunk (and, with bf16 accumulation,
+    the running sums), at the largest column tile where they fit, with the
+    most slots that fit, so that as many A items as fit are in flight while
+    the fold runs (bf16 accumulation first tries the whole of K in one
+    item); else each item's tiles stream through a ring of two slots more
+    than A's 3 or 2."""
     if bf16_acc:
         runs = [[offsets[0], [0]]]
         for t, off in enumerate(offsets[1:], 1):
@@ -185,8 +190,9 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     choice = None
     for nt in column_tiles(n):
         w_bytes = len(products) * nkc * nt * K_TILE * 2
-        options = ([(WHOLE, 2, nkc)] if bf16_acc and nkc <= 4 else []) + [
-            (by_tap, slots, 1) for slots in (4, 3, 2)]
+        slot_counts = range(MAX_SLOTS, 1, -1)
+        options = ([(WHOLE, slots, nkc) for slots in slot_counts] if bf16_acc and nkc <= 4
+                   else []) + [(by_tap, slots, 1) for slots in slot_counts]
         for mode, slots, nsub in options:
             if layout(nt, slots, nsub, w_bytes):
                 choice = (nt, mode, False, slots, nsub, w_bytes)
@@ -195,7 +201,11 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
             break
     if choice is None:  # each item's products (at most 2) copied in before it runs
         nt = n_tile(n)
-        choice = (nt, by_tap, True, 3, 1, (3 + 1) * 2 * nt * K_TILE * 2)
+        for slots in (3, 2):  # the weights' ring: two slots more than A's (probe_taps.cu)
+            w_bytes = (slots + 2) * 2 * nt * K_TILE * 2
+            if layout(nt, slots, 1, w_bytes):
+                choice = (nt, by_tap, True, slots, 1, w_bytes)
+                break
     nt, mode, streamed, slots, nsub, w_bytes = choice
     ring, sums, w_offset = layout(nt, slots, nsub, w_bytes)
     items = {FOLD: nkc * len(distinct), WHOLE: len(distinct), SPLIT: len(products) * nkc}[mode]
@@ -278,6 +288,9 @@ def run_tap_sum(x, w, offsets, m, acc_dtype=torch.float32):
     launch into a scratch of the folded weights, then ``taps_fold``."""
     check_cuda(x, w)
     check_taps(x, w, offsets, m)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("the kernel reads x and w in 16-byte pieces: both must start on a "
+                         "16-byte boundary")
     if acc_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"acc_dtype must be float32 or bfloat16, not {acc_dtype}")
     from lintransunet_tpu_torch import kernels
@@ -410,6 +423,7 @@ def measure(name, x, w, acc_dtype=torch.float32):
     flops, nbytes = tap_sum_costs(x, w, acc_dtype=acc_dtype)
     run = executed_flops(x, w, acc_dtype=acc_dtype)
     print(common.rate_line(name, ms, flops, nbytes, *lib_ms, executed_flops=run), flush=True)
+    print(common.card_line(fns[0], fns[1] if lib_ms else None, kernels=True), flush=True)
     x2, w2 = x.reshape(-1, x.shape[2]), w.permute(1, 0, 2).reshape(x.shape[2], -1)
     every = 2 * x2.shape[0] * x2.shape[1] * w2.shape[1]
     gemm_ms = common.cuda_ms(lambda: x2 @ w2)

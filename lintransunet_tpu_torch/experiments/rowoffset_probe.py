@@ -26,7 +26,9 @@ three variants on the card, each beside one PyTorch call timed alike:
 dilation 576 or 577 on the taps folded per offset (the fold, and the
 transpose of x to conv1d's (G, K, R) layout that the call makes, inside
 the timed call; the output left in conv1d's (G, N, M) layout, a transposed
-view).
+view): by events over calls back to back from the host, then by the card's
+own time, the host's time a call and each launch's device time
+(``common.card_line``).
 """
 
 import torch
@@ -113,11 +115,12 @@ def main():
           f"F.conv1d on the folded taps (B, C)", flush=True)
     for name, offsets in OFFSETS.items():
         flops, nbytes = dot_probe.tap_sum_costs(x, w, M, offsets)
-        ms, lib_ms = common.in_turns([lambda: row_offset_sum(x, w, offsets),
-                                      library_call(x, w, offsets)])
+        kernel, library = lambda: row_offset_sum(x, w, offsets), library_call(x, w, offsets)
+        ms, lib_ms = common.in_turns([kernel, library])
         print(common.rate_line(name, ms, flops, nbytes, lib_ms,
                                executed_flops=dot_probe.executed_flops(x, w, M, offsets)),
               flush=True)
+        print(common.card_line(kernel, library, kernels=True), flush=True)
 
 
 if __name__ == "__main__":

@@ -49,11 +49,10 @@ SIGNATURES = {
         "pt_forward": (_I, [_P, _P, _P, _L] + [_I] * 7 + [_P] * 4 + [_I, _I, _P]),
         "pt_smem_bytes": (_I, [_I, _I, _I]),
         "pt_tap_sum": (_I, [_P, _P, _P, _P, _I, _I, _I, _P, _P]),
-        "pt_wgmma_product": (_I, [_P, _P, _P, _I, _I, _P]),
     },
     "probe_conv": {
         "pc_forward": (_I, [_P, _P, _P, _P] + [_I] * 7 + [_P]),
-        "pc_wgmma_product": (_I, [_P, _P, _P, _I, _I, _P]),
+        "pc_wgmma_product": (_I, [_P, _P, _P, _I, _I, _I, _P]),
     },
     "probe_stats": {
         "ps_lane_sums": (_I, [_P, _P, _I, _I, _I, _I, _I, _F, _P]),

@@ -506,6 +506,50 @@ def test_tap_sum_is_the_fold_then_the_products(cuda):
     assert dot_probe.tap_sum.launches == before + 1
 
 
+def _unswizzled_fold(plan, k, n, device):
+    """The fold launch's scratch as (products, k, n) bf16: tile (column tile,
+    K chunk, product) holds NT rows (output columns) of 64 K values, 16-byte
+    piece c of row r at piece c ^ (r % 8) (``ltu::swz``)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    folded = dot_probe._FOLDED[(device.index, stream)][:plan.folded]
+    nt, np_ = plan.nt, len(plan.products)
+    nkc = -(-k // dot_probe.K_TILE)
+    tiles = folded.view(n // nt, nkc, np_, nt, 8, 8)
+    rows = torch.arange(nt, device=device)[:, None]
+    piece = torch.arange(8, device=device)[None, :] ^ (rows % 8)
+    tiles = tiles[:, :, :, rows, piece].reshape(n // nt, nkc, np_, nt, dot_probe.K_TILE)
+    full = tiles.permute(2, 1, 4, 0, 3).reshape(np_, nkc * dot_probe.K_TILE, n)
+    return full[:, :k], full[:, k:]
+
+
+@pytest.mark.parametrize("taps,k,n,offsets,acc", [
+    (9, 128, 64, "zero", torch.float32),        # #10 A: one hi and lo pair
+    (9, 128, 64, "k577", torch.float32),        # #8 C: three pairs
+    (9, 16, 16, "past_r", torch.float32),       # a pair and a lone tap; K padded to 64
+    (9, 128, 128, "negative", torch.float32),   # all lone taps
+    (9, 1152, 64, "k577", torch.float32),       # the streamed plan's fold
+    (9, 128, 64, "zero", torch.bfloat16),       # bf16 accumulation: each tap as it is
+])
+def test_tap_sum_fold_is_the_reference_fold(cuda, taps, k, n, offsets, acc):
+    """The fold launch writes exactly ``fold_taps_reference``'s hi and lo
+    (the same f32 sums in the same order, rounded alike), zeros past K. A
+    fold that dropped lo would pass the output tolerance; this does not."""
+    x, w = _probe_taps(1, 600, k, taps, n, cuda)
+    offs = TAP_OFFSETS[offsets](taps)
+    dot_probe.tap_sum(x, w, offs, 500, acc_dtype=acc)
+    torch.cuda.synchronize()
+    plan = dot_probe.tap_plan(k, n, tuple(offs), acc == torch.bfloat16)
+    got, padding = _unswizzled_fold(plan, k, n, x.device)
+    distinct, hi, lo = dot_probe.fold_taps_reference(w, offs)
+    for p, (d, part, tap_list) in enumerate(plan.products):
+        if acc == torch.bfloat16:
+            want = w[tap_list[0]]
+        else:
+            want = (lo if part == dot_probe.LO else hi)[distinct.index(plan.offsets[d])]
+        assert torch.equal(got[p], want), (p, part)
+    assert not padding.any()
+
+
 @pytest.mark.parametrize("variant", sorted(rowoffset_probe.OFFSETS))
 def test_row_offset_sum_matches_plain(cuda, variant):
     x, w = rowoffset_probe.inputs(2, rowoffset_probe.M_PAD, cuda)
@@ -598,37 +642,20 @@ def test_conv3d_cl_rows_batch_two(cuda, dtype, with_bias):
 
 
 @pytest.mark.parametrize("k,row_bytes", [(16, 64), (16, 128), (64, 64), (64, 128)])
-def test_wgmma_product_matches_matmul(cuda, k, row_bytes):
-    """``ltu::wgmma_m64n64k16`` alone (``pc_wgmma_product``): A from registers,
-    B by a descriptor of a K-major tile with a 64- or 128-byte swizzle, k / 16
-    descriptor steps (four at k 64). Exact bf16 products summed in f32 in
-    another order: 1e-5 of max |plain|."""
-    g = torch.Generator(device="cpu").manual_seed(12)
-    a = torch.randn((64, k), generator=g).to(cuda, torch.bfloat16)
-    bt = torch.randn((64, k), generator=g).to(cuda, torch.bfloat16)
-    out = torch.empty((64, 64), device=cuda)
-    err = kernels.load("probe_conv").pc_wgmma_product(
-        a.data_ptr(), bt.data_ptr(), out.data_ptr(), k, row_bytes,
-        torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    assert err == 0
-    assert _rel(out, torch.matmul(a.float(), bt.float().t())) <= 1e-5
-
-
-@pytest.mark.parametrize("k", [16, 64])
 @pytest.mark.parametrize("n", [16, 32, 64, 128])
-def test_wgmma_widths_match_matmul(cuda, n, k):
-    """``ltu::wgmma_m64k16<N>`` alone (``pt_wgmma_product``), each width the
-    tap-sum kernel takes: A from registers, B by a descriptor of a K-major
-    tile of N rows with the 128-byte swizzle, k / 16 descriptor steps.
-    Exact bf16 products summed in f32 in another order: 1e-5 of max
-    |plain|."""
-    g = torch.Generator(device="cpu").manual_seed(13)
+def test_wgmma_product_matches_matmul(cuda, n, k, row_bytes):
+    """``ltu::wgmma_m64k16<N>`` alone (``pc_wgmma_product``), each width the
+    probes take (the conv N 64, the tap sums 16, 32, 64 and 128): A from
+    registers, B by a descriptor of a K-major tile of N rows with a 64- or
+    128-byte swizzle, k / 16 descriptor steps (four at k 64). Exact bf16
+    products summed in f32 in another order: 1e-5 of max |plain|."""
+    g = torch.Generator(device="cpu").manual_seed(12)
     a = torch.randn((64, k), generator=g).to(cuda, torch.bfloat16)
     bt = torch.randn((n, k), generator=g).to(cuda, torch.bfloat16)
     out = torch.empty((64, n), device=cuda)
-    err = kernels.load("probe_taps").pt_wgmma_product(
-        a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, k, torch.cuda.current_stream().cuda_stream)
+    err = kernels.load("probe_conv").pc_wgmma_product(
+        a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, k, row_bytes,
+        torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
     assert _rel(out, torch.matmul(a.float(), bt.float().t())) <= 1e-5
@@ -669,6 +696,10 @@ def test_probes_reject_what_they_do_not_take(cuda):
         dot_probe.tap_sum(x, w[..., :48].contiguous())             # N 48
     with pytest.raises(ValueError):
         dot_probe.tap_sum(x[..., :12].contiguous(), w[:, :12].contiguous())  # K 12
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError):
+        dot_probe.tap_sum(shifted, w)                               # x 2 bytes off 16
     xc, k = conv_prototype.inputs((8, 8, 64, 64), 64, cuda)
     with pytest.raises(ValueError):
         conv_retired.conv3d_cl_rows(xc[None, ..., :48], k[..., :48, :], None)  # not contiguous

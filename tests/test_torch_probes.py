@@ -464,7 +464,7 @@ def test_tap_plan_tables():
     offset."""
     plan = dot_probe.tap_plan(128, 64, (0, 577, 1154) * 3, False)
     ints = list(plan.ints)
-    assert ints[:16] == [128, 64, 64, 2, 1, dot_probe.FOLD, 0, 4, 1, 6, 3, 6, 133120, 98304, 0,
+    assert ints[:16] == [128, 64, 64, 2, 1, dot_probe.FOLD, 0, 8, 1, 6, 3, 6, 133120, 98304, 0,
                          3]
     table = ints[dot_probe.PLAN_HEADER:]
     assert table[:3] == [0, 577, 1154] and table[32:35] == [0, 2, 4] and table[64:67] == [2, 2, 2]
@@ -476,6 +476,25 @@ def test_tap_plan_tables():
     assert [p[2] for p in runs.products] == [(t,) for t in range(9)]
     big = dot_probe.tap_plan(2048, 128, tuple(range(32)), False)
     assert big.streamed and big.nt == 128
+
+
+@pytest.mark.parametrize("bf16_acc", [False, True])
+@pytest.mark.parametrize("k,n", [(2048, 128), (1152, 64), (2048, 16)])
+def test_tap_plan_streamed_ring_outlasts_its_readers(k, n, bf16_acc):
+    """Where the folded weights stream, their ring has two slots (of two
+    tiles) more than A's ring: the copy issued at step s fills the slot that
+    step s - 3 read, whose products every warpgroup has waited for
+    (``csrc/probe_taps.cu``). The ring, the running sums and the weights fit
+    below the barriers."""
+    plan = dot_probe.tap_plan(k, n, tuple(range(32)), bf16_acc)
+    ints = list(plan.ints)
+    w_offset, w_bytes, ring = ints[12], ints[13], ints[16]
+    assert plan.streamed and plan.slots in (2, 3) and plan.nsub == 1
+    assert w_bytes == (plan.slots + 2) * 2 * plan.nt * dot_probe.K_TILE * 2
+    sums = plan.nt * dot_probe.THREADS if bf16_acc else 0
+    assert ring == plan.slots * dot_probe.A_TILE_BYTES and ring + sums <= w_offset
+    assert w_offset % 1024 == 0 and w_offset + w_bytes <= dot_probe.TAP_SMEM
+    assert plan.smem == ring + sums + w_bytes
 
 
 @pytest.mark.parametrize("offsets", [[-400, 0, 3], [2, 301, -5], [-301, 300]])
