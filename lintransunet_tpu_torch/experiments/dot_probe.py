@@ -191,8 +191,10 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     for nt in column_tiles(n):
         w_bytes = len(products) * nkc * nt * K_TILE * 2
         slot_counts = range(MAX_SLOTS, 1, -1)
-        options = ([(WHOLE, slots, nkc) for slots in slot_counts] if bf16_acc and nkc <= 4
-                   else []) + [(by_tap, slots, 1) for slots in slot_counts]
+        whole = WHOLE if bf16_acc else FOLD
+        rows = nkc <= 4 if bf16_acc else nkc in (2, 4)  # f32: sub-tile sets alternate
+        options = ([(whole, slots, nkc) for slots in slot_counts] if rows else []) + [
+            (by_tap, slots, 1) for slots in slot_counts]
         for mode, slots, nsub in options:
             if layout(nt, slots, nsub, w_bytes):
                 choice = (nt, mode, False, slots, nsub, w_bytes)
@@ -208,7 +210,8 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
                 break
     nt, mode, streamed, slots, nsub, w_bytes = choice
     ring, sums, w_offset = layout(nt, slots, nsub, w_bytes)
-    items = {FOLD: nkc * len(distinct), WHOLE: len(distinct), SPLIT: len(products) * nkc}[mode]
+    items = {FOLD: nkc // nsub * len(distinct), WHOLE: len(distinct),
+             SPLIT: len(products) * nkc}[mode]
     tables = [[0] * PLAN_TABLE for _ in range(9)]
     d_off, d_p0, d_np, p_d, p_part, p_t0, p_nt, tap_idx, g_p = tables
     starts = []
