@@ -50,10 +50,8 @@
 //   `ltu::swz`, by 16-byte `cp.async` with zero fill outside [0, rows) and
 //   past K. A row is 2 K bytes, so an offset of 577 rows is as aligned as
 //   one of 576, and a row of A is read once per distinct offset (again from
-//   L2), not (128 + span) / 128 times. A ring of 2-8 such items (as many
-//   as fit beside the weights: all of a block's A at #10 A while the fold
-//   runs) runs on across tiles, so the next tile's loads overlap this
-//   tile's epilogue.
+//   L2), not (128 + span) / 128 times. A ring of 2-4 such items runs on
+//   across tiles, so the next tile's loads overlap this tile's epilogue.
 // * Persistent grid: one block per SM, each on one column tile, walking row
 //   tiles in order within a group, so that the neighbouring tiles' shifted
 //   reads hit L2 (a #8 group spans 2.9 MB).
@@ -279,7 +277,6 @@ constexpr int kKT = 64;                      // K per A sub-tile and weight tile
 constexpr int kATile = kRows * kKT;          // elements of one A sub-tile (16 KB)
 constexpr int kMaxD = 32;                    // distinct offsets
 constexpr int kMaxP = 32;                    // products (hi and lo count two)
-constexpr int kMaxSlots = 8;                 // A ring slots (7 items ahead)
 constexpr int kPlanHeader = 20;
 constexpr int kMaxDevices = 64;
 // Shared memory: the A ring from 0, then (bf16 accumulation) the running
@@ -346,10 +343,10 @@ struct Cursor {
       i = d = kc = p0 = 0;
       ++j;
       tile(a);
-    } else if (a.mode == kFold) {  // for each chunk (or all of K), each distinct offset
+    } else if (a.mode == kFold) {  // for each chunk, each distinct offset
       if (++d == a.nd) {
         d = 0;
-        kc += a.nsub;
+        ++kc;
       }
     } else if (a.mode == kWhole) {  // each run of taps, all of K
       ++d;
@@ -370,11 +367,7 @@ __device__ __forceinline__ void stage_item(bf16* slot, const TapArgs& a, const C
   const bf16* xg = a.x + static_cast<long long>(c.g) * a.rows * a.k;
   const int r0 = c.m0 + a.d_off[c.d];
   for (int i = tid; i < a.nsub * kRows * 8; i += kThreads) {
-#ifdef PT_SUB_MAJOR
     const int ch = i & 7, r = (i >> 3) & (kRows - 1), sub = i >> 10;
-#else
-    const int ch = i & 7, q = i >> 3, r = q / a.nsub, sub = q - r * a.nsub;
-#endif
     const int gr = r0 + r, gk = (c.kc + sub) * kKT + ch * 8;
     const bool valid = gr >= 0 && gr < a.rows && gk < a.k;
     const bf16* src = valid ? xg + static_cast<long long>(gr) * a.k + gk : a.x;
@@ -506,9 +499,7 @@ __device__ __forceinline__ void product(float (&acc)[NA][NT / 2], unsigned (&af)
   const unsigned long long d0 = ltu::wgmma_desc_kmajor(b0, 128);
   // the j-th `wgmma` of the call: accumulator j % NA, fresh for the first NA
   auto mma = [&](int j, unsigned long long desc, int ks) {
-#ifndef PT_NO_MMA
     ltu::wgmma_m64k16<NT>(acc[j % NA], af[SET][ks], desc + 2 * ks, !(fresh && j < NA));
-#endif
   };
   if (np > 1) {
     const unsigned long long d1 = ltu::wgmma_desc_kmajor(b1, 128);
@@ -563,9 +554,6 @@ __device__ __forceinline__ void store_tile(const TapArgs& a, const float (&v)[NT
       }
     }
     __syncthreads();
-#ifdef PT_NO_STORE
-    if (v[0] != 12345.f) continue;
-#endif
     for (int i = tid; i < kRows * kCpr; i += kThreads) {
       const int r = i / kCpr, c = i % kCpr;
       if (m0 + r >= a.m) continue;
@@ -636,9 +624,6 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
     for (int i = 0; i < (kStreamed ? wslots : 1); ++i) ltu::mbar_init(wbar + i, 1);
     ltu::fence_mbar_init();
   }
-#ifdef PT_WAIT_FIRST
-  pdl_wait();
-#endif
   __syncthreads();
 
   Cursor st, cu;  // the next step to stage, the step to run
@@ -656,17 +641,13 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
     if (s < steps) stage_item(ring + s * slot_elems, a, st, tid);
     ltu::cp_async_commit();
     if (kStreamed && tid == 0 && s < steps) {
-#ifndef PT_NO_FOLD
       if (s == 0) pdl_wait();
-#endif
       stage_weights(s);
     }
     st.next(a);
   }
   if (!kStreamed && tid == 0) {  // the block's folded weights, one copy once the fold is done
-#ifndef PT_NO_FOLD
     pdl_wait();
-#endif
     const unsigned bytes = static_cast<unsigned>(a.nkc * a.np * kTile * 2);
     ltu::mbar_expect_tx(wbar, bytes);
     ltu::bulk_copy(wts, wsrc, bytes, wbar);
@@ -680,14 +661,12 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
   // s reads fragment set s % 2 (SET), so the loop runs steps in pairs
   auto step = [&](int s, auto set) {
     constexpr int SET = decltype(set)::value;
-    switch (ahead) {  // step s's group, with ahead - 1 later ones left in flight
-      case 1: ltu::cp_async_wait<0>(); break;
-      case 2: ltu::cp_async_wait<1>(); break;
-      case 3: ltu::cp_async_wait<2>(); break;
-      case 4: ltu::cp_async_wait<3>(); break;
-      case 5: ltu::cp_async_wait<4>(); break;
-      case 6: ltu::cp_async_wait<5>(); break;
-      default: ltu::cp_async_wait<6>(); break;
+    if (ahead == 1) {
+      ltu::cp_async_wait<0>();
+    } else if (ahead == 2) {
+      ltu::cp_async_wait<1>();
+    } else {
+      ltu::cp_async_wait<2>();
     }
     // every thread's copies of step s have landed; the block is done with
     // step s - 1's slot, which step s + ahead now fills
@@ -728,16 +707,9 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
           round_add(sum, tot, cu.p0 == 0, tid);  // the tile's first tap
         }
       }
-    } else if (a.nsub == 1) {
+    } else {
       product<NT, NA, SET>(acc, af, a_tile, wtile(cu.p0, cu.kc), wtile(cu.p0 + 1, cu.kc), cu.np,
                            cu.i == 0, warp, lane);
-    } else {  // whole rows: an even number of sub-tiles, so every item starts on set 0
-      for (int c = 0; c < a.nsub; c += 2) {
-        product<NT, NA, 0>(acc, af, a_tile + c * kATile, wtile(cu.p0, cu.kc + c),
-                           wtile(cu.p0 + 1, cu.kc + c), cu.np, cu.i == 0 && c == 0, warp, lane);
-        product<NT, NA, 1>(acc, af, a_tile + (c + 1) * kATile, wtile(cu.p0, cu.kc + c + 1),
-                           wtile(cu.p0 + 1, cu.kc + c + 1), cu.np, false, warp, lane);
-      }
     }
     if (cu.i == a.items - 1) {  // the slot read this step is spent: the stores' stage
       bf16* stage = ring + (s % a.slots) * slot_elems;
@@ -776,10 +748,8 @@ int launch_fold(const TapArgs& a, bf16* folded, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int units = a.col_tiles * a.ng * a.nkc * kKT * (NT / 8);
-#ifndef PT_NO_FOLD
   taps_fold_weights<NT><<<(units + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a, folded);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-#endif
 
   const long long row_tiles = static_cast<long long>(a.groups) * a.row_tiles;
   long long per_col = sms[device] / a.col_tiles;
@@ -794,9 +764,6 @@ int launch_fold(const TapArgs& a, bf16* folded, cudaStream_t stream) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-#ifdef PT_NO_FOLD
-  cfg.numAttrs = 0;
-#endif
   err = cudaLaunchKernelEx(&cfg, taps_fold<NT, kBf16Acc, kStreamed>, a,
                            static_cast<const bf16*>(folded));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -918,10 +885,8 @@ int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups
   const int ring_bytes = a.slots * a.nsub * kATile * 2;
   if (groups < 1 || m < 1 || rows < 1 || a.k < 8 || a.k % 8 || a.nkc != (a.k + kKT - 1) / kKT ||
       a.n % a.nt || a.col_tiles != a.n / a.nt || a.nd < 1 || a.nd > kMaxD || a.np < 1 ||
-      a.np > kMaxP || a.ng < 1 || a.ng > a.np || a.slots < 2 || a.slots > kMaxSlots || a.nsub < 1 ||
+      a.np > kMaxP || a.ng < 1 || a.ng > a.np || a.slots < 2 || a.slots > 4 || a.nsub < 1 ||
       a.nsub > 4 || a.items < 1 || (a.mode == kWhole && a.nsub != a.nkc) ||
-      (a.mode == kFold && a.nsub > 1 && (a.nsub != a.nkc || a.nsub % 2 || a.streamed)) ||
-      (a.mode == kSplit && a.nsub != 1) ||
       a.w_offset % 1024 || a.w_offset < ring_bytes || a.w_offset + w_bytes > kTapSmem ||
       (bf16_acc && (a.sum_offset < ring_bytes || a.sum_offset + a.nt * kThreads > a.w_offset)) ||
       (a.streamed && w_bytes < (a.slots + 2) * 2 * a.nt * kKT * 2) ||

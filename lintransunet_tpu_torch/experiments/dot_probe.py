@@ -54,7 +54,6 @@ TAP_SMEM = common.SMEM_LIMIT - 1024  # the ring and the weights; the fold's barr
 FOLD, WHOLE, SPLIT = 0, 1, 2  # how a tile's items run (csrc/probe_taps.cu TapMode)
 AS_IS, HI, LO = 0, 1, 2       # a product's weight (Part)
 PLAN_HEADER, PLAN_TABLE = 20, 32
-MAX_SLOTS = 8                 # A ring slots (csrc/probe_taps.cu kMaxSlots)
 
 
 def shifted_rows(x: torch.Tensor, off: int, m: int) -> torch.Tensor:
@@ -151,12 +150,11 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     consecutive taps at one offset (all 9 of variant E are one run), so the
     bf16 sum rounds in the function's order. The folded weights (products x
     K padded to 64 x the column tile, bf16) stay resident beside an A ring
-    of 2 to MAX_SLOTS slots of 16 KB a K chunk (and, with bf16 accumulation,
-    the running sums), at the largest column tile where they fit, with the
-    most slots that fit, so that as many A items as fit are in flight while
-    the fold runs (bf16 accumulation first tries the whole of K in one
-    item); else each item's tiles stream through a ring of two slots more
-    than A's 3 or 2."""
+    of 2-4 slots of 16 KB (and, with bf16 accumulation, the running sums),
+    at the largest column tile where they fit, with the most slots that fit
+    (bf16 accumulation first tries the whole of K in one item, two slots);
+    else each item's tiles stream through a ring of two slots more than
+    A's 3 or 2."""
     if bf16_acc:
         runs = [[offsets[0], [0]]]
         for t, off in enumerate(offsets[1:], 1):
@@ -190,11 +188,8 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     choice = None
     for nt in column_tiles(n):
         w_bytes = len(products) * nkc * nt * K_TILE * 2
-        slot_counts = range(MAX_SLOTS, 1, -1)
-        whole = WHOLE if bf16_acc else FOLD
-        rows = nkc <= 4 if bf16_acc else nkc in (2, 4)  # f32: sub-tile sets alternate
-        options = ([(whole, slots, nkc) for slots in slot_counts] if rows else []) + [
-            (by_tap, slots, 1) for slots in slot_counts]
+        options = ([(WHOLE, 2, nkc)] if bf16_acc and nkc <= 4 else []) + [
+            (by_tap, slots, 1) for slots in (4, 3, 2)]
         for mode, slots, nsub in options:
             if layout(nt, slots, nsub, w_bytes):
                 choice = (nt, mode, False, slots, nsub, w_bytes)
@@ -210,8 +205,7 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
                 break
     nt, mode, streamed, slots, nsub, w_bytes = choice
     ring, sums, w_offset = layout(nt, slots, nsub, w_bytes)
-    items = {FOLD: nkc // nsub * len(distinct), WHOLE: len(distinct),
-             SPLIT: len(products) * nkc}[mode]
+    items = {FOLD: nkc * len(distinct), WHOLE: len(distinct), SPLIT: len(products) * nkc}[mode]
     tables = [[0] * PLAN_TABLE for _ in range(9)]
     d_off, d_p0, d_np, p_d, p_part, p_t0, p_nt, tap_idx, g_p = tables
     starts = []

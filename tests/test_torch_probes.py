@@ -464,7 +464,7 @@ def test_tap_plan_tables():
     offset."""
     plan = dot_probe.tap_plan(128, 64, (0, 577, 1154) * 3, False)
     ints = list(plan.ints)
-    assert ints[:16] == [128, 64, 64, 2, 1, dot_probe.FOLD, 0, 8, 1, 6, 3, 6, 133120, 98304, 0,
+    assert ints[:16] == [128, 64, 64, 2, 1, dot_probe.FOLD, 0, 4, 1, 6, 3, 6, 133120, 98304, 0,
                          3]
     table = ints[dot_probe.PLAN_HEADER:]
     assert table[:3] == [0, 577, 1154] and table[32:35] == [0, 2, 4] and table[64:67] == [2, 2, 2]
