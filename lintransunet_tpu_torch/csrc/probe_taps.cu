@@ -47,11 +47,15 @@
 // * Shifted tiles, not a window: a tile is 128 output rows (two warpgroups
 //   of 64) and NT <= 128 columns; per distinct offset and 64-wide K chunk
 //   the block stages rows [m0 + off, m0 + off + 128) into a tile swizzled by
-//   `ltu::swz`, by 16-byte `cp.async` with zero fill outside [0, rows) and
-//   past K. A row is 2 K bytes, so an offset of 577 rows is as aligned as
-//   one of 576, and a row of A is read once per distinct offset (again from
-//   L2), not (128 + span) / 128 times. A ring of 2-4 such items runs on
-//   across tiles, so the next tile's loads overlap this tile's epilogue.
+//   `ltu::swz`, by one thread's tensor-map loads (TMA, the 128-byte swizzle,
+//   zero fill outside [0, rows) and past K), each slot completing on an
+//   mbarrier, so that no thread issues or waits for copies of its own (with
+//   16-byte `cp.async` by every thread, staging alone took ~75% of #10 A's
+//   time and #8 C ran 35% longer; PERF.md). A row is 2 K bytes, so an offset
+//   of 577 rows is as aligned as one of 576, and a row of A is read once per
+//   distinct offset (again from L2), not (128 + span) / 128 times. A ring of
+//   2-4 such items runs on across tiles, so the next tile's loads overlap
+//   this tile's epilogue.
 // * Persistent grid: one block per SM, each on one column tile, walking row
 //   tiles in order within a group, so that the neighbouring tiles' shifted
 //   reads hit L2 (a #8 group spans 2.9 MB).
@@ -89,6 +93,9 @@
 //   consecutive offsets (one dh of a 3x3 conv) first copies its three
 //   shifted row slices into aligned panels, a K = 3 x 32 im2col in shared
 //   memory; then the products read the panels.
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include <type_traits>
 
@@ -283,6 +290,7 @@ constexpr int kMaxDevices = 64;
 // sums, the weights (resident, or a ring of slots) below kTapSmem, the
 // weights' mbarriers at kTapSmem.
 constexpr int kTapSmem = kSmemLimit - 1024;
+constexpr int kABar = 16;  // the A slots' barriers, after the weights' (at most 6)
 
 // How a tile's items run: folded f32 sum (an item is one distinct offset at
 // one K chunk); bf16 accumulation with the whole of K in one item (an item
@@ -360,18 +368,21 @@ struct Cursor {
   __device__ __forceinline__ bool tap_last(const TapArgs& a) const { return kc == a.nkc - 1; }
 };
 
-// The cursor's item into ring slot `slot`: rows [m0 + off, m0 + off + 128) of
-// its K chunks; one commit group per thread (the caller commits).
+// The cursor's item into ring slot `slot`, by one thread: rows [m0 + off, m0 +
+// off + 128) of its K chunks, one tensor-map load (TMA) a 64-wide sub-tile,
+// all completing on `bar`. The map (x as (groups, rows, k), boxes of 1 x 128
+// x 64, the 128-byte swizzle, which is `ltu::swz`'s) zero-fills rows outside
+// [0, rows) and K past its end, and counts those bytes too.
 __device__ __forceinline__ void stage_item(bf16* slot, const TapArgs& a, const Cursor& c,
-                                           int tid) {
-  const bf16* xg = a.x + static_cast<long long>(c.g) * a.rows * a.k;
-  const int r0 = c.m0 + a.d_off[c.d];
-  for (int i = tid; i < a.nsub * kRows * 8; i += kThreads) {
-    const int ch = i & 7, r = (i >> 3) & (kRows - 1), sub = i >> 10;
-    const int gr = r0 + r, gk = (c.kc + sub) * kKT + ch * 8;
-    const bool valid = gr >= 0 && gr < a.rows && gk < a.k;
-    const bf16* src = valid ? xg + static_cast<long long>(gr) * a.k + gk : a.x;
-    ltu::cp_async16_zfill(slot + sub * kATile + ltu::swz(r, ch, 8), src, valid);
+                                           const CUtensorMap* xmap, unsigned long long* bar) {
+  ltu::mbar_expect_tx(bar, static_cast<unsigned>(a.nsub * kATile * 2));
+  for (int sub = 0; sub < a.nsub; ++sub) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n"
+        ::"r"(ltu::smem_addr(slot + sub * kATile)), "l"(xmap), "r"(ltu::smem_addr(bar)),
+        "r"((c.kc + sub) * kKT), "r"(c.m0 + a.d_off[c.d]), "r"(c.g)
+        : "memory");
   }
 }
 
@@ -561,6 +572,7 @@ __device__ __forceinline__ void store_tile(const TapArgs& a, const float (&v)[NT
           *reinterpret_cast<const uint4*>(stage + ltu::swz(r, c, kCpr));
     }
   }
+  ltu::fence_proxy_async();  // the slot's next fill, a tensor-map load, comes after these
 }
 
 // sum = bf16(sum + bf16(t)), the sum of two bf16 values rounded (first:
@@ -601,7 +613,8 @@ template <int NT, bool kBf16Acc>
 constexpr int kAccumulators = (kBf16Acc ? 128 : 256) / NT < 4 ? (kBf16Acc ? 128 : 256) / NT : 4;
 
 template <int NT, bool kBf16Acc, bool kStreamed>
-__global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const bf16* folded) {
+__global__ void __launch_bounds__(kThreads, 1)
+    taps_fold(const TapArgs a, const bf16* folded, const __grid_constant__ CUtensorMap xmap) {
   constexpr int NA = kAccumulators<NT, kBf16Acc>;
   constexpr int kTile = kTileElems<NT>;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -609,8 +622,10 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
   const int slot_elems = a.nsub * kATile;
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* wts = reinterpret_cast<bf16*>(smem + a.w_offset);
-  // the weights' barriers: one (resident), or one per weight slot (streamed)
+  // the weights' barriers: one (resident), or one per weight slot (streamed);
+  // then one per A slot
   auto* wbar = reinterpret_cast<unsigned long long*>(smem + kTapSmem);
+  auto* abar = wbar + kABar;
   // streamed: the slot step s + ahead fills is step s - 3's (retired; see the note above)
   const int wslots = a.slots + 2;
   const int ct = blockIdx.x % a.col_tiles, n0 = ct * NT;
@@ -622,6 +637,7 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
   const int ahead = a.slots - 1;
   if (tid == 0) {
     for (int i = 0; i < (kStreamed ? wslots : 1); ++i) ltu::mbar_init(wbar + i, 1);
+    for (int i = 0; i < a.slots; ++i) ltu::mbar_init(abar + i, 1);
     ltu::fence_mbar_init();
   }
   __syncthreads();
@@ -638,8 +654,7 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
                    wbar + s % wslots);
   };
   for (int s = 0; s < ahead; ++s) {  // A does not wait for the fold
-    if (s < steps) stage_item(ring + s * slot_elems, a, st, tid);
-    ltu::cp_async_commit();
+    if (tid == 0 && s < steps) stage_item(ring + s * slot_elems, a, st, &xmap, abar + s);
     if (kStreamed && tid == 0 && s < steps) {
       if (s == 0) pdl_wait();
       stage_weights(s);
@@ -657,26 +672,18 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
   float acc[NA][NT / 2], tot[NT / 2];
   auto* sum = reinterpret_cast<unsigned*>(smem + a.sum_offset);  // bf16 accumulation
   unsigned af[2][4][4] = {};
-  // step s: its item's A landed, the next copies issued, its products; item
+  // step s: the next copies issued, its item's A landed, its products; item
   // s reads fragment set s % 2 (SET), so the loop runs steps in pairs
   auto step = [&](int s, auto set) {
     constexpr int SET = decltype(set)::value;
-    if (ahead == 1) {
-      ltu::cp_async_wait<0>();
-    } else if (ahead == 2) {
-      ltu::cp_async_wait<1>();
-    } else {
-      ltu::cp_async_wait<2>();
+    __syncthreads();  // the block is done with step s - 1's slot, which step s + ahead fills
+    if (tid == 0 && s + ahead < steps) {
+      const int slot = (s + ahead) % a.slots;
+      stage_item(ring + slot * slot_elems, a, st, &xmap, abar + slot);
+      if (kStreamed) stage_weights(s + ahead);
     }
-    // every thread's copies of step s have landed; the block is done with
-    // step s - 1's slot, which step s + ahead now fills
-    __syncthreads();
-    if (s + ahead < steps) {
-      stage_item(ring + ((s + ahead) % a.slots) * slot_elems, a, st, tid);
-      if (kStreamed && tid == 0) stage_weights(s + ahead);
-    }
-    ltu::cp_async_commit();
     st.next(a);
+    ltu::mbar_wait(abar + s % a.slots, (s / a.slots) & 1);
 
     const bf16* a_tile = ring + (s % a.slots) * slot_elems;
     if constexpr (kStreamed) ltu::mbar_wait(wbar + s % wslots, (s / wslots) & 1);
@@ -732,7 +739,7 @@ __global__ void __launch_bounds__(kThreads, 1) taps_fold(const TapArgs a, const 
 }
 
 template <int NT, bool kBf16Acc, bool kStreamed>
-int launch_fold(const TapArgs& a, bf16* folded, cudaStream_t stream) {
+int launch_fold(const TapArgs& a, bf16* folded, const CUtensorMap& xmap, cudaStream_t stream) {
   // per instantiation and device, once: the shared-memory attribute and the
   // SM count (a block takes all of an SM's shared memory: one block an SM)
   static int sms[kMaxDevices];
@@ -765,19 +772,46 @@ int launch_fold(const TapArgs& a, bf16* folded, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, taps_fold<NT, kBf16Acc, kStreamed>, a,
-                           static_cast<const bf16*>(folded));
+                           static_cast<const bf16*>(folded), xmap);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NT>
-int dispatch_fold(const TapArgs& a, bool bf16_acc, bf16* folded, cudaStream_t s) {
+int dispatch_fold(const TapArgs& a, bool bf16_acc, bf16* folded, const CUtensorMap& xmap,
+                  cudaStream_t s) {
   if (a.streamed) {
-    return bf16_acc ? launch_fold<NT, true, true>(a, folded, s)
-                    : launch_fold<NT, false, true>(a, folded, s);
+    return bf16_acc ? launch_fold<NT, true, true>(a, folded, xmap, s)
+                    : launch_fold<NT, false, true>(a, folded, xmap, s);
   }
-  return bf16_acc ? launch_fold<NT, true, false>(a, folded, s)
-                  : launch_fold<NT, false, false>(a, folded, s);
+  return bf16_acc ? launch_fold<NT, true, false>(a, folded, xmap, s)
+                  : launch_fold<NT, false, false>(a, folded, xmap, s);
+}
+
+// x (groups, rows, k) bf16 as a tensor map of 1 x 128 x 64 boxes with the
+// 128-byte swizzle, zeros outside (`stage_item`); the driver's encoder is
+// found once through the runtime, so nothing links the driver library.
+int x_tensor_map(CUtensorMap* map, const bf16* x, int groups, int rows, int k) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess) return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(groups)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k) * 2,
+                                 static_cast<cuuint64_t>(rows) * k * 2};
+  const cuuint32_t box[3] = {kKT, kRows, 1}, unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(x), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 
@@ -907,13 +941,16 @@ int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups
     a.tap_idx[i] = t[224 + i];
     a.g_p[i] = t[256 + i];
   }
+  CUtensorMap xmap;
+  const int err = x_tensor_map(&xmap, a.x, groups, rows, a.k);
+  if (err != 0) return err;
   auto s = static_cast<cudaStream_t>(stream);
   auto fold = static_cast<bf16*>(folded);
   switch (a.nt) {
-    case 16: return dispatch_fold<16>(a, bf16_acc, fold, s);
-    case 32: return dispatch_fold<32>(a, bf16_acc, fold, s);
-    case 64: return dispatch_fold<64>(a, bf16_acc, fold, s);
-    case 128: return dispatch_fold<128>(a, bf16_acc, fold, s);
+    case 16: return dispatch_fold<16>(a, bf16_acc, fold, xmap, s);
+    case 32: return dispatch_fold<32>(a, bf16_acc, fold, xmap, s);
+    case 64: return dispatch_fold<64>(a, bf16_acc, fold, xmap, s);
+    case 128: return dispatch_fold<128>(a, bf16_acc, fold, xmap, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

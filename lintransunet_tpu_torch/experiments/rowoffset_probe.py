@@ -9,17 +9,17 @@ with the probe's three offset lists (A: all 0, B: k * 576, C: k * 577).
 The TPU question was whether a sublane-aligned row offset feeds the matrix
 unit without a copy. On the H100 a row of x is 2 K = 256 bytes, so every
 row offset is 16-byte aligned: an offset of 577 rows is as aligned as one
-of 576, and a `cp.async` copy of the shifted rows into an XOR-swizzled tile
-costs the same at either. Measured on an NVIDIA H100 80GB HBM3 at 700 W,
-card time a call (the calls queued behind a sleep, ``common.card_ms``): B
-(k * 576) 0.138-0.139 ms and C (k * 577) 0.138-0.139 ms, against 0.89 ms
-(by events) for the first H100 kernel's window staging of C. What costs is how
-often a row is read: the kernel (``taps_fold``, ``csrc/probe_taps.cu``)
-folds the 9 taps into one product per distinct offset (two, hi and lo,
-where taps share it) and stages, per distinct offset, only the 128 rows a
-tile reads there, so a row is read once per distinct offset (from L2 after
-the first); A, with one distinct offset, takes 0.067-0.068 ms. Variant A
-is the upper bound, as on the TPU.
+of 576, and a tensor-map load (TMA) of the shifted rows into a swizzled
+tile costs the same at either. Measured on an NVIDIA H100 80GB HBM3 at
+700 W, card time a call (the calls queued behind a sleep,
+``common.card_ms``): B (k * 576) 0.100 ms and C (k * 577) 0.100 ms,
+against 0.89 ms (by events) for the first H100 kernel's window staging of
+C. What costs is how often a row is read: the kernel (``taps_fold``,
+``csrc/probe_taps.cu``) folds the 9 taps into one product per distinct
+offset (two, hi and lo, where taps share it) and stages, per distinct
+offset, only the 128 rows a tile reads there, so a row is read once per
+distinct offset (from L2 after the first); A, with one distinct offset,
+takes 0.056 ms. Variant A is the upper bound, as on the TPU.
 
 ``python -m lintransunet_tpu_torch.experiments.rowoffset_probe`` times the
 three variants on the card, each beside one PyTorch call timed alike:
