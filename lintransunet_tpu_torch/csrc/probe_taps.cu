@@ -291,7 +291,6 @@ constexpr int kMaxDevices = 64;
 // weights' mbarriers at kTapSmem.
 constexpr int kTapSmem = kSmemLimit - 1024;
 constexpr int kABar = 16;  // the A slots' barriers, after the weights' (at most 6)
-constexpr int kMaxSlots = 8;
 
 // How a tile's items run: folded f32 sum (an item is one distinct offset at
 // one K chunk); bf16 accumulation with the whole of K in one item (an item
@@ -920,7 +919,7 @@ int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups
   const int ring_bytes = a.slots * a.nsub * kATile * 2;
   if (groups < 1 || m < 1 || rows < 1 || a.k < 8 || a.k % 8 || a.nkc != (a.k + kKT - 1) / kKT ||
       a.n % a.nt || a.col_tiles != a.n / a.nt || a.nd < 1 || a.nd > kMaxD || a.np < 1 ||
-      a.np > kMaxP || a.ng < 1 || a.ng > a.np || a.slots < 2 || a.slots > kMaxSlots || a.nsub < 1 ||
+      a.np > kMaxP || a.ng < 1 || a.ng > a.np || a.slots < 2 || a.slots > 4 || a.nsub < 1 ||
       a.nsub > 4 || a.items < 1 || (a.mode == kWhole && a.nsub != a.nkc) ||
       a.w_offset % 1024 || a.w_offset < ring_bytes || a.w_offset + w_bytes > kTapSmem ||
       (bf16_acc && (a.sum_offset < ring_bytes || a.sum_offset + a.nt * kThreads > a.w_offset)) ||

@@ -54,7 +54,6 @@ TAP_SMEM = common.SMEM_LIMIT - 1024  # the ring and the weights; the fold's barr
 FOLD, WHOLE, SPLIT = 0, 1, 2  # how a tile's items run (csrc/probe_taps.cu TapMode)
 AS_IS, HI, LO = 0, 1, 2       # a product's weight (Part)
 PLAN_HEADER, PLAN_TABLE = 20, 32
-RING_SLOTS = (4, 3, 2)        # the A ring's slot counts, most first
 
 
 def shifted_rows(x: torch.Tensor, off: int, m: int) -> torch.Tensor:
@@ -190,7 +189,7 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     for nt in column_tiles(n):
         w_bytes = len(products) * nkc * nt * K_TILE * 2
         options = ([(WHOLE, 2, nkc)] if bf16_acc and nkc <= 4 else []) + [
-            (by_tap, slots, 1) for slots in RING_SLOTS]
+            (by_tap, slots, 1) for slots in (4, 3, 2)]
         for mode, slots, nsub in options:
             if layout(nt, slots, nsub, w_bytes):
                 choice = (nt, mode, False, slots, nsub, w_bytes)
