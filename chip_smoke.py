@@ -138,7 +138,7 @@ KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "probe_taps",
 # The probes' tensor-core kernels whose registers and spills phase 1 prints
 # on a line each: (library, kernel)
 PROBE_MMA_KERNELS = (("probe_conv", "conv_mma"), ("probe_taps", "taps_fold"),
-                     ("probe_taps", "taps_fold_weights"))
+                     ("probe_taps", "taps_fold_weights"), ("probe_taps", "inner_taps"))
 # The probes: name -> (kernel source, the TPU kernel's pallas_call it replaces)
 PROBES = {"tap_sum": ("probe_taps", "experiments/pallas_dot_probe.py:41"),
           "row_offset_sum": ("probe_taps", "experiments/pallas_rowoffset_probe.py:53"),
@@ -636,15 +636,20 @@ def probe_cases(inp):
             costs=dot_probe.tap_sum_costs(xr, wr, rowoffset_probe.M, offsets),
             tol=TOL[bf16], dtype=bf16, entry=variant == ROW_OFFSET_MAIN, card=True))
     z, kp, ku, kd = inp["inner"]
-    ke = inner_probe.pack_weights(kp, ku, kd)
+    # F.conv3d on the same tensor: the same function but at the wrap columns
+    # (no library call computes it), timed beside the kernel as a yardstick
+    w_conv = inner_probe.library_weight(kp, ku, kd)
     for strategy in inner_probe.STRATEGIES:
+        packed = inner_probe.pack_inner_weights(kp, ku, kd, strategy)
         cases.append(dict(
             name="inner_step", what=f"#11 {strategy}, {inner_probe.BATCH} windows at "
                                     f"hbo={inner_probe.HBO}",
-            run=lambda st=strategy: inner_probe.inner_step_packed(z, ke, inner_probe.HBO, st),
+            run=lambda st=strategy, w=packed: inner_probe.inner_step_packed(
+                z, w, inner_probe.HBO, st),
             plain=lambda: inner_probe.inner_step_reference(z, kp, ku, kd, inner_probe.HBO),
-            library=None, costs=inner_probe.costs(inner_probe.BATCH, inner_probe.HBO),
-            tol=TOL[bf16], dtype=bf16, entry=strategy == "dots27"))
+            library=None, yardstick=lambda: inner_probe.library_conv(z, w_conv),
+            costs=inner_probe.costs(inner_probe.BATCH, inner_probe.HBO),
+            tol=TOL[bf16], dtype=bf16, entry=strategy == "dots27", card=True))
     xc, kc = inp["halo"]
     kc_lib = conv_prototype.library_weight(kc)
     cases.append(dict(
@@ -701,24 +706,32 @@ def phase_probes_vs_plain(cases):
                      f"between the bf16- and the f32-accumulated sums: no bf16 rounding")
         del got, want
         # kernel and library call timed alike: warmed, then 10-call windows
-        # in turns plain, kernel, library, library, kernel, plain
-        timed = [case["plain"], case["run"]] + ([case["library"]] if case["library"] else [])
+        # in turns plain, kernel, library, library, kernel, plain (#11: its
+        # F.conv3d yardstick in the library call's place, outside the
+        # kernels line)
+        other = case["library"] or case.get("yardstick")
+        timed = [case["plain"], case["run"]] + ([other] if other else [])
         plain_ms, ms, *lib = in_turns(timed, ITERS)
-        library_ms = lib[0] if lib else None
+        other_ms = lib[0] if lib else None
+        library_ms = other_ms if case["library"] else None
         flops, nbytes = case["costs"]
         bound_ms, bound_by = bound(flops, nbytes, case["dtype"])
         ok = rel <= case["tol"]
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         rates = f" ({flops / ms * 1e-9:.1f} TFLOP/s" + (
             "" if library_ms is None else f", library {flops / library_ms * 1e-9:.1f}") + ")"
+        yard = ("" if "yardstick" not in case else
+                f" F.conv3d yardstick (the same function but at the wrap columns) "
+                f"{other_ms:.4f} ms")
         print(f"[probe] {case['name']} {case['what']}: max_abs_err {err:.3e} rel "
               f"{rel:.3e} (tol {case['tol']:g}){rounding} kernel {ms:.4f} ms{rates} plain "
-              f"{plain_ms:.4f} ms library {lib} bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{plain_ms:.4f} ms library {lib}{yard} bound {bound_ms:.4f} ms ({bound_by}), "
               f"kernel at {bound_ms / ms * 100:.1f}% of it {'ok' if ok else 'TOO FAR'}",
               flush=True)
         if case.get("card"):  # host-bound by events: the card's own time beside them
+            label = "library" if case["library"] else "F.conv3d"
             print(f"[probe] {case['name']} {case['what']}:"
-                  f"{card_line(case['run'], case['library'])}", flush=True)
+                  f"{card_line(case['run'], other, label=label)}", flush=True)
         if not ok:
             fail(f"probe kernel disagrees with plain: {case['name']} {case['what']}")
         if case.get("entry"):

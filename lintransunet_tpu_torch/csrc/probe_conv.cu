@@ -453,10 +453,13 @@ int launch_mma(MmaArgs a, cudaStream_t stream) {
 // registers (`ldmatrix`), B staged in tiles of N rows of `row_bytes` (64 or
 // 128) bytes, zeros past k, and read at k / 16 descriptor steps. The card
 // test of each `wgmma` width alone (the conv takes N 64, the tap sums 16, 32,
-// 64 and 128).
+// 64 and 128). `halves` (N 128): each k16 step also adds B's first 64 rows'
+// product into columns 0..63 and its last 64 rows' into columns 64..127 by
+// m64n64k16 on each half of the m64n128 accumulator (the inner-loop probe's
+// neighbour taps), so out is twice a times B.
 template <int N>
 __global__ void __launch_bounds__(128) wgmma_product(const bf16* a, const bf16* bt, float* out,
-                                                     int k, int row_bytes) {
+                                                     int k, int row_bytes, int halves) {
   __shared__ __align__(1024) bf16 s_a[64 * 64];
   __shared__ __align__(1024) bf16 s_b[N * 64];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -488,6 +491,13 @@ __global__ void __launch_bounds__(128) wgmma_product(const bf16* a, const bf16* 
         ((byte % row_bytes) >> 4);
     ltu::wgmma_fence();
     ltu::wgmma_m64k16<N>(d, af, desc);
+    if constexpr (N == 128) {
+      if (halves) {
+        const unsigned long long lower = desc + ((64 * row_bytes) >> 4);  // B's rows 64 ..
+        ltu::wgmma_m64n64k16<0>(d, af, desc);
+        ltu::wgmma_m64n64k16<32>(d, af, lower);
+      }
+    }
     ltu::wgmma_commit();
     ltu::wgmma_wait<0>();
     ltu::wgmma_fence_operand(d);
@@ -505,11 +515,13 @@ extern "C" {
 
 // out (64, n) f32 = a (64, k) @ bt (n, k)^T, bf16 operands, on one
 // warpgroup by `wgmma` m64nNk16 (`wgmma_product`); n in {16, 32, 64, 128},
-// k in {16, 32, 48, 64}, row_bytes 64 or 128. Returns the CUDA error (0 on
-// success).
+// k in {16, 32, 48, 64}, row_bytes 64 or 128; with halves (n 128 only) out
+// is twice the product, its second half added by m64n64k16 into each half
+// of the accumulator. Returns the CUDA error (0 on success).
 int pc_wgmma_product(const void* a, const void* bt, void* out, int n, int k, int row_bytes,
-                     void* stream) {
-  if (k < 16 || k > 64 || k % 16 || (row_bytes != 64 && row_bytes != 128)) {
+                     int halves, void* stream) {
+  if (k < 16 || k > 64 || k % 16 || (row_bytes != 64 && row_bytes != 128) ||
+      (halves && n != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
@@ -517,10 +529,10 @@ int pc_wgmma_product(const void* a, const void* bt, void* out, int n, int k, int
   auto pb = static_cast<const bf16*>(bt);
   auto po = static_cast<float*>(out);
   switch (n) {
-    case 16: wgmma_product<16><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes); break;
-    case 32: wgmma_product<32><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes); break;
-    case 64: wgmma_product<64><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes); break;
-    case 128: wgmma_product<128><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes); break;
+    case 16: wgmma_product<16><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes, halves); break;
+    case 32: wgmma_product<32><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes, halves); break;
+    case 64: wgmma_product<64><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes, halves); break;
+    case 128: wgmma_product<128><<<1, 128, 0, s>>>(pa, pb, po, k, row_bytes, halves); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

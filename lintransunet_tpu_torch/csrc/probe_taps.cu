@@ -78,21 +78,50 @@
 //   own. The taps keep their order, so the sum rounds in the
 //   function's order.
 //
-// `taps_window` (#11; `pt_forward`), the first H100 kernel of these probes,
-// kept for the inner-loop probe until its own redesign. Column k of a row of
-// A sits at a per-chunk base (`colbase`), so one operand can be spliced from
-// several planes without a copy (the level-0 "paired" layout), and a chunk
-// of K can be restricted to a range of output columns (a block-diagonal W
-// whose zero blocks are skipped). A block owns 128 output rows and NT <= 128
-// columns; K goes through in chunks of 32 on `mma.sync`.
-// * Staging mode `window`: per K chunk, the block stages the union of its
-//   taps' rows once, [m0 + min off, m0 + 128 + max off), and every tap
-//   reads its operand at a shifted row of it. Weights go through 9 taps at
-//   a time.
-// * Mode `im2col`: the same window, but each run of three taps at
-//   consecutive offsets (one dh of a 3x3 conv) first copies its three
-//   shifted row slices into aligned panels, a K = 3 x 32 im2col in shared
-//   memory; then the products read the panels.
+// `inner_taps` (#11; `pt_inner_step`): one conv tap step on the level-0
+// paired layout, for windows b of z (B, 3, hbo + 2, WC, 128) seen as planes
+// z2[b, 0..2] of (hbo + 2) WC rows,
+//
+//   out[b, r] = sum_{dh, dw} z2[b, 1, r + s] @ kp[dh, dw]
+//               + [z2[b, 0, r + s, 64:] @ ku[dh, dw] | z2[b, 2, r + s, :64] @ kd[dh, dw]]
+//
+// with s = (1 + dh) WC + dw and rows outside a plane zero. What bounds it
+// on this card: operations, near the ridge (at the probe's shape 46 GFLOP
+// against ~121 MB of compulsory bytes), and L2 traffic: its weights (442 KB
+// of non-zero blocks) do not fit in shared memory, so they stream, once per
+// tile. Its design:
+// * Items are slabs: per kernel row dh and 64-lane chunk (the centre plane's
+//   two halves, the previous plane's upper half, the next plane's lower
+//   half: the paired layout's splice is only a tensor-map coordinate) the
+//   rows [m0 + (1 + dh) WC - 1, ...) of a tile, by one thread's tensor-map
+//   loads (TMA, 128-byte swizzle, zero fill outside the plane: `_dot_pad`'s
+//   clipping) into a ring slot that completes on an mbarrier. The three dw
+//   taps read the slab at row shifts 0, 1 and 2 by `ldmatrix` into the
+//   `wgmma` A fragments, so no tap's tile is staged alone. `bext_s` (the
+//   im2col counterpart) stages each tap's rows aligned by loads of their own
+//   instead: three times the loads, no shifted read.
+// * The weights are packed once per call by the wrapper
+//   (`inner_probe.pack_inner_weights`) in the order the kernel reads them:
+//   per step (dh, chunk, dw) one K-major tile of 64 K, swizzled as
+//   `ltu::swz`, 128 columns for a centre chunk (every chunk of `kext`) and
+//   64 for a neighbour chunk's non-zero block. They come through a ring of
+//   bulk copies three slots longer than its lookahead: at step s the copy
+//   for step s + ahead refills step s - 3's slot, whose `wgmma`s every
+//   warpgroup has retired (its `wgmma_wait<1>` at step s - 1) before the
+//   barrier that the copy follows; a slot fewer would refill step s - 2's,
+//   which step s - 1's wait leaves in flight.
+// * A tile is 64 WG output rows on WG warpgroups, each its 64 rows: `wgmma`
+//   m64n128k16 with A from registers into one m64n128 accumulator, and a
+//   neighbour chunk's m64n64k16 into the half of it that the chunk adds to
+//   (columns 0..63 are its first 32 registers). Every weight tile copied
+//   serves the tile's 64 WG rows. A step's four k16 `wgmma`s are one commit
+//   group, waited for one step later (`wgmma_wait<1>`), so one step's
+//   products run while the next step's barrier, waits and fragment loads go
+//   on.
+// * Persistent grid: one block per SM walks its tiles in order, the blocks
+//   side by side on neighbouring tiles, so that slabs that tiles share hit
+//   L2; the A ring (3 items) runs on across tiles. A tile's output goes
+//   through the A slot its last step read, as 16-byte row stores.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -107,173 +136,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kBM = 128;          // output rows per block, 16 per warp
-constexpr int kKC = 32;           // K per staged chunk: rows of 4 16-byte chunks
-constexpr int kCpr = kKC / 8;
-constexpr int kTG = 9;            // taps whose weights are staged together
-constexpr int kMaxTaps = 32;
-constexpr int kMaxChunks = 64;    // K up to 2048
 constexpr int kSmemLimit = 232448;
-
-enum Mode { kWindow = 0, kIm2col = 1 };
-
-struct Args {
-  const bf16* x;
-  const bf16* w;
-  bf16* out;
-  long long gstride;   // elements between groups of A
-  int rstride;         // elements between rows of A
-  int rows;            // rows of A that exist: [0, rows)
-  int m;               // output rows per group
-  int k;               // rows of each tap's W
-  int n;               // columns of W and of out
-  int taps;
-  int omin, omax;      // least and largest offset
-  int off[kMaxTaps];
-  int colbase[kMaxChunks];       // element offset of chunk kc's first column in a row
-  int nlo[kMaxChunks];           // chunk kc adds to output columns [nlo, nhi)
-  int nhi[kMaxChunks];
-};
-
-// rows [r0, r0 + nrows) of A's K chunk kc into a swizzled tile (zeros outside)
-__device__ __forceinline__ void stage_a(bf16* dst, const Args& a, const bf16* xg, int r0,
-                                        int nrows, int kc) {
-  for (int i = threadIdx.x; i < nrows * kCpr; i += kThreads) {
-    const int r = i / kCpr, c = i % kCpr;
-    const int gr = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (gr >= 0 && gr < a.rows && kc * kKC + c * 8 < a.k) {
-      v = *reinterpret_cast<const uint4*>(xg + static_cast<long long>(gr) * a.rstride +
-                                          a.colbase[kc] + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + ltu::swz(r, c, kCpr)) = v;
-  }
-}
-
-// K chunk kc of tap t's weights, columns [n0, n0 + NT), into a swizzled tile
-template <int NT>
-__device__ __forceinline__ void stage_w(bf16* dst, const Args& a, int t, int kc, int n0) {
-  constexpr int cpr = NT / 8;
-  for (int i = threadIdx.x; i < kKC * cpr; i += kThreads) {
-    const int k = i / cpr, c = i % cpr;
-    const int gk = kc * kKC + k;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (gk < a.k) {
-      v = *reinterpret_cast<const uint4*>(a.w + (static_cast<long long>(t) * a.k + gk) * a.n +
-                                          n0 + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + ltu::swz(k, c, cpr)) = v;
-  }
-}
-
-// the 16-column pairs [p_lo, p_hi) of the block's NT columns that chunk kc adds to
-template <int NT>
-__device__ __forceinline__ void pair_range(const Args& a, int kc, int n0, int& p_lo, int& p_hi) {
-  p_lo = a.nlo[kc] <= n0 ? 0 : (a.nlo[kc] - n0) / 16;
-  p_hi = a.nhi[kc] <= n0 ? 0 : min(NT / 16, (a.nhi[kc] - n0) / 16);
-}
-
-template <int NT>
-__device__ __forceinline__ void store_out(const Args& a, float (&acc)[NT / 8][4], int m0, int n0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* og = a.out + static_cast<long long>(blockIdx.y) * a.m * a.n;
-#pragma unroll
-  for (int j = 0; j < NT / 8; ++j) {
-    const int col = n0 + j * 8 + 2 * (lane & 3);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + warp * 16 + (lane >> 2) + h * 8;
-      if (r < a.m) {
-        *reinterpret_cast<__nv_bfloat162*>(og + static_cast<long long>(r) * a.n + col) =
-            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
-      }
-    }
-  }
-}
-
-__host__ __device__ constexpr int a_tile_elems(int rows) {
-  return static_cast<int>(ltu::align_up(static_cast<size_t>(rows) * kKC, 64));
-}
-
-template <int NT, bool kPanels>
-__global__ void __launch_bounds__(kThreads) taps_window(const Args a) {
-  extern __shared__ __align__(1024) unsigned char smem[];
-  const int wrows = kBM + a.omax - a.omin;
-  bf16* s_a = reinterpret_cast<bf16*>(smem);
-  bf16* s_w = s_a + a_tile_elems(wrows);
-  bf16* s_p = s_w + kTG * kKC * NT;  // im2col panels: 3 x kBM x kKC
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.z * NT;
-  const bf16* xg = a.x + static_cast<long long>(blockIdx.y) * a.gstride;
-  float acc[NT / 8][4];
-#pragma unroll
-  for (int j = 0; j < NT / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int chunks = (a.k + kKC - 1) / kKC;
-  for (int kc = 0; kc < chunks; ++kc) {
-    int p_lo, p_hi;
-    pair_range<NT>(a, kc, n0, p_lo, p_hi);
-    __syncthreads();  // the previous chunk's readers are done
-    stage_a(s_a, a, xg, m0 + a.omin, wrows, kc);
-    for (int t0 = 0; t0 < a.taps; t0 += kTG) {
-      const int tg = min(kTG, a.taps - t0);
-      if (t0) __syncthreads();  // the previous group's weights are read
-      for (int j = 0; j < tg; ++j) stage_w<NT>(s_w + j * kKC * NT, a, t0 + j, kc, n0);
-      __syncthreads();
-      if constexpr (kPanels) {
-        for (int j = 0; j < tg; j += 3) {
-          if (j) __syncthreads();  // the previous panels are read
-          for (int i = threadIdx.x; i < 3 * kBM * kCpr; i += kThreads) {
-            const int u = i / (kBM * kCpr), r = (i / kCpr) % kBM, c = i % kCpr;
-            const int src = r + a.off[t0 + j + u] - a.omin;
-            *reinterpret_cast<uint4*>(s_p + u * kBM * kKC + ltu::swz(r, c, kCpr)) =
-                *reinterpret_cast<const uint4*>(s_a + ltu::swz(src, c, kCpr));
-          }
-          __syncthreads();
-#pragma unroll
-          for (int u = 0; u < 3; ++u) {
-            ltu::warp_mma<kKC, NT>(acc, s_p + u * kBM * kKC, warp * 16,
-                                   s_w + (j + u) * kKC * NT, p_lo, p_hi, lane);
-          }
-        }
-      } else {
-        for (int j = 0; j < tg; ++j) {
-          ltu::warp_mma<kKC, NT>(acc, s_a, warp * 16 + a.off[t0 + j] - a.omin,
-                                 s_w + j * kKC * NT, p_lo, p_hi, lane);
-        }
-      }
-    }
-  }
-  store_out<NT>(a, acc, m0, n0);
-}
-
-size_t smem_bytes(int mode, int nt, int span) {
-  return sizeof(bf16) * (a_tile_elems(kBM + span) + kTG * kKC * nt +
-                         (mode == kIm2col ? 3 * kBM * kKC : 0));
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, const Args& a, int groups, int nt, int mode, cudaStream_t stream) {
-  const size_t smem = smem_bytes(mode, nt, a.omax - a.omin);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.m + kBM - 1) / kBM, groups, a.n / nt);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NT>
-int dispatch_mode(const Args& a, int groups, int mode, cudaStream_t s) {
-  switch (mode) {
-    case kWindow: return launch(taps_window<NT, false>, a, groups, NT, mode, s);
-    case kIm2col: return launch(taps_window<NT, true>, a, groups, NT, mode, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // taps_fold: the tap sum with taps folded per distinct offset (#8, #10)
@@ -368,6 +231,17 @@ struct Cursor {
   __device__ __forceinline__ bool tap_last(const TapArgs& a) const { return kc == a.nkc - 1; }
 };
 
+// One tensor-map load (TMA) of the box at coordinates (x, y, z) of `map`
+// into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            unsigned long long* bar, int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(ltu::smem_addr(dst)), "l"(map), "r"(ltu::smem_addr(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
 // The cursor's item into ring slot `slot`, by one thread: rows [m0 + off, m0 +
 // off + 128) of its K chunks, one tensor-map load (TMA) a 64-wide sub-tile,
 // all completing on `bar`. The map (x as (groups, rows, k), boxes of 1 x 128
@@ -377,12 +251,7 @@ __device__ __forceinline__ void stage_item(bf16* slot, const TapArgs& a, const C
                                            const CUtensorMap* xmap, unsigned long long* bar) {
   ltu::mbar_expect_tx(bar, static_cast<unsigned>(a.nsub * kATile * 2));
   for (int sub = 0; sub < a.nsub; ++sub) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5}], [%2];\n"
-        ::"r"(ltu::smem_addr(slot + sub * kATile)), "l"(xmap), "r"(ltu::smem_addr(bar)),
-        "r"((c.kc + sub) * kKT), "r"(c.m0 + a.d_off[c.d]), "r"(c.g)
-        : "memory");
+    tma_load_3d(slot + sub * kATile, xmap, bar, (c.kc + sub) * kKT, c.m0 + a.d_off[c.d], c.g);
   }
 }
 
@@ -543,15 +412,16 @@ __device__ __forceinline__ void wait_sum(float (&acc)[NA][R], float (&tot)[R]) {
 }
 
 // The tile (each warp's 16 rows of v), rounded to bf16, through `stage` (a
-// 16 KB ring slot: 128 rows of up to 64 columns, swizzled) into 16-byte
-// stores of whole row segments, 64 columns at a time; rows past m are not
-// stored. Every thread calls it: the block's reads of the slot come first.
-template <int NT>
-__device__ __forceinline__ void store_tile(const TapArgs& a, const float (&v)[NT / 2],
-                                           bf16* stage, int g, int m0, int n0, int tid) {
+// ring slot of at least ROWS rows of 64 columns, swizzled) into 16-byte
+// stores of whole row segments, 64 columns at a time: row m0 + r of the
+// output at og + (m0 + r) * ld; rows past m are not stored. Every thread of
+// the block (2 ROWS threads, each warp 16 rows) calls it: the block's reads
+// of the slot come first.
+template <int NT, int ROWS>
+__device__ __forceinline__ void store_tile(bf16* og, int ld, int m, const float (&v)[NT / 2],
+                                           bf16* stage, int m0, int tid) {
   constexpr int kCols = NT < kKT ? NT : kKT, kCpr = kCols / 8;
   const int warp = tid >> 5, lane = tid & 31;
-  bf16* og = a.out + static_cast<long long>(g) * a.m * a.n + n0;
 #pragma unroll
   for (int cb = 0; cb < NT; cb += kCols) {
     __syncthreads();  // the slot's (or the last columns') readers are done
@@ -565,10 +435,10 @@ __device__ __forceinline__ void store_tile(const TapArgs& a, const float (&v)[NT
       }
     }
     __syncthreads();
-    for (int i = tid; i < kRows * kCpr; i += kThreads) {
+    for (int i = tid; i < ROWS * kCpr; i += 2 * ROWS) {
       const int r = i / kCpr, c = i % kCpr;
-      if (m0 + r >= a.m) continue;
-      *reinterpret_cast<uint4*>(og + static_cast<long long>(m0 + r) * a.n + cb + c * 8) =
+      if (m0 + r >= m) continue;
+      *reinterpret_cast<uint4*>(og + static_cast<long long>(m0 + r) * ld + cb + c * 8) =
           *reinterpret_cast<const uint4*>(stage + ltu::swz(r, c, kCpr));
     }
   }
@@ -720,12 +590,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (cu.i == a.items - 1) {  // the slot read this step is spent: the stores' stage
       bf16* stage = ring + (s % a.slots) * slot_elems;
+      bf16* out_g = a.out + static_cast<long long>(cu.g) * a.m * a.n + n0;
       if constexpr (kBf16Acc) {
         load_sum(tot, sum, tid);
-        store_tile<NT>(a, tot, stage, cu.g, cu.m0, n0, tid);
+        store_tile<NT, kRows>(out_g, a.n, a.m, tot, stage, cu.m0, tid);
       } else {
         wait_sum(acc, tot);
-        store_tile<NT>(a, tot, stage, cu.g, cu.m0, n0, tid);
+        store_tile<NT, kRows>(out_g, a.n, a.m, tot, stage, cu.m0, tid);
       }
     }
     cu.next(a);
@@ -788,10 +659,11 @@ int dispatch_fold(const TapArgs& a, bool bf16_acc, bf16* folded, const CUtensorM
                   : launch_fold<NT, false, false>(a, folded, xmap, s);
 }
 
-// x (groups, rows, k) bf16 as a tensor map of 1 x 128 x 64 boxes with the
-// 128-byte swizzle, zeros outside (`stage_item`); the driver's encoder is
-// found once through the runtime, so nothing links the driver library.
-int x_tensor_map(CUtensorMap* map, const bf16* x, int groups, int rows, int k) {
+// x (groups, rows, k) bf16 as a tensor map of 1 x box_rows x 64 boxes with
+// the 128-byte swizzle, zeros outside (`stage_item`, `inner_taps`); the
+// driver's encoder is found once through the runtime, so nothing links the
+// driver library.
+int x_tensor_map(CUtensorMap* map, const bf16* x, int groups, int rows, int k, int box_rows) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -806,7 +678,7 @@ int x_tensor_map(CUtensorMap* map, const bf16* x, int groups, int rows, int k) {
                               static_cast<cuuint64_t>(groups)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k) * 2,
                                  static_cast<cuuint64_t>(rows) * k * 2};
-  const cuuint32_t box[3] = {kKT, kRows, 1}, unit[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {kKT, static_cast<cuuint32_t>(box_rows), 1}, unit[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(x), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -815,66 +687,247 @@ int x_tensor_map(CUtensorMap* map, const bf16* x, int groups, int rows, int k) {
 }
 
 
+
+// ---------------------------------------------------------------------------
+// inner_taps: one conv tap step on the paired layout (#11)
+// ---------------------------------------------------------------------------
+
+constexpr int kInLanes = 128;             // a plane row's lanes, and the output's columns
+constexpr int kInChunk = 64;              // lanes of one A item: 128-byte rows
+constexpr int kInBox = 136;               // rows of one slab load (boxes of 1 x 136 x 64)
+constexpr int kInWTile = kInLanes * kKT;  // elements of a 128-column weight tile (16 KB)
+constexpr int kMaxSteps = 36;             // steps of a tile: 3 dh x 4 chunks x 3 dw
+constexpr int kInPlanHeader = 4;
+
+// A tile on WG warpgroups: 64 WG output rows, 16 a warp. An A slot holds
+// WG / 2 slab loads 128 rows apart, rows [0, 64 WG + 8): the 64 WG + 2 rows
+// that the three dw shifts read, and room for the tile's output stage. The
+// weights' ring takes the rest of shared memory below the barriers.
+template <int WG>
+struct InnerTile {
+  static constexpr int kRows = 64 * WG;
+  static constexpr int kThreads = 128 * WG;
+  static constexpr int kLoads = WG / 2;
+  static constexpr int kASlot = (128 * kLoads + 8) * kInChunk;  // elements
+  static constexpr int kASlots = 3;
+  static constexpr int kWSlots = (kTapSmem - kASlots * kASlot * 2) / (kInWTile * 2);
+  static_assert(WG == 2 || WG == 4, "tiles of 128 or 256 rows");
+  static_assert(kWSlots >= 5 && kASlots + kWSlots <= 128, "rings and their barriers fit");
+};
+
+// A tile's plan (`inner_probe.plan_ints`): per step, `flags` (bit 0: the
+// step starts a new A item; bits 1-2: the item's plane of the window, 0..2;
+// bit 3: its lanes 64..127, else 0..63; bits 4-5: the step's output
+// columns, 0 all 128, 1 0..63, 2 64..127; bits 6-7: its A rows' shift into
+// the item), an item's first row from the tile's first output row, and the
+// step's weight tile (element offset in w); per item, its first step.
+struct InnerArgs {
+  const bf16* w;   // the packed weights
+  bf16* out;       // (batch, m, 128)
+  int batch, m, row_tiles;
+  int steps, items;  // a tile's
+  int flags[kMaxSteps], row[kMaxSteps], woff[kMaxSteps], item_step[kMaxSteps];
+};
+
+template <int WG>
+__global__ void __launch_bounds__(InnerTile<WG>::kThreads, 1)
+    inner_taps(const InnerArgs a, const __grid_constant__ CUtensorMap zmap) {
+  using T = InnerTile<WG>;
+  constexpr int kWAhead = T::kWSlots - 3;  // the copy refills step s - 3's slot (above)
+  constexpr int kAAhead = T::kASlots - 1;  // the load refills item q - 1's slot
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  bf16* aring = reinterpret_cast<bf16*>(smem);
+  bf16* wring = aring + T::kASlots * T::kASlot;
+  auto* wbar = reinterpret_cast<unsigned long long*>(smem + kTapSmem);
+  auto* abar = wbar + T::kWSlots;
+  const int grid = static_cast<int>(gridDim.x), block = static_cast<int>(blockIdx.x);
+  const int tiles = (a.batch * a.row_tiles - block + grid - 1) / grid;
+  const int steps = tiles * a.steps, items = tiles * a.items;
+  if (tid == 0) {
+    for (int i = 0; i < T::kWSlots; ++i) ltu::mbar_init(wbar + i, 1);
+    for (int i = 0; i < T::kASlots; ++i) ltu::mbar_init(abar + i, 1);
+    ltu::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // the block's j-th tile: window b, first output row m0
+  auto tile = [&](int j, int& b, int& m0) {
+    const int t = block + j * grid;
+    b = t / a.row_tiles;
+    m0 = (t % a.row_tiles) * T::kRows;
+  };
+  // step s's weight tile into its slot, one bulk copy (thread 0)
+  auto stage_w = [&](int s) {
+    const int i = s % a.steps;
+    const unsigned bytes = ((a.flags[i] >> 4 & 3) ? kInWTile / 2 : kInWTile) * 2;
+    unsigned long long* bar = wbar + s % T::kWSlots;
+    ltu::mbar_expect_tx(bar, bytes);
+    ltu::bulk_copy(wring + (s % T::kWSlots) * kInWTile, a.w + a.woff[i], bytes, bar);
+  };
+  // item q's slab into its slot, WG / 2 tensor-map loads (thread 0)
+  auto stage_a = [&](int q) {
+    const int i = a.item_step[q % a.items], f = a.flags[i];
+    int b, m0;
+    tile(q / a.items, b, m0);
+    bf16* slot = aring + (q % T::kASlots) * T::kASlot;
+    unsigned long long* bar = abar + q % T::kASlots;
+    ltu::mbar_expect_tx(bar, static_cast<unsigned>(T::kLoads * kInBox * kInChunk * 2));
+    for (int p = 0; p < T::kLoads; ++p) {
+      tma_load_3d(slot + p * 128 * kInChunk, &zmap, bar, (f >> 3 & 1) * kInChunk,
+                  m0 + a.row[i] + 128 * p, 3 * b + (f >> 1 & 3));
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kWAhead && s < steps; ++s) stage_w(s);
+    for (int q = 0; q < kAAhead && q < items; ++q) stage_a(q);
+  }
+
+  float acc[64];
+  unsigned af[2][4][4] = {};
+  int q = -1;  // the item that step s reads
+  // step s: the next copies issued, its item and weights landed, its
+  // products; step s loads fragment set s % 2 (SET), so the loop runs steps
+  // in pairs
+  auto step = [&](int s, auto set) {
+    constexpr int SET = decltype(set)::value;
+    const int i = s % a.steps, f = a.flags[i];
+    const bool new_item = f & 1;
+    __syncthreads();  // step s - 1's A reads are done, step s - 3's weights retired
+    if (new_item) ++q;
+    if (tid == 0) {
+      ltu::fence_proxy_async();  // the block's earlier accesses come before the copies
+      if (s + kWAhead < steps) stage_w(s + kWAhead);
+      if (new_item && q + kAAhead < items) stage_a(q + kAAhead);
+    }
+    bf16* slab = aring + (q % T::kASlots) * T::kASlot;
+    if (new_item) ltu::mbar_wait(abar + q % T::kASlots, (q / T::kASlots) & 1);
+    ltu::mbar_wait(wbar + s % T::kWSlots, (s / T::kWSlots) & 1);
+    const int shift = f >> 6 & 3, cols = f >> 4 & 3;
+    ltu::wgmma_wait<1>();  // step s - 2, the last reader of this fragment set, is done
+    keep(af[SET]);
+#pragma unroll
+    for (int ks = 0; ks < kKT / 16; ++ks) {
+      ltu::ldsm_x4(af[SET][ks],
+                   slab + ltu::swz(warp * 16 + (lane & 15) + shift, ks * 2 + (lane >> 4), 8));
+    }
+    ltu::wgmma_fence_operand(acc);
+    ltu::wgmma_fence();
+    const unsigned long long desc =
+        ltu::wgmma_desc_kmajor(wring + (s % T::kWSlots) * kInWTile, 128);
+    if (cols == 0) {  // the tile's first step starts the sum (scale-d 0)
+#pragma unroll
+      for (int ks = 0; ks < kKT / 16; ++ks) {
+        ltu::wgmma_m64n128k16(acc, af[SET][ks], desc + 2 * ks, i > 0 || ks > 0);
+      }
+    } else if (cols == 1) {
+#pragma unroll
+      for (int ks = 0; ks < kKT / 16; ++ks) ltu::wgmma_m64n64k16<0>(acc, af[SET][ks], desc + 2 * ks);
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < kKT / 16; ++ks) ltu::wgmma_m64n64k16<32>(acc, af[SET][ks], desc + 2 * ks);
+    }
+    ltu::wgmma_commit();
+    ltu::wgmma_fence_operand(acc);
+    if (i == a.steps - 1) {  // the tile's output, through the slot this step read
+      ltu::wgmma_wait<0>();
+      ltu::wgmma_fence_operand(acc);
+      int b, m0;
+      tile(s / a.steps, b, m0);
+      store_tile<kInLanes, T::kRows>(a.out + static_cast<long long>(b) * a.m * kInLanes,
+                                     kInLanes, a.m, acc, slab, m0, tid);
+    }
+  };
+  int s = 0;
+  for (; s + 1 < steps; s += 2) {
+    step(s, std::integral_constant<int, 0>{});
+    step(s + 1, std::integral_constant<int, 1>{});
+  }
+  if (s < steps) step(s, std::integral_constant<int, 0>{});
+}
+
+template <int WG>
+int launch_inner(const InnerArgs& a, const CUtensorMap& zmap, cudaStream_t stream) {
+  // per instantiation and device, once: the shared-memory attribute and the
+  // SM count (a block takes all of an SM's shared memory: one block an SM)
+  static int sms[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[device] == 0) {
+    err = cudaFuncSetAttribute(inner_taps<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long tiles = static_cast<long long>(a.batch) * a.row_tiles;
+  const int grid = tiles < sms[device] ? static_cast<int>(tiles) : sms[device];
+  inner_taps<WG><<<grid, InnerTile<WG>::kThreads, kSmemLimit, stream>>>(a, zmap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of `mode` takes with column tile `n_tile` and
-// offset span (largest - least offset); the wrapper checks it against the
-// card's limit before a launch.
-int pt_smem_bytes(int mode, int n_tile, int span) {
-  return static_cast<int>(smem_bytes(mode, n_tile, span));
-}
-
-// x: bf16 A, group g at x + g * gstride, row r at + r * rstride, chunk kc
-// of K at + colbase[kc]; w: bf16 (taps, k, n) contiguous; out: bf16
-// (groups, m, n) contiguous. off: taps row offsets; colbase, nlo, nhi:
-// ceil(k / 32) entries each (nlo, nhi multiples of 16). n_tile in {16, 32,
-// 64, 128} divides n; k and every colbase are multiples of 8. mode: 0
-// window, 1 im2col (taps a multiple of 3). Launches on `stream`; returns the
+// One conv tap step on the paired layout (#11), `inner_taps`. z: bf16
+// (batch, 3, hbo + 2, wc, 128) contiguous, 16-byte aligned; w: the packed
+// weights (`inner_probe.pack_inner_weights`), 16-byte aligned; out: bf16
+// (batch, hbo * wc, 128). plan: `inner_probe.plan_ints`: a header of 4
+// (warpgroups a tile, 2 or 4; steps a tile; items a tile; elements of w)
+// and four tables of 36 (each step's flags, first row and weight offset;
+// each item's first step; `InnerArgs`). Launches on `stream`; returns the
 // CUDA error (0 on success).
-int pt_forward(const void* x, const void* w, void* out, long long gstride, int rstride,
-               int rows, int m, int k, int n, int groups, int taps, const int* off,
-               const int* colbase, const int* nlo, const int* nhi, int n_tile, int mode,
-               void* stream) {
-  const int chunks = (k + kKC - 1) / kKC;
-  if (taps < 1 || taps > kMaxTaps || chunks > kMaxChunks || n % n_tile != 0 ||
-      (mode == kIm2col && taps % 3 != 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Args a{};
-  a.x = static_cast<const bf16*>(x);
+int pt_inner_step(const void* z, const void* w, void* out, int batch, int hbo, int wc,
+                  const int* plan, void* stream) {
+  const int wg = plan[0], w_elems = plan[3];
+  InnerArgs a{};
   a.w = static_cast<const bf16*>(w);
   a.out = static_cast<bf16*>(out);
-  a.gstride = gstride;
-  a.rstride = rstride;
-  a.rows = rows;
-  a.m = m;
-  a.k = k;
-  a.n = n;
-  a.taps = taps;
-  a.omin = off[0];
-  a.omax = off[0];
-  for (int t = 0; t < taps; ++t) {
-    a.off[t] = off[t];
-    a.omin = off[t] < a.omin ? off[t] : a.omin;
-    a.omax = off[t] > a.omax ? off[t] : a.omax;
+  a.batch = batch;
+  a.steps = plan[1];
+  a.items = plan[2];
+  const long long m = static_cast<long long>(hbo) * wc, rows = m + 2LL * wc;
+  if (batch < 1 || hbo < 1 || wc < 1 || (wg != 2 && wg != 4) || a.steps < 1 ||
+      a.steps > kMaxSteps || a.items < 1 || a.items > a.steps || rows > (1LL << 30) ||
+      3LL * batch > (1LL << 30) || reinterpret_cast<size_t>(z) % 16 ||
+      reinterpret_cast<size_t>(w) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int c = 0; c < chunks; ++c) {
-    a.colbase[c] = colbase[c];
-    a.nlo[c] = nlo[c];
-    a.nhi[c] = nhi[c];
+  a.m = static_cast<int>(m);
+  a.row_tiles = static_cast<int>((m + 64 * wg - 1) / (64 * wg));
+  if (static_cast<long long>(batch) * a.row_tiles > (1LL << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int* t = plan + kInPlanHeader;
+  int items = 0;
+  for (int i = 0; i < a.steps; ++i) {
+    a.flags[i] = t[i];
+    a.row[i] = t[kMaxSteps + i];
+    a.woff[i] = t[2 * kMaxSteps + i];
+    const int cols = a.flags[i] >> 4 & 3;
+    const int elems = cols ? kInWTile / 2 : kInWTile;
+    if (cols == 3 || (a.flags[i] >> 1 & 3) > 2 || a.woff[i] < 0 || a.woff[i] % 64 ||
+        a.woff[i] + elems > w_elems || (i == 0 && (cols != 0 || !(a.flags[i] & 1)))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (a.flags[i] & 1) {
+      if (items >= a.items || t[3 * kMaxSteps + items] != i) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      a.item_step[items++] = i;
+    }
+  }
+  if (items != a.items) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap zmap;
+  const int err = x_tensor_map(&zmap, static_cast<const bf16*>(z), 3 * batch,
+                               static_cast<int>(rows), kInLanes, kInBox);
+  if (err != 0) return err;
   auto s = static_cast<cudaStream_t>(stream);
-  switch (n_tile) {
-    case 16: return dispatch_mode<16>(a, groups, mode, s);
-    case 32: return dispatch_mode<32>(a, groups, mode, s);
-    case 64: return dispatch_mode<64>(a, groups, mode, s);
-    case 128: return dispatch_mode<128>(a, groups, mode, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return wg == 2 ? launch_inner<2>(a, zmap, s) : launch_inner<4>(a, zmap, s);
 }
-
 
 // The tap sum: `taps_fold_weights`, then `taps_fold` under programmatic
 // dependent launch. x: bf16 (groups, rows, k), w: bf16 (taps, k, n), out:
@@ -942,7 +995,7 @@ int pt_tap_sum(const void* x, const void* w, void* out, void* folded, int groups
     a.g_p[i] = t[256 + i];
   }
   CUtensorMap xmap;
-  const int err = x_tensor_map(&xmap, a.x, groups, rows, a.k);
+  const int err = x_tensor_map(&xmap, a.x, groups, rows, a.k, kRows);
   if (err != 0) return err;
   auto s = static_cast<cudaStream_t>(stream);
   auto fold = static_cast<bf16*>(folded);

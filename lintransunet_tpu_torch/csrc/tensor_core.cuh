@@ -215,9 +215,13 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[R]) {
 // K-major; with scale_d 0, d = a * B). Each warp of the warpgroup gives its
 // 16 rows of A as the A fragment of `mma.sync` m16n8k16 (`ldsm_x4` of a
 // row-major tile) and gets its 16 rows of d as that instruction's
-// accumulators: columns 8t .. 8t + 7 in d[4t .. 4t + 3].
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (&a)[4],
+// accumulators: columns 8t .. 8t + 7 in d[O + 4t .. O + 4t + 3]. With O 32
+// and R 64 it adds into columns 64 .. 127 of an m64n128 accumulator, whose
+// registers are ordered by 8-column block the same way.
+template <int O = 0, int R = 32>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[R], const unsigned (&a)[4],
                                                 unsigned long long desc_b, int scale_d = 1) {
+  static_assert(O >= 0 && O + 32 <= R, "the 32 accumulators lie inside d");
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -227,14 +231,14 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]),
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 

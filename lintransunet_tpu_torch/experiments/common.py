@@ -100,15 +100,16 @@ def kernel_us(fn, iters=10):
     return times
 
 
-def card_line(kernel, library=None, kernels=False):
+def card_line(kernel, library=None, kernels=False, label="library"):
     """One printed line of card and host times: the kernel's call and the
-    library call (where given) each by ``card_ms`` and ``host_us``; with
-    ``kernels``, the kernel call's device time by kernel (``kernel_us``)."""
+    library call (where given, named ``label``) each by ``card_ms`` and
+    ``host_us``; with ``kernels``, the kernel call's device time by kernel
+    (``kernel_us``)."""
     card = f"  card: kernel {card_ms(kernel):.4f} ms"
     host = f"host: kernel {host_us(kernel):.1f} us"
     if library is not None:
-        card += f", library {card_ms(library):.4f} ms"
-        host += f", library {host_us(library):.1f} us"
+        card += f", {label} {card_ms(library):.4f} ms"
+        host += f", {label} {host_us(library):.1f} us"
     line = f"{card}; {host}"
     if kernels:
         line += "; device: " + ", ".join(f"{k} {v:.2f} us" for k, v in kernel_us(kernel).items())

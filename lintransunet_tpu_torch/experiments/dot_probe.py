@@ -11,8 +11,7 @@ bf16 and sums in bf16, as variant E does: Hopper's tensor cores accumulate
 bf16 products only in f32, so this is a rounding after each tap, not a
 cheaper multiply-add. CPU tensors take ``tap_sum_reference``; CUDA tensors
 launch ``taps_fold`` in ``csrc/probe_taps.cu`` or raise. The same kernel
-serves ``rowoffset_probe``; ``inner_probe`` runs the file's older
-``taps_window`` kernel through ``launch_taps``.
+serves ``rowoffset_probe``; ``inner_probe`` runs the file's ``inner_taps``.
 
 The kernel folds the taps per distinct offset (``tap_plan`` lays out the
 products, ``fold_taps_reference`` is the fold's plain version): the taps at
@@ -43,10 +42,8 @@ import torch.nn.functional as F
 
 from lintransunet_tpu_torch.experiments import common
 
-KC = 32                       # K per chunk ``taps_window`` stages
 MAX_TAPS = 32
 MAX_K = 2048
-MODES = {"window": 0, "im2col": 1}
 # taps_fold: 128 output rows a tile, 64-wide K chunks (A sub-tiles of 16 KB)
 TILE_ROWS, K_TILE, THREADS = 128, 64, 256
 A_TILE_BYTES = TILE_ROWS * K_TILE * 2
@@ -228,32 +225,6 @@ def tap_plan(k: int, n: int, offsets: tuple, bf16_acc: bool) -> TapPlan:
     return TapPlan(nt, mode, streamed, slots, nsub, items, distinct, tuple(products),
                    ring + sums + w_bytes, len(products) * nkc * K_TILE * n,
                    (ctypes.c_int * len(values))(*values))
-
-
-def launch_taps(x, w, out, offsets, *, gstride, rstride, rows, k, colbase, nlo, nhi, mode):
-    """Launch ``probe_taps.cu`` on CUDA tensors (the checks are the
-    caller's, apart from the shared-memory limit); raise on a failed launch."""
-    from lintransunet_tpu_torch import kernels
-
-    lib = kernels.load("probe_taps")
-    groups, m, n = out.shape
-    tile = n_tile(n)
-    span = max(offsets) - min(offsets)
-    smem = lib.pt_smem_bytes(MODES[mode], tile, span)
-    if smem > common.SMEM_LIMIT:
-        raise ValueError(f"mode {mode!r} with an offset span of {span} rows needs "
-                         f"{smem} bytes of shared memory; a block has {common.SMEM_LIMIT}")
-
-    def ints(values):
-        return (ctypes.c_int * len(values))(*values)
-
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pt_forward(x.data_ptr(), w.data_ptr(), out.data_ptr(), gstride, rstride,
-                             rows, m, k, n, groups, len(offsets), ints(offsets),
-                             ints(colbase), ints(nlo), ints(nhi), tile, MODES[mode], stream)
-    if err != 0:
-        raise RuntimeError(f"probe_taps kernel launch failed: CUDA error {err}")
 
 
 def check_cuda(*tensors, dtype=torch.bfloat16):

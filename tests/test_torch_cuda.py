@@ -566,20 +566,59 @@ def test_row_offset_sum_matches_plain(cuda, variant):
 
 
 @pytest.mark.parametrize("strategy", inner_probe.STRATEGIES)
-@pytest.mark.parametrize("batch,hbo", [(3, 12), (1, 2)])
+@pytest.mark.parametrize("batch,hbo", [(3, 12), (1, 2), (1, 1), (5, 3), (64, 1)])
 def test_inner_step_matches_plain(cuda, strategy, batch, hbo):
     """Every strategy is held to the dots27 function on all rows, the two
-    clipped edge rows included."""
+    clipped edge rows included; the last tile of a window is ragged (hbo *
+    136 rows: 1,632, 272, 136, 408), and 64 windows of one short tile each
+    make more tiles than SMs."""
     z, kp, ku, kd = inner_probe.inputs(batch, hbo, cuda)
-    ke = inner_probe.pack_weights(kp, ku, kd)
+    packed = inner_probe.pack_inner_weights(kp, ku, kd, strategy)
     before = inner_probe.inner_step_packed.launches
-    got = inner_probe.inner_step_packed(z, ke, hbo, strategy)
+    got = inner_probe.inner_step_packed(z, packed, hbo, strategy)
     torch.cuda.synchronize()
     assert inner_probe.inner_step_packed.launches == before + 1
     want = inner_probe.inner_step_reference(z, kp, ku, kd, hbo)
     assert got.shape == (batch, hbo * inner_probe.WC, inner_probe.NO)
     assert _rel(got, want) <= PROBE_TOL[torch.bfloat16]
     assert _rel(got[:, [0, -1]], want[:, [0, -1]]) <= PROBE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("strategy", inner_probe.STRATEGIES)
+def test_inner_weights_packed_on_the_card_are_the_cpu_packing(cuda, strategy):
+    """The wrapper's packing on the card (one gather) is bit for bit the
+    CPU's, and each tile, unswizzled, is its tap's weights."""
+    z, kp, ku, kd = inner_probe.inputs(1, 1, cuda)
+    got = inner_probe.pack_inner_weights(kp, ku, kd, strategy)
+    want = inner_probe.pack_inner_weights(kp.cpu(), ku.cpu(), kd.cpu(), strategy)
+    assert torch.equal(got.cpu(), want)
+    ke = inner_probe.pack_weights(kp, ku, kd).view(3, 3, 256, 128)
+    for st in inner_probe.inner_steps(strategy):
+        tile = got[st.woff:st.woff + st.width * inner_probe.K_TILE].view(st.width, 64)
+        k0 = {1: st.lane0, 0: 128, 2: 192}[st.plane]
+        cols = slice(64, 128) if st.cols == inner_probe.HIGH else slice(0, st.width)
+        assert torch.equal(inner_probe.swizzle_rows(tile).t(),
+                           ke[st.dh + 1, st.dw + 1, k0:k0 + 64, cols]), st
+
+
+def test_inner_step_rejects_views(cuda):
+    """A non-contiguous or misaligned z (or packed weights) raises
+    ``ValueError``, not a fault."""
+    z, kp, ku, kd = inner_probe.inputs(2, 2, cuda)
+    packed = inner_probe.pack_inner_weights(kp, ku, kd)
+    strided = z.transpose(-1, -2).contiguous().transpose(-1, -2)     # z's shape, not contiguous
+    with pytest.raises(ValueError):
+        inner_probe.inner_step_packed(strided, packed, 2)
+    with pytest.raises(ValueError):
+        inner_probe.inner_step(strided, kp, ku, kd, 2)
+    shifted = torch.empty(z.numel() + 1, dtype=z.dtype, device=cuda)[1:].view(z.shape)
+    shifted.copy_(z)
+    with pytest.raises(ValueError):
+        inner_probe.inner_step(shifted, kp, ku, kd, 2)                    # 2 bytes off 16
+    moved = torch.empty(packed.numel() + 1, dtype=packed.dtype, device=cuda)[1:]
+    moved.copy_(packed)
+    with pytest.raises(ValueError):
+        inner_probe.inner_step_packed(z, moved, 2)                        # weights misaligned
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -654,11 +693,30 @@ def test_wgmma_product_matches_matmul(cuda, n, k, row_bytes):
     bt = torch.randn((n, k), generator=g).to(cuda, torch.bfloat16)
     out = torch.empty((64, n), device=cuda)
     err = kernels.load("probe_conv").pc_wgmma_product(
-        a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, k, row_bytes,
+        a.data_ptr(), bt.data_ptr(), out.data_ptr(), n, k, row_bytes, 0,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
     assert _rel(out, torch.matmul(a.float(), bt.float().t())) <= 1e-5
+
+
+@pytest.mark.parametrize("k,row_bytes", [(16, 64), (16, 128), (64, 64), (64, 128)])
+def test_wgmma_half_accumulator_matches_matmul(cuda, k, row_bytes):
+    """m64n64k16 into each half of an m64n128 accumulator (``wgmma_m64n64k16<0>``
+    and ``<32>``, what the inner-loop probe's neighbour taps run), after the
+    m64n128k16 of the same operands: out is twice a @ bt^T, so columns
+    0..63 are the first 32 registers and 64..127 the last 32. 1e-5 of max
+    |plain| as above."""
+    g = torch.Generator(device="cpu").manual_seed(13)
+    a = torch.randn((64, k), generator=g).to(cuda, torch.bfloat16)
+    bt = torch.randn((128, k), generator=g).to(cuda, torch.bfloat16)
+    out = torch.empty((64, 128), device=cuda)
+    err = kernels.load("probe_conv").pc_wgmma_product(
+        a.data_ptr(), bt.data_ptr(), out.data_ptr(), 128, k, row_bytes, 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert _rel(out, 2 * torch.matmul(a.float(), bt.float().t())) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

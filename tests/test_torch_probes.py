@@ -288,6 +288,143 @@ def test_inner_step_batches_windows():
                                    rtol=0, atol=0)
 
 
+# ---- #11 on the card's plan: the kernel's walk, its packing, the yardstick ---
+
+@functools.lru_cache(maxsize=None)
+def _inner_case(hbo):
+    """One window's z, kp, ku, kd as torch (bf16) and the TPU probe's
+    ``dots27`` output on them (interpret mode), as f32 numpy."""
+    inner = _jax_probe("pallas_inner_probe")
+    rng = np.random.default_rng(20 + hbo)
+    z, z_j = _pair(rng.standard_normal((3, hbo + 2, inner.WC, inner.L)), jnp.bfloat16)
+    kp, kp_j = _pair(rng.standard_normal((3, 3, inner.L, inner.NO)) * 0.05, jnp.bfloat16)
+    ku, ku_j = _pair(rng.standard_normal((3, 3, inner.C4, inner.C4)) * 0.05, jnp.bfloat16)
+    kd, kd_j = _pair(rng.standard_normal((3, 3, inner.C4, inner.C4)) * 0.05, jnp.bfloat16)
+    want = np.asarray(_inner_jax(inner, "dots27", hbo, z_j, kp_j, ku_j, kd_j), np.float32)
+    return (z, kp, ku, kd), want
+
+
+@pytest.mark.parametrize("wg", [2, 4])
+@pytest.mark.parametrize("hbo", [2, 3])
+@pytest.mark.parametrize("strategy", inner_probe.STRATEGIES)
+def test_inner_step_planned_matches_jax(strategy, hbo, wg):
+    """The kernel's walk (slabs or per-tap items as its loads give them, the
+    dw shifts, the packed tiles unswizzled, the column halves) on tiles of 64
+    wg rows, the last one ragged (hbo * WC = 272 or 408 rows), held to the
+    TPU probe's dots27 on every row, edge rows included."""
+    (z, kp, ku, kd), want = _inner_case(hbo)
+    assert (hbo * inner_probe.WC) % (64 * wg)
+    got = inner_probe.inner_step_planned(z, kp, ku, kd, hbo, strategy, wg)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _err(got, want) <= BF16_TOL
+    assert _err(got[:, [0, -1]], want[:, [0, -1]]) <= BF16_TOL
+
+
+@pytest.mark.parametrize("strategy", inner_probe.STRATEGIES)
+def test_inner_packing_unpacks_to_the_weights(strategy):
+    """Each step's packed tile, unswizzled, is the weights of its tap and
+    chunk (kext: the 128 columns of [kp; blockdiag(ku, kd)], zero blocks
+    included); the tiles cover the packed weights exactly, in order."""
+    rng = np.random.default_rng(7)
+    kp = torch.from_numpy(rng.standard_normal((3, 3, 128, 128)).astype(np.float32)).bfloat16()
+    ku, kd = (torch.from_numpy(rng.standard_normal((3, 3, 64, 64)).astype(np.float32)).bfloat16()
+              for _ in range(2))
+    packed = inner_probe.pack_inner_weights(kp, ku, kd, strategy)
+    ke = inner_probe.pack_weights(kp, ku, kd).view(3, 3, 256, 128)
+    assert packed.shape == (inner_probe.weight_elems(strategy),)
+    end = 0
+    for st in inner_probe.inner_steps(strategy):
+        assert st.woff == end
+        end = st.woff + st.width * inner_probe.K_TILE
+        tile = inner_probe.swizzle_rows(packed[st.woff:end].view(st.width, 64)).t()  # (K, cols)
+        k0 = {1: st.lane0, 0: 128, 2: 192}[st.plane]
+        full = ke[st.dh + 1, st.dw + 1, k0:k0 + 64]
+        want = {inner_probe.ALL: full, inner_probe.LOW: full[:, :64],
+                inner_probe.HIGH: full[:, 64:]}[st.cols]
+        assert torch.equal(tile, want), st
+    assert end == packed.numel()
+
+
+@pytest.mark.parametrize("strategy", inner_probe.STRATEGIES)
+def test_inner_plan_walks_every_tap_once(strategy):
+    """Every (dh, dw, chunk) once; the first step adds to every column (it
+    starts the sum); dots27 and bext_s multiply a neighbour chunk's non-zero
+    block only, kext every column; bext_s stages an aligned item a step,
+    the others one slab per (dh, chunk) read at shifts 0, 1, 2; the C
+    plan's tables say the same."""
+    steps = inner_probe.inner_steps(strategy)
+    assert sorted((st.dh, st.dw, st.chunk) for st in steps) == sorted(
+        (dh, dw, name) for dh in (-1, 0, 1) for dw in (-1, 0, 1)
+        for name, _, _ in inner_probe.CHUNKS)
+    assert steps[0].cols == inner_probe.ALL and steps[0].new_item
+    per_tap = strategy == "bext_s"
+    for st in steps:
+        assert st.cols == (inner_probe.ALL if st.plane == 1 or strategy == "kext"
+                           else inner_probe.LOW if st.plane == 0 else inner_probe.HIGH)
+        assert st.new_item == (per_tap or st.dw == -1)
+        assert (st.row, st.shift) == ((st.dw, 0) if per_tap else (-1, st.dw + 1))
+    ints = list(inner_probe.plan_ints(strategy, 136, 4))
+    items = [i for i, st in enumerate(steps) if st.new_item]
+    head, tables = ints[:inner_probe.PLAN_HEADER], ints[inner_probe.PLAN_HEADER:]
+    assert head == [4, 36, len(items), inner_probe.weight_elems(strategy)]
+    flags, rows, woffs, item_step = (tables[i * 36:(i + 1) * 36] for i in range(4))
+    assert item_step[:len(items)] == items
+    for i, st in enumerate(steps):
+        assert flags[i] == (st.new_item | st.plane << 1 | (st.lane0 // 64) << 3 | st.cols << 4
+                            | st.shift << 6)
+        assert rows[i] == (1 + st.dh) * 136 + st.row and woffs[i] == st.woff
+
+
+def test_inner_yardstick_is_the_function_but_at_the_wrap_columns():
+    """``F.conv3d`` on z's channels_last_3d view with the stacked weights
+    equals the plain dots27 function in f32 on every column but the first
+    and last of each row of WC, where it reads zeros and the function the
+    neighbouring row's end."""
+    rng = np.random.default_rng(8)
+    hbo, wc = 3, inner_probe.WC
+    z = torch.from_numpy(rng.standard_normal((2, 3, hbo + 2, wc, 128)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((3, 3, 128, 128)).astype(np.float32) * 0.05)
+    ku, kd = (torch.from_numpy(rng.standard_normal((3, 3, 64, 64)).astype(np.float32) * 0.05)
+              for _ in range(2))
+    want = inner_probe.inner_step_reference(z, kp, ku, kd, hbo).view(2, hbo, wc, 128)
+    y = inner_probe.library_conv(z, inner_probe.library_weight(kp, ku, kd))
+    assert y.shape == (2, 128, 1, hbo, wc)
+    got = inner_probe.library_rows(y).view(2, hbo, wc, 128)
+    assert _err(got[:, :, 1:-1], want[:, :, 1:-1]) <= F32_TOL
+    assert _err(got[:, :, [0, -1]], want[:, :, [0, -1]]) > 1e-2
+
+
+def _inner_wrapper_case(change):
+    z, kp, ku, kd = inner_probe.inputs(1, 2, "cpu")
+    packed = inner_probe.pack_inner_weights(kp, ku, kd, "dots27")
+    return change(z, packed)
+
+
+@pytest.mark.parametrize("change,error", [
+    (lambda z, w: (z.float(), w, 2, "dots27"), TypeError),
+    (lambda z, w: (z, w, 3, "dots27"), ValueError),                        # hbo + 2 != 4
+    (lambda z, w: (z, w, 2, "dots9"), ValueError),
+    (lambda z, w: (z, w, 2, "kext"), ValueError),                          # dots27's packing
+    (lambda z, w: (z[..., :64].contiguous(), w, 2, "dots27"), ValueError),  # L 64
+    (lambda z, w: (z.transpose(-1, -2).contiguous().transpose(-1, -2), w, 2, "dots27"),
+     ValueError),                                                         # not contiguous
+    (lambda z, w: (torch.empty(z.numel() + 1, dtype=z.dtype)[1:].view(z.shape), w, 2, "dots27"),
+     ValueError),                                                         # 2 bytes off 16
+    (lambda z, w: (z[0, :2], w, 2, "dots27"), ValueError),                 # not 3 planes
+])
+def test_inner_wrapper_rejects_what_the_kernel_does_not_take(change, error):
+    """The checks ahead of every ``inner_taps`` launch, on the CPU."""
+    with pytest.raises(error):
+        inner_probe.check_inner(*_inner_wrapper_case(change))
+
+
+def test_inner_wrapper_takes_the_probe_and_wants_the_card():
+    z, packed, hbo, strategy = _inner_wrapper_case(lambda z, w: (z, w, 2, "dots27"))
+    assert inner_probe.check_inner(z, packed, hbo, strategy).shape == (1, 3, 4, 136, 128)
+    with pytest.raises(ValueError):     # CPU tensors never reach the kernel
+        inner_probe.inner_step_packed(z, packed, hbo, strategy)
+
+
 # ---- #9 experiments/in_stats_probe.py ---------------------------------------
 
 @pytest.fixture
