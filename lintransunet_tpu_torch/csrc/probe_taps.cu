@@ -110,14 +110,15 @@
 //   warpgroup has retired (its `wgmma_wait<1>` at step s - 1) before the
 //   barrier that the copy follows; a slot fewer would refill step s - 2's,
 //   which step s - 1's wait leaves in flight.
-// * A tile is 64 WG output rows on WG warpgroups, each its 64 rows: `wgmma`
-//   m64n128k16 with A from registers into one m64n128 accumulator, and a
-//   neighbour chunk's m64n64k16 into the half of it that the chunk adds to
-//   (columns 0..63 are its first 32 registers). Every weight tile copied
-//   serves the tile's 64 WG rows. A step's four k16 `wgmma`s are one commit
-//   group, waited for one step later (`wgmma_wait<1>`), so one step's
-//   products run while the next step's barrier, waits and fragment loads go
-//   on.
+// * A tile is 256 output rows on four warpgroups, each its 64 rows, so every
+//   weight tile copied serves 256 rows (128-row tiles took 26% longer):
+//   `wgmma` with A from registers, m64n128k16 into one accumulator for
+//   `kext`; for `dots27` and `bext_s` two 64-column accumulators, a centre
+//   step two m64n64k16 a k16 step and a neighbour step one, into the half it
+//   adds to (mixing the two shapes on one accumulator made ptxas serialise
+//   every `wgmma`). A step's `wgmma`s are one commit group, waited for one
+//   step later (`wgmma_wait<1>`), so one step's products run while the next
+//   step's barrier, waits and fragment loads go on.
 // * Persistent grid: one block per SM walks its tiles in order, the blocks
 //   side by side on neighbouring tiles, so that slabs that tiles share hit
 //   L2; the A ring (3 items) runs on across tiles. A tile's output goes
@@ -694,26 +695,20 @@ int x_tensor_map(CUtensorMap* map, const bf16* x, int groups, int rows, int k, i
 
 constexpr int kInLanes = 128;             // a plane row's lanes, and the output's columns
 constexpr int kInChunk = 64;              // lanes of one A item: 128-byte rows
+constexpr int kInRows = 256;              // output rows a tile: 4 warpgroups of 64
+constexpr int kInThreads = 2 * kInRows;   // each warp 16 rows
 constexpr int kInBox = 136;               // rows of one slab load (boxes of 1 x 136 x 64)
 constexpr int kInWTile = kInLanes * kKT;  // elements of a 128-column weight tile (16 KB)
 constexpr int kMaxSteps = 36;             // steps of a tile: 3 dh x 4 chunks x 3 dw
-constexpr int kInPlanHeader = 4;
-
-// A tile on WG warpgroups: 64 WG output rows, 16 a warp. An A slot holds
-// WG / 2 slab loads 128 rows apart, rows [0, 64 WG + 8): the 64 WG + 2 rows
-// that the three dw shifts read, and room for the tile's output stage. The
-// weights' ring takes the rest of shared memory below the barriers.
-template <int WG>
-struct InnerTile {
-  static constexpr int kRows = 64 * WG;
-  static constexpr int kThreads = 128 * WG;
-  static constexpr int kLoads = WG / 2;
-  static constexpr int kASlot = (128 * kLoads + 8) * kInChunk;  // elements
-  static constexpr int kASlots = 3;
-  static constexpr int kWSlots = (kTapSmem - kASlots * kASlot * 2) / (kInWTile * 2);
-  static_assert(WG == 2 || WG == 4, "tiles of 128 or 256 rows");
-  static_assert(kWSlots >= 5 && kASlots + kWSlots <= 128, "rings and their barriers fit");
-};
+constexpr int kInPlanHeader = 3;
+// An A slot: two slab loads 128 rows apart, rows [0, 264): the 258 rows that
+// the three dw shifts read, and room for the tile's output stage (256 rows
+// of 64 columns). The weights' ring takes the rest of shared memory below
+// the barriers.
+constexpr int kInASlot = (2 * 128 + 8) * kInChunk;  // elements
+constexpr int kInASlots = 3;
+constexpr int kInWSlots = (kTapSmem - kInASlots * kInASlot * 2) / (kInWTile * 2);
+static_assert(kInWSlots >= 5 && kInASlots + kInWSlots <= 128, "rings and their barriers fit");
 
 // A tile's plan (`inner_probe.plan_ints`): per step, `flags` (bit 0: the
 // step starts a new A item; bits 1-2: the item's plane of the window, 0..2;
@@ -729,24 +724,77 @@ struct InnerArgs {
   int flags[kMaxSteps], row[kMaxSteps], woff[kMaxSteps], item_step[kMaxSteps];
 };
 
-template <int WG>
-__global__ void __launch_bounds__(InnerTile<WG>::kThreads, 1)
+// Step products (one commit group a warpgroup): kHalves (`dots27`,
+// `bext_s`, whose neighbour steps add to one half of the columns) keeps two
+// 64-column accumulators and runs every product as m64n64k16, a 128-column
+// step as two; else (`kext`) one m64n128k16 a k16 step into one accumulator.
+// One `wgmma` shape a kernel: m64n64k16 into either half of an m64n128
+// accumulator beside m64n128k16 into all of it made ptxas serialise every
+// `wgmma` (its note C7511), which cost 5% (PERF.md).
+template <bool kHalves>
+struct InnerAcc {
+  float v[2][32];
+  __device__ __forceinline__ void fence() {
+    ltu::wgmma_fence_operand(v[0]);
+    ltu::wgmma_fence_operand(v[1]);
+  }
+  // the step's four k16 products; `fresh`: the tile's first, which starts the sums
+  __device__ __forceinline__ void step(const unsigned (&af)[4][4], unsigned long long desc,
+                                       int cols, bool fresh) {
+    if (cols != 2) {
+#pragma unroll
+      for (int ks = 0; ks < kKT / 16; ++ks) {
+        ltu::wgmma_m64n64k16(v[0], af[ks], desc + 2 * ks, !(fresh && ks == 0));
+      }
+    }
+    if (cols != 1) {  // a 128-column tile's second half starts 64 rows on
+      const unsigned long long upper = cols == 0 ? desc + ((64 * 128) >> 4) : desc;
+#pragma unroll
+      for (int ks = 0; ks < kKT / 16; ++ks) {
+        ltu::wgmma_m64n64k16(v[1], af[ks], upper + 2 * ks, !(fresh && ks == 0));
+      }
+    }
+  }
+  __device__ __forceinline__ void columns(float (&out)[64]) const {
+#pragma unroll
+    for (int r = 0; r < 32; ++r) out[r] = v[0][r], out[32 + r] = v[1][r];
+  }
+};
+
+template <>
+struct InnerAcc<false> {
+  float v[64];
+  __device__ __forceinline__ void fence() { ltu::wgmma_fence_operand(v); }
+  __device__ __forceinline__ void step(const unsigned (&af)[4][4], unsigned long long desc, int,
+                                       bool fresh) {
+#pragma unroll
+    for (int ks = 0; ks < kKT / 16; ++ks) {
+      ltu::wgmma_m64n128k16(v, af[ks], desc + 2 * ks, !(fresh && ks == 0));
+    }
+  }
+  __device__ __forceinline__ void columns(float (&out)[64]) const {
+#pragma unroll
+    for (int r = 0; r < 64; ++r) out[r] = v[r];
+  }
+};
+
+template <bool kHalves>
+__global__ void __launch_bounds__(kInThreads, 1)
     inner_taps(const InnerArgs a, const __grid_constant__ CUtensorMap zmap) {
-  using T = InnerTile<WG>;
-  constexpr int kWAhead = T::kWSlots - 3;  // the copy refills step s - 3's slot (above)
-  constexpr int kAAhead = T::kASlots - 1;  // the load refills item q - 1's slot
+  constexpr int kWAhead = kInWSlots - 3;  // the copy refills step s - 3's slot (above)
+  constexpr int kAAhead = kInASlots - 1;  // the load refills item q - 1's slot
   extern __shared__ __align__(1024) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   bf16* aring = reinterpret_cast<bf16*>(smem);
-  bf16* wring = aring + T::kASlots * T::kASlot;
+  bf16* wring = aring + kInASlots * kInASlot;
   auto* wbar = reinterpret_cast<unsigned long long*>(smem + kTapSmem);
-  auto* abar = wbar + T::kWSlots;
+  auto* abar = wbar + kInWSlots;
   const int grid = static_cast<int>(gridDim.x), block = static_cast<int>(blockIdx.x);
   const int tiles = (a.batch * a.row_tiles - block + grid - 1) / grid;
   const int steps = tiles * a.steps, items = tiles * a.items;
   if (tid == 0) {
-    for (int i = 0; i < T::kWSlots; ++i) ltu::mbar_init(wbar + i, 1);
-    for (int i = 0; i < T::kASlots; ++i) ltu::mbar_init(abar + i, 1);
+    for (int i = 0; i < kInWSlots; ++i) ltu::mbar_init(wbar + i, 1);
+    for (int i = 0; i < kInASlots; ++i) ltu::mbar_init(abar + i, 1);
     ltu::fence_mbar_init();
   }
   __syncthreads();
@@ -755,25 +803,25 @@ __global__ void __launch_bounds__(InnerTile<WG>::kThreads, 1)
   auto tile = [&](int j, int& b, int& m0) {
     const int t = block + j * grid;
     b = t / a.row_tiles;
-    m0 = (t % a.row_tiles) * T::kRows;
+    m0 = (t % a.row_tiles) * kInRows;
   };
   // step s's weight tile into its slot, one bulk copy (thread 0)
   auto stage_w = [&](int s) {
     const int i = s % a.steps;
     const unsigned bytes = ((a.flags[i] >> 4 & 3) ? kInWTile / 2 : kInWTile) * 2;
-    unsigned long long* bar = wbar + s % T::kWSlots;
+    unsigned long long* bar = wbar + s % kInWSlots;
     ltu::mbar_expect_tx(bar, bytes);
-    ltu::bulk_copy(wring + (s % T::kWSlots) * kInWTile, a.w + a.woff[i], bytes, bar);
+    ltu::bulk_copy(wring + (s % kInWSlots) * kInWTile, a.w + a.woff[i], bytes, bar);
   };
-  // item q's slab into its slot, WG / 2 tensor-map loads (thread 0)
+  // item q's slab into its slot, two tensor-map loads (thread 0)
   auto stage_a = [&](int q) {
     const int i = a.item_step[q % a.items], f = a.flags[i];
     int b, m0;
     tile(q / a.items, b, m0);
-    bf16* slot = aring + (q % T::kASlots) * T::kASlot;
-    unsigned long long* bar = abar + q % T::kASlots;
-    ltu::mbar_expect_tx(bar, static_cast<unsigned>(T::kLoads * kInBox * kInChunk * 2));
-    for (int p = 0; p < T::kLoads; ++p) {
+    bf16* slot = aring + (q % kInASlots) * kInASlot;
+    unsigned long long* bar = abar + q % kInASlots;
+    ltu::mbar_expect_tx(bar, static_cast<unsigned>(2 * kInBox * kInChunk * 2));
+    for (int p = 0; p < 2; ++p) {
       tma_load_3d(slot + p * 128 * kInChunk, &zmap, bar, (f >> 3 & 1) * kInChunk,
                   m0 + a.row[i] + 128 * p, 3 * b + (f >> 1 & 3));
     }
@@ -783,7 +831,7 @@ __global__ void __launch_bounds__(InnerTile<WG>::kThreads, 1)
     for (int q = 0; q < kAAhead && q < items; ++q) stage_a(q);
   }
 
-  float acc[64];
+  InnerAcc<kHalves> acc;
   unsigned af[2][4][4] = {};
   int q = -1;  // the item that step s reads
   // step s: the next copies issued, its item and weights landed, its
@@ -796,14 +844,13 @@ __global__ void __launch_bounds__(InnerTile<WG>::kThreads, 1)
     __syncthreads();  // step s - 1's A reads are done, step s - 3's weights retired
     if (new_item) ++q;
     if (tid == 0) {
-      ltu::fence_proxy_async();  // the block's earlier accesses come before the copies
       if (s + kWAhead < steps) stage_w(s + kWAhead);
       if (new_item && q + kAAhead < items) stage_a(q + kAAhead);
     }
-    bf16* slab = aring + (q % T::kASlots) * T::kASlot;
-    if (new_item) ltu::mbar_wait(abar + q % T::kASlots, (q / T::kASlots) & 1);
-    ltu::mbar_wait(wbar + s % T::kWSlots, (s / T::kWSlots) & 1);
-    const int shift = f >> 6 & 3, cols = f >> 4 & 3;
+    bf16* slab = aring + (q % kInASlots) * kInASlot;
+    if (new_item) ltu::mbar_wait(abar + q % kInASlots, (q / kInASlots) & 1);
+    ltu::mbar_wait(wbar + s % kInWSlots, (s / kInWSlots) & 1);
+    const int shift = f >> 6 & 3;
     ltu::wgmma_wait<1>();  // step s - 2, the last reader of this fragment set, is done
     keep(af[SET]);
 #pragma unroll
@@ -811,31 +858,21 @@ __global__ void __launch_bounds__(InnerTile<WG>::kThreads, 1)
       ltu::ldsm_x4(af[SET][ks],
                    slab + ltu::swz(warp * 16 + (lane & 15) + shift, ks * 2 + (lane >> 4), 8));
     }
-    ltu::wgmma_fence_operand(acc);
+    acc.fence();
     ltu::wgmma_fence();
-    const unsigned long long desc =
-        ltu::wgmma_desc_kmajor(wring + (s % T::kWSlots) * kInWTile, 128);
-    if (cols == 0) {  // the tile's first step starts the sum (scale-d 0)
-#pragma unroll
-      for (int ks = 0; ks < kKT / 16; ++ks) {
-        ltu::wgmma_m64n128k16(acc, af[SET][ks], desc + 2 * ks, i > 0 || ks > 0);
-      }
-    } else if (cols == 1) {
-#pragma unroll
-      for (int ks = 0; ks < kKT / 16; ++ks) ltu::wgmma_m64n64k16<0>(acc, af[SET][ks], desc + 2 * ks);
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < kKT / 16; ++ks) ltu::wgmma_m64n64k16<32>(acc, af[SET][ks], desc + 2 * ks);
-    }
+    acc.step(af[SET], ltu::wgmma_desc_kmajor(wring + (s % kInWSlots) * kInWTile, 128),
+             f >> 4 & 3, i == 0);
     ltu::wgmma_commit();
-    ltu::wgmma_fence_operand(acc);
+    acc.fence();
     if (i == a.steps - 1) {  // the tile's output, through the slot this step read
       ltu::wgmma_wait<0>();
-      ltu::wgmma_fence_operand(acc);
+      acc.fence();
+      float out[64];
+      acc.columns(out);
       int b, m0;
       tile(s / a.steps, b, m0);
-      store_tile<kInLanes, T::kRows>(a.out + static_cast<long long>(b) * a.m * kInLanes,
-                                     kInLanes, a.m, acc, slab, m0, tid);
+      store_tile<kInLanes, kInRows>(a.out + static_cast<long long>(b) * a.m * kInLanes, kInLanes,
+                                    a.m, out, slab, m0, tid);
     }
   };
   int s = 0;
@@ -846,7 +883,7 @@ __global__ void __launch_bounds__(InnerTile<WG>::kThreads, 1)
   if (s < steps) step(s, std::integral_constant<int, 0>{});
 }
 
-template <int WG>
+template <bool kHalves>
 int launch_inner(const InnerArgs& a, const CUtensorMap& zmap, cudaStream_t stream) {
   // per instantiation and device, once: the shared-memory attribute and the
   // SM count (a block takes all of an SM's shared memory: one block an SM)
@@ -856,7 +893,7 @@ int launch_inner(const InnerArgs& a, const CUtensorMap& zmap, cudaStream_t strea
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (sms[device] == 0) {
-    err = cudaFuncSetAttribute(inner_taps<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(inner_taps<kHalves>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
@@ -864,7 +901,7 @@ int launch_inner(const InnerArgs& a, const CUtensorMap& zmap, cudaStream_t strea
   }
   const long long tiles = static_cast<long long>(a.batch) * a.row_tiles;
   const int grid = tiles < sms[device] ? static_cast<int>(tiles) : sms[device];
-  inner_taps<WG><<<grid, InnerTile<WG>::kThreads, kSmemLimit, stream>>>(a, zmap);
+  inner_taps<kHalves><<<grid, kInThreads, kSmemLimit, stream>>>(a, zmap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -875,34 +912,34 @@ extern "C" {
 // One conv tap step on the paired layout (#11), `inner_taps`. z: bf16
 // (batch, 3, hbo + 2, wc, 128) contiguous, 16-byte aligned; w: the packed
 // weights (`inner_probe.pack_inner_weights`), 16-byte aligned; out: bf16
-// (batch, hbo * wc, 128). plan: `inner_probe.plan_ints`: a header of 4
-// (warpgroups a tile, 2 or 4; steps a tile; items a tile; elements of w)
-// and four tables of 36 (each step's flags, first row and weight offset;
-// each item's first step; `InnerArgs`). Launches on `stream`; returns the
-// CUDA error (0 on success).
+// (batch, hbo * wc, 128). plan: `inner_probe.plan_ints`: a header of 3
+// (steps a tile, items a tile, elements of w) and four tables of 36 (each
+// step's flags, first row and weight offset; each item's first step;
+// `InnerArgs`). Launches on `stream`; returns the CUDA error (0 on
+// success).
 int pt_inner_step(const void* z, const void* w, void* out, int batch, int hbo, int wc,
                   const int* plan, void* stream) {
-  const int wg = plan[0], w_elems = plan[3];
+  const int w_elems = plan[2];
   InnerArgs a{};
   a.w = static_cast<const bf16*>(w);
   a.out = static_cast<bf16*>(out);
   a.batch = batch;
-  a.steps = plan[1];
-  a.items = plan[2];
+  a.steps = plan[0];
+  a.items = plan[1];
   const long long m = static_cast<long long>(hbo) * wc, rows = m + 2LL * wc;
-  if (batch < 1 || hbo < 1 || wc < 1 || (wg != 2 && wg != 4) || a.steps < 1 ||
-      a.steps > kMaxSteps || a.items < 1 || a.items > a.steps || rows > (1LL << 30) ||
-      3LL * batch > (1LL << 30) || reinterpret_cast<size_t>(z) % 16 ||
-      reinterpret_cast<size_t>(w) % 16) {
+  if (batch < 1 || hbo < 1 || wc < 1 || a.steps < 1 || a.steps > kMaxSteps || a.items < 1 ||
+      a.items > a.steps || rows > (1LL << 30) || 3LL * batch > (1LL << 30) ||
+      reinterpret_cast<size_t>(z) % 16 || reinterpret_cast<size_t>(w) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.m = static_cast<int>(m);
-  a.row_tiles = static_cast<int>((m + 64 * wg - 1) / (64 * wg));
+  a.row_tiles = static_cast<int>((m + kInRows - 1) / kInRows);
   if (static_cast<long long>(batch) * a.row_tiles > (1LL << 30)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int* t = plan + kInPlanHeader;
   int items = 0;
+  bool halves = false;
   for (int i = 0; i < a.steps; ++i) {
     a.flags[i] = t[i];
     a.row[i] = t[kMaxSteps + i];
@@ -913,6 +950,7 @@ int pt_inner_step(const void* z, const void* w, void* out, int batch, int hbo, i
         a.woff[i] + elems > w_elems || (i == 0 && (cols != 0 || !(a.flags[i] & 1)))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    halves |= cols != 0;
     if (a.flags[i] & 1) {
       if (items >= a.items || t[3 * kMaxSteps + items] != i) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -926,7 +964,7 @@ int pt_inner_step(const void* z, const void* w, void* out, int batch, int hbo, i
                                static_cast<int>(rows), kInLanes, kInBox);
   if (err != 0) return err;
   auto s = static_cast<cudaStream_t>(stream);
-  return wg == 2 ? launch_inner<2>(a, zmap, s) : launch_inner<4>(a, zmap, s);
+  return halves ? launch_inner<true>(a, zmap, s) : launch_inner<false>(a, zmap, s);
 }
 
 // The tap sum: `taps_fold_weights`, then `taps_fold` under programmatic

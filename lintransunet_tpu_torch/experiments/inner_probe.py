@@ -59,10 +59,10 @@ STRATEGIES = ("dots27", "bext_s", "kext")
 # how each strategy stages A: one slab per (dh, chunk) read at three row
 # shifts, or one aligned load per tap
 MODE = {"dots27": "slab", "kext": "slab", "bext_s": "per_tap"}
-TILE_WG = 4                   # warpgroups of a tile: 64 x TILE_WG output rows
+TILE_ROWS = 256               # output rows of a kernel tile
 K_TILE = 64                   # K of an A item and of a weight tile
 MAX_STEPS = 36
-PLAN_HEADER = 4
+PLAN_HEADER = 3
 ALL, LOW, HIGH = 0, 1, 2      # a step's output columns: 0..127, 0..63, 64..127
 # the A items of one kernel row, in the kernel's order: (name, plane, first lane)
 CHUNKS = (("centre_lo", 1, 0), ("up", 0, C4), ("centre_hi", 1, C4), ("down", 2, 0))
@@ -161,9 +161,9 @@ def weight_elems(strategy):
 
 
 @functools.lru_cache(maxsize=None)
-def plan_ints(strategy, wc, wg=TILE_WG):
-    """``pt_inner_step``'s plan for windows of width wc: a header (warpgroups
-    a tile, steps, items, weight elements) and four tables of MAX_STEPS
+def plan_ints(strategy, wc):
+    """``pt_inner_step``'s plan for windows of width wc: a header (steps,
+    items, weight elements) and four tables of MAX_STEPS
     (each step's flags and first row, its weight offset; each item's first
     step), as ``InnerArgs`` in ``csrc/probe_taps.cu`` reads them."""
     steps = inner_steps(strategy)
@@ -177,7 +177,7 @@ def plan_ints(strategy, wc, wg=TILE_WG):
         if st.new_item:
             item_step[items] = i
             items += 1
-    values = [wg, len(steps), items, weight_elems(strategy)] + flags + rows + woffs + item_step
+    values = [len(steps), items, weight_elems(strategy)] + flags + rows + woffs + item_step
     return (ctypes.c_int * len(values))(*values)
 
 
@@ -230,15 +230,15 @@ def pack_inner_weights(kp, ku, kd, strategy="dots27"):
     return src.to(torch.bfloat16).index_select(0, _pack_index(strategy, kp.device))
 
 
-def inner_step_planned(z, kp, ku, kd, hbo, strategy="dots27", wg=TILE_WG):
-    """The kernel's walk in PyTorch: per tile of 64 wg output rows, each
+def inner_step_planned(z, kp, ku, kd, hbo, strategy="dots27"):
+    """The kernel's walk in PyTorch: per tile of TILE_ROWS output rows, each
     step's item as the kernel's loads give it (rows outside the plane zero),
     its rows at the step's shift times its packed weight tile, unswizzled,
     into the step's columns; summed in f32, stored as bf16: (B, hbo * WC,
     NO)."""
     z = _batched(z)
     b, _, _, wc, lanes = z.shape
-    m, rows = hbo * wc, 64 * wg
+    m, rows = hbo * wc, TILE_ROWS
     packed = pack_inner_weights(kp, ku, kd, strategy)
     z2 = z.reshape(b, 3, -1, lanes)
     out = torch.empty((b, m, NO), dtype=z.dtype, device=z.device)
@@ -246,7 +246,7 @@ def inner_step_planned(z, kp, ku, kd, hbo, strategy="dots27", wg=TILE_WG):
     for m0 in range(0, m, rows):
         acc = torch.zeros((b, rows, NO), device=z.device)
         for st in inner_steps(strategy):
-            if st.new_item:   # the slot's rows: wg / 2 loads of 136 rows, 128 apart
+            if st.new_item:   # the slot's rows: two loads of 136 rows, 128 apart
                 item = dot_probe.shifted_rows(z2[:, st.plane, :, st.lane0:st.lane0 + C4],
                                               m0 + (1 + st.dh) * wc + st.row, rows + 8)
             tile = swizzle_rows(packed[st.woff:st.woff + st.width * K_TILE].view(st.width, K_TILE))
@@ -295,7 +295,7 @@ def inner_step_packed(z: torch.Tensor, packed: torch.Tensor, hbo: int,
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = lib.pt_inner_step(z.data_ptr(), packed.data_ptr(), out.data_ptr(), b, hbo, wc,
-                                plan_ints(strategy, wc, TILE_WG), stream)
+                                plan_ints(strategy, wc), stream)
     if err != 0:
         raise RuntimeError(f"probe_taps inner-step launch failed: CUDA error {err}")
     inner_step_packed.launches += 1
@@ -382,7 +382,7 @@ def main():
     print(f"{BATCH} windows z (3, {HBO + 2}, {WC}, {L}) bf16 -> ({HBO * WC}, {NO}); FLOPs "
           f"counted as dots27's; beside each, F.conv3d on the same tensor (the same function "
           f"but at the wrap columns, twice the MACs: a yardstick, no library call computes "
-          f"the step); tiles of {64 * TILE_WG} rows", flush=True)
+          f"the step)", flush=True)
     for strategy in STRATEGIES:
         packed = pack_inner_weights(kp, ku, kd, strategy)
 

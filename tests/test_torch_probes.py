@@ -304,17 +304,16 @@ def _inner_case(hbo):
     return (z, kp, ku, kd), want
 
 
-@pytest.mark.parametrize("wg", [2, 4])
-@pytest.mark.parametrize("hbo", [2, 3])
+@pytest.mark.parametrize("hbo", [1, 2, 3, 4])
 @pytest.mark.parametrize("strategy", inner_probe.STRATEGIES)
-def test_inner_step_planned_matches_jax(strategy, hbo, wg):
+def test_inner_step_planned_matches_jax(strategy, hbo):
     """The kernel's walk (slabs or per-tap items as its loads give them, the
-    dw shifts, the packed tiles unswizzled, the column halves) on tiles of 64
-    wg rows, the last one ragged (hbo * WC = 272 or 408 rows), held to the
-    TPU probe's dots27 on every row, edge rows included."""
+    dw shifts, the packed tiles unswizzled, the column halves) on tiles of
+    256 rows, the last one ragged (hbo * WC = 136, 272, 408 or 544 rows),
+    held to the TPU probe's dots27 on every row, edge rows included."""
     (z, kp, ku, kd), want = _inner_case(hbo)
-    assert (hbo * inner_probe.WC) % (64 * wg)
-    got = inner_probe.inner_step_planned(z, kp, ku, kd, hbo, strategy, wg)
+    assert (hbo * inner_probe.WC) % inner_probe.TILE_ROWS
+    got = inner_probe.inner_step_planned(z, kp, ku, kd, hbo, strategy)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert _err(got, want) <= BF16_TOL
     assert _err(got[:, [0, -1]], want[:, [0, -1]]) <= BF16_TOL
@@ -363,10 +362,10 @@ def test_inner_plan_walks_every_tap_once(strategy):
                            else inner_probe.LOW if st.plane == 0 else inner_probe.HIGH)
         assert st.new_item == (per_tap or st.dw == -1)
         assert (st.row, st.shift) == ((st.dw, 0) if per_tap else (-1, st.dw + 1))
-    ints = list(inner_probe.plan_ints(strategy, 136, 4))
+    ints = list(inner_probe.plan_ints(strategy, 136))
     items = [i for i, st in enumerate(steps) if st.new_item]
     head, tables = ints[:inner_probe.PLAN_HEADER], ints[inner_probe.PLAN_HEADER:]
-    assert head == [4, 36, len(items), inner_probe.weight_elems(strategy)]
+    assert head == [36, len(items), inner_probe.weight_elems(strategy)]
     flags, rows, woffs, item_step = (tables[i * 36:(i + 1) * 36] for i in range(4))
     assert item_step[:len(items)] == items
     for i, st in enumerate(steps):
