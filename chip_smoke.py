@@ -9,9 +9,9 @@ last line):
    nvcc builds of the CUDA kernels from ``lintransunet_tpu_torch/csrc``
    (one nvcc per source, all started together) with their ptxas reports
    per kernel (the probes' tensor-core kernels, ``conv_mma`` and each
-   instance of ``taps_fold``, with their registers and spills on a line of
-   their own), and the bf16 stack kernels' grid, shared memory and blocks
-   per SM;
+   instance of ``taps_fold``, ``taps_fold_weights`` and ``inner_taps``, with
+   their registers and spills on a line of their own), and the bf16 stack
+   kernels' grid, shared memory and blocks per SM;
 2. kernel vs plain, each kernel against its plain PyTorch version at the
    shapes the main paths give it, in f32 (TF32 off) and bf16, timed with
    CUDA events in turns plain, kernel, kernel, plain, beside its bound (the
@@ -45,7 +45,11 @@ last line):
       kernel and library call timed alike (warmed, then 10-call windows in
       turns plain, kernel, library, library, kernel, plain), each with the
       kernel's and the library call's TFLOP/s and the kernel's share of its
-      bound;
+      bound; the inner-loop probe's three strategies beside ``F.conv3d`` on
+      the same tensor, a yardstick that computes the same function but at
+      the wrap columns (not the kernels line's library call); the tap sums
+      and the inner-loop probe also print their card time (the calls queued
+      behind a sleep) beside their events;
 3. the default path at full width: the flagship ``MaskTransUnet`` (random
    weights from a seed, f32 parameters, bf16 compute) behind
    ``make_eval_runner`` answers three 512 x 512 x 144 volumes (5 windows

@@ -110,13 +110,15 @@
 //   warpgroup has retired (its `wgmma_wait<1>` at step s - 1) before the
 //   barrier that the copy follows; a slot fewer would refill step s - 2's,
 //   which step s - 1's wait leaves in flight.
-// * A tile is 256 output rows on four warpgroups, each its 64 rows, so every
-//   weight tile copied serves 256 rows (128-row tiles took 26% longer):
+// * A tile is 192 output rows on three warpgroups, each its 64 rows, so every
+//   weight tile copied serves 192 rows (128-row tiles took 16% longer; four
+//   warpgroups, 256 rows, took as long for `dots27`, but 512 threads have
+//   128 registers each and ptxas spilled; PERF.md):
 //   `wgmma` with A from registers, m64n128k16 into one accumulator for
-//   `kext`; for `dots27` and `bext_s` two 64-column accumulators, a centre
-//   step two m64n64k16 a k16 step and a neighbour step one, into the half it
-//   adds to (mixing the two shapes on one accumulator made ptxas serialise
-//   every `wgmma`). A step's `wgmma`s are one commit group, waited for one
+//   `kext`; for `dots27` and `bext_s` m64n64k16 only, a centre step two a
+//   k16 step and a neighbour step one, into the half of the accumulator it
+//   adds to (its first or last 32 registers; mixing the two shapes on one
+//   accumulator made ptxas serialise every `wgmma`). A step's `wgmma`s are one commit group, waited for one
 //   step later (`wgmma_wait<1>`), so one step's products run while the next
 //   step's barrier, waits and fragment loads go on.
 // * Persistent grid: one block per SM walks its tiles in order, the blocks
@@ -695,14 +697,14 @@ int x_tensor_map(CUtensorMap* map, const bf16* x, int groups, int rows, int k, i
 
 constexpr int kInLanes = 128;             // a plane row's lanes, and the output's columns
 constexpr int kInChunk = 64;              // lanes of one A item: 128-byte rows
-constexpr int kInRows = 256;              // output rows a tile: 4 warpgroups of 64
+constexpr int kInRows = 192;              // output rows a tile: 3 warpgroups of 64
 constexpr int kInThreads = 2 * kInRows;   // each warp 16 rows
 constexpr int kInBox = 136;               // rows of one slab load (boxes of 1 x 136 x 64)
 constexpr int kInWTile = kInLanes * kKT;  // elements of a 128-column weight tile (16 KB)
 constexpr int kMaxSteps = 36;             // steps of a tile: 3 dh x 4 chunks x 3 dw
 constexpr int kInPlanHeader = 3;
-// An A slot: two slab loads 128 rows apart, rows [0, 264): the 258 rows that
-// the three dw shifts read, and room for the tile's output stage (256 rows
+// An A slot: two slab loads 128 rows apart, rows [0, 264): the 194 rows that
+// the three dw shifts read, and room for the tile's output stage (192 rows
 // of 64 columns). The weights' ring takes the rest of shared memory below
 // the barriers.
 constexpr int kInASlot = (2 * 128 + 8) * kInChunk;  // elements
@@ -724,57 +726,41 @@ struct InnerArgs {
   int flags[kMaxSteps], row[kMaxSteps], woff[kMaxSteps], item_step[kMaxSteps];
 };
 
-// Step products (one commit group a warpgroup): kHalves (`dots27`,
-// `bext_s`, whose neighbour steps add to one half of the columns) keeps two
-// 64-column accumulators and runs every product as m64n64k16, a 128-column
-// step as two; else (`kext`) one m64n128k16 a k16 step into one accumulator.
-// One `wgmma` shape a kernel: m64n64k16 into either half of an m64n128
-// accumulator beside m64n128k16 into all of it made ptxas serialise every
-// `wgmma` (its note C7511), which cost 5% (PERF.md).
+// Step products (one commit group a warpgroup) into v, an m64n128
+// accumulator (columns 8t .. 8t + 7 in v[4t .. 4t + 3]): kHalves (`dots27`,
+// `bext_s`, whose neighbour steps add to one half of the columns) runs every
+// product as m64n64k16 into v[0..31] (columns 0..63) or v[32..63], a
+// 128-column step as two; else (`kext`) one m64n128k16 a k16 step. One
+// `wgmma` shape a kernel: m64n64k16 into either half of v beside m64n128k16
+// into all of it made ptxas serialise every `wgmma` (its note C7511), which
+// cost 5% (PERF.md).
 template <bool kHalves>
 struct InnerAcc {
-  float v[2][32];
-  __device__ __forceinline__ void fence() {
-    ltu::wgmma_fence_operand(v[0]);
-    ltu::wgmma_fence_operand(v[1]);
-  }
+  float v[64];
+  __device__ __forceinline__ void fence() { ltu::wgmma_fence_operand(v); }
   // the step's four k16 products; `fresh`: the tile's first, which starts the sums
   __device__ __forceinline__ void step(const unsigned (&af)[4][4], unsigned long long desc,
                                        int cols, bool fresh) {
-    if (cols != 2) {
+    if constexpr (kHalves) {
+      if (cols != 2) {
+#pragma unroll
+        for (int ks = 0; ks < kKT / 16; ++ks) {
+          ltu::wgmma_m64n64k16<0>(v, af[ks], desc + 2 * ks, !(fresh && ks == 0));
+        }
+      }
+      if (cols != 1) {  // a 128-column tile's second half starts 64 rows on
+        const unsigned long long upper = cols == 0 ? desc + ((64 * 128) >> 4) : desc;
+#pragma unroll
+        for (int ks = 0; ks < kKT / 16; ++ks) {
+          ltu::wgmma_m64n64k16<32>(v, af[ks], upper + 2 * ks, !(fresh && ks == 0));
+        }
+      }
+    } else {
 #pragma unroll
       for (int ks = 0; ks < kKT / 16; ++ks) {
-        ltu::wgmma_m64n64k16(v[0], af[ks], desc + 2 * ks, !(fresh && ks == 0));
+        ltu::wgmma_m64n128k16(v, af[ks], desc + 2 * ks, !(fresh && ks == 0));
       }
     }
-    if (cols != 1) {  // a 128-column tile's second half starts 64 rows on
-      const unsigned long long upper = cols == 0 ? desc + ((64 * 128) >> 4) : desc;
-#pragma unroll
-      for (int ks = 0; ks < kKT / 16; ++ks) {
-        ltu::wgmma_m64n64k16(v[1], af[ks], upper + 2 * ks, !(fresh && ks == 0));
-      }
-    }
-  }
-  __device__ __forceinline__ void columns(float (&out)[64]) const {
-#pragma unroll
-    for (int r = 0; r < 32; ++r) out[r] = v[0][r], out[32 + r] = v[1][r];
-  }
-};
-
-template <>
-struct InnerAcc<false> {
-  float v[64];
-  __device__ __forceinline__ void fence() { ltu::wgmma_fence_operand(v); }
-  __device__ __forceinline__ void step(const unsigned (&af)[4][4], unsigned long long desc, int,
-                                       bool fresh) {
-#pragma unroll
-    for (int ks = 0; ks < kKT / 16; ++ks) {
-      ltu::wgmma_m64n128k16(v, af[ks], desc + 2 * ks, !(fresh && ks == 0));
-    }
-  }
-  __device__ __forceinline__ void columns(float (&out)[64]) const {
-#pragma unroll
-    for (int r = 0; r < 64; ++r) out[r] = v[r];
   }
 };
 
@@ -867,12 +853,10 @@ __global__ void __launch_bounds__(kInThreads, 1)
     if (i == a.steps - 1) {  // the tile's output, through the slot this step read
       ltu::wgmma_wait<0>();
       acc.fence();
-      float out[64];
-      acc.columns(out);
       int b, m0;
       tile(s / a.steps, b, m0);
       store_tile<kInLanes, kInRows>(a.out + static_cast<long long>(b) * a.m * kInLanes, kInLanes,
-                                    a.m, out, slab, m0, tid);
+                                    a.m, acc.v, slab, m0, tid);
     }
   };
   int s = 0;

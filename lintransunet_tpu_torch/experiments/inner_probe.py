@@ -40,6 +40,15 @@ function but at the two wrap columns of each row, where cuDNN pads with
 zeros and the TPU function reads the neighbouring row's end, at twice
 dots27's MACs.
 
+The card's answer to the TPU probe's question, which in-kernel tap strategy
+sustains the best rate (64 windows at hbo 12, card time, NVIDIA H100 80GB
+HBM3, PERF.md row 11): ``kext`` 0.133 ms, ``dots27`` 0.141, ``bext_s``
+0.161, ``F.conv3d`` 0.125. ``kext``'s products, every one m64n128k16, run
+faster than ``dots27``'s, every one m64n64k16 (a third fewer MACs in twice
+the instructions, a neighbour step's fragments serving one 64-column
+product), and staging each tap aligned costs more than reading one slab at
+three shifts.
+
 ``python -m lintransunet_tpu_torch.experiments.inner_probe`` runs them.
 """
 
@@ -54,12 +63,12 @@ from lintransunet_tpu_torch.experiments import common, dot_probe
 
 L, C4, NO, WC = 128, 64, 128, 136
 HBO = 12
-BATCH = 64                    # windows per launch: 64 x 7 tiles of 256 rows
+BATCH = 64                    # windows per launch: 64 x 9 tiles of 192 rows
 STRATEGIES = ("dots27", "bext_s", "kext")
 # how each strategy stages A: one slab per (dh, chunk) read at three row
 # shifts, or one aligned load per tap
 MODE = {"dots27": "slab", "kext": "slab", "bext_s": "per_tap"}
-TILE_ROWS = 256               # output rows of a kernel tile
+TILE_ROWS = 192               # output rows of a kernel tile
 K_TILE = 64                   # K of an A item and of a weight tile
 MAX_STEPS = 36
 PLAN_HEADER = 3
@@ -350,18 +359,13 @@ def library_weight(kp, ku, kd):
 def library_conv(z, w):
     """``F.conv3d`` (cuDNN) on z (B, 3, hbo + 2, WC, L) as its
     ``channels_last_3d`` view (B, L, 3, hbo + 2, WC), no copy, with
-    ``library_weight`` and padding (0, 0, 1): (B, NO, 1, hbo, WC), which
-    ``library_rows`` reads as (B, hbo * WC, NO). It is the ``dots27``
-    function at every output column but the first and last of each row of
-    WC, where cuDNN pads with zeros and the TPU function reads the
-    neighbouring row's end; it runs twice dots27's MACs (the zero blocks).
+    ``library_weight`` and padding (0, 0, 1): (B, NO, 1, hbo, WC). Read as
+    (B, hbo * WC, NO) it is the ``dots27`` function at every output column
+    but the first and last of each row of WC, where cuDNN pads with zeros
+    and the TPU function reads the neighbouring row's end; it runs twice
+    dots27's MACs (the zero blocks).
     A yardstick timed beside the kernel; the port never calls it."""
     return F.conv3d(z.permute(0, 4, 1, 2, 3), w, padding=(0, 0, 1))
-
-
-def library_rows(y):
-    """``library_conv``'s (B, NO, 1, hbo, WC) as (B, hbo * WC, NO)."""
-    return y[:, :, 0].permute(0, 2, 3, 1).reshape(y.shape[0], -1, y.shape[1])
 
 
 def main():

@@ -569,10 +569,10 @@ def test_row_offset_sum_matches_plain(cuda, variant):
 @pytest.mark.parametrize("batch,hbo", [(3, 12), (1, 2), (1, 1), (5, 3), (200, 1)])
 def test_inner_step_matches_plain(cuda, strategy, batch, hbo):
     """Every strategy is held to the dots27 function on all rows, the two
-    clipped edge rows included. The last 256-row tile of a window is ragged
-    (hbo * 136 rows: 1,632, 272, 136, 408), its warpgroups past the rows
-    idle (two at hbo 12, three at hbo 2); 200 windows of one short tile
-    each make more tiles than SMs."""
+    clipped edge rows included. The last 192-row tile of a window is ragged
+    (hbo * 136 rows: 1,632, 272, 136, 408), some of its warpgroups wholly
+    past the rows (one at hbo 12, two at hbo 1); 200 windows of one short
+    tile each make more tiles than SMs."""
     z, kp, ku, kd = inner_probe.inputs(batch, hbo, cuda)
     packed = inner_probe.pack_inner_weights(kp, ku, kd, strategy)
     before = inner_probe.inner_step_packed.launches
