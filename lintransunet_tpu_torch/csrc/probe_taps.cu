@@ -699,15 +699,15 @@ constexpr int kInLanes = 128;             // a plane row's lanes, and the output
 constexpr int kInChunk = 64;              // lanes of one A item: 128-byte rows
 constexpr int kInRows = 192;              // output rows a tile: 3 warpgroups of 64
 constexpr int kInThreads = 2 * kInRows;   // each warp 16 rows
-constexpr int kInBox = 136;               // rows of one slab load (boxes of 1 x 136 x 64)
 constexpr int kInWTile = kInLanes * kKT;  // elements of a 128-column weight tile (16 KB)
 constexpr int kMaxSteps = 36;             // steps of a tile: 3 dh x 4 chunks x 3 dw
 constexpr int kInPlanHeader = 3;
-// An A slot: two slab loads 128 rows apart, rows [0, 264): the 194 rows that
-// the three dw shifts read, and room for the tile's output stage (192 rows
-// of 64 columns). The weights' ring takes the rest of shared memory below
-// the barriers.
-constexpr int kInASlot = (2 * 128 + 8) * kInChunk;  // elements
+// An A slot: one slab load (a box of 1 x 200 x 64) of the 194 rows that the
+// three dw shifts read, rounded up to 8; room for the tile's output stage
+// (192 rows of 64 columns). The weights' ring takes the rest of shared
+// memory below the barriers.
+constexpr int kInBox = kInRows + 8;
+constexpr int kInASlot = kInBox * kInChunk;  // elements
 constexpr int kInASlots = 3;
 constexpr int kInWSlots = (kTapSmem - kInASlots * kInASlot * 2) / (kInWTile * 2);
 static_assert(kInWSlots >= 5 && kInASlots + kInWSlots <= 128, "rings and their barriers fit");
@@ -799,18 +799,15 @@ __global__ void __launch_bounds__(kInThreads, 1)
     ltu::mbar_expect_tx(bar, bytes);
     ltu::bulk_copy(wring + (s % kInWSlots) * kInWTile, a.w + a.woff[i], bytes, bar);
   };
-  // item q's slab into its slot, two tensor-map loads (thread 0)
+  // item q's slab into its slot, one tensor-map load (thread 0)
   auto stage_a = [&](int q) {
     const int i = a.item_step[q % a.items], f = a.flags[i];
     int b, m0;
     tile(q / a.items, b, m0);
     bf16* slot = aring + (q % kInASlots) * kInASlot;
     unsigned long long* bar = abar + q % kInASlots;
-    ltu::mbar_expect_tx(bar, static_cast<unsigned>(2 * kInBox * kInChunk * 2));
-    for (int p = 0; p < 2; ++p) {
-      tma_load_3d(slot + p * 128 * kInChunk, &zmap, bar, (f >> 3 & 1) * kInChunk,
-                  m0 + a.row[i] + 128 * p, 3 * b + (f >> 1 & 3));
-    }
+    ltu::mbar_expect_tx(bar, static_cast<unsigned>(kInASlot * 2));
+    tma_load_3d(slot, &zmap, bar, (f >> 3 & 1) * kInChunk, m0 + a.row[i], 3 * b + (f >> 1 & 3));
   };
   if (tid == 0) {
     for (int s = 0; s < kWAhead && s < steps; ++s) stage_w(s);

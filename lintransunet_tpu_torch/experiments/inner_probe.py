@@ -42,8 +42,8 @@ dots27's MACs.
 
 The card's answer to the TPU probe's question, which in-kernel tap strategy
 sustains the best rate (64 windows at hbo 12, card time, NVIDIA H100 80GB
-HBM3, PERF.md row 11): ``kext`` 0.133 ms, ``dots27`` 0.141, ``bext_s``
-0.161, ``F.conv3d`` 0.125. ``kext``'s products, every one m64n128k16, run
+HBM3, PERF.md row 11): ``kext`` 0.124 ms, ``dots27`` 0.143, ``bext_s``
+0.171, ``F.conv3d`` 0.126. ``kext``'s products, every one m64n128k16, run
 faster than ``dots27``'s, every one m64n64k16 (a third fewer MACs in twice
 the instructions, a neighbour step's fragments serving one 64-column
 product), and staging each tap aligned costs more than reading one slab at
@@ -255,7 +255,7 @@ def inner_step_planned(z, kp, ku, kd, hbo, strategy="dots27"):
     for m0 in range(0, m, rows):
         acc = torch.zeros((b, rows, NO), device=z.device)
         for st in inner_steps(strategy):
-            if st.new_item:   # the slot's rows: two loads of 136 rows, 128 apart
+            if st.new_item:   # the slot's rows: one load of TILE_ROWS + 8
                 item = dot_probe.shifted_rows(z2[:, st.plane, :, st.lane0:st.lane0 + C4],
                                               m0 + (1 + st.dh) * wc + st.row, rows + 8)
             tile = swizzle_rows(packed[st.woff:st.woff + st.width * K_TILE].view(st.width, K_TILE))
