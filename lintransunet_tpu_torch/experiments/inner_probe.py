@@ -42,8 +42,8 @@ dots27's MACs.
 
 The card's answer to the TPU probe's question, which in-kernel tap strategy
 sustains the best rate (64 windows at hbo 12, card time, NVIDIA H100 80GB
-HBM3, PERF.md row 11): ``kext`` 0.124 ms, ``dots27`` 0.143, ``bext_s``
-0.171, ``F.conv3d`` 0.126. ``kext``'s products, every one m64n128k16, run
+HBM3, PERF.md row 11): ``kext`` 0.123 ms, ``dots27`` 0.140, ``bext_s``
+0.162, ``F.conv3d`` 0.124. ``kext``'s products, every one m64n128k16, run
 faster than ``dots27``'s, every one m64n64k16 (a third fewer MACs in twice
 the instructions, a neighbour step's fragments serving one 64-column
 product), and staging each tap aligned costs more than reading one slab at
