@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and CLI paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,8 +19,9 @@ last line):
    3.35 TB/s and the operations at 989 TFLOP/s in bf16, 67 TFLOP/s in f32):
    a. linear attention at the four attention shapes of a window in the
       model's layout (the head-split view of a (1, N, BH*d) projection;
-      these calls make the kernels line), then contiguous at the same shapes
-      plus a ragged and a one-token case; each case also prints one call's
+      these calls make the kernels line), the same at batch 2 (a served
+      volume's two windows in one batch, as phase 10 serves them), then
+      contiguous at the same shapes plus a ragged and a one-token case; each case also prints one call's
       CUDA launches (the host's ``cudaLaunch*`` calls under
       ``torch.profiler``, ``kernels.launches``) and fails above two;
    b. the conv unit at the seven units of a window of the fused
@@ -32,8 +33,9 @@ last line):
       seven layers, with its executed TFLOP/s and share of its bound (no
       single PyTorch call computes a stack);
    d. the linear-attention backward likewise at the four attention shapes
-      of the training patch, in the model's layout and then contiguous, plus
-      a ragged and a one-token case, with one call's CUDA launches (no
+      of the training patch, in the model's layout at batch 1 and at batch 3
+      (train3d's default ``--batch_size``) and then contiguous, plus a
+      ragged and a one-token case, with one call's CUDA launches (no
       single PyTorch call computes it);
    e. the six conv probes (``lintransunet_tpu_torch/experiments``, the H100
       counterparts of the TPU probes under ``experiments/``) at their TPU
@@ -85,28 +87,55 @@ last line):
 9. the probes' path: each probe's entry point called once at its main
    shape, through the wrapper a user of ``python -m
    lintransunet_tpu_torch.experiments.<probe>`` calls; each launches its
-   kernel exactly once and gives finite output of the expected shape.
+   kernel exactly once and gives finite output of the expected shape;
+10. the binary CLIs at full width, as a user runs them: a synthetic
+    workspace of four 80 x 512 x 512 (D, H, W) HU volumes with
+    pancreas-sized labels and a 2-fold split by ``cli.split_dataset``; then
+    ``cli.train3d`` (the flagship in bf16, 512 x 512 x 32 patches, 3 samples
+    a patient, batch 1, one epoch with its eval: the fold's 2 test volumes
+    through the runner, then 2 patients x 3 steps) and
+    ``cli.inference_embed_attn`` (512 x 512 x 64 windows, overlap 0.6, the
+    export on) on the checkpoint it wrote. Held: every logged value finite,
+    ``metrics.jsonl`` with ``train/total_loss`` and ``eval/DiceClassLoss``,
+    the ``temp_model``, ``train_state`` and ``model`` artifacts, 32 forward
+    and 32 backward attention launches a step plus 32 forward a window of
+    the runner's grid in ``train3d`` (32 a window batch in the inference)
+    and no other kernel, a (80, 512, 512) binary export, and a finite
+    ``summary_4_fold.json``. Prints ms per step through the CLI beside phase
+    7's, the host's data time, s per served volume, whether the native
+    preprocessing core loaded, and its HU window against the numpy
+    fallback on one (512, 512, 80) volume (the same bits held, both timed).
 
 The last two lines are a JSON summary of the kernels (bf16; the forward
 kernels' per-window sums over their serving calls, the backward's per-step
-sum over its training calls, each probe's one call at its main shape) and
+sum over its training calls, each probe's one call at its main shape; the
+attention kernels' ``cli_launches`` are phase 10's ``train3d`` counts) and
 ``{"ok": true, "device": {...}}``.
 Imports nothing of jax.
 """
 
+import contextlib
 import ctypes
+import io
 import json
+import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lintransunet_tpu_torch import engine, kernels
+from lintransunet_tpu_torch import data, engine, kernels, native
+from lintransunet_tpu_torch.cli import inference_embed_attn, split_dataset, train3d
+from lintransunet_tpu_torch.cli import common
 from lintransunet_tpu_torch.cli.common import EvalConfig, get_criterion_list, make_eval_runner
-from lintransunet_tpu_torch.engine import make_eval_forward
+from lintransunet_tpu_torch.engine import loop, make_eval_forward
+from lintransunet_tpu_torch.engine.sliding_window import dense_window_starts, padded_spatial_shape
 from lintransunet_tpu_torch.experiments import (
     conv_prototype,
     conv_retired,
@@ -168,6 +197,10 @@ PER_WINDOW = {"default": _per(linear_attention=32),
 MAIN_SHAPES = [(8, 4096, 32), (8, 2160, 32), (8, 5376, 32), (4, 28704, 32)]
 # the same on the 512 x 512 x 32 training patch (half the window's depth)
 TRAIN_SHAPES = [(8, 2048, 32), (8, 1080, 32), (8, 2688, 32), (4, 14352, 32)]
+# batches above 1 that the CLIs give the attention kernels: a served volume's
+# windows in one batch (phase 10: 2 windows, sw_batch_size 4) and train3d's
+# default --batch_size of frames per step
+SERVE_BATCH, TRAIN_BATCH = 2, 3
 PATCH = (1, 1, 512, 512, 32)
 LABEL_BOX = (slice(200, 320), slice(220, 300), slice(8, 24))  # bench.py:189-190
 TRAIN_STEPS = 5
@@ -333,22 +366,27 @@ def phase_card():
                   flush=True)
 
 
-def attention_inputs(count, bh, n, d, layout, dtype, gen):
-    """``count`` (1, BH, N, d) tensors on the card: contiguous, or (``heads``)
-    the head-split view of a contiguous (1, N, BH*d) projection, the layout
-    the model passes."""
+def attention_inputs(count, bh, n, d, layout, dtype, gen, batch=1):
+    """``count`` (batch, BH, N, d) tensors on the card: contiguous, or
+    (``heads``) the head-split view of a contiguous (batch, N, BH*d)
+    projection, the layout the model passes."""
     if layout == "heads":
-        return [torch.randn((1, n, bh * d), generator=gen).to("cuda", dtype)
-                .view(1, n, bh, d).transpose(1, 2) for _ in range(count)]
-    return [torch.randn((1, bh, n, d), generator=gen).to("cuda", dtype) for _ in range(count)]
+        return [torch.randn((batch, n, bh * d), generator=gen).to("cuda", dtype)
+                .view(batch, n, bh, d).transpose(1, 2) for _ in range(count)]
+    return [torch.randn((batch, bh, n, d), generator=gen).to("cuda", dtype)
+            for _ in range(count)]
 
 
-def attention_cases(shapes):
-    """(shape, layout) of phases 2a and 2d: the main shapes in the model's
-    layout, then contiguous at the main shapes and the ragged and one-token
-    cases."""
-    return ([(shape, "heads") for shape in shapes]
-            + [(shape, "contiguous") for shape in shapes + EXTRA_SHAPES])
+def attention_cases(shapes, batch):
+    """(shape, layout, batch) of phases 2a and 2d: the main shapes in the
+    model's layout at batch 1, then at ``batch`` (the windows of a served
+    volume go through the model together, and a train step takes
+    ``--batch_size`` frames: phase 10's served path runs at 2, train3d's
+    default batch size is 3), then contiguous at the main shapes and the
+    ragged and one-token cases."""
+    return ([(shape, "heads", 1) for shape in shapes]
+            + [(shape, "heads", batch) for shape in shapes]
+            + [(shape, "contiguous", 1) for shape in shapes + EXTRA_SHAPES])
 
 
 def check_launches(tag, label, found, calls=3):
@@ -370,8 +408,8 @@ def phase_attention_vs_plain():
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     summary = Summary()
     for dtype in (torch.float32, torch.bfloat16):
-        for (bh, n, d), layout in attention_cases(MAIN_SHAPES):
-            q, k, v = attention_inputs(3, bh, n, d, layout, dtype, gen)
+        for (bh, n, d), layout, batch in attention_cases(MAIN_SHAPES, SERVE_BATCH):
+            q, k, v = attention_inputs(3, bh, n, d, layout, dtype, gen, batch)
             got = fused.linear_attention(q, k, v)
             want = fused.linear_attention_reference(q, k, v)
             torch.cuda.synchronize()
@@ -381,19 +419,19 @@ def phase_attention_vs_plain():
             summary.max_abs_err = max(summary.max_abs_err, err)
             ms, plain_ms = pkkp(lambda: fused.linear_attention_reference(q, k, v),
                                 lambda: fused.linear_attention(q, k, v), 20)
-            nbytes = 4 * bh * n * d * q.element_size()
-            flops = 4 * bh * n * d * d
+            nbytes = 4 * batch * bh * n * d * q.element_size()
+            flops = 4 * batch * bh * n * d * d
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            if layout == "heads":
+            if layout == "heads" and batch == 1:
                 summary.add(dtype, 8, ms, plain_ms, flops, nbytes)
             ok = rel <= TOL[dtype]
-            label = f"{str(dtype)[6:]:8s} {layout:10s} BH={bh} N={n} d={d}"
+            label = f"{str(dtype)[6:]:8s} {layout:10s} B={batch} BH={bh} N={n} d={d}"
             print(f"[attention] {label}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
                   f"{TOL[dtype]:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
                   f"{bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'TOO FAR'}",
                   flush=True)
             if not ok:
-                fail(f"kernel disagrees with plain at {dtype} {layout} {(bh, n, d)}")
+                fail(f"kernel disagrees with plain at {dtype} {layout} {(batch, bh, n, d)}")
             check_launches("attention", label,
                            cuda_launches(lambda: fused.linear_attention(q, k, v), 3))
     print(f"[attention] one window's 32 bf16 calls (the model's layout): kernel "
@@ -531,8 +569,8 @@ def phase_attention_backward_vs_plain():
     gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
     summary = Summary()
     for dtype in (torch.float32, torch.bfloat16):
-        for (bh, n, d), layout in attention_cases(TRAIN_SHAPES):
-            q, k, v, g = attention_inputs(4, bh, n, d, layout, dtype, gen)
+        for (bh, n, d), layout, batch in attention_cases(TRAIN_SHAPES, TRAIN_BATCH):
+            q, k, v, g = attention_inputs(4, bh, n, d, layout, dtype, gen, batch)
             got = fused.linear_attention_backward(q, k, v, g)
             want = fused.linear_attention_backward_reference(q, k, v, g)
             torch.cuda.synchronize()
@@ -543,19 +581,21 @@ def phase_attention_backward_vs_plain():
             ms, plain_ms = pkkp(
                 lambda: fused.linear_attention_backward_reference(q, k, v, g),
                 lambda: fused.linear_attention_backward(q, k, v, g), 20)
-            nbytes = 7 * bh * n * d * q.element_size()  # read q, k, v, g; write dq, dk, dv
-            flops = 10 * bh * n * d * d                 # five (N x d) by (d x d) products
+            # read q, k, v, g; write dq, dk, dv; five (N x d) by (d x d) products
+            nbytes = 7 * batch * bh * n * d * q.element_size()
+            flops = 10 * batch * bh * n * d * d
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            if layout == "heads":
+            if layout == "heads" and batch == 1:
                 summary.add(dtype, 8, ms, plain_ms, flops, nbytes)
             ok = rel <= TOL[dtype]
-            label = f"{str(dtype)[6:]:8s} {layout:10s} BH={bh} N={n} d={d}"
+            label = f"{str(dtype)[6:]:8s} {layout:10s} B={batch} BH={bh} N={n} d={d}"
             print(f"[attention_bwd] {label}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
                   f"{TOL[dtype]:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
                   f"{bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'TOO FAR'}",
                   flush=True)
             if not ok:
-                fail(f"backward kernel disagrees with plain at {dtype} {layout} {(bh, n, d)}")
+                fail(f"backward kernel disagrees with plain at {dtype} {layout} "
+                     f"{(batch, bh, n, d)}")
             check_launches("attention_bwd", label, cuda_launches(
                 lambda: fused.linear_attention_backward(q, k, v, g), 3))
     print(f"[attention_bwd] one train step's 32 bf16 calls (the model's layout): kernel "
@@ -986,7 +1026,7 @@ def phase_train(images, labels, criterions):
           f"optimizer updates {state.gradient_step}; launches {launches}", flush=True)
     print(f"[train] last step's logs: "
           f"{ {k: round(v.item(), 6) for k, v in logs.items()} }", flush=True)
-    return launches
+    return launches, ms
 
 
 def train_step_grads(attention_impl, dtype, images, labels, criterions,
@@ -1075,6 +1115,258 @@ def phase_train_vs_plain(images, labels, criterions):
         fail("kernel and plain attention disagree upstream of the first ROI box in bf16")
 
 
+# Phase 10: the binary CLIs at full width on a synthetic workspace of
+# CLI_PATIENTS volumes of CLI_SHAPE (D, H, W) HU values, N(40, 60), each with
+# a pancreas-sized label blob (CLI_BLOB, fractions of each axis)
+CLI_PATIENTS = 4
+CLI_SHAPE = (80, 512, 512)
+CLI_BLOB = ((0.375, 0.625), (0.43, 0.57), (0.39, 0.625))
+CLI_TRAIN_FLAGS = ("--image_crop", "512", "--depth_size", "32", "--num_samples", "3",
+                   "--batch_size", "1", "--epochs", "1", "--eval_epoch", "1",
+                   "--is_transform", "true", "--compute_dtype", "bfloat16")
+CLI_INFER_FLAGS = ("--roi_size", "512", "--depth_size", "64", "--overlap", "0.6",
+                   "--is_save", "true")
+
+
+@contextlib.contextmanager
+def command_line(args):
+    """``sys.argv`` as a user's command line would set it."""
+    saved = sys.argv
+    sys.argv = ["chip_smoke"] + list(args)
+    try:
+        yield
+    finally:
+        sys.argv = saved
+
+
+@contextlib.contextmanager
+def timed(owner, name, log, generator=False):
+    """Time every call of ``owner.name`` (host wall time) into ``log``. For a
+    generator, time each item from the request to the consumer's next
+    request, so that the consumer's own work on the item counts."""
+    original = getattr(owner, name)
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            log.append(time.perf_counter() - t0)
+
+    def each(*args, **kwargs):
+        t0 = time.perf_counter()
+        for item in original(*args, **kwargs):
+            yield item
+            log.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+
+    setattr(owner, name, each if generator else call)
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def cli_workspace(root, shape, patients):
+    """image/ and label/ .npy volumes under ``root``/data, and a 2-fold split
+    written by the port's split tool; returns (data dir, split path)."""
+    data_dir = os.path.join(root, "data")
+    rng = np.random.default_rng(SEED + 8)
+    blob = tuple(slice(int(lo * n), int(hi * n)) for (lo, hi), n in zip(CLI_BLOB, shape))
+    for sub in ("image", "label"):
+        os.makedirs(os.path.join(data_dir, sub))
+    for i in range(patients):
+        label = np.zeros(shape, np.uint8)
+        label[blob] = 1
+        np.save(os.path.join(data_dir, "image", f"{i:04d}.npy"),
+                rng.normal(40.0, 60.0, shape).astype(np.float32))
+        np.save(os.path.join(data_dir, "label", f"{i:04d}.npy"), label)
+    split = os.path.join(root, "split.json")
+    with command_line(["--dir_data", data_dir, "--k_folds", "2", "--out", split]), \
+            contextlib.redirect_stdout(io.StringIO()):
+        split_dataset.main()
+    return data_dir, split
+
+
+def _windows(volume_hwd, roi, overlap):
+    """Windows of the runner's own grid over one (H, W, D) volume."""
+    return len(dense_window_starts(padded_spatial_shape(volume_hwd, roi), roi, overlap))
+
+
+def run_cli_path(root, shape, patients, train_flags, infer_flags):
+    """``train3d`` then ``inference_embed_attn`` on the checkpoint it wrote,
+    each through its parser as a user runs it, with the launch counts set
+    to 0 just before each and read just after; returns what phase 10 holds
+    and prints."""
+    data_dir, split = cli_workspace(root, shape, patients)
+    train_ids, test_ids = data.load_fold(split, 0)
+    out = {"epoch_s": [], "eval_s": [], "waits": [], "items": [], "volume_s": []}
+    loader_iter = data.DataLoader.__iter__
+
+    def train_waits(loader):  # host time the train loop waits for each batch
+        it = loader_iter(loader)
+        if not isinstance(loader.dataset, data.IdPosPanCTDataset):
+            yield from it
+            return
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            out["waits"].append(time.perf_counter() - t0)
+            yield batch
+
+    train_argv = ["--dir_data", data_dir, "--split_json", split, "--fold_num", "0",
+                  "--log_dir", os.path.join(root, "runs"),
+                  "--model_dir", os.path.join(root, "out"), *train_flags]
+    with command_line(train_argv):
+        args = train3d.get_parse()
+    with timed(loop, "train_on_epoch", out["epoch_s"]), \
+            timed(loop, "eval_on_epoch", out["eval_s"]), \
+            timed(data.IdPosPanCTDataset, "__getitem__", out["items"]):
+        data.DataLoader.__iter__ = train_waits
+        try:
+            reset_launch_counts()
+            train3d.main(args)
+            _sync()
+            out["train_launches"] = launch_counts()
+        finally:
+            data.DataLoader.__iter__ = loader_iter
+    eval_roi = (args.image_crop, args.image_crop, args.eval_depth)
+    out["eval_windows"] = sum(_windows(shape[1:] + shape[:1], eval_roi, EvalConfig().overlap)
+                              for _ in test_ids)
+    out["eval_volumes"] = len(test_ids)
+
+    run_dir = os.path.join(root, "out", os.listdir(os.path.join(root, "out"))[0])
+    out["artifacts"] = sorted(os.listdir(os.path.join(run_dir, "fold_0")))
+    out["state"] = torch.load(os.path.join(run_dir, "fold_0", "train_state"),
+                              map_location="cpu", weights_only=True)
+    logs = [os.path.join(d, f) for d, _, files in os.walk(os.path.join(root, "runs"))
+            for f in files if f == "metrics.jsonl"]
+    out["records"] = [json.loads(line) for line in open(logs[0])]
+
+    infer_argv = ["--dir_data", data_dir, "--split_json", split, "--pretrained_dir", run_dir,
+                  "--saved_folder", os.path.join(root, "pred"), *infer_flags]
+    with command_line(infer_argv):
+        iargs = inference_embed_attn.get_parse()
+    cwd = os.getcwd()
+    os.chdir(root)  # the CLI writes summary_4_fold.json where it runs
+    try:
+        with timed(common, "batched_predictions", out["volume_s"], generator=True):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            inference_embed_attn.main(iargs)
+            _sync()
+            out["infer_s"] = time.perf_counter() - t0
+            out["infer_launches"] = launch_counts()
+    finally:
+        os.chdir(cwd)
+    roi = (iargs.roi_size, iargs.roi_size, iargs.depth_size)
+    out["infer_chunks"] = sum(math.ceil(_windows(shape[1:] + shape[:1], roi, iargs.overlap)
+                                        / iargs.sw_batch_size) for _ in test_ids[:-1])
+    out["served"] = len(test_ids) - 1
+    out["summary"] = json.load(open(os.path.join(root, "summary_4_fold.json")))
+    out["exports"] = [np.load(os.path.join(root, "pred", f))
+                      for f in sorted(os.listdir(os.path.join(root, "pred")))]
+    out["patients"] = len(train_ids)
+    out["num_samples"] = args.num_samples
+    return out
+
+
+def native_vs_numpy(shape):
+    """Host ms of the native HU window and of its numpy fallback on one
+    volume of ``shape`` (best of 3 each, in turns native, numpy, numpy,
+    native ...); None where the library did not load. Fails unless both
+    give the same bits."""
+    if not native.AVAILABLE:
+        return None
+    vol = np.random.default_rng(SEED + 9).normal(40.0, 60.0, shape).astype(np.float32)
+    window = (-91.0, 250.0, 86.9, 39.4)  # IdPosPanCTDataset's
+    fns = (native.hu_window_normalize, native.hu_window_normalize_numpy)
+    if not np.array_equal(fns[0](vol, *window), fns[1](vol, *window)):
+        fail("the native HU window and its numpy fallback disagree")
+    times = ([], [])
+    for _ in range(3):
+        for i in (0, 1, 1, 0):
+            t0 = time.perf_counter()
+            fns[i](vol, *window)
+            times[i].append((time.perf_counter() - t0) * 1e3)
+    return min(times[0]), min(times[1])
+
+
+def phase_cli(train_ms):
+    """Phase 10: the binary CLIs at full width; returns the attention
+    kernels' launches in ``train3d``."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        out = run_cli_path(root, CLI_SHAPE, CLI_PATIENTS, CLI_TRAIN_FLAGS, CLI_INFER_FLAGS)
+        total_s = time.perf_counter() - t0
+    steps = out["patients"] * out["num_samples"]
+    if out["state"]["step"] != steps:
+        fail(f"train3d took {out['state']['step']} steps, not {steps}")
+    want = _per(linear_attention=32 * (steps + out["eval_windows"]),
+                linear_attention_backward=32 * steps)
+    if out["train_launches"] != want:
+        fail(f"train3d launched {out['train_launches']}, not {want} ({steps} steps and "
+             f"{out['eval_windows']} eval windows)")
+    want_infer = _per(linear_attention=32 * out["infer_chunks"])
+    if out["infer_launches"] != want_infer:
+        fail(f"inference_embed_attn launched {out['infer_launches']}, not {want_infer} "
+             f"({out['infer_chunks']} window batches)")
+    tags = {r["tag"] for r in out["records"]}
+    if not {"train/total_loss", "eval/DiceClassLoss"} <= tags:
+        fail(f"metrics.jsonl lacks train/total_loss or eval/DiceClassLoss: {sorted(tags)}")
+    if not all(math.isfinite(r["value"]) for r in out["records"]):
+        fail("train3d logged a non-finite value")
+    if not {"temp_model", "train_state", "model"} <= set(out["artifacts"]):
+        fail(f"train3d wrote {out['artifacts']}")
+    want_shape = CLI_SHAPE
+    if len(out["exports"]) != out["served"] or any(
+            e.shape != want_shape or not set(np.unique(e)) <= {0.0, 1.0}
+            for e in out["exports"]):
+        fail(f"exports {[(e.shape, np.unique(e)[:4]) for e in out['exports']]}, want "
+             f"{out['served']} binary {want_shape}")
+    values = [v for key, vs in out["summary"].items() for v in np.ravel(vs)]
+    if not values or not all(math.isfinite(v) for v in values):
+        fail(f"summary_4_fold.json is not finite: {out['summary']}")
+
+    train_s = sum(out["epoch_s"])
+    losses = [round(r["value"], 6) for r in out["records"] if r["tag"] == "train/total_loss"]
+    evals = {r["tag"]: round(r["value"], 6) for r in out["records"] if r["tag"].startswith("eval/")}
+    print(f"[cli] train3d at full width ({CLI_PATIENTS} volumes of {CLI_SHAPE} (D, H, W), "
+          f"fold 0: {out['patients']} train patients x {out['num_samples']} steps, "
+          f"{out['eval_windows']} eval windows): launches {out['train_launches']}; "
+          f"patient losses {losses}; eval {evals}; artifacts {out['artifacts']}", flush=True)
+    print(f"[cli] train3d time: {train_s / steps * 1e3:.2f} ms per step through the CLI "
+          f"({steps} steps in {train_s:.3f} s, data waits included) against phase 7's "
+          f"{train_ms:.2f} ms per step; the loop waited {sum(out['waits']):.3f} s for "
+          f"batches ({[round(w, 3) for w in out['waits']]} s), the workers spent "
+          f"{[round(s, 3) for s in out['items']]} s preparing each patient; eval "
+          f"{out['eval_s'][0]:.3f} s for {out['eval_windows']} windows over "
+          f"{out['eval_volumes']} volumes ({out['eval_s'][0] / out['eval_volumes']:.3f} s "
+          f"per volume, the first forwards' warm-up included); native "
+          f"preprocessing core {'loaded' if native.AVAILABLE else 'NOT loaded (numpy fallback)'}",
+          flush=True)
+    hu_shape = CLI_SHAPE[1:] + CLI_SHAPE[:1]
+    hu = native_vs_numpy(hu_shape)
+    print(f"[cli] HU window on one {hu_shape} volume: " + (
+        "native core not loaded" if hu is None else
+        f"native {hu[0]:.3f} ms, numpy fallback {hu[1]:.3f} ms (same bits; host time, "
+        f"best of 3)"), flush=True)
+    print(f"[cli] inference_embed_attn: {out['served']} volume(s) served, "
+          f"{[round(s, 3) for s in out['volume_s']]} s per served volume (load, "
+          f"{out['infer_chunks']} window batch(es), metrics, export), {out['infer_s']:.3f} s "
+          f"in all with the model's build; launches {out['infer_launches']}; export "
+          f"{[e.shape for e in out['exports']]} binary; summary {out['summary']}; phase "
+          f"10 took {total_s:.1f} s", flush=True)
+    return out["train_launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on an NVIDIA GPU")
@@ -1105,11 +1397,13 @@ def main():
     torch.cuda.empty_cache()
 
     images, labels, criterions = train_inputs()
-    launches["train"] = phase_train(images, labels, criterions)
+    launches["train"], train_ms = phase_train(images, labels, criterions)
     phase_train_vs_plain(images, labels, criterions)
     del images, labels
     torch.cuda.empty_cache()
     launches["probes"] = phase_probe_path(probe_path(probe_inputs()))
+    torch.cuda.empty_cache()
+    cli_launches = phase_cli(train_ms)
 
     # name: (source, the TPU kernel it replaces, the path whose launches it reports)
     sources = {"linear_attention": ("linear_attention", "pallas_attention.py:126", "default"),
@@ -1126,6 +1420,8 @@ def main():
             entry["also_replaces"] = ["lintransunet_tpu/ops/pallas_attention.py:206",
                                       "lintransunet_tpu/ops/pallas_attention.py:233"]
         entry.update(summaries[name].entry(launches[path][name]))
+        if name.startswith("linear_attention"):
+            entry["cli_launches"] = cli_launches[name]  # phase 10's train3d
         entries.append(entry)
     for name, (source, replaces) in PROBES.items():
         entry = {"name": name, "route": "cuda",

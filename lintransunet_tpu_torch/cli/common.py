@@ -1,11 +1,20 @@
-"""Shared CLI plumbing (port of ``get_criterion_list`` and
-``make_eval_runner``, ``lintransunet_tpu/cli/common.py:10-29, 45-62``); the
-CLIs themselves come later."""
+"""Shared CLI plumbing (port of ``lintransunet_tpu/cli/common.py``): the
+criterion schedule, the eval runner, the model factory, the per-volume
+predictions (``engine.loop.batched_predictions``, which the eval loop
+iterates too) and the run directories. The mesh path of
+``batched_predictions`` is not ported yet."""
 
-import dataclasses
+import os
+import time
 from typing import List, Tuple
 
 from torch import nn
+
+from lintransunet_tpu_torch.core.config import EvalConfig, ModelConfig
+from lintransunet_tpu_torch.engine.loop import batched_predictions
+
+__all__ = ["EvalConfig", "get_criterion_list", "make_eval_runner", "build_model",
+           "batched_predictions", "run_dirs"]
 
 
 def get_criterion_list(num_levels: int, criterion_list, loss_module=None
@@ -32,18 +41,6 @@ def get_criterion_list(num_levels: int, criterion_list, loss_module=None
     return criterions, loss_module.get_criterions(eval_list)
 
 
-@dataclasses.dataclass
-class EvalConfig:
-    """Eval-time sliding-window geometry (utils_3D_embed_full.py:135-148);
-    the sliding-window fields of ``lintransunet_tpu.core.config.EvalConfig``,
-    which ``make_eval_runner`` accepts as well."""
-
-    roi_size: int = 512
-    depth_size: int = 64
-    overlap: float = 0.6
-    mode: str = "constant"  # sigma_scale=0 + constant blending
-
-
 def make_eval_runner(model: nn.Module, cfg, sw_batch_size: int = 1):
     """(eval_forward, SlidingWindowRunner) from an eval config: a square
     ``roi_size`` x ``roi_size`` x ``depth_size`` window, the config's overlap
@@ -59,3 +56,27 @@ def make_eval_runner(model: nn.Module, cfg, sw_batch_size: int = 1):
         derive_background=eval_fwd.fg_only,
         device=next(model.parameters()).device)
     return eval_fwd, runner
+
+
+def build_model(args) -> nn.Module:
+    """The model of the CLI flags, on ``args.device`` (the card by default)."""
+    return ModelConfig(
+        model_name=args.model_name,
+        num_layers=tuple(args.num_layers),
+        roi_size_list=tuple(args.roi_size_list),
+        is_roi_list=tuple(args.is_roi_list),
+        dim_input=args.dim_input,
+        dim_output=args.dim_output,
+        kernel_size=args.kernel_size,
+        compute_dtype=getattr(args, "compute_dtype", "bfloat16"),
+        attn_layers=getattr(args, "attn_layers", 8),
+    ).build(getattr(args, "device", "cuda"))
+
+
+def run_dirs(log_dir: str, model_dir: str, fold_num: int):
+    stamp = time.strftime("%Y%m%d-%H_%M_%S")
+    log = os.path.join(log_dir, stamp, f"fold_{fold_num}")
+    model = os.path.join(model_dir, stamp, f"fold_{fold_num}")
+    os.makedirs(log, exist_ok=True)
+    os.makedirs(model, exist_ok=True)
+    return log, model

@@ -1,7 +1,16 @@
-"""Runtime engine: the training step, its schedules and checkpoints, the
-eval forward and sliding-window inference."""
+"""Runtime engine: the training step, its schedules, checkpoints and metrics,
+the epoch loops (``engine.loop``), the eval forward and sliding-window
+inference."""
 
-from lintransunet_tpu_torch.engine.checkpoint import restore_train_state, save_train_state
+from lintransunet_tpu_torch.engine.checkpoint import (
+    restore_checkpoint,
+    restore_params,
+    restore_train_state,
+    save_checkpoint,
+    save_params,
+    save_train_state,
+)
+from lintransunet_tpu_torch.engine.metrics import MetricWriter, NullWriter
 from lintransunet_tpu_torch.engine.schedule import (
     ReduceLROnPlateau,
     get_dynamic_weight,
@@ -40,6 +49,12 @@ __all__ = [
     "get_dynamic_weight",
     "get_weight",
     "ReduceLROnPlateau",
+    "save_checkpoint",
+    "restore_checkpoint",
+    "save_params",
+    "restore_params",
     "save_train_state",
     "restore_train_state",
+    "MetricWriter",
+    "NullWriter",
 ]

@@ -193,8 +193,10 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
 
 def make_eval_forward(model: nn.Module,
                       fg_only: Optional[bool] = None) -> Callable:
-    """Put ``model`` in eval mode and return ``forward(window_batch)`` ->
-    its one-hot argmax branch, run under ``torch.inference_mode()``.
+    """``forward(window_batch)`` -> ``model``'s one-hot argmax branch, run in
+    eval mode under ``torch.inference_mode()``. Each call puts the model
+    back in eval mode, so a training loop can evaluate between its steps
+    (each train step puts it in train mode).
 
     ``fg_only`` (None = auto: on for a 2-class ``MaskTransUnet``) emits only
     the class-1 channel; pair it with
@@ -209,6 +211,8 @@ def make_eval_forward(model: nn.Module,
     model.eval()
 
     def forward(x: torch.Tensor) -> torch.Tensor:
+        if model.training:
+            model.eval()
         with torch.inference_mode():
             if fg_only:
                 return model(x, return_aux=False, fg_only=True)
