@@ -13,8 +13,8 @@ from torch import nn
 from lintransunet_tpu_torch.core.config import EvalConfig, ModelConfig
 from lintransunet_tpu_torch.engine.loop import batched_predictions
 
-__all__ = ["EvalConfig", "get_criterion_list", "make_eval_runner", "build_model",
-           "batched_predictions", "run_dirs"]
+__all__ = ["EvalConfig", "get_criterion_list", "get_multi_criterion_list",
+           "make_eval_runner", "build_model", "batched_predictions", "run_dirs"]
 
 
 def get_criterion_list(num_levels: int, criterion_list, loss_module=None
@@ -38,6 +38,24 @@ def get_criterion_list(num_levels: int, criterion_list, loss_module=None
             criterions.append(loss_module.get_criterions(temp_list2))
         else:
             criterions.append(loss_module.get_criterions(list(criterion_list)))
+    return criterions, loss_module.get_criterions(eval_list)
+
+
+def get_multi_criterion_list(num_levels: int, criterion_list, loss_module=None
+                             ) -> Tuple[List[dict], dict]:
+    """Multi-class schedule (train3D_multi_class.py:139-155): CE + Dice1 +
+    Dice2 on every level but the top (full-resolution) one, which takes the
+    configured list; the eval suite adds DiceClassLoss0 and the recall and
+    precision losses. ``loss_module`` defaults to the port's multi-class
+    losses."""
+    if loss_module is None:
+        from lintransunet_tpu_torch.losses import multiclass as loss_module
+    level_list = ["CrossEntroLoss", "DiceClassLoss", "DiceClassLoss2"]
+    eval_list = ["DiceClassLoss0", "DiceClassLoss", "DiceClassLoss2",
+                 "RecallLoss", "PrecisionLoss"]
+    criterions = [loss_module.get_criterions(
+        list(criterion_list) if i == num_levels - 1 else level_list)
+        for i in range(num_levels)]
     return criterions, loss_module.get_criterions(eval_list)
 
 

@@ -21,12 +21,16 @@ import os
 
 import numpy as np
 
+from lintransunet_tpu_torch.core.config import InferenceConfig, add_dataclass_args
+from lintransunet_tpu_torch.engine.loop import labels_to_device
 
-def get_parse():
-    from lintransunet_tpu_torch.core.config import InferenceConfig, add_dataclass_args
 
+def model_parser(config, dim_output: int = 2) -> argparse.ArgumentParser:
+    """The parser of ``config``'s fields and the model flags, shared with
+    ``inference_multi_classes`` (its deltas: the config's criterion list and
+    ``dim_output``)."""
     parser = argparse.ArgumentParser()
-    add_dataclass_args(parser, InferenceConfig())
+    add_dataclass_args(parser, config)
     parser.add_argument("--model_name", type=str, default="MaskTransUnet")
     parser.add_argument("--num_layers",
                         type=lambda s: tuple(int(x) for x in s.split(",")),
@@ -39,25 +43,42 @@ def get_parse():
                                              for x in s.split(",")),
                         default=(False, True, True, True, True))
     parser.add_argument("--dim_input", type=int, default=1)
-    parser.add_argument("--dim_output", type=int, default=2)
+    parser.add_argument("--dim_output", type=int, default=dim_output)
     parser.add_argument("--kernel_size", type=int, default=3)
     parser.add_argument("--compute_dtype", type=str, default="bfloat16")
+    return parser
+
+
+def get_parse():
+    parser = model_parser(InferenceConfig())
     parser.add_argument("--attn_layers", type=int, default=8)
     return parser.parse_args()
 
 
-def main(args):
+def _binary_volume(predict, masks, args):
+    """(prediction, target) the criterions take, and the export: the blend
+    thresholded at ``args.threshold``, the label ids, the class-1 channel as
+    a (D, H, W) volume."""
+    predict2 = (predict >= args.threshold).float()
+    target = labels_to_device(masks, predict.device)
+    return predict2, target, predict2[0, 1].cpu().numpy().transpose(2, 0, 1)
+
+
+def main(args, score_volume=_binary_volume, multi_class: bool = False):
+    """Serve every fold's test volumes from its ``temp_model``.
+    ``score_volume`` and ``multi_class`` are ``inference_multi_classes``'s
+    deltas: its post-processing and its datasets and criterions."""
     import torch
 
-    from lintransunet_tpu_torch import engine
+    from lintransunet_tpu_torch import data, engine
     from lintransunet_tpu_torch.cli.common import (batched_predictions, build_model,
                                                    make_eval_runner)
     from lintransunet_tpu_torch.core.config import EvalConfig
-    from lintransunet_tpu_torch.data import DataLoader, EvaPanCTDataset
     from lintransunet_tpu_torch.data.split import load_fold
-    from lintransunet_tpu_torch.engine.loop import labels_to_device
-    from lintransunet_tpu_torch.losses import binary as loss_module
+    from lintransunet_tpu_torch.losses import binary, multiclass
 
+    loss_module = multiclass if multi_class else binary
+    dataset_cls = data.MultiClassEvaDataset if multi_class else data.EvaPanCTDataset
     criterions = loss_module.get_criterions(list(args.criterion_list))
     final_loss = [0.0] * len(criterions)
     name_list = sorted(os.listdir(os.path.join(args.dir_data, "image")))
@@ -76,10 +97,10 @@ def main(args):
         _, test_ids = load_fold(args.split_json, fold_num)
         # the reference drops the last test id (inference_embed_attn.py:115)
         test_ids = test_ids[:-1]
-        dataset = EvaPanCTDataset(root=args.dir_data,
-                                  depth_size=args.depth_size, ids=test_ids)
-        loader = DataLoader(dataset, batch_size=args.batch_size,
-                            shuffle=False, num_workers=4)
+        dataset = dataset_cls(root=args.dir_data, depth_size=args.depth_size,
+                              ids=test_ids)
+        loader = data.DataLoader(dataset, batch_size=args.batch_size,
+                                 shuffle=False, num_workers=4)
         model.load_state_dict(engine.restore_params(os.path.join(
             args.pretrained_dir, f"fold_{fold_num}", "temp_model"), device))
 
@@ -88,17 +109,14 @@ def main(args):
         n = 0
         for i, images, masks, predict in batched_predictions(loader, runner):
             name = name_list[test_ids[i]]
-            target = labels_to_device(masks, predict.device)
-            predict2 = (predict >= args.threshold).float()
+            predict2, target, export = score_volume(predict, masks, args)
             # one host read per volume
             losses = torch.stack([fn(predict2, target).float()
                                   for fn in criterions.values()]).tolist()
 
             if args.is_save:
-                # class-1 channel, (H, W, D) -> (D, H, W)
-                out = predict2[0, 1].cpu().numpy().transpose(2, 0, 1)
                 np.save(os.path.join(args.saved_folder,
-                                     "{:0>4}".format(name)), out)
+                                     "{:0>4}".format(name)), export)
 
             for loss_name, value in zip(criterions, losses):
                 print(f"eval patient average {loss_name}", value)

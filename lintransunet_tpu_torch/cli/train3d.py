@@ -6,8 +6,8 @@ The same flags and defaults as the JAX CLI but ``--device`` (the card,
 orchestration: K-fold id loading, the per-level criterion schedule, the
 exponential deep-supervision weights with their warmup hold, an eval every
 ``eval_epoch`` epochs with the plateau scheduler and the best-parameters
-checkpoint, a full-state checkpoint after each such epoch's training. Only
-``MaskTransUnet`` is ported. Run:
+checkpoint, a full-state checkpoint after each such epoch's training. Every
+model of ``Model_Dict`` builds from ``--model_name``. Run:
 
     python -m lintransunet_tpu_torch.cli.train3d --dir_data <root> --epochs 10
 """
@@ -17,13 +17,15 @@ import os
 
 import numpy as np
 
+from lintransunet_tpu_torch.core.config import TrainConfig, add_dataclass_args
 
-def get_parse():
-    from lintransunet_tpu_torch.core.config import TrainConfig, add_dataclass_args
 
+def model_parser(config, dim_output: int = 2) -> argparse.ArgumentParser:
+    """The parser of ``config``'s fields and the model flags (train3D.py:42-72),
+    shared with the multi-class CLIs (their deltas: the config's defaults and
+    ``dim_output``)."""
     parser = argparse.ArgumentParser()
-    add_dataclass_args(parser, TrainConfig())
-    # model flags (train3D.py:42-72)
+    add_dataclass_args(parser, config)
     parser.add_argument("--model_name", type=str, default="MaskTransUnet")
     parser.add_argument("--num_layers",
                         type=lambda s: tuple(int(x) for x in s.split(",")),
@@ -36,14 +38,18 @@ def get_parse():
                                              for x in s.split(",")),
                         default=(False, True, True, True, True))
     parser.add_argument("--dim_input", type=int, default=1)
-    parser.add_argument("--dim_output", type=int, default=2)
+    parser.add_argument("--dim_output", type=int, default=dim_output)
     parser.add_argument("--kernel_size", type=int, default=3)
     parser.add_argument("--compute_dtype", type=str, default="bfloat16")
     parser.add_argument("--image_crop", type=int, default=512)
     parser.add_argument("--attn_layers", type=int, default=8)
     # eval sliding-window depth (utils_3D_embed_full.py:135 hard-codes 64)
     parser.add_argument("--eval_depth", type=int, default=64)
-    return parser.parse_args()
+    return parser
+
+
+def get_parse():
+    return model_parser(TrainConfig()).parse_args()
 
 
 def _restore(args, fold_num, state, engine):
@@ -61,33 +67,40 @@ def _restore(args, fold_num, state, engine):
     return state, {}
 
 
-def main(args):
+def main(args, multi_class: bool = False):
+    """Train one fold. ``multi_class`` is ``train3d_multi_class``'s run
+    (train3D_multi_class.py): the multi-class datasets, CE + Dice1 + Dice2
+    on every level, the criterion weights on one-hot targets, and model
+    selection on DiceClassLoss + DiceClassLoss2 of the unthresholded blend."""
     import torch
 
-    from lintransunet_tpu_torch import engine
+    from lintransunet_tpu_torch import data, engine
     from lintransunet_tpu_torch.cli.common import (build_model, get_criterion_list,
+                                                   get_multi_criterion_list,
                                                    make_eval_runner, run_dirs)
     from lintransunet_tpu_torch.core.config import EvalConfig
-    from lintransunet_tpu_torch.data import DataLoader, EvaPanCTDataset, IdPosPanCTDataset
     from lintransunet_tpu_torch.data.split import load_fold
     from lintransunet_tpu_torch.engine import loop
-    from lintransunet_tpu_torch.losses import binary as loss_module
+    from lintransunet_tpu_torch.losses import binary, multiclass
     from lintransunet_tpu_torch.models import init_random_
 
     fold_num = args.fold_num
     batch_size = args.batch_size
     step_times = max(args.num_samples // 3, 1)
 
+    if multi_class:
+        train_cls, test_cls = data.MultiClassPanCTDataset, data.MultiClassEvaDataset
+    else:
+        train_cls, test_cls = data.IdPosPanCTDataset, data.EvaPanCTDataset
     train_ids, test_ids = load_fold(args.split_json, fold_num)
-    train_ds = IdPosPanCTDataset(
+    train_ds = train_cls(
         root=args.dir_data, depth_size=args.depth_size,
         num_samples=args.num_samples, is_transform=args.is_transform,
         ids=train_ids, image_crop=args.image_crop, seed=args.seed)
-    test_ds = EvaPanCTDataset(root=args.dir_data, depth_size=args.depth_size,
-                              ids=test_ids)
-    train_dl = DataLoader(train_ds, batch_size=batch_size, shuffle=True,
-                          num_workers=12, seed=args.seed)
-    test_dl = DataLoader(test_ds, batch_size=1, shuffle=False, num_workers=2)
+    test_ds = test_cls(root=args.dir_data, depth_size=args.depth_size, ids=test_ids)
+    train_dl = data.DataLoader(train_ds, batch_size=batch_size, shuffle=True,
+                               num_workers=12, seed=args.seed)
+    test_dl = data.DataLoader(test_ds, batch_size=1, shuffle=False, num_workers=2)
 
     model = build_model(args)
     device = next(model.parameters()).device
@@ -98,12 +111,21 @@ def main(args):
     if args.is_pretrained:
         state, resume_aux = _restore(args, fold_num, state, engine)
 
-    criterions, eval_criterions = get_criterion_list(
-        len(args.num_layers), args.criterion_list, loss_module)
-    step_fn = engine.make_train_step(model, criterions)
-
     eval_cfg = EvalConfig(roi_size=args.image_crop,
                           depth_size=getattr(args, "eval_depth", 64))
+    if multi_class:
+        criterions, eval_criterions = get_multi_criterion_list(
+            len(args.num_layers), args.criterion_list, multiclass)
+        step_fn = engine.make_train_step(
+            model, criterions, criterion_weight=list(args.criterion_weight),
+            num_classes=args.num_classes)
+        eval_args = dict(num_classes=args.num_classes,
+                         selection_metrics=("DiceClassLoss", "DiceClassLoss2"))
+    else:
+        criterions, eval_criterions = get_criterion_list(
+            len(args.num_layers), args.criterion_list, binary)
+        step_fn = engine.make_train_step(model, criterions)
+        eval_args = dict(threshold=eval_cfg.threshold)
     _, runner = make_eval_runner(model, eval_cfg)
 
     scheduler = engine.ReduceLROnPlateau(
@@ -136,8 +158,7 @@ def main(args):
 
         if epoch % args.eval_epoch == 0:
             eval_loss, global_step = loop.eval_on_epoch(
-                runner, test_dl, eval_criterions, writer, global_step,
-                threshold=eval_cfg.threshold)
+                runner, test_dl, eval_criterions, writer, global_step, **eval_args)
             engine.set_learning_rate(state, scheduler.step(eval_loss))
             if eval_loss <= best_eval_loss:
                 best_eval_loss = eval_loss

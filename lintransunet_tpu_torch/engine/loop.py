@@ -23,7 +23,7 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from lintransunet_tpu_torch.losses.functional import one_hot
+from lintransunet_tpu_torch.losses.functional import one_hot_map
 
 
 def to_device(images: np.ndarray, device) -> torch.Tensor:
@@ -132,8 +132,7 @@ def eval_on_epoch(
         if num_classes is None:
             predict = (predict >= threshold).float()
         else:
-            target = one_hot(target.reshape(target.shape[0], -1), num_classes)
-            target = target.reshape(masks.shape + (num_classes,)).movedim(-1, 1)
+            target = one_hot_map(target, num_classes)
         values = torch.stack([fn(predict, target).float()
                               for fn in criterions.values()]).tolist()
         for name, v in zip(criterions, values):

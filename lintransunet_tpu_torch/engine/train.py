@@ -23,7 +23,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
-from lintransunet_tpu_torch.losses.functional import one_hot
+from lintransunet_tpu_torch.losses.functional import one_hot_map
 from lintransunet_tpu_torch.ops.pool import max_pool3d
 
 
@@ -137,11 +137,7 @@ def deep_supervision_loss(out: torch.Tensor, mask_list: Sequence[torch.Tensor],
             pred, target_ids = out, labels
         else:
             pred, target_ids = mask_list[-k], temp[:, 0]
-        if num_classes is not None:
-            target = one_hot(target_ids.reshape(target_ids.shape[0], -1), num_classes)
-            target = target.reshape(target_ids.shape + (num_classes,)).movedim(-1, 1)
-        else:
-            target = target_ids
+        target = target_ids if num_classes is None else one_hot_map(target_ids, num_classes)
 
         level_total = torch.zeros((), dtype=torch.float32, device=out.device)
         weights = criterion_weight or [1.0] * len(level_criterions)
@@ -170,10 +166,16 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
     alone, (loss, logs), for a caller that differentiates it itself.
     """
     from lintransunet_tpu_torch.models.blocks import dropout_generator
+    from lintransunet_tpu_torch.models.registry import MaskTransUnet
+
+    aux = {"return_aux": True} if isinstance(model, MaskTransUnet) else {}
 
     def loss_fn(images, labels, dynamic_weight, generator=None):
         with dropout_generator(generator):
-            out, mask_list = model(images, return_aux=True)
+            # as JAX's step: every model's train output is unpacked as
+            # (probabilities, mask_list); a model that returns probabilities
+            # alone does not train here, in either package
+            out, mask_list = model(images, **aux)
         return deep_supervision_loss(out, mask_list, labels, criterions,
                                      dynamic_weight, criterion_weight, num_classes)
 
@@ -193,10 +195,12 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
 
 def make_eval_forward(model: nn.Module,
                       fg_only: Optional[bool] = None) -> Callable:
-    """``forward(window_batch)`` -> ``model``'s one-hot argmax branch, run in
-    eval mode under ``torch.inference_mode()``. Each call puts the model
-    back in eval mode, so a training loop can evaluate between its steps
-    (each train step puts it in train mode).
+    """``forward(window_batch)`` -> ``model``'s eval output, run in eval mode
+    under ``torch.inference_mode()``: the one-hot argmax branch of a
+    ``MaskTransUnet``, what another model's eval forward returns (as JAX's
+    ``model.apply(x, train=False)``). Each call puts the model back in eval
+    mode, so a training loop can evaluate between its steps (each train
+    step puts it in train mode).
 
     ``fg_only`` (None = auto: on for a 2-class ``MaskTransUnet``) emits only
     the class-1 channel; pair it with
@@ -206,17 +210,18 @@ def make_eval_forward(model: nn.Module,
     """
     from lintransunet_tpu_torch.models.registry import MaskTransUnet
 
+    flagship = isinstance(model, MaskTransUnet)
     if fg_only is None:
-        fg_only = isinstance(model, MaskTransUnet) and model.dim_output == 2
+        fg_only = flagship and model.dim_output == 2
+    kwargs = {"return_aux": False, "fg_only": True} if fg_only else (
+        {"return_aux": False} if flagship else {})
     model.eval()
 
     def forward(x: torch.Tensor) -> torch.Tensor:
         if model.training:
             model.eval()
         with torch.inference_mode():
-            if fg_only:
-                return model(x, return_aux=False, fg_only=True)
-            return model(x, return_aux=False)
+            return model(x, **kwargs)
 
     forward.fg_only = fg_only
     return forward

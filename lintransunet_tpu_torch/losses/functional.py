@@ -30,3 +30,9 @@ def binary_onehot(target: torch.Tensor) -> torch.Tensor:
 def one_hot(target: torch.Tensor, n_classes: int) -> torch.Tensor:
     """(N, S) integer ids -> (N, S, C) float32."""
     return F.one_hot(target.long(), n_classes).float()
+
+
+def one_hot_map(target: torch.Tensor, n_classes: int) -> torch.Tensor:
+    """(N, spatial...) integer ids -> (N, C, spatial...) float32: the
+    channels-first one-hot targets of the multi-class criterions."""
+    return F.one_hot(target.long(), n_classes).movedim(-1, 1).float()

@@ -15,11 +15,16 @@ import pytest
 import torch
 
 from lintransunet_tpu.cli import inference_embed_attn as jax_inference
+from lintransunet_tpu.cli import inference_multi_classes as jax_inference_multi
 from lintransunet_tpu.cli import postprocess as jax_postprocess
 from lintransunet_tpu.cli import split_dataset as jax_split_dataset
 from lintransunet_tpu.cli import train3d as jax_train3d
+from lintransunet_tpu.cli import train3d_monai_version as jax_train3d_monai
+from lintransunet_tpu.cli import train3d_multi_class as jax_train3d_multi
 from lintransunet_tpu_torch import engine
-from lintransunet_tpu_torch.cli import inference_embed_attn, postprocess, split_dataset, train3d
+from lintransunet_tpu_torch.cli import (inference_embed_attn, inference_multi_classes,
+                                        postprocess, split_dataset, train3d,
+                                        train3d_monai_version, train3d_multi_class)
 from lintransunet_tpu_torch.cli.common import build_model
 from lintransunet_tpu_torch.core.config import InferenceConfig, TrainConfig
 
@@ -137,11 +142,17 @@ def test_full_state_resume(workspace, tmp_path):
     assert second["aux"]["scheduler"]["best"] <= first["aux"]["scheduler"]["best"]
 
 
-@pytest.mark.parametrize("cli", ["train3d", "inference_embed_attn"])
+CLIS = {"train3d": (train3d, jax_train3d),
+        "inference_embed_attn": (inference_embed_attn, jax_inference),
+        "train3d_multi_class": (train3d_multi_class, jax_train3d_multi),
+        "inference_multi_classes": (inference_multi_classes, jax_inference_multi),
+        "train3d_monai_version": (train3d_monai_version, jax_train3d_monai)}
+
+
+@pytest.mark.parametrize("cli", list(CLIS))
 def test_flags_match_jax(monkeypatch, cli):
     """The same flag names and defaults as the JAX CLI, but ``device``."""
-    port, jax = {"train3d": (train3d, jax_train3d),
-                 "inference_embed_attn": (inference_embed_attn, jax_inference)}[cli]
+    port, jax = CLIS[cli]
     monkeypatch.setattr(sys, "argv", ["prog"])
     got, want = vars(port.get_parse()), vars(jax.get_parse())
     assert got.pop("device") == "cuda"
