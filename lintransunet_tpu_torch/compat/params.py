@@ -7,8 +7,12 @@ state_dict key ``a.b_0.c.weight``, with
 
 * conv kernel (k..., I, O) -> weight (O, I, k...)
 * Dense kernel (I, O)      -> weight (O, I)
-* LayerNorm scale          -> weight
+* LayerNorm / BatchNorm scale -> weight
 * bias                     -> bias
+
+and, from the ``batch_stats`` collection, a BatchNorm's running mean and
+var -> ``running_mean`` and ``running_var`` (``blocks.BatchNorm``'s
+buffers).
 """
 
 from collections.abc import Mapping
@@ -33,20 +37,31 @@ def _to_torch_leaf(name: str, value: np.ndarray):
     raise ValueError(f"unhandled flax leaf {name!r}")
 
 
-def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Nested flax ``params`` (numpy-convertible leaves) -> f32 state_dict."""
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _stats_leaf(name: str, value: np.ndarray):
+    if name not in _STATS:
+        raise ValueError(f"unhandled flax batch_stats leaf {name!r}")
+    return _STATS[name], value
+
+
+def from_flax(params: Mapping, batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
+    """Nested flax ``params`` (numpy-convertible leaves), and the
+    ``batch_stats`` collection of a model with BatchNorm, -> f32 state_dict."""
     out = {}
 
-    def walk(node, prefix):
+    def walk(node, prefix, leaf):
         for key, value in node.items():
             if isinstance(value, Mapping):
-                walk(value, prefix + (key,))
+                walk(value, prefix + (key,), leaf)
                 continue
-            name, arr = _to_torch_leaf(key, np.asarray(value))
+            name, arr = leaf(key, np.asarray(value))
             out[".".join(prefix + (name,))] = torch.from_numpy(
                 np.ascontiguousarray(arr, dtype=np.float32))
 
-    walk(params, ())
+    walk(params, (), _to_torch_leaf)
+    walk(batch_stats or {}, (), _stats_leaf)
     return out
 
 

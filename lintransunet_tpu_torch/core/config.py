@@ -20,7 +20,8 @@ directly). No CLI flag comes from them, so the flag surfaces stay equal.
 import dataclasses
 from typing import Tuple
 
-MODEL_NAMES = ("MaskTransUnet",)
+MODEL_NAMES = ("TraditionUnet", "BottleTransUnet", "SkipTransUnet",
+               "MaskSkipTransUnet", "MaskTransUnet")
 
 
 @dataclasses.dataclass
@@ -41,28 +42,29 @@ class ModelConfig:
     attn_layers: int = 8
 
     def build(self, device="cuda"):
-        """The port's model on ``device`` (the card unless the caller asks
-        for the CPU) in the compute dtype, its parameters drawn by flax's
-        initialisers from torch's global generator (``init_random_``
-        redraws them from a seed). Only ``MaskTransUnet`` is ported;
-        another name raises ``ValueError``."""
+        """The registry's model of ``model_name`` (``models.Model_Dict``) on
+        ``device`` (the card unless the caller asks for the CPU) in the
+        compute dtype, its parameters drawn by flax's initialisers from
+        torch's global generator (``init_random_`` redraws them from a
+        seed). The ROI and depth flags reach ``MaskTransUnet`` alone, as in
+        JAX; an unknown name raises ``ValueError``."""
         import torch
 
-        from lintransunet_tpu_torch.models import MaskTransUnet
+        from lintransunet_tpu_torch.models import get_model_dict
 
-        if self.model_name not in MODEL_NAMES:
-            raise ValueError(f"model {self.model_name!r} is not ported; the port "
-                             f"has {MODEL_NAMES}")
+        cls = get_model_dict(self.model_name)
         dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
         if self.compute_dtype not in dtypes:
             raise ValueError(f"compute_dtype must be one of {tuple(dtypes)}, "
                              f"not {self.compute_dtype!r}")
-        return MaskTransUnet(
-            num_layers=tuple(self.num_layers), roi_size_list=tuple(self.roi_size_list),
-            is_roi_list=tuple(self.is_roi_list), dim_input=self.dim_input,
-            dim_output=self.dim_output, kernel_size=self.kernel_size,
-            dropout=self.dropout, n_layers=self.attn_layers,
-            dtype=dtypes[self.compute_dtype], device=device)
+        kwargs = dict(num_layers=tuple(self.num_layers), dim_input=self.dim_input,
+                      dim_output=self.dim_output, kernel_size=self.kernel_size,
+                      dropout=self.dropout, dtype=dtypes[self.compute_dtype],
+                      device=device)
+        if self.model_name == "MaskTransUnet":
+            kwargs.update(roi_size_list=tuple(self.roi_size_list),
+                          is_roi_list=tuple(self.is_roi_list), n_layers=self.attn_layers)
+        return cls(**kwargs)
 
 
 @dataclasses.dataclass

@@ -1,7 +1,8 @@
 """Binary segmentation criterions (port of
 ``lintransunet_tpu/losses/binary.py``; reference: loss/criterions.py).
 
-Every class the 16-entry ``Loss_Dict`` names, and ``get_criterions``.
+Every class the 16-entry ``Loss_Dict`` names, ``get_criterions``, and the
+two losses outside the registry, ``SolidLoss`` and ``PyramidLoss``.
 Losses are stateless callables ``loss(predict, target)`` with
 
 * ``predict``: (N, C, spatial...) softmax probabilities (channels-first)
@@ -21,6 +22,7 @@ from lintransunet_tpu_torch.losses.functional import (
     flatten_tokens,
     one_hot,
 )
+from lintransunet_tpu_torch.ops.pool import avg_pool2d
 
 
 class DiceLoss:
@@ -170,6 +172,21 @@ class BalanceDiceLoss:
         return 1.0 - torch.mean(cross / total)
 
 
+class SolidLoss:
+    """BCE on the volume's solidity, its target voxel count above
+    ``threshold`` (criterions.py:445-463; outside ``Loss_Dict``):
+    ``predict`` is the (N, 1) solid probability."""
+
+    def __init__(self, threshold: float = 10.0):
+        self.threshold = threshold
+
+    def __call__(self, predict, target):
+        t = flatten_labels(target)
+        solid = (torch.sum(t, dim=-1) > self.threshold).float()[:, None]
+        p = predict.float()
+        return torch.mean(-(solid * torch.log(p) + (1 - solid) * torch.log(1 - p)))
+
+
 class ContainLoss:
     """Asymmetric containment dice (criterions.py:466-497), alpha=0.4."""
 
@@ -194,6 +211,33 @@ class ContainLoss2(ContainLoss):
     """ContainLoss with alpha=0.3 (criterions.py:499-529)."""
 
     default_alpha = 0.3
+
+
+class PyramidLoss:
+    """Multi-scale containment loss over a 2D mask pyramid
+    (criterions.py:533-560; outside ``Loss_Dict``). The reference builds
+    ContainLoss with an ``alpha`` its __init__ does not take (line 543); as
+    in the JAX package, alpha = 0.2 (i + 1) / n is passed at call time.
+    ``mask_list``: (N, C, H_i, W_i) masks, coarse to fine; ``target``:
+    (N, 1, H, W), pooled 5x5 with stride 2 once per level and thresholded
+    at 0.2."""
+
+    def __init__(self, n: int = 3):
+        self.n = n
+        self.kernel_size = 5
+        self.threshold = 0.2
+        self.contain = [ContainLoss(class_index=1) for _ in range(n)]
+        self.alphas = [0.2 * (i + 1) / n for i in range(n)]
+
+    def __call__(self, mask_list, target):
+        t = target.float()
+        losses = []
+        for i in range(self.n):
+            t = avg_pool2d(t, self.kernel_size, 2, self.kernel_size // 2)
+            label = (t > self.threshold).float()
+            losses.append(self.contain[-i - 1](mask_list[-i - 1], label[:, 0],
+                                               alpha=self.alphas[-i - 1]))
+        return sum(losses) / self.n
 
 
 class IOULoss:

@@ -1,7 +1,10 @@
 """UNet and attention building blocks (``nn.Module``s on ``(N, C, H, W, D)``).
 
-Port of the live classes of ``lintransunet_tpu/models/blocks.py``
-(reference: ``model/Unet_3Dblock.py`` and ``model/trans_block.py``).
+Port of ``lintransunet_tpu/models/blocks.py`` (reference:
+``model/Unet_3Dblock.py`` and ``model/trans_block.py``): the flagship's
+blocks, and those of the reference's dead paths that the JAX package keeps
+(``ConvPosEmbed2d``, ``TransEncoder``, ``Attention3DBlock``, ``SolidBlock``
+with its ``BatchNorm``).
 Submodule names equal the flax names (``layers_0``, ``self_attn.linears_3``
 ...), so :func:`lintransunet_tpu_torch.compat.from_flax` gives a state_dict
 this port loads as is. Parameters are float32; every layer computes in the
@@ -86,6 +89,51 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype (parameters stay f32),
+    initialised as flax's ``nn.Conv``."""
+
+    def reset_parameters(self) -> None:
+        _flax_reset(self)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis: batch statistics in
+    training (mean and the biased variance E[x^2] - E[x]^2 over every other
+    axis, in f32), the running ones in eval; each training call moves the
+    running statistics by ``momentum`` as flax does (ra = m ra + (1 - m)
+    batch, the biased variance). The running statistics are the buffers
+    ``running_mean`` and ``running_var`` (flax's ``batch_stats`` mean and
+    var); the output has the input's dtype."""
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=dims)
+            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` with f32 statistics; the output has the input dtype."""
 
@@ -137,6 +185,20 @@ class ConvPosEmbed3d(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.proj = conv3d_same(dim, dim, emb_kernel, groups=dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x + self.proj(x), self.dropout, self.training, channel=True)
+
+
+class ConvPosEmbed2d(nn.Module):
+    """2D twin of the PEG (``Conv2dPosEmbedding``, trans_block.py:99-125; no
+    call site in the reference) on (N, C, H, W): residual depthwise k x k
+    conv, then channel dropout (Dropout2d: whole channels)."""
+
+    def __init__(self, dim: int, dropout: float, emb_kernel: int = 3):
+        super().__init__()
+        self.dropout = dropout
+        self.proj = Conv2d(dim, dim, emb_kernel, padding=emb_kernel // 2, groups=dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dropout(x + self.proj(x), self.dropout, self.training, channel=True)
@@ -200,6 +262,25 @@ class SelfAttentionLayer(nn.Module):
         x = self.layer_norm1(x + drop(self.self_attn(x, x, x, mask)))
         h = self.linear2(drop(F.gelu(self.linear1(x))))
         return self.layer_norm2(x + drop(h))
+
+
+class TransEncoder(nn.Module):
+    """``n_layers`` SelfAttentionLayers (trans_block.py:214-232); the mask,
+    if any, reaches every layer's attention."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 n_layers: int, dropout: float = 0.1):
+        super().__init__()
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            self.add_module(f"layers_{i}", SelfAttentionLayer(
+                d_model, nhead, dim_feedforward, dropout))
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"layers_{i}")(x, mask)
+        return x
 
 
 def to_tokens_dhw(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
@@ -458,3 +539,46 @@ class EmbedAttention3DBlock(_TokenStack):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.up_embed(self._run_layers(self.down_embed(x)))
+
+
+def _to_tokens_hwd(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W, D) -> (N, H*W*D, C) in (H, W, D) order."""
+    n, c = x.shape[:2]
+    return x.permute(0, 2, 3, 4, 1).reshape(n, -1, c)
+
+
+class Attention3DBlock(nn.Module):
+    """PEG, tokens in (H, W, D) order, TransEncoder (Unet_3Dblock.py:154-191;
+    on no live path of the reference). A mask (N, C', H, W, D) keeps the
+    tokens where it is nonzero, through the plain masked attention."""
+
+    def __init__(self, in_dim: int, d_model: int, nhead: int,
+                 dropout: float = 0.3, n_layers: int = 8):
+        super().__init__()
+        self.pos_encode = ConvPosEmbed3d(d_model, dropout)
+        self.transformer = TransEncoder(d_model, nhead, 2 * d_model, n_layers, dropout)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        n, c, h, w, d = x.shape
+        tokens = _to_tokens_hwd(self.pos_encode(x))
+        if mask is not None:
+            mask = _to_tokens_hwd(mask) != 0
+        tokens = self.transformer(tokens, mask)
+        return tokens.reshape(n, h, w, d, c).permute(0, 4, 1, 2, 3)
+
+
+class SolidBlock(nn.Module):
+    """MLP solid-ness head (Unet_3Dblock.py:277-288; on no live path):
+    Linear, BatchNorm with running statistics, ReLU, Linear to 1, sigmoid,
+    over the last axis."""
+
+    def __init__(self, num_layer: int, inter_num: int = 12):
+        super().__init__()
+        self.solid_layer_0 = Linear(num_layer, inter_num)
+        self.solid_layer_1 = BatchNorm(inter_num)
+        self.solid_layer_3 = Linear(inter_num, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.solid_layer_1(self.solid_layer_0(x)))
+        return torch.sigmoid(self.solid_layer_3(h))

@@ -12,6 +12,7 @@ from torch import nn
 
 from lintransunet_tpu_torch import ops
 from lintransunet_tpu_torch.models.blocks import (
+    Conv3d,
     EmbedAttention3DBlock,
     PosAttention3DBlock,
 )
@@ -89,3 +90,49 @@ class ROIBridge(nn.Module):
         ) * ((rw - 1) / self.eval_w_roi_size)
         return ops.separable_grid_sample_2d(
             roi, ops.bilinear_weights_pix(bx, rh), ops.bilinear_weights_pix(by, rw))
+
+
+class Bridge(nn.Module):
+    """Per-skip ROI orchestrator of ``MaskSkipTransUnet``, the JAX package's
+    fixed variant of Unet_3Dblock.py:1202-1274 (the reference builds
+    ROIBridge without its in_dim and unpacks a tuple it never returns): a
+    ConnectBridge on the bottleneck, then per level, coarse to fine, a
+    sigmoid 1x1x1 mask conv upsampled x2 on every axis gives the next
+    level's ROIBridge its box. Returns (bottleneck, transformed skips fine
+    to coarse, mask_list coarse to fine)."""
+
+    def __init__(self, num_layers, roi_size: int = 16, nhead_lens: int = 16,
+                 dropout: float = 0.2, n_layers: int = 4):
+        super().__init__()
+        layers = list(num_layers)
+        n = len(layers)
+        self.n_levels = n
+        roi_sizes = [roi_size * (i + 3) for i in range(n - 1)]
+        self.add_module(f"bridge_list_{n - 1}", ConnectBridge(
+            layers[-1], layers[-1] // nhead_lens, dropout, n_layers))
+        self.add_module(f"mask_conv_list_{n - 1}", Conv3d(layers[-1], 1, 1))
+        for i in range(1, n):
+            level = n - 1 - i
+            self.add_module(f"bridge_list_{level}", ROIBridge(
+                layers[level], layers[level], max(1, layers[level] // nhead_lens),
+                dropout, n_layers, roi_sizes[-i]))
+            if i != n - 1:
+                self.add_module(f"mask_conv_list_{level}", Conv3d(layers[level], 1, 1))
+
+    def _mask(self, level: int, x: torch.Tensor) -> torch.Tensor:
+        mask = torch.sigmoid(getattr(self, f"mask_conv_list_{level}")(x))
+        return ops.resize_linear_align_corners(mask, 2)
+
+    def forward(self, x: torch.Tensor, skips):
+        n = self.n_levels
+        x = getattr(self, f"bridge_list_{n - 1}")(x)
+        mask = self._mask(n - 1, x)
+        mask_list, trans_list = [mask], []
+        for i in range(1, n):
+            level = n - 1 - i
+            out = getattr(self, f"bridge_list_{level}")(skips[-i], mask)
+            trans_list.append(out)
+            if i != n - 1:
+                mask = self._mask(level, out)
+                mask_list.append(mask)
+        return x, trans_list[::-1], mask_list

@@ -1,5 +1,16 @@
-"""The flagship model, ``MaskTransUnet`` (port of
-``lintransunet_tpu/models/registry.py``; reference: trans_3DUnet.py:150-204).
+"""The model zoo and its registry (port of
+``lintransunet_tpu/models/registry.py``; reference: trans_3DUnet.py:1-222):
+the flagship ``MaskTransUnet`` and the four other models of ``Model_Dict``.
+
+Every model takes ``dtype`` (the compute dtype; parameters stay f32),
+``device`` (the card unless the caller asks for the CPU; without a visible
+CUDA device the default raises) and ``attention_impl`` ("kernel": every
+unmasked attention layer runs the fused op, the CUDA kernel on the card;
+"plain": its plain version). Outputs follow the JAX package's: the flagship
+returns (probabilities, mask_list) in training and the one-hot argmax in
+eval; ``TraditionUnet``, ``BottleTransUnet`` and ``SkipTransUnet`` return
+the softmax probabilities in both modes; ``MaskSkipTransUnet`` returns
+(probabilities, mask_list) in both.
 """
 
 from typing import Optional, Sequence, Union
@@ -12,7 +23,8 @@ from lintransunet_tpu_torch.models.blocks import (
     _TokenStack,
     lecun_normal_,
 )
-from lintransunet_tpu_torch.models.unet import Encoder, ROIDecoder
+from lintransunet_tpu_torch.models.bridges import Bridge, ConnectBridge
+from lintransunet_tpu_torch.models.unet import Decoder, Encoder, ROIDecoder
 
 ATTENTION_IMPLS = ("kernel", "plain")
 # Levels whose stride-1 convs the fused configuration routes through the
@@ -26,9 +38,22 @@ def _resolve_device(device: Union[str, torch.device]) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is visible: MaskTransUnet runs on the card unless "
+            "no CUDA device is visible: the model runs on the card unless "
             "it is built with device='cpu'")
     return device
+
+
+def _place(model: nn.Module, attention_impl: str,
+           device: Union[str, torch.device]) -> None:
+    """Set every attention layer's ``attention_impl`` and move ``model`` to
+    ``device``."""
+    if attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}")
+    device = _resolve_device(device)
+    for m in model.modules():
+        if isinstance(m, MultiheadLinearAttention):
+            m.attention_impl = attention_impl
+    model.to(device)
 
 
 def one_hot_argmax(out: torch.Tensor) -> torch.Tensor:
@@ -71,9 +96,6 @@ class MaskTransUnet(nn.Module):
                  attention_impl: str = "kernel", fused_s1: bool = False,
                  fused_stack: bool = False):
         super().__init__()
-        if attention_impl not in ATTENTION_IMPLS:
-            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}")
-        device = _resolve_device(device)
         self.dim_output = dim_output
         self.dtype = dtype
         self.fused_s1 = fused_s1
@@ -85,11 +107,9 @@ class MaskTransUnet(nn.Module):
                                  dim_output, kernel_size, dropout=dropout,
                                  n_layers=n_layers, fused_s1_levels=levels)
         for m in self.modules():
-            if isinstance(m, MultiheadLinearAttention):
-                m.attention_impl = attention_impl
-            elif isinstance(m, _TokenStack):
+            if isinstance(m, _TokenStack):
                 m.fused_stack = fused_stack
-        self.to(device)
+        _place(self, attention_impl, device)
         if fused_s1 or fused_stack:
             self.eval()
 
@@ -116,6 +136,117 @@ class MaskTransUnet(nn.Module):
         if fg_only:
             return (out[:, 1:2] > out[:, 0:1]).to(out.dtype)
         return one_hot_argmax(out)
+
+
+class _UnetModel(nn.Module):
+    """Encoder -> (bridges) -> ``Decoder``: the base of the four models of
+    ``Model_Dict`` beside the flagship. ``forward`` casts the input to the
+    compute dtype and hands it to ``_forward``."""
+
+    def __init__(self, num_layers: Sequence[int], dim_input: int, dim_output: int,
+                 kernel_size: int = 3, dropout: float = 0.3):
+        super().__init__()
+        self.num_layers = tuple(num_layers)
+        self.dim_output = dim_output
+        self.encode = Encoder(num_layers, dim_input, kernel_size, dropout)
+        self.decode = Decoder(num_layers, dim_output, kernel_size, dropout)
+
+    def _finish(self, dtype, device, attention_impl):
+        self.dtype = dtype
+        _place(self, attention_impl, device)
+
+    def forward(self, x: torch.Tensor):
+        return self._forward(*self.encode(x.to(self.dtype)))
+
+
+class TraditionUnet(_UnetModel):
+    """Plain 3D UNet (trans_3DUnet.py:7-35)."""
+
+    def __init__(self, num_layers: Sequence[int], dim_input: int, dim_output: int,
+                 kernel_size: int = 3, dropout: float = 0.3,
+                 dtype: torch.dtype = torch.float32,
+                 device: Union[str, torch.device] = "cuda",
+                 attention_impl: str = "kernel"):
+        super().__init__(num_layers, dim_input, dim_output, kernel_size, dropout)
+        self._finish(dtype, device, attention_impl)
+
+    def _forward(self, bottle, skips):
+        return self.decode(bottle, skips)
+
+
+class BottleTransUnet(_UnetModel):
+    """UNet with a 4-layer bottleneck transformer, 8 heads (trans_3DUnet.py:38-68)."""
+
+    def __init__(self, num_layers: Sequence[int], dim_input: int, dim_output: int,
+                 kernel_size: int = 3, dropout: float = 0.3,
+                 dtype: torch.dtype = torch.float32,
+                 device: Union[str, torch.device] = "cuda",
+                 attention_impl: str = "kernel"):
+        super().__init__(num_layers, dim_input, dim_output, kernel_size, dropout)
+        self.connect_bridge = ConnectBridge(num_layers[-1], 8, dropout, 4)
+        self._finish(dtype, device, attention_impl)
+
+    def _forward(self, bottle, skips):
+        return self.decode(self.connect_bridge(bottle), skips)
+
+
+class SkipTransUnet(_UnetModel):
+    """A 4-layer, 8-head ConnectBridge per level (trans_3DUnet.py:71-111). As
+    the reference (and the JAX package), the skips' bridges run and their
+    outputs are dropped: the decoder takes the raw skips and the bridged
+    bottleneck."""
+
+    def __init__(self, num_layers: Sequence[int], dim_input: int, dim_output: int,
+                 kernel_size: int = 3, dropout: float = 0.3,
+                 dtype: torch.dtype = torch.float32,
+                 device: Union[str, torch.device] = "cuda",
+                 attention_impl: str = "kernel"):
+        super().__init__(num_layers, dim_input, dim_output, kernel_size, dropout)
+        for i, width in enumerate(num_layers):
+            self.add_module(f"connect_bridge_list_{i}", ConnectBridge(width, 8, dropout, 4))
+        self._finish(dtype, device, attention_impl)
+
+    def _forward(self, bottle, skips):
+        n = len(self.num_layers)
+        for i in range(n - 1):
+            getattr(self, f"connect_bridge_list_{i}")(skips[i])  # dead compute, kept
+        return self.decode(getattr(self, f"connect_bridge_list_{n - 1}")(bottle), skips)
+
+
+class MaskSkipTransUnet(_UnetModel):
+    """Skip transformers gated by predicted masks (trans_3DUnet.py:114-147),
+    the JAX package's fixed build on its repaired ``Bridge`` (16-wide heads,
+    4 layers a bridge). Returns (probabilities, mask_list) in both modes."""
+
+    def __init__(self, num_layers: Sequence[int], dim_input: int, dim_output: int,
+                 kernel_size: int = 3, dropout: float = 0.3,
+                 dtype: torch.dtype = torch.float32,
+                 device: Union[str, torch.device] = "cuda",
+                 attention_impl: str = "kernel"):
+        super().__init__(num_layers, dim_input, dim_output, kernel_size, dropout)
+        self.connect_bridge = Bridge(num_layers, nhead_lens=16)
+        self._finish(dtype, device, attention_impl)
+
+    def _forward(self, bottle, skips):
+        bottle, trans_skips, mask_list = self.connect_bridge(bottle, skips)
+        return self.decode(bottle, trans_skips), mask_list
+
+
+Model_Dict = {
+    "TraditionUnet": TraditionUnet,
+    "BottleTransUnet": BottleTransUnet,
+    "SkipTransUnet": SkipTransUnet,
+    "MaskSkipTransUnet": MaskSkipTransUnet,
+    "MaskTransUnet": MaskTransUnet,
+}
+
+
+def get_model_dict(name: str):
+    """Registry lookup (trans_3DUnet.py:215-222); an unknown name raises
+    ``ValueError``."""
+    if name not in Model_Dict:
+        raise ValueError(f"unknown model {name!r}; the registry has {tuple(Model_Dict)}")
+    return Model_Dict[name]
 
 
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,7 +1,9 @@
-"""Encoder and ROI decoder of the flagship (``nn.Module``s, ``(N, C, H, W, D)``).
+"""Encoder and decoders (``nn.Module``s, ``(N, C, H, W, D)``).
 
 Port of the unpacked path of ``lintransunet_tpu/models/unet.py``
-(reference: Unet_3Dblock.py:560-607, 1277-1396). The JAX package's packed,
+(reference: Unet_3Dblock.py:560-644, 1277-1424): the encoder, the
+flagship's ROI decoder, the plain ``Decoder`` of the other models and the
+``MaskDecoder``. The JAX package's packed,
 folded and paired layouts compute the same functions for the TPU's lanes
 and are not ported. Depth schedule: encoder block i (1-based) strides
 ``(2, 2, (i-1) % 2 + 1)``; the decoder mirrors it with alternating
@@ -81,6 +83,60 @@ class Encoder(nn.Module):
             x, skip = getattr(self, f"block_list_{i}")(x)
             skips.append(skip)
         return x, skips
+
+
+class Decoder(nn.Module):
+    """Plain mirror decoder, final conv, window unembed and channel softmax
+    (Unet_3Dblock.py:610-644) of ``TraditionUnet`` and the skip / bottleneck
+    transformer models. The JAX package's flagged deviation is kept: the
+    reference never upsamples inside its UpBlocks, which makes their skip
+    concat shape-inconsistent, so a trilinear upsample mirroring the encoder
+    strides runs before each UpBlock, and the window unembedding brings the
+    output back to full resolution."""
+
+    def __init__(self, num_layers: Sequence[int], dim_output: int,
+                 kernel_size: int = 3, dropout: Optional[float] = None,
+                 emb_window: int = 2):
+        super().__init__()
+        layers = list(num_layers)
+        n = len(layers)
+        self.n_levels = n
+        self.emb_window = emb_window
+        for i in range(1, n):
+            self.add_module(f"block_list_{i - 1}", UpBlock(
+                layers[n - i], layers[n - i - 1], kernel_size, dropout))
+        self.final_block = conv3d_same(layers[0], dim_output * emb_window ** 2,
+                                       kernel_size)
+
+    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]) -> torch.Tensor:
+        n = self.n_levels
+        for i in range(1, n):
+            x = ops.resize_linear_align_corners(x, decoder_scale(n, i))
+            x = getattr(self, f"block_list_{i - 1}")(x, skips[-i])
+        x = ops.windows_unembedding(self.final_block(x), self.emb_window)
+        return torch.softmax(x.float(), dim=1)
+
+
+class MaskDecoder(nn.Module):
+    """Mask-pyramid upsampler (Unet_3Dblock.py:1399-1424; on no live path):
+    mask j levels above the finest is upsampled (2^(j+1), 2^(j+1),
+    2^(j // 2)). No parameters."""
+
+    def __init__(self, num_layers: Sequence[int]):
+        super().__init__()
+        self.n_levels = len(num_layers)
+
+    def forward(self, mask_list: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        n = self.n_levels
+        if len(mask_list) != n - 1:
+            raise ValueError(f"MaskDecoder of {n} levels takes {n - 1} masks, "
+                             f"not {len(mask_list)}")
+        out = []
+        for i, mask in enumerate(mask_list):
+            j = n - 2 - i
+            out.append(ops.resize_linear_align_corners(
+                mask, (2 ** (j + 1), 2 ** (j + 1), 2 ** (j // 2))))
+        return out
 
 
 class ROIDecoder(nn.Module):

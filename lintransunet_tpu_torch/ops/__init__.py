@@ -13,11 +13,16 @@ from lintransunet_tpu_torch.ops.bbox import mask_boundary, min_max_indice, min_m
 from lintransunet_tpu_torch.ops.conv import conv3d, instance_norm, leaky_relu
 from lintransunet_tpu_torch.ops.patchify import windows_embedding, windows_unembedding
 from lintransunet_tpu_torch.ops.resample import (
+    bilinear_weights,
     bilinear_weights_pix,
     resize_linear_align_corners,
     resize_nearest,
     separable_grid_sample_2d,
+    solid_back_index,
+    solid_transfer_index,
+    transfer_back_index,
     transfer_back_index_pix,
+    transfer_index,
     transfer_index_pix,
 )
 
@@ -30,10 +35,15 @@ __all__ = [
     "leaky_relu",
     "windows_embedding",
     "windows_unembedding",
+    "bilinear_weights",
     "bilinear_weights_pix",
     "resize_linear_align_corners",
     "resize_nearest",
     "separable_grid_sample_2d",
+    "solid_back_index",
+    "solid_transfer_index",
+    "transfer_back_index",
     "transfer_back_index_pix",
+    "transfer_index",
     "transfer_index_pix",
 ]

@@ -49,11 +49,58 @@ def transfer_back_index_pix(x0, x1, h, roi_size: int,
     return torch.where(out >= p1, high, out)
 
 
+def transfer_index(x0, x1, h, roi_size: int, eval_roi_size: int) -> torch.Tensor:
+    """The forward fisheye grid normalised to [-1, 1] (align_corners), as
+    ``F.grid_sample`` takes it (``get_transfer_index``,
+    Unet_3Dblock.py:51-64); ``h`` is H - 1."""
+    return transfer_index_pix(x0, x1, h, roi_size, eval_roi_size) * 2.0 / h - 1.0
+
+
+def transfer_back_index(x0, x1, h, roi_size: int, eval_roi_size: int) -> torch.Tensor:
+    """The inverse fisheye grid normalised over the eval_roi_size axis, (B,
+    h + 1) (``get_transfer_back_index``, Unet_3Dblock.py:66-82)."""
+    return (transfer_back_index_pix(x0, x1, h, roi_size, eval_roi_size)
+            * 2.0 / eval_roi_size - 1.0)
+
+
+def solid_transfer_index(x0, x1, h, eval_roi_size: int) -> torch.Tensor:
+    """Identity-slope fisheye grid (``get_solid_transfer_index``,
+    Unet_3Dblock.py:84-102; on no live path): slope 1 inside the box, a
+    linear squeeze outside; normalised to [-1, 1]."""
+    x0, x1 = _column(x0), _column(x1)
+    idx = torch.arange(eval_roi_size, dtype=torch.float32, device=x0.device)[None]
+    k1 = (h - x1 + x0) / (eval_roi_size - 1 - x1 + x0)
+    out = idx + x0 * (1 - 1 / k1)
+    out = torch.where(out <= x0, idx * k1, out)
+    out = torch.where(out >= x1, (idx - eval_roi_size + 1) * k1 + h, out)
+    return out * 2.0 / h - 1.0
+
+
+def solid_back_index(x0, x1, h, eval_roi_size: int) -> torch.Tensor:
+    """Inverse of ``solid_transfer_index`` (``get_solid_back_index``,
+    Unet_3Dblock.py:104-120; on no live path), (B, h + 1), normalised."""
+    x0, x1 = _column(x0), _column(x1)
+    idx = torch.arange(int(h) + 1, dtype=torch.float32, device=x0.device)[None]
+    k1 = (eval_roi_size - 1 - x1 + x0) / (h - x1 + x0)
+    p0 = x0 * k1
+    p1 = eval_roi_size - 1 - (h - x1) * k1
+    out = idx + p0 * (1 - k1)
+    out = torch.where(out <= p0, out * k1 + p0 * (1 - k1), out)
+    out = torch.where(out >= p1, out * k1 + p1 * (1 - k1), out)
+    return out * 2.0 / (eval_roi_size - 1) - 1.0
+
+
 def bilinear_weights_pix(pix: torch.Tensor, in_size: int) -> torch.Tensor:
     """(B, M) pixel coordinates -> (B, M, in_size) tent weights; rows of
     out-of-range samples are zero."""
     grid = torch.arange(in_size, dtype=torch.float32, device=pix.device)
     return (1.0 - (pix[..., None] - grid).abs()).clamp_min(0.0)
+
+
+def bilinear_weights(coords: torch.Tensor, in_size: int) -> torch.Tensor:
+    """(B, M) normalised align_corners coordinates -> (B, M, in_size) tent
+    weights."""
+    return bilinear_weights_pix((coords.float() + 1.0) * 0.5 * (in_size - 1), in_size)
 
 
 def separable_grid_sample_2d(x: torch.Tensor, wx: torch.Tensor,

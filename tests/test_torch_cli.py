@@ -26,7 +26,7 @@ from lintransunet_tpu_torch.cli import (inference_embed_attn, inference_multi_cl
                                         postprocess, split_dataset, train3d,
                                         train3d_monai_version, train3d_multi_class)
 from lintransunet_tpu_torch.cli.common import build_model
-from lintransunet_tpu_torch.core.config import InferenceConfig, TrainConfig
+from lintransunet_tpu_torch.core.config import MODEL_NAMES, InferenceConfig, TrainConfig
 
 torch.set_num_threads(2)
 
@@ -173,10 +173,18 @@ def test_the_card_is_the_default_device():
         build_model(types.SimpleNamespace(**TINY))
 
 
-def test_only_mask_trans_unet_is_ported():
-    with pytest.raises(ValueError, match="not ported"):
-        build_model(types.SimpleNamespace(**dict(TINY, model_name="TraditionUnet"),
-                                          device="cpu"))
+@pytest.mark.parametrize("name", list(MODEL_NAMES) + ["NoSuchUnet"])
+def test_build_model_takes_every_registry_name(name):
+    """``--model_name`` builds every model of ``Model_Dict`` (on the CPU when
+    asked), and an unknown name raises ``ValueError``."""
+    args = types.SimpleNamespace(**dict(TINY, model_name=name), device="cpu")
+    if name not in MODEL_NAMES:
+        with pytest.raises(ValueError, match="unknown model"):
+            build_model(args)
+        return
+    model = build_model(args)
+    assert type(model).__name__ == name
+    assert next(model.parameters()).device.type == "cpu"
 
 
 def test_split_dataset_cli_matches_jax(workspace, tmp_path, capsys):
