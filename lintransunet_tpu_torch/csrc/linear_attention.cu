@@ -36,13 +36,19 @@
 //   strides and a feature stride of 1, so the kernels read the heads in
 //   place from a (B, N, H*d) projection (the model's layout) as well as
 //   from a contiguous (B, H, N, d) tensor, and write out or dq/dk/dv in
-//   the layout they are given. d is a multiple of 8 and at most 32, so a
-//   token's head segment is whole 16-byte pieces (64 bytes in bf16).
+//   the layout they are given. d is 2, 4 or a multiple of 8 up to 32: a
+//   token's head segment is whole 16-byte pieces (64 bytes at d = 32 in
+//   bf16), or one narrow piece of 4 or 8 bytes (d = 2 or 4 in bf16, d = 2
+//   in f32), which every load and store of it moves alone. Features past d
+//   are zeros in the fold's tiles and in the token kernels' registers; they
+//   drop out of the feature softmax of q (weight 0), so they enter neither
+//   the context nor a gradient, and they are never stored.
 // * `lta_fold` (one launch). The grid is sized to the card: about
 //   kFoldBlocksPerSm blocks per SM shared out over the slices, each block a
 //   contiguous range of 32-token tiles dealt to its four warps. A warp
-//   stages its tiles by `cp.async` (16 bytes a lane, double-buffered,
-//   ragged tokens and padded features zero-filled) and folds each into a
+//   stages its tiles by `cp.async` (16 bytes a lane, or a narrow head row
+//   and zeros to 16; double-buffered, ragged tokens and padded features
+//   zero-filled) and folds each into a
 //   running per-feature max, sum and 32 x 32 product in registers,
 //   rescaling by the max as it rises (the flash-attention fold). In bf16
 //   the tile's K^T comes straight from `ldmatrix.trans` in the A-fragment
@@ -60,7 +66,8 @@
 // * `lta_out` / `lta_bwd_tokens` (the second launch, under programmatic
 //   dependent launch: it loads its first tokens while the fold finishes).
 //   A warp takes 16-token tiles; each lane loads 16 bytes of features
-//   8c..8c+7 of rows g and g+8 (g = lane / 4, c = lane % 4),
+//   8c..8c+7 of rows g and g+8 (g = lane / 4, c = lane % 4; at d = 2 or 4
+//   lane c = 0 loads the d features alone and the others none),
 //   which is exactly an A fragment once the 32 features are permuted onto
 //   the k slots (pi below) and the output columns onto the n slots (sigma),
 //   so the feature softmax is a 4-lane reduction, every product is
@@ -170,19 +177,49 @@ struct Tile<float> {
   __device__ static int at(int r, int c) { return r * kPitch + c * 4; }
 };
 
+// A narrow head row (4 or 8 bytes) into the first bytes of a 16-byte chunk
+// by one `cp.async` of its own size (zeros if !valid), and zeros into the
+// rest of the chunk by a plain store. `gmem` is aligned to the row's size.
+__device__ __forceinline__ void stage_narrow(void* smem, const void* gmem, bool valid,
+                                             int bytes) {
+  const unsigned s = ltu::smem_addr(smem);
+  auto* z = static_cast<unsigned char*>(smem);
+  if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(valid ? 8 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+    *reinterpret_cast<unsigned*>(z + 4) = 0u;
+  }
+  *reinterpret_cast<uint2*>(z + 8) = make_uint2(0u, 0u);
+}
+
 // Stage tokens t0..t0+31 of a slice (features 0..d-1) into `tile`; tokens
 // at or past n and features past d read as zeros. 16 bytes a lane,
-// neighbouring lanes on neighbouring bytes of a token.
+// neighbouring lanes on neighbouring bytes of a token; a narrow row goes
+// into its row's first chunk, and a chunk past the row is stored as zeros.
 template <typename T>
 __device__ __forceinline__ void stage_tile(T* tile, const T* src, long long sn, int t0, int n,
                                            int d, int lane) {
   constexpr int kPer = 16 / sizeof(T);
-  const int chunks = d / kPer;
+  const int row_bytes = d * static_cast<int>(sizeof(T));
+  const int chunks = row_bytes / 16;  // whole chunks of the row; the tail is narrow
 #pragma unroll
   for (int idx = lane; idx < kFoldTile * Tile<T>::kChunks; idx += 32) {
     const int r = idx / Tile<T>::kChunks, c = idx % Tile<T>::kChunks;
-    const bool ok = t0 + r < n && c < chunks;
-    cp_async16_zfill(tile + Tile<T>::at(r, c), ok ? src + (t0 + r) * sn + c * kPer : src, ok);
+    const bool ok = t0 + r < n;
+    T* dst = tile + Tile<T>::at(r, c);
+    const T* p = ok ? src + (t0 + r) * sn + c * kPer : src;
+    if (c < chunks) {
+      cp_async16_zfill(dst, p, ok);
+    } else if (c == chunks && row_bytes % 16) {
+      stage_narrow(dst, p, ok, row_bytes % 16);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
   }
 }
 
@@ -659,8 +696,14 @@ __global__ void __launch_bounds__(kThreads) lta_fold(Args a) {
 // pi(8 c + jj) = 16 (jj / 4) + 8 ((jj / 2) % 2) + 2 c + jj % 2, and the
 // accumulator of n slot 8 j + 2 c + h stands for column sigma = 8 c + 2 j + h:
 // products come out in the same layout as they go in.
+//
+// kW is the features a lane with 8 c < d holds: 8, or d itself for a narrow
+// head (d = 2 or 4: lane c = 0 alone, one 4-, 8- or 16-byte access a row);
+// the rest of its 8 are zeros. kW is a template parameter, one kernel
+// instance per width: a width read per lane at run time gave wrong bf16
+// outputs on the H100 (NaN at d = 32; the cause was not isolated).
 
-template <typename T>
+template <typename T, int kW>
 __device__ __forceinline__ void load_rows(const T* base, long long sn, int t0, int n, bool fok,
                                           float (&x)[2][8], int lane) {
   const int g = lane >> 2, c = lane & 3;
@@ -671,7 +714,17 @@ __device__ __forceinline__ void load_rows(const T* base, long long sn, int t0, i
     const T* p = base + t * sn + 8 * c;
     if constexpr (sizeof(T) == 2) {
       uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (ok) u = *reinterpret_cast<const uint4*>(p);
+      if constexpr (kW == 8) {
+        if (ok) u = *reinterpret_cast<const uint4*>(p);
+      } else if constexpr (kW == 4) {
+        if (ok) {
+          const uint2 h = *reinterpret_cast<const uint2*>(p);
+          u.x = h.x;
+          u.y = h.y;
+        }
+      } else {
+        if (ok) u.x = *reinterpret_cast<const unsigned*>(p);
+      }
       const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -681,9 +734,15 @@ __device__ __forceinline__ void load_rows(const T* base, long long sn, int t0, i
       }
     } else {
       float4 u = make_float4(0.f, 0.f, 0.f, 0.f), v = u;
-      if (ok) {
-        u = *reinterpret_cast<const float4*>(p);
-        v = *reinterpret_cast<const float4*>(p + 4);
+      if constexpr (kW == 2) {
+        if (ok) {
+          const float2 h = *reinterpret_cast<const float2*>(p);
+          u.x = h.x;
+          u.y = h.y;
+        }
+      } else {
+        if (ok) u = *reinterpret_cast<const float4*>(p);
+        if (kW == 8 && ok) v = *reinterpret_cast<const float4*>(p + 4);
       }
       x[r][0] = u.x; x[r][1] = u.y; x[r][2] = u.z; x[r][3] = u.w;
       x[r][4] = v.x; x[r][5] = v.y; x[r][6] = v.z; x[r][7] = v.w;
@@ -691,7 +750,7 @@ __device__ __forceinline__ void load_rows(const T* base, long long sn, int t0, i
   }
 }
 
-template <typename T>
+template <typename T, int kW>
 __device__ __forceinline__ void store_rows(T* base, long long sn, int t0, int n, bool fok,
                                            const float (&y)[2][8], int lane) {
   const int g = lane >> 2, c = lane & 3;
@@ -701,30 +760,42 @@ __device__ __forceinline__ void store_rows(T* base, long long sn, int t0, int n,
     if (!fok || t >= n) continue;
     T* p = base + t * sn + 8 * c;
     if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(p) =
-          make_uint4(pack_bf16x2(y[r][0], y[r][1]), pack_bf16x2(y[r][2], y[r][3]),
-                     pack_bf16x2(y[r][4], y[r][5]), pack_bf16x2(y[r][6], y[r][7]));
+      if constexpr (kW == 8) {
+        *reinterpret_cast<uint4*>(p) =
+            make_uint4(pack_bf16x2(y[r][0], y[r][1]), pack_bf16x2(y[r][2], y[r][3]),
+                       pack_bf16x2(y[r][4], y[r][5]), pack_bf16x2(y[r][6], y[r][7]));
+      } else if constexpr (kW == 4) {
+        *reinterpret_cast<uint2*>(p) =
+            make_uint2(pack_bf16x2(y[r][0], y[r][1]), pack_bf16x2(y[r][2], y[r][3]));
+      } else {
+        *reinterpret_cast<unsigned*>(p) = pack_bf16x2(y[r][0], y[r][1]);
+      }
+    } else if constexpr (kW == 2) {
+      *reinterpret_cast<float2*>(p) = make_float2(y[r][0], y[r][1]);
     } else {
       *reinterpret_cast<float4*>(p) = make_float4(y[r][0], y[r][1], y[r][2], y[r][3]);
-      *reinterpret_cast<float4*>(p + 4) = make_float4(y[r][4], y[r][5], y[r][6], y[r][7]);
+      if constexpr (kW == 8) {
+        *reinterpret_cast<float4*>(p + 4) = make_float4(y[r][4], y[r][5], y[r][6], y[r][7]);
+      }
     }
   }
 }
 
 // The feature softmax of each row, times `scale`; padded features (lanes
-// with !fok) give 0.
+// with !fok, and features kW.. of a lane) give 0.
+template <int kW>
 __device__ __forceinline__ void softmax_rows(float (&x)[2][8], bool fok, float scale) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fok ? x[r][i] : -INFINITY);
+    for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fok && i < kW ? x[r][i] : -INFINITY);
     mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 2));
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      x[r][i] = fok ? expf(x[r][i] - mx) : 0.f;
+      x[r][i] = fok && i < kW ? expf(x[r][i] - mx) : 0.f;
       sum += x[r][i];
     }
     sum += __shfl_xor_sync(kFullMask, sum, 1);
@@ -831,7 +902,7 @@ __device__ __forceinline__ void row_tiles(int n, int& lo, int& hi) {
 }
 
 // out = softmax_d(q) scale (ctx / s)
-template <typename T>
+template <typename T, int kW>
 __global__ void __launch_bounds__(kThreads) lta_out(Args a) {
   constexpr bool kF32 = sizeof(T) == 4;
   __shared__ __align__(16) float sw[kF32 ? kMaxD * kPitch + kWarps * kRowTile * kPitch : 1];
@@ -844,7 +915,7 @@ __global__ void __launch_bounds__(kThreads) lta_out(Args a) {
   row_tiles(a.n, lo, hi);
   int tile = lo + warp;
   float x[2][8];
-  load_rows<T>(q, a.in_s[0].n, tile * kRowTile, a.n, fok && tile < hi, x, lane);
+  load_rows<T, kW>(q, a.in_s[0].n, tile * kRowTile, a.n, fok && tile < hi, x, lane);
   pdl_wait();  // the fold's state is complete
   const float* st = a.state + static_cast<size_t>(bh) * state_floats<false>();
   Frags w;
@@ -855,22 +926,22 @@ __global__ void __launch_bounds__(kThreads) lta_out(Args a) {
     load_frags(w, reinterpret_cast<const uint4*>(st), lane);
   }
   for (; tile < hi; tile += kWarps) {
-    softmax_rows(x, fok, a.scale);
+    softmax_rows<kW>(x, fok, a.scale);
     float y[2][8];
     if constexpr (kF32) {
       product_f32(x, sw, false, sw + kMaxD * kPitch + warp * kRowTile * kPitch, y, lane);
     } else {
       product(x, w, true, y);
     }
-    store_rows<T>(out, a.out_s[0].n, tile * kRowTile, a.n, fok, y, lane);
+    store_rows<T, kW>(out, a.out_s[0].n, tile * kRowTile, a.n, fok, y, lane);
     if (tile + kWarps < hi) {
-      load_rows<T>(q, a.in_s[0].n, (tile + kWarps) * kRowTile, a.n, fok, x, lane);
+      load_rows<T, kW>(q, a.in_s[0].n, (tile + kWarps) * kRowTile, a.n, fok, x, lane);
     }
   }
 }
 
 // dq, dk, dv of each token from the slice's M, 1/S, R, C and D
-template <typename T>
+template <typename T, int kW>
 __global__ void __launch_bounds__(kThreads) lta_bwd_tokens(Args a) {
   constexpr bool kF32 = sizeof(T) == 4;
   // bf16: the three packed operands (C^T, D^T, D); f32: C and D, then the
@@ -893,10 +964,10 @@ __global__ void __launch_bounds__(kThreads) lta_bwd_tokens(Args a) {
   float xq[2][8], xk[2][8], xv[2][8], xg[2][8];
   auto load = [&](int t) {
     const bool ok = fok && t < hi;
-    load_rows<T>(in[0], a.in_s[0].n, t * kRowTile, a.n, ok, xq, lane);
-    load_rows<T>(in[1], a.in_s[1].n, t * kRowTile, a.n, ok, xk, lane);
-    load_rows<T>(in[2], a.in_s[2].n, t * kRowTile, a.n, ok, xv, lane);
-    load_rows<T>(in[3], a.in_s[3].n, t * kRowTile, a.n, ok, xg, lane);
+    load_rows<T, kW>(in[0], a.in_s[0].n, t * kRowTile, a.n, ok, xq, lane);
+    load_rows<T, kW>(in[1], a.in_s[1].n, t * kRowTile, a.n, ok, xk, lane);
+    load_rows<T, kW>(in[2], a.in_s[2].n, t * kRowTile, a.n, ok, xv, lane);
+    load_rows<T, kW>(in[3], a.in_s[3].n, t * kRowTile, a.n, ok, xg, lane);
   };
   load(tile);
   pdl_wait();  // the fold's state is complete
@@ -904,7 +975,7 @@ __global__ void __launch_bounds__(kThreads) lta_bwd_tokens(Args a) {
   float mk[8], isk[8], rk[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int f = fok ? 8 * c + i : 0;
+    const int f = fok && i < kW ? 8 * c + i : 0;
     mk[i] = st[f];
     isk[i] = st[kMaxD + f];
     rk[i] = st[2 * kMaxD + f];
@@ -920,12 +991,14 @@ __global__ void __launch_bounds__(kThreads) lta_bwd_tokens(Args a) {
   __syncthreads();
   float* xs = kF32 ? sw + 2 * kMaxD * kPitch + warp * kRowTile * kPitch : nullptr;
   for (; tile < hi; tile += kWarps) {
-    softmax_rows(xq, fok, 1.f);  // s_q
+    softmax_rows<kW>(xq, fok, 1.f);  // s_q
     float sk[2][8], y[2][8];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sk[r][i] = fok ? expf(xk[r][i] - mk[i]) * isk[i] : 0.f;
+      for (int i = 0; i < 8; ++i) {
+        sk[r][i] = fok && i < kW ? expf(xk[r][i] - mk[i]) * isk[i] : 0.f;
+      }
     // dq = s_q (g C^T scale - rowsum(g C^T scale s_q))
     if constexpr (kF32) {
       product_f32(xg, sw, true, xs, y, lane);
@@ -942,7 +1015,7 @@ __global__ void __launch_bounds__(kThreads) lta_bwd_tokens(Args a) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) y[r][i] = xq[r][i] * (y[r][i] - t);
     }
-    store_rows<T>(out[0], a.out_s[0].n, tile * kRowTile, a.n, fok, y, lane);
+    store_rows<T, kW>(out[0], a.out_s[0].n, tile * kRowTile, a.n, fok, y, lane);
     // dk = s_k (v D^T - R)
     if constexpr (kF32) {
       product_f32(xv, sw + kMaxD * kPitch, true, xs, y, lane);
@@ -955,7 +1028,7 @@ __global__ void __launch_bounds__(kThreads) lta_bwd_tokens(Args a) {
     for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int i = 0; i < 8; ++i) y[r][i] = sk[r][i] * (y[r][i] - rk[i]);
-    store_rows<T>(out[1], a.out_s[1].n, tile * kRowTile, a.n, fok, y, lane);
+    store_rows<T, kW>(out[1], a.out_s[1].n, tile * kRowTile, a.n, fok, y, lane);
     // dv = s_k D
     if constexpr (kF32) {
       product_f32(sk, sw + kMaxD * kPitch, false, xs, y, lane);
@@ -964,7 +1037,7 @@ __global__ void __launch_bounds__(kThreads) lta_bwd_tokens(Args a) {
       load_frags(w, reinterpret_cast<const uint4*>(sw) + 512, lane);
       product(sk, w, true, y);
     }
-    store_rows<T>(out[2], a.out_s[2].n, tile * kRowTile, a.n, fok, y, lane);
+    store_rows<T, kW>(out[2], a.out_s[2].n, tile * kRowTile, a.n, fok, y, lane);
     if (tile + kWarps < hi) load(tile + kWarps);
   }
 }
@@ -1000,6 +1073,16 @@ int token_splits(int bh, int n) {
   return s < per_warp ? s : per_warp;
 }
 
+// The token kernel for lanes of kW features.
+template <typename T, bool kBwd, int kW>
+cudaError_t launch_tokens(const cudaLaunchConfig_t& cfg, const Args& a) {
+  if constexpr (kBwd) {
+    return cudaLaunchKernelEx(&cfg, lta_bwd_tokens<T, kW>, a);
+  } else {
+    return cudaLaunchKernelEx(&cfg, lta_out<T, kW>, a);
+  }
+}
+
 template <typename T, bool kBwd>
 int launch(Args a, int bh, cudaStream_t stream) {
   a.splits = fold_splits(bh, a.n);
@@ -1029,11 +1112,8 @@ int launch(Args a, int bh, cudaStream_t stream) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (kBwd) {
-    err = cudaLaunchKernelEx(&cfg, lta_bwd_tokens<T>, a);
-  } else {
-    err = cudaLaunchKernelEx(&cfg, lta_out<T>, a);
-  }
+  err = a.d == 2 ? launch_tokens<T, kBwd, 2>(cfg, a)
+                 : (a.d == 4 ? launch_tokens<T, kBwd, 4>(cfg, a) : launch_tokens<T, kBwd, 8>(cfg, a));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1057,8 +1137,8 @@ long long lta_scratch_floats(int bh, int n, int backward) {
 //   `plan`: [0] backward, [1] is_bf16 (else f32), [2] bh, [3] heads, [4] n,
 //   [5] d, then each tensor's (batch, head, token) element strides, in the
 //   order of the pointers.
-// Every tensor is (B, H, N, d) with d % 8 == 0, d <= 32, feature stride 1
-// and 16-byte aligned rows. Two launches on the stream, the token kernel
+// Every tensor is (B, H, N, d) with d = 2, 4 or a multiple of 8 up to 32,
+// feature stride 1, and rows aligned to min(16, d * element size) bytes. Two launches on the stream, the token kernel
 // under programmatic dependent launch; returns the first CUDA error, or 0.
 int lta_call(const long long* call, const long long* plan) {
   const bool bwd = plan[0] != 0;

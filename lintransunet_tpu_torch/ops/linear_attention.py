@@ -17,7 +17,9 @@ and carries on.
 The kernels take each (B, H, N, d) tensor in one of two layouts: contiguous,
 or the head-split view ``t.view(B, N, H, d).transpose(1, 2)`` of a
 contiguous (B, N, H*d) projection, which is how the model passes them (no
-copies). Outputs and gradients come out in the layout of ``query``.
+copies). Outputs and gradients come out in the layout of ``query``. d is
+2, 4 or a multiple of 8 up to 32 (``HEAD_WIDTHS``): the flagship's heads are
+32 wide, ``SkipTransUnet``'s 2 to 32, ``MaskSkipTransUnet``'s 16.
 """
 
 import array
@@ -25,7 +27,7 @@ import math
 
 import torch
 
-MAX_D = 32  # kMaxD in csrc/linear_attention.cu: d is a multiple of 8, at most 32
+HEAD_WIDTHS = (2, 4, 8, 16, 24, 32)  # the d the kernels take, up to kMaxD of the source
 
 _library = None
 _plans = {}       # signature of q, k, v (, g) -> (plan array, bh, scratch floats)
@@ -72,12 +74,18 @@ def linear_attention_backward_reference(query: torch.Tensor, key: torch.Tensor,
     return dq.to(query.dtype), dk.to(key.dtype), dv.to(value.dtype)
 
 
+def row_alignment(t: torch.Tensor) -> int:
+    """The bytes a head row of ``t`` must be aligned to: 16, or the row's
+    own 4 or 8 bytes where it is narrower (d = 2, 4 in bf16, 2 in f32)."""
+    return min(16, t.shape[-1] * t.element_size())
+
+
 def layout_strides(t: torch.Tensor):
     """t's (batch, head, token) element strides if the kernels take its
-    layout, else None: feature stride 1, 16-byte aligned, and either
-    contiguous (B, H, N, d) or the head-split view of a contiguous
+    layout, else None: feature stride 1, aligned to ``row_alignment``, and
+    either contiguous (B, H, N, d) or the head-split view of a contiguous
     (B, N, H*d) tensor (a dimension of size 1 may have any stride)."""
-    return None if t.data_ptr() % 16 else _layout(t, *t.shape)
+    return None if t.data_ptr() % row_alignment(t) else _layout(t, *t.shape)
 
 
 def _layout(t, b, h, n, d):
@@ -99,9 +107,8 @@ def _check_cuda_inputs(*tensors):
         raise ValueError(f"q, k, v (and the gradient) must be (B, H, N, d); got "
                          f"{[tuple(t.shape) for t in tensors]}")
     b, h, n, d = shape
-    if d % 8 or not 8 <= d <= MAX_D:
-        raise ValueError(f"the CUDA kernel takes d == d_v, a multiple of 8 up to "
-                         f"{MAX_D}; got d={d}")
+    if d not in HEAD_WIDTHS:
+        raise ValueError(f"the CUDA kernel takes d == d_v in {HEAD_WIDTHS}; got d={d}")
     if n < 1:
         raise ValueError("the CUDA kernel needs at least one token")
     if b * h > 65535:
@@ -120,8 +127,8 @@ def _check_cuda_inputs(*tensors):
         if s is None:
             raise ValueError(
                 f"the CUDA kernel takes (B, H, N, d) contiguous or as the head-split "
-                f"view of a contiguous (B, N, H*d) tensor, 16-byte aligned; got strides "
-                f"{t.stride()} at {t.data_ptr():#x}")
+                f"view of a contiguous (B, N, H*d) tensor, aligned to {row_alignment(t)} "
+                f"bytes; got strides {t.stride()} at {t.data_ptr():#x}")
         strides += s
     return strides
 
@@ -136,8 +143,8 @@ def _lib():
 
 
 def _plan(inputs):
-    """(plan, bh, scratch floats) of a call on q, k, v (, g): ``lta_call``'s
-    sizes and strides, outputs in the layout of q. The inputs are checked
+    """(plan, bh, scratch floats, row alignment) of a call on q, k, v (, g):
+    ``lta_call``'s sizes and strides, outputs in the layout of q. The inputs are checked
     and the plan built once per signature (each input's shape, strides,
     dtype and device); a call with a known signature checks only its
     pointers' alignment (``_run``)."""
@@ -151,7 +158,8 @@ def _plan(inputs):
         plan = _plans[signature] = (
             array.array("q", [int(backward), int(inputs[0].dtype == torch.bfloat16), b * h, h,
                               n, d] + strides + outputs),
-            b * h, _lib().lta_scratch_floats(b * h, n, int(backward)))
+            b * h, _lib().lta_scratch_floats(b * h, n, int(backward)),
+            row_alignment(inputs[0]))
     return plan
 
 
@@ -173,10 +181,10 @@ def _workspace(device, stream, bh, floats):
 def _run(planned, inputs, outputs):
     """``lta_call`` on the current stream of the inputs' device: the
     kernels' two launches (``planned`` is ``_plan(inputs)``)."""
-    plan, bh, floats = planned
+    plan, bh, floats, align = planned
     ptrs = [t.data_ptr() for t in inputs]
-    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[-1]) % 16:  # the plan checked everything else
-        raise ValueError("the CUDA kernel takes 16-byte aligned tensors")
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[-1]) % align:  # the plan checked everything else
+        raise ValueError(f"the CUDA kernel takes tensors aligned to {align} bytes")
     device = inputs[0].get_device()
     stream = torch._C._cuda_getCurrentRawStream(device)
     previous = torch._C._cuda_getDevice()

@@ -7,8 +7,9 @@ jax-configuring conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 The attention kernels are also held on the model's layout (the head-split
-view of a (B, N, H*d) projection), to two launches a call, to the same bits
-on a second call, and to no copy in a ``MultiheadLinearAttention`` forward.
+view of a (B, N, H*d) projection), at the narrow head widths d = 2 and 4,
+to two launches a call, to the same bits on a second call, and to no copy
+in a ``MultiheadLinearAttention`` forward.
 
 Tolerances, each a share of the plain output's largest magnitude:
 
@@ -175,6 +176,53 @@ def test_kernels_read_the_head_split_view(cuda, b, n, h, d, dtype, tol):
         assert err <= BWD_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,n,h,d,layout", [
+    (1, 70001, 8, 2, "heads"), (1, 20000, 8, 4, "heads"), (2, 300, 3, 2, "heads"),
+    (2, 300, 3, 4, "contiguous"), (1, 129, 2, 2, "contiguous"), (1, 1, 2, 4, "heads")])
+def test_narrow_heads_match_plain(cuda, b, n, h, d, layout, dtype, tol):
+    """d = 2 and 4 (SkipTransUnet's two finest levels): heads of 4 or 8
+    bytes in bf16, forward and backward against the plain versions, two
+    launches a call, outputs in the layout of q."""
+    if layout == "heads":
+        q, k, v, g = (_heads(b, n, h, d, dtype, cuda, seed) for seed in range(4))
+    else:
+        q, k, v = _qkv((b, h, n, d), dtype, cuda)
+        g = _qkv((b, h, n, d), dtype, cuda, seed=1)[0]
+    got = fused.linear_attention(q, k, v)
+    want = fused.linear_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape and _same_layout(got, q)
+    assert _rel(got, want) <= tol
+    got = fused.linear_attention_backward(q, k, v, g)
+    want = fused.linear_attention_backward_reference(q, k, v, g)
+    torch.cuda.synchronize()
+    top = max(w.float().abs().max().item() for w in want)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape and _same_layout(a, q)
+        err = (a.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        assert err <= BWD_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
+    forward = cuda_launches(lambda: fused.linear_attention(q, k, v), 3).launches
+    backward = cuda_launches(lambda: fused.linear_attention_backward(q, k, v, g), 3).launches
+    assert len(forward) == 6 and len(backward) == 6, (forward, backward)
+
+
+def test_narrow_heads_need_their_row_alignment_only(cuda):
+    """A d = 2 bf16 head row is 4 bytes: a tensor 4 bytes off a 16-byte
+    boundary is taken, one 2 bytes off raises."""
+    n, h, d = 300, 3, 2
+    base = torch.randn(n * h * d + 2, generator=torch.Generator().manual_seed(0)).to(
+        cuda, torch.bfloat16)
+    q = base[2:].view(1, h, n, d)
+    assert q.data_ptr() % 16 and q.data_ptr() % 4 == 0
+    _rel_ok = _rel(fused.linear_attention(q, q, q), fused.linear_attention_reference(q, q, q))
+    assert _rel_ok <= 2e-2
+    odd = base[1:-1].view(1, h, n, d)
+    with pytest.raises(ValueError):
+        fused.linear_attention(odd, odd, odd)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_two_calls_are_equal_to_the_bit(cuda, dtype):
     q, k, v, g = (_heads(1, 28704, 4, 32, dtype, cuda, seed) for seed in range(4))
@@ -231,7 +279,7 @@ def test_kernel_rejects_other_layouts(cuda):
         fused.linear_attention(odd, odd, odd)
     with pytest.raises(ValueError):  # a gradient in another layout
         fused.linear_attention_backward(q, k, v, q.transpose(1, 3).contiguous().transpose(1, 3))
-    for d in (4, 12, 20):
+    for d in (1, 6, 12, 20):
         narrow = _qkv((1, 2, 64, d), torch.bfloat16, cuda)
         with pytest.raises(ValueError):
             fused.linear_attention(*narrow)

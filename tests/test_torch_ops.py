@@ -185,7 +185,8 @@ def test_kernel_semantics_on_head_split_views_match_pallas_interpret(rng, monkey
 
 def test_kernel_layouts_and_limits():
     """What the CUDA wrappers take, checked on CPU tensors: contiguous
-    (B, H, N, d) and the head-split view, with d a multiple of 8 up to 32;
+    (B, H, N, d) and the head-split view, with d 2, 4 or a multiple of 8 up
+    to 32, aligned to 16 bytes or to a narrower head row's own size;
     anything else raises before a launch."""
     b, h, n, d = 2, 3, 40, 16
     heads = torch.zeros((b, n, h * d)).view(b, n, h, d).transpose(1, 2)
@@ -206,10 +207,21 @@ def test_kernel_layouts_and_limits():
         assert tfused.layout_strides(x) is None
         with pytest.raises(ValueError):
             tfused._check_cuda_inputs(x, x, x)
-    for width in (4, 12, 20, 40, 64):
+    for width in (1, 6, 12, 20, 40, 64):
         x = torch.zeros((1, 2, 8, width))
         with pytest.raises(ValueError):
             tfused._check_cuda_inputs(x, x, x)
+    # narrow heads: a bf16 row of d = 2 is 4 bytes, of d = 4 is 8
+    for width, dtype, align in ((2, torch.bfloat16, 4), (4, torch.bfloat16, 8),
+                                (2, torch.float32, 8), (4, torch.float32, 16)):
+        x = torch.zeros((b, n, h * width), dtype=dtype).view(b, n, h, width).transpose(1, 2)
+        assert tfused.row_alignment(x) == align
+        assert len(tfused._check_cuda_inputs(x, x, x)) == 9
+        shifted = torch.zeros(x.numel() + 8, dtype=dtype)[align // x.element_size():]
+        if align < 16:  # off a 16-byte boundary by the row's size: taken
+            assert tfused.layout_strides(shifted[:x.numel()].view(b, h, n, width)) is not None
+        odd = torch.zeros(x.numel() + 1, dtype=dtype)[1:x.numel() + 1].view(b, h, n, width)
+        assert tfused.layout_strides(odd) is None
     with pytest.raises(TypeError):
         tfused._check_cuda_inputs(flat.half(), flat.half(), flat.half())
     with pytest.raises(ValueError):
@@ -234,11 +246,11 @@ def test_kernel_plan_is_built_once_per_signature(monkeypatch):
     flat = torch.zeros((b, h, n, d))
     split, contiguous = [n * h * d, d, h * d], [h * n * d, n * d, d]
     first = tfused._plan((heads, flat, heads))
-    plan, bh, floats = first
-    assert (bh, floats) == (b * h, 7)
+    plan, bh, floats, align = first
+    assert (bh, floats, align) == (b * h, 7, 16)
     assert list(plan) == [0, 0, b * h, h, n, d] + split + contiguous + split + split
     assert torch.empty_like(heads).stride() == heads.stride()
-    plan, _, _ = tfused._plan((flat, heads, flat, heads.bfloat16().float()))
+    plan, _, _, _ = tfused._plan((flat, heads, flat, heads.bfloat16().float()))
     assert list(plan) == [1, 0, b * h, h, n, d] + contiguous + split + contiguous + split \
         + contiguous * 3
     assert len(tfused._plans) == 2
