@@ -14,14 +14,21 @@ last line):
    kernels' grid, shared memory and blocks per SM;
 2. kernel vs plain, each kernel against its plain PyTorch version at the
    shapes the main paths give it, in f32 (TF32 off) and bf16, timed with
-   CUDA events in turns plain, kernel, kernel, plain, beside its bound (the
+   CUDA events in turns plain, kernel, kernel, plain (the attention kernels'
+   f32 cases held against the plain version computed in f64 on the same
+   inputs: at millions of tokens the f32 plain version's own summation error
+   passes TOL), beside its bound (the
    least time the card could take: the larger of the compulsory bytes at
    3.35 TB/s and the operations at 989 TFLOP/s in bf16, 67 TFLOP/s in f32):
    a. linear attention at the four attention shapes of a window in the
       model's layout (the head-split view of a (1, N, BH*d) projection;
       these calls make the kernels line), the same at batch 2 (a served
       volume's two windows in one batch, as phase 10 serves them), then
-      contiguous at the same shapes plus a ragged and a one-token case; each case also prints one call's
+      contiguous at the same shapes plus a ragged and a one-token case,
+      then the head widths the other models of ``Model_Dict`` add on a
+      window in the model's layout (``SkipTransUnet``'s d = 2, 4, 8, 16 at
+      4,194,304 to 32,768 tokens, ``MaskSkipTransUnet``'s d = 16 calls),
+      with their per-window sums; each case also prints one call's
       CUDA launches (the host's ``cudaLaunch*`` calls under
       ``torch.profiler``, ``kernels.launches``) and fails above two;
    b. the conv unit at the seven units of a window of the fused
@@ -35,8 +42,9 @@ last line):
    d. the linear-attention backward likewise at the four attention shapes
       of the training patch, in the model's layout at batch 1 and at batch 3
       (train3d's default ``--batch_size``) and then contiguous, plus a
-      ragged and a one-token case, with one call's CUDA launches (no
-      single PyTorch call computes it);
+      ragged and a one-token case and the other models' head widths as in
+      a, with one call's CUDA launches (no single PyTorch call computes
+      it);
    e. the six conv probes (``lintransunet_tpu_torch/experiments``, the H100
       counterparts of the TPU probes under ``experiments/``) at their TPU
       probes' main shapes in bf16 (``conv3d_cl_rows`` also in f32), beside
@@ -104,7 +112,26 @@ last line):
     ``summary_4_fold.json``. Prints ms per step through the CLI beside phase
     7's, the host's data time, s per served volume, whether the native
     preprocessing core loaded, and its HU window against the numpy
-    fallback on one (512, 512, 80) volume (the same bits held, both timed).
+    fallback on one (512, 512, 80) volume (the same bits held, both timed);
+11. the multi-class CLIs at full width: phase 10's workspace with a class-2
+    blob beside each class-1 one; ``cli.train3d_multi_class`` (the flagship
+    at ``dim_output`` 3, the rest as phase 10), ``cli.inference_multi_classes``
+    on its checkpoint, then ``cli.train3d_monai_version`` (the cached
+    pipeline, resampled to 0.5 x 0.5 x 2 mm and oriented by its defaults,
+    one step a batch, one epoch with its eval). Held as phase 10, with
+    ``eval/DiceClassLoss2`` logged and (80, 512, 512) uint8 exports in
+    {0, 1, 2}; the MONAI run's steps and exact launches from its eval
+    volumes' window grid;
+12. the four other models of ``Model_Dict`` (``TraditionUnet``,
+    ``BottleTransUnet``, ``SkipTransUnet``, ``MaskSkipTransUnet``) at the
+    flagship's widths on one 512 x 512 x 64 window in eval, bf16, with the
+    kernel: the output's shape, finite probabilities whose channels sum to
+    1, attention launches equal to the model's attention layers; kernel vs
+    plain attention in f32 on the same window (the output, or for
+    ``MaskSkipTransUnet`` the bottleneck bridge and ``mask_list[0]`` upstream
+    of its first ROI box and then the labels); then one f32
+    ``MaskSkipTransUnet`` training step on phase 7's patch (the backward at
+    d = 16), kernel vs plain within TRAIN_TOL.
 
 The last two lines are a JSON summary of the kernels (bf16; the forward
 kernels' per-window sums over their serving calls, the backward's per-step
@@ -131,7 +158,14 @@ import torch
 import torch.nn.functional as F
 
 from lintransunet_tpu_torch import data, engine, kernels, native
-from lintransunet_tpu_torch.cli import inference_embed_attn, split_dataset, train3d
+from lintransunet_tpu_torch.cli import (
+    inference_embed_attn,
+    inference_multi_classes,
+    split_dataset,
+    train3d,
+    train3d_monai_version,
+    train3d_multi_class,
+)
 from lintransunet_tpu_torch.cli import common
 from lintransunet_tpu_torch.cli.common import EvalConfig, get_criterion_list, make_eval_runner
 from lintransunet_tpu_torch.engine import loop, make_eval_forward
@@ -153,7 +187,14 @@ from lintransunet_tpu_torch.experiments.common import (
     in_turns,
 )
 from lintransunet_tpu_torch.kernels.launches import cuda_launches
-from lintransunet_tpu_torch.models import MaskTransUnet, init_random_
+from lintransunet_tpu_torch.losses import binary as binary_losses
+from lintransunet_tpu_torch.models import blocks
+from lintransunet_tpu_torch.models import (
+    MaskTransUnet,
+    MultiheadLinearAttention,
+    get_model_dict,
+    init_random_,
+)
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import fused_stack as fs
 from lintransunet_tpu_torch.ops import linear_attention as fused
@@ -209,6 +250,14 @@ DYNAMIC_WEIGHT = engine.get_dynamic_weight(
     epochs=1, T=12.0, warmup_step=10, weight_list=(0.05, 0.05, 0.1, 0.1, 1.0),
     initial_weight=(0.1, 0.2, 0.3, 0.4, 1.0), final_weight=(2.0, 1.5, 1.0, 1.0, 1.0))[0]
 EXTRA_SHAPES = [(8, 300, 32), (8, 1, 32)]
+# (BH, N, d) of the head widths the other models of Model_Dict add on a
+# 512 x 512 x 64 window, each 4 layers: SkipTransUnet's skip bridges (levels
+# 0-3; its bottleneck is MAIN_SHAPES[0]) and MaskSkipTransUnet's d = 16 calls
+# (bottleneck, then ROI levels 3, 2, 1, 0)
+WIDTH_SHAPES = {"SkipTransUnet": [(8, 4194304, 2), (8, 1048576, 4), (8, 131072, 8),
+                                  (8, 32768, 16)],
+                "MaskSkipTransUnet": [(16, 4096, 16), (8, 32480, 16), (4, 22272, 16),
+                                      (2, 27968, 16), (1, 15776, 16)]}
 MAX_LAUNCHES = 2  # CUDA launches of one attention call, forward or backward
 # The window's seven conv units in the fused configuration:
 # (name, Ca, Cb, O, (H, W, D), prologue affine on xa)
@@ -294,6 +343,7 @@ class Summary:
         self.ms = self.plain_ms = self.bound_ms = self.t_ops = self.t_bytes = 0.0
         self.library_ms = None
         self.max_abs_err = 0.0
+        self.other_models = None
 
     def add(self, dtype, calls, ms, plain_ms, flops, nbytes, library_ms=None):
         if dtype != torch.bfloat16:
@@ -307,10 +357,13 @@ class Summary:
             self.library_ms = (self.library_ms or 0.0) + calls * library_ms
 
     def entry(self, launches):
-        return {"launches": launches, "max_abs_err": self.max_abs_err,
-                "ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "bound_by": "operations" if self.t_ops >= self.t_bytes else "bytes",
-                "library_ms": self.library_ms}
+        out = {"launches": launches, "max_abs_err": self.max_abs_err,
+               "ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+               "bound_by": "operations" if self.t_ops >= self.t_bytes else "bytes",
+               "library_ms": self.library_ms}
+        if self.other_models:
+            out["other_models"] = self.other_models
+        return out
 
 
 def kernel_ptxas(name, kernel):
@@ -383,10 +436,46 @@ def attention_cases(shapes, batch):
     volume go through the model together, and a train step takes
     ``--batch_size`` frames: phase 10's served path runs at 2, train3d's
     default batch size is 3), then contiguous at the main shapes and the
-    ragged and one-token cases."""
+    ragged and one-token cases, then the other models' head widths in the
+    model's layout."""
     return ([(shape, "heads", 1) for shape in shapes]
             + [(shape, "heads", batch) for shape in shapes]
-            + [(shape, "contiguous", 1) for shape in shapes + EXTRA_SHAPES])
+            + [(shape, "contiguous", 1) for shape in shapes + EXTRA_SHAPES]
+            + [(shape, "heads", 1) for model in WIDTH_SHAPES for shape in WIDTH_SHAPES[model]])
+
+
+def _width_summary(summaries, shape, layout, batch):
+    """The other model's Summary that a (shape, layout, batch) case adds to."""
+    for model, shapes in WIDTH_SHAPES.items():
+        if layout == "heads" and batch == 1 and shape in shapes:
+            return summaries[model]
+    return None
+
+
+def width_summaries(summaries, tag, direction):
+    """Print the other models' per-window sums of their attention calls
+    (4 layers a shape) in bf16; returns {model: {ms, plain_ms, bound_ms}}."""
+    out = {}
+    for model, summary in summaries.items():
+        out[model] = {"ms": summary.ms, "plain_ms": summary.plain_ms,
+                      "bound_ms": summary.bound_ms}
+        print(f"[{tag}] {model}'s {4 * len(WIDTH_SHAPES[model])} bf16 {direction} calls "
+              f"at d = {sorted({s[2] for s in WIDTH_SHAPES[model]})} on a window: kernel "
+              f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
+              f"{summary.bound_ms:.4f} ms", flush=True)
+    return out
+
+
+def exact(*tensors):
+    """The inputs the attention kernels are held against: f32 ones in f64,
+    so that the plain version sums exactly enough. In f32 the plain
+    version's own summation error over a call's tokens grows with N: at
+    (8, 4,194,304, 2) it is 6.4e-5 of max |out| against the f64 answer, the
+    kernel's 4.5e-6 (PERF.md, PR 14). bf16 ones as they are: the plain
+    version computes in f32 and rounds once, as the kernel does."""
+    if tensors[0].dtype != torch.float32:
+        return tensors
+    return [t.double() for t in tensors]
 
 
 def check_launches(tag, label, found, calls=3):
@@ -407,11 +496,12 @@ def check_launches(tag, label, found, calls=3):
 def phase_attention_vs_plain():
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     summary = Summary()
+    widths = {model: Summary() for model in WIDTH_SHAPES}
     for dtype in (torch.float32, torch.bfloat16):
         for (bh, n, d), layout, batch in attention_cases(MAIN_SHAPES, SERVE_BATCH):
             q, k, v = attention_inputs(3, bh, n, d, layout, dtype, gen, batch)
             got = fused.linear_attention(q, k, v)
-            want = fused.linear_attention_reference(q, k, v)
+            want = fused.linear_attention_reference(*exact(q, k, v))
             torch.cuda.synchronize()
             if got.dtype != dtype or got.shape != want.shape:
                 fail(f"kernel output {got.dtype} {tuple(got.shape)}")
@@ -422,7 +512,10 @@ def phase_attention_vs_plain():
             nbytes = 4 * batch * bh * n * d * q.element_size()
             flops = 4 * batch * bh * n * d * d
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            if layout == "heads" and batch == 1:
+            other = _width_summary(widths, (bh, n, d), layout, batch)
+            if other is not None:
+                other.add(dtype, 4, ms, plain_ms, flops, nbytes)
+            elif layout == "heads" and batch == 1:
                 summary.add(dtype, 8, ms, plain_ms, flops, nbytes)
             ok = rel <= TOL[dtype]
             label = f"{str(dtype)[6:]:8s} {layout:10s} B={batch} BH={bh} N={n} d={d}"
@@ -438,6 +531,7 @@ def phase_attention_vs_plain():
           f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
           f"{summary.bound_ms:.4f} ms; no single PyTorch call computes linear attention "
           f"(scaled_dot_product_attention is softmax attention)", flush=True)
+    summary.other_models = width_summaries(widths, "attention", "forward")
     return summary
 
 
@@ -568,11 +662,12 @@ def backward_errors(got, want):
 def phase_attention_backward_vs_plain():
     gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
     summary = Summary()
+    widths = {model: Summary() for model in WIDTH_SHAPES}
     for dtype in (torch.float32, torch.bfloat16):
         for (bh, n, d), layout, batch in attention_cases(TRAIN_SHAPES, TRAIN_BATCH):
             q, k, v, g = attention_inputs(4, bh, n, d, layout, dtype, gen, batch)
             got = fused.linear_attention_backward(q, k, v, g)
-            want = fused.linear_attention_backward_reference(q, k, v, g)
+            want = fused.linear_attention_backward_reference(*exact(q, k, v, g))
             torch.cuda.synchronize()
             if any(a.dtype != dtype or a.shape != q.shape for a in got):
                 fail(f"backward kernel output {[(a.dtype, tuple(a.shape)) for a in got]}")
@@ -585,7 +680,10 @@ def phase_attention_backward_vs_plain():
             nbytes = 7 * batch * bh * n * d * q.element_size()
             flops = 10 * batch * bh * n * d * d
             bound_ms, bound_by = bound(flops, nbytes, dtype)
-            if layout == "heads" and batch == 1:
+            other = _width_summary(widths, (bh, n, d), layout, batch)
+            if other is not None:
+                other.add(dtype, 4, ms, plain_ms, flops, nbytes)
+            elif layout == "heads" and batch == 1:
                 summary.add(dtype, 8, ms, plain_ms, flops, nbytes)
             ok = rel <= TOL[dtype]
             label = f"{str(dtype)[6:]:8s} {layout:10s} B={batch} BH={bh} N={n} d={d}"
@@ -602,6 +700,7 @@ def phase_attention_backward_vs_plain():
           f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
           f"{summary.bound_ms:.4f} ms; no single PyTorch call computes this backward",
           flush=True)
+    summary.other_models = width_summaries(widths, "attention_bwd", "backward")
     return summary
 
 
@@ -1121,6 +1220,10 @@ def phase_train_vs_plain(images, labels, criterions):
 CLI_PATIENTS = 4
 CLI_SHAPE = (80, 512, 512)
 CLI_BLOB = ((0.375, 0.625), (0.43, 0.57), (0.39, 0.625))
+# phase 11's class-2 blob, beside the class-1 one along W
+CLI_BLOB2 = ((0.375, 0.625), (0.57, 0.64), (0.39, 0.625))
+MONAI_FLAGS = ("--image_crop", "512", "--depth_size", "32", "--batch_size", "1",
+               "--epochs", "1", "--eval_epoch", "1", "--compute_dtype", "bfloat16")
 CLI_TRAIN_FLAGS = ("--image_crop", "512", "--depth_size", "32", "--num_samples", "3",
                    "--batch_size", "1", "--epochs", "1", "--eval_epoch", "1",
                    "--is_transform", "true", "--compute_dtype", "bfloat16")
@@ -1172,17 +1275,20 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def cli_workspace(root, shape, patients):
-    """image/ and label/ .npy volumes under ``root``/data, and a 2-fold split
-    written by the port's split tool; returns (data dir, split path)."""
+def cli_workspace(root, shape, patients, multi_class=False):
+    """image/ and label/ .npy volumes under ``root``/data (with
+    ``multi_class``, a class-2 blob beside each class-1 one), and a 2-fold
+    split written by the port's split tool; returns (data dir, split path)."""
     data_dir = os.path.join(root, "data")
     rng = np.random.default_rng(SEED + 8)
-    blob = tuple(slice(int(lo * n), int(hi * n)) for (lo, hi), n in zip(CLI_BLOB, shape))
+    blobs = [tuple(slice(int(lo * n), int(hi * n)) for (lo, hi), n in zip(box, shape))
+             for box in ((CLI_BLOB, CLI_BLOB2) if multi_class else (CLI_BLOB,))]
     for sub in ("image", "label"):
         os.makedirs(os.path.join(data_dir, sub))
     for i in range(patients):
         label = np.zeros(shape, np.uint8)
-        label[blob] = 1
+        for value, blob in enumerate(blobs, start=1):
+            label[blob] = value
         np.save(os.path.join(data_dir, "image", f"{i:04d}.npy"),
                 rng.normal(40.0, 60.0, shape).astype(np.float32))
         np.save(os.path.join(data_dir, "label", f"{i:04d}.npy"), label)
@@ -1198,19 +1304,28 @@ def _windows(volume_hwd, roi, overlap):
     return len(dense_window_starts(padded_spatial_shape(volume_hwd, roi), roi, overlap))
 
 
-def run_cli_path(root, shape, patients, train_flags, infer_flags):
-    """``train3d`` then ``inference_embed_attn`` on the checkpoint it wrote,
-    each through its parser as a user runs it, with the launch counts set
-    to 0 just before each and read just after; returns what phase 10 holds
-    and prints."""
-    data_dir, split = cli_workspace(root, shape, patients)
+def _train_dataset(ds):
+    return isinstance(ds, data.IdPosPanCTDataset) or (
+        isinstance(ds, data.CachePanDataset) and ds.train)
+
+
+def run_cli_path(root, shape, patients, train_flags, infer_flags, multi_class=False):
+    """``train3d`` then ``inference_embed_attn`` on the checkpoint it wrote
+    (``multi_class``: ``train3d_multi_class`` then
+    ``inference_multi_classes``), each through its parser as a user runs
+    it, with the launch counts set to 0 just before each and read just
+    after; returns what phases 10 and 11 hold and print."""
+    train_cli = train3d_multi_class if multi_class else train3d
+    infer_cli = inference_multi_classes if multi_class else inference_embed_attn
+    data_dir, split = cli_workspace(root, shape, patients, multi_class)
     train_ids, test_ids = data.load_fold(split, 0)
-    out = {"epoch_s": [], "eval_s": [], "waits": [], "items": [], "volume_s": []}
+    out = {"epoch_s": [], "eval_s": [], "waits": [], "items": [], "volume_s": [],
+           "data_dir": data_dir, "split": split}
     loader_iter = data.DataLoader.__iter__
 
     def train_waits(loader):  # host time the train loop waits for each batch
         it = loader_iter(loader)
-        if not isinstance(loader.dataset, data.IdPosPanCTDataset):
+        if not _train_dataset(loader.dataset):
             yield from it
             return
         while True:
@@ -1225,14 +1340,14 @@ def run_cli_path(root, shape, patients, train_flags, infer_flags):
                   "--log_dir", os.path.join(root, "runs"),
                   "--model_dir", os.path.join(root, "out"), *train_flags]
     with command_line(train_argv):
-        args = train3d.get_parse()
+        args = train_cli.get_parse()
     with timed(loop, "train_on_epoch", out["epoch_s"]), \
             timed(loop, "eval_on_epoch", out["eval_s"]), \
             timed(data.IdPosPanCTDataset, "__getitem__", out["items"]):
         data.DataLoader.__iter__ = train_waits
         try:
             reset_launch_counts()
-            train3d.main(args)
+            train_cli.main(args)
             _sync()
             out["train_launches"] = launch_counts()
         finally:
@@ -1253,14 +1368,14 @@ def run_cli_path(root, shape, patients, train_flags, infer_flags):
     infer_argv = ["--dir_data", data_dir, "--split_json", split, "--pretrained_dir", run_dir,
                   "--saved_folder", os.path.join(root, "pred"), *infer_flags]
     with command_line(infer_argv):
-        iargs = inference_embed_attn.get_parse()
+        iargs = infer_cli.get_parse()
     cwd = os.getcwd()
     os.chdir(root)  # the CLI writes summary_4_fold.json where it runs
     try:
         with timed(common, "batched_predictions", out["volume_s"], generator=True):
             reset_launch_counts()
             t0 = time.perf_counter()
-            inference_embed_attn.main(iargs)
+            infer_cli.main(iargs)
             _sync()
             out["infer_s"] = time.perf_counter() - t0
             out["infer_launches"] = launch_counts()
@@ -1299,51 +1414,56 @@ def native_vs_numpy(shape):
     return min(times[0]), min(times[1])
 
 
-def phase_cli(train_ms):
-    """Phase 10: the binary CLIs at full width; returns the attention
-    kernels' launches in ``train3d``."""
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        out = run_cli_path(root, CLI_SHAPE, CLI_PATIENTS, CLI_TRAIN_FLAGS, CLI_INFER_FLAGS)
-        total_s = time.perf_counter() - t0
+def check_cli_run(tag, out, multi_class=False):
+    """Phase 10's and 11's gates on one train + inference run; returns the
+    number of train steps."""
+    train_name = "train3d_multi_class" if multi_class else "train3d"
+    infer_name = "inference_multi_classes" if multi_class else "inference_embed_attn"
     steps = out["patients"] * out["num_samples"]
     if out["state"]["step"] != steps:
-        fail(f"train3d took {out['state']['step']} steps, not {steps}")
+        fail(f"{train_name} took {out['state']['step']} steps, not {steps}")
     want = _per(linear_attention=32 * (steps + out["eval_windows"]),
                 linear_attention_backward=32 * steps)
     if out["train_launches"] != want:
-        fail(f"train3d launched {out['train_launches']}, not {want} ({steps} steps and "
-             f"{out['eval_windows']} eval windows)")
+        fail(f"{train_name} launched {out['train_launches']}, not {want} ({steps} steps "
+             f"and {out['eval_windows']} eval windows)")
     want_infer = _per(linear_attention=32 * out["infer_chunks"])
     if out["infer_launches"] != want_infer:
-        fail(f"inference_embed_attn launched {out['infer_launches']}, not {want_infer} "
+        fail(f"{infer_name} launched {out['infer_launches']}, not {want_infer} "
              f"({out['infer_chunks']} window batches)")
     tags = {r["tag"] for r in out["records"]}
-    if not {"train/total_loss", "eval/DiceClassLoss"} <= tags:
-        fail(f"metrics.jsonl lacks train/total_loss or eval/DiceClassLoss: {sorted(tags)}")
+    need = {"train/total_loss", "eval/DiceClassLoss"} | (
+        {"eval/DiceClassLoss2"} if multi_class else set())
+    if not need <= tags:
+        fail(f"{tag}: metrics.jsonl lacks one of {sorted(need)}: {sorted(tags)}")
     if not all(math.isfinite(r["value"]) for r in out["records"]):
-        fail("train3d logged a non-finite value")
+        fail(f"{train_name} logged a non-finite value")
     if not {"temp_model", "train_state", "model"} <= set(out["artifacts"]):
-        fail(f"train3d wrote {out['artifacts']}")
-    want_shape = CLI_SHAPE
+        fail(f"{train_name} wrote {out['artifacts']}")
+    values = {0, 1, 2} if multi_class else {0.0, 1.0}
     if len(out["exports"]) != out["served"] or any(
-            e.shape != want_shape or not set(np.unique(e)) <= {0.0, 1.0}
-            for e in out["exports"]):
-        fail(f"exports {[(e.shape, np.unique(e)[:4]) for e in out['exports']]}, want "
-             f"{out['served']} binary {want_shape}")
-    values = [v for key, vs in out["summary"].items() for v in np.ravel(vs)]
-    if not values or not all(math.isfinite(v) for v in values):
+            e.shape != CLI_SHAPE or not set(np.unique(e).tolist()) <= values
+            or (multi_class and e.dtype != np.uint8) for e in out["exports"]):
+        fail(f"exports {[(e.shape, e.dtype, np.unique(e)[:4]) for e in out['exports']]}, "
+             f"want {out['served']} {CLI_SHAPE} with values in {sorted(values)}")
+    summary = [v for key, vs in out["summary"].items() for v in np.ravel(vs)]
+    if not summary or not all(math.isfinite(v) for v in summary):
         fail(f"summary_4_fold.json is not finite: {out['summary']}")
+    return steps
 
+
+def print_cli_run(tag, out, steps, train_ms, multi_class=False):
+    train_name = "train3d_multi_class" if multi_class else "train3d"
+    infer_name = "inference_multi_classes" if multi_class else "inference_embed_attn"
     train_s = sum(out["epoch_s"])
     losses = [round(r["value"], 6) for r in out["records"] if r["tag"] == "train/total_loss"]
     evals = {r["tag"]: round(r["value"], 6) for r in out["records"] if r["tag"].startswith("eval/")}
-    print(f"[cli] train3d at full width ({CLI_PATIENTS} volumes of {CLI_SHAPE} (D, H, W), "
-          f"fold 0: {out['patients']} train patients x {out['num_samples']} steps, "
+    print(f"[{tag}] {train_name} at full width ({CLI_PATIENTS} volumes of {CLI_SHAPE} "
+          f"(D, H, W), fold 0: {out['patients']} train patients x {out['num_samples']} steps, "
           f"{out['eval_windows']} eval windows): launches {out['train_launches']}; "
           f"patient losses {losses}; eval {evals}; artifacts {out['artifacts']}", flush=True)
-    print(f"[cli] train3d time: {train_s / steps * 1e3:.2f} ms per step through the CLI "
-          f"({steps} steps in {train_s:.3f} s, data waits included) against phase 7's "
+    print(f"[{tag}] {train_name} time: {train_s / steps * 1e3:.2f} ms per step through the "
+          f"CLI ({steps} steps in {train_s:.3f} s, data waits included) against phase 7's "
           f"{train_ms:.2f} ms per step; the loop waited {sum(out['waits']):.3f} s for "
           f"batches ({[round(w, 3) for w in out['waits']]} s), the workers spent "
           f"{[round(s, 3) for s in out['items']]} s preparing each patient; eval "
@@ -1352,19 +1472,267 @@ def phase_cli(train_ms):
           f"per volume, the first forwards' warm-up included); native "
           f"preprocessing core {'loaded' if native.AVAILABLE else 'NOT loaded (numpy fallback)'}",
           flush=True)
+    print(f"[{tag}] {infer_name}: {out['served']} volume(s) served, "
+          f"{[round(s, 3) for s in out['volume_s']]} s per served volume (load, "
+          f"{out['infer_chunks']} window batch(es), metrics, export), {out['infer_s']:.3f} s "
+          f"in all with the model's build; launches {out['infer_launches']}; export "
+          f"{[(e.shape, str(e.dtype), np.unique(e).tolist()) for e in out['exports']]}; "
+          f"summary {out['summary']}", flush=True)
+
+
+def phase_cli(train_ms):
+    """Phase 10: the binary CLIs at full width; returns the attention
+    kernels' launches in ``train3d``."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        out = run_cli_path(root, CLI_SHAPE, CLI_PATIENTS, CLI_TRAIN_FLAGS, CLI_INFER_FLAGS)
+        total_s = time.perf_counter() - t0
+    steps = check_cli_run("cli", out)
+    print_cli_run("cli", out, steps, train_ms)
     hu_shape = CLI_SHAPE[1:] + CLI_SHAPE[:1]
     hu = native_vs_numpy(hu_shape)
     print(f"[cli] HU window on one {hu_shape} volume: " + (
         "native core not loaded" if hu is None else
         f"native {hu[0]:.3f} ms, numpy fallback {hu[1]:.3f} ms (same bits; host time, "
         f"best of 3)"), flush=True)
-    print(f"[cli] inference_embed_attn: {out['served']} volume(s) served, "
-          f"{[round(s, 3) for s in out['volume_s']]} s per served volume (load, "
-          f"{out['infer_chunks']} window batch(es), metrics, export), {out['infer_s']:.3f} s "
-          f"in all with the model's build; launches {out['infer_launches']}; export "
-          f"{[e.shape for e in out['exports']]} binary; summary {out['summary']}; phase "
-          f"10 took {total_s:.1f} s", flush=True)
+    print(f"[cli] phase 10 took {total_s:.1f} s", flush=True)
     return out["train_launches"]
+
+
+def run_monai(root, data_dir, split):
+    """``train3d_monai_version`` through its parser on phase 11's workspace:
+    the cached pipeline (resampled to 0.5 x 0.5 x 2 mm and oriented, as its
+    defaults do), one step a batch, one epoch with its eval; returns what
+    phase 11 holds and prints."""
+    out = {"eval_s": [], "waits": [], "eval_shapes": []}
+    argv = ["--dir_data", data_dir, "--split_json", split, "--fold_num", "0",
+            "--log_dir", os.path.join(root, "monai_runs"),
+            "--model_dir", os.path.join(root, "monai_out"), *MONAI_FLAGS]
+    with command_line(argv):
+        args = train3d_monai_version.get_parse()
+    item = data.CachePanDataset.__getitem__
+    loader_iter = data.DataLoader.__iter__
+
+    def eval_item(self, index):  # the eval volumes' shapes, for the window count
+        got = item(self, index)
+        if not self.train:
+            out["eval_shapes"].append(got[0].shape[1:4])
+        return got
+
+    def train_waits(loader):
+        it = loader_iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            if _train_dataset(loader.dataset):
+                out["waits"].append(time.perf_counter() - t0)
+            yield batch
+
+    data.CachePanDataset.__getitem__ = eval_item
+    data.DataLoader.__iter__ = train_waits
+    try:
+        with timed(loop, "eval_on_epoch", out["eval_s"]):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            train3d_monai_version.main(args)
+            _sync()
+            out["s"] = time.perf_counter() - t0
+            out["launches"] = launch_counts()
+    finally:
+        data.CachePanDataset.__getitem__ = item
+        data.DataLoader.__iter__ = loader_iter
+    run_dir = os.path.join(root, "monai_out", os.listdir(os.path.join(root, "monai_out"))[0])
+    out["artifacts"] = sorted(os.listdir(os.path.join(run_dir, "fold_0")))
+    out["state"] = torch.load(os.path.join(run_dir, "fold_0", "train_state"),
+                              map_location="cpu", weights_only=True)
+    logs = [os.path.join(d, f) for d, _, files in os.walk(os.path.join(root, "monai_runs"))
+            for f in files if f == "metrics.jsonl"]
+    out["records"] = [json.loads(line) for line in open(logs[0])]
+    roi = (args.image_crop, args.image_crop, args.eval_depth)
+    out["eval_windows"] = sum(_windows(tuple(shape), roi, EvalConfig().overlap)
+                              for shape in out["eval_shapes"])
+    out["train_patients"] = len(data.load_fold(split, 0)[0])
+    return out
+
+
+def phase_multi_class_cli(train_ms):
+    """Phase 11: the three multi-class CLIs at full width on phase 10's
+    workspace with a class-2 blob: ``train3d_multi_class``, then
+    ``inference_multi_classes`` on its checkpoint, then
+    ``train3d_monai_version``."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        out = run_cli_path(root, CLI_SHAPE, CLI_PATIENTS, CLI_TRAIN_FLAGS, CLI_INFER_FLAGS,
+                           multi_class=True)
+        steps = check_cli_run("multi", out, multi_class=True)
+        print_cli_run("multi", out, steps, train_ms, multi_class=True)
+        monai = run_monai(root, out["data_dir"], out["split"])
+        total_s = time.perf_counter() - t0
+    monai_steps = monai["train_patients"]  # batch 1, one sample a patient
+    if monai["state"]["step"] != monai_steps:
+        fail(f"train3d_monai_version took {monai['state']['step']} steps, not {monai_steps}")
+    want = _per(linear_attention=32 * (monai_steps + monai["eval_windows"]),
+                linear_attention_backward=32 * monai_steps)
+    if monai["launches"] != want:
+        fail(f"train3d_monai_version launched {monai['launches']}, not {want} ({monai_steps} "
+             f"steps and {monai['eval_windows']} eval windows)")
+    tags = {r["tag"] for r in monai["records"]}
+    if not {"train/total_loss", "eval/DiceClassLoss2"} <= tags or not all(
+            math.isfinite(r["value"]) for r in monai["records"]):
+        fail(f"train3d_monai_version's metrics.jsonl: {monai['records']}")
+    if not {"temp_model", "train_state", "model"} <= set(monai["artifacts"]):
+        fail(f"train3d_monai_version wrote {monai['artifacts']}")
+    evals = {r["tag"]: round(r["value"], 6) for r in monai["records"]
+             if r["tag"].startswith("eval/")}
+    print(f"[multi] train3d_monai_version at full width (the same {CLI_PATIENTS} volumes "
+          f"resampled to 0.5 x 0.5 x 2 mm and oriented; eval volumes "
+          f"{[tuple(x) for x in monai['eval_shapes']]} (H, W, D), {monai['eval_windows']} "
+          f"eval windows; {monai_steps} steps of one batch): launches {monai['launches']}; "
+          f"{monai['s']:.3f} s in all with the cache's preparation and the model's build, "
+          f"eval {monai['eval_s'][0]:.3f} s, the loop waited "
+          f"{[round(w, 3) for w in monai['waits']]} s for its batches; eval {evals}; "
+          f"artifacts {monai['artifacts']}; phase 11 took {total_s:.1f} s", flush=True)
+    return out["train_launches"]
+
+
+# Phase 12: the four other models of Model_Dict at the flagship's widths
+OTHER_MODELS = ("TraditionUnet", "BottleTransUnet", "SkipTransUnet", "MaskSkipTransUnet")
+WIDTHS = dict(num_layers=FLAGSHIP["num_layers"], dim_input=1, dim_output=2)
+WINDOW = (1, 1, 512, 512, 64)
+
+
+def build_other(name, attention_impl="kernel", dtype=torch.bfloat16, state=None):
+    model = get_model_dict(name)(**WIDTHS, dtype=dtype, attention_impl=attention_impl)
+    if state is None:
+        init_random_(model, torch.Generator(device="cpu").manual_seed(SEED))
+    else:
+        model.load_state_dict(state)
+    return model.eval()
+
+
+def attention_layers(model):
+    """The model's attention layers: each runs once a forward, unmasked."""
+    return sum(isinstance(m, MultiheadLinearAttention) for m in model.modules())
+
+
+def model_forward(model, window):
+    """(probabilities, masks or None, the bottleneck bridge's output or None)
+    of an eval forward."""
+    bridge = getattr(model, "connect_bridge", None)
+    if bridge is not None and hasattr(bridge, "n_levels"):  # MaskSkipTransUnet's Bridge
+        bridge = getattr(bridge, f"bridge_list_{bridge.n_levels - 1}")
+    seen = {}
+    hook = bridge.register_forward_hook(lambda m, i, o: seen.update(out=o)) if bridge else None
+    try:
+        with torch.inference_mode():
+            out = model(window)
+    finally:
+        if hook:
+            hook.remove()
+    out, masks = out if isinstance(out, tuple) else (out, None)
+    return out, masks, seen.get("out")
+
+
+def phase_other_models(window):
+    """Each of the four models on one window in bf16 with the kernel: shape,
+    finite channel probabilities, exact launches; then kernel vs plain in
+    f32 on the same window."""
+    for name in OTHER_MODELS:
+        model = build_other(name)
+        want = _per(linear_attention=attention_layers(model))
+        model_forward(model, window)  # warm up
+        _sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, masks, _ = model_forward(model, window)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        if tuple(out.shape) != (1, 2) + WINDOW[2:] or not torch.isfinite(out).all():
+            fail(f"{name}: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+        sum_err = (out.sum(dim=1) - 1.0).abs().max().item()
+        if sum_err > 1e-5:
+            fail(f"{name}: channels sum to 1 within {sum_err:.2e} only")
+        if launches != want:
+            fail(f"{name} launched {launches}, not {want}")
+        state = model.state_dict()
+        del model
+        msg = (f"[models] {name} bf16 window: {ms:.2f} ms, launches "
+               f"{launches['linear_attention']} ({want['linear_attention']} attention layers), "
+               f"|sum-1| {sum_err:.1e}, foreground share {out[:, 1].mean().item():.4f}")
+        if masks is not None:
+            msg += f", masks {[tuple(m.shape) for m in masks]}"
+        print(msg, flush=True)
+        if not want["linear_attention"]:
+            print(f"[models] {name} has no attention: kernel and plain builds are one",
+                  flush=True)
+            continue
+        kern, plain = (model_forward(build_other(name, impl, torch.float32, state), window)
+                       for impl in ("kernel", "plain"))
+        tol = PRE_THRESHOLD_TOL[torch.float32]
+        pairs = [("output", kern[0], plain[0])]
+        if masks is not None:  # upstream of the first ROI box, then the labels
+            pairs = [("bottleneck bridge", kern[2], plain[2]), ("mask_list[0]", kern[1][0],
+                                                                 plain[1][0])]
+        for what, got, want_t in pairs:
+            err, rel = rel_err(got, want_t)
+            ok = rel <= tol
+            print(f"[models] {name} float32 window, kernel vs plain attention, {what}: "
+                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g}) "
+                  f"{'ok' if ok else 'TOO FAR'}", flush=True)
+            if not ok:
+                fail(f"{name}: kernel and plain attention disagree in f32 at the {what}")
+        if masks is not None:
+            agree = (kern[0].argmax(1) == plain[0].argmax(1)).float().mean().item()
+            print(f"[models] {name} float32 window: labels agree on {agree * 100:.4f}% "
+                  f"(need >= {MIN_AGREEMENT * 100:.1f}%)", flush=True)
+            if agree < MIN_AGREEMENT:
+                fail(f"{name}: kernel and plain builds disagree end to end in f32")
+        del kern, plain
+        torch.cuda.empty_cache()
+
+
+def mask_skip_step(attention_impl, images, labels):
+    """(loss, {name: gradient}, launches) of one f32 MaskSkipTransUnet
+    training step from the seed's weights: CE + DiceClass on its output (the
+    JAX package's train step cannot train this model: its one-channel
+    sigmoid masks do not fit the label pyramid), dropout from the phase's
+    generator."""
+    model = build_other("MaskSkipTransUnet", attention_impl, torch.float32).train()
+    criterions = binary_losses.get_criterions(["CrossEntroLoss", "DiceClassLoss"])
+    reset_launch_counts()
+    with blocks.dropout_generator(dropout_generator()):
+        out, _ = model(images)
+    loss = sum(fn(out, labels) for fn in criterions.values())
+    loss.backward()
+    _sync()
+    launches = launch_counts()
+    grads = {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+    return loss.item(), grads, launches, attention_layers(model)
+
+
+def phase_mask_skip_train(images, labels):
+    """One MaskSkipTransUnet training step on the training patch, kernel vs
+    plain attention in f32: the loss and every gradient within TRAIN_TOL, the
+    backward kernel launched once a layer."""
+    kern = mask_skip_step("kernel", images, labels)
+    plain = mask_skip_step("plain", images, labels)
+    want = _per(linear_attention=kern[3], linear_attention_backward=kern[3])
+    if kern[2] != want:
+        fail(f"the MaskSkipTransUnet step launched {kern[2]}, not {want}")
+    loss_rel, worst, median = compare_steps(
+        "MaskSkipTransUnet float32 step on the training patch, kernel vs plain attention "
+        f"({len(kern[1])} parameters with a gradient; backward at d = 16)",
+        kern[:2], plain[:2])
+    ok = (loss_rel <= TRAIN_TOL["loss"] and worst <= TRAIN_TOL["grad"]
+          and median <= TRAIN_TOL["grad_median"])
+    print(f"[models] MaskSkipTransUnet step: launches {kern[2]}; tol loss "
+          f"{TRAIN_TOL['loss']:g}, gradients {TRAIN_TOL['grad']:g}, median "
+          f"{TRAIN_TOL['grad_median']:g} {'ok' if ok else 'TOO FAR'}", flush=True)
+    if not ok:
+        fail("kernel and plain attention MaskSkipTransUnet steps disagree in float32")
 
 
 def main():
@@ -1404,6 +1772,15 @@ def main():
     launches["probes"] = phase_probe_path(probe_path(probe_inputs()))
     torch.cuda.empty_cache()
     cli_launches = phase_cli(train_ms)
+    phase_multi_class_cli(train_ms)
+    torch.cuda.empty_cache()
+    window = torch.randn(WINDOW, generator=torch.Generator().manual_seed(SEED + 10)).to("cuda")
+    phase_other_models(window)
+    del window
+    torch.cuda.empty_cache()
+    images, labels, _ = train_inputs()
+    phase_mask_skip_train(images, labels)
+    del images, labels
 
     # name: (source, the TPU kernel it replaces, the path whose launches it reports)
     sources = {"linear_attention": ("linear_attention", "pallas_attention.py:126", "default"),

@@ -21,6 +21,7 @@ import os
 
 import numpy as np
 
+from lintransunet_tpu_torch.cli.postprocess import largest_component_volume
 from lintransunet_tpu_torch.core.config import InferenceConfig, add_dataclass_args
 from lintransunet_tpu_torch.engine.loop import labels_to_device
 
@@ -64,10 +65,14 @@ def _binary_volume(predict, masks, args):
     return predict2, target, predict2[0, 1].cpu().numpy().transpose(2, 0, 1)
 
 
-def main(args, score_volume=_binary_volume, multi_class: bool = False):
+def _multi_class_volume(predict, masks, args):
+    return largest_component_volume(predict, masks, args.num_classes)
+
+
+def main(args, multi_class: bool = False):
     """Serve every fold's test volumes from its ``temp_model``.
-    ``score_volume`` and ``multi_class`` are ``inference_multi_classes``'s
-    deltas: its post-processing and its datasets and criterions."""
+    ``multi_class`` is ``inference_multi_classes``'s run: its datasets,
+    criterions and post-processing."""
     import torch
 
     from lintransunet_tpu_torch import data, engine
@@ -77,6 +82,7 @@ def main(args, score_volume=_binary_volume, multi_class: bool = False):
     from lintransunet_tpu_torch.data.split import load_fold
     from lintransunet_tpu_torch.losses import binary, multiclass
 
+    score_volume = _multi_class_volume if multi_class else _binary_volume
     loss_module = multiclass if multi_class else binary
     dataset_cls = data.MultiClassEvaDataset if multi_class else data.EvaPanCTDataset
     criterions = loss_module.get_criterions(list(args.criterion_list))

@@ -16,14 +16,8 @@ CPU). Run:
         --dir_data <root> --pretrained_dir <run> --split_json <split>
 """
 
-import numpy as np
-import torch
-
 from lintransunet_tpu_torch.cli import inference_embed_attn
-from lintransunet_tpu_torch.cli.postprocess import keep_largest_connected_component
 from lintransunet_tpu_torch.core.config import InferenceConfig
-from lintransunet_tpu_torch.engine.loop import labels_to_device
-from lintransunet_tpu_torch.losses.functional import one_hot_map
 
 CRITERIA = ("DiceClassLoss0", "DiceClassLoss", "DiceClassLoss2",
             "Recall", "Precision", "Recall2", "Precision2")
@@ -37,22 +31,8 @@ def get_parse():
     return parser.parse_args()
 
 
-def largest_component_volume(predict, masks, args):
-    """(prediction, target) the criterions take, and the export: the blend
-    (1, C, H, W, D) rounded, its class-1 + class-2 union cut to its largest
-    26-connected component, class 0 rebuilt as 1 - p1 - p2; the one-hot
-    labels; the argmax as a (D, H, W) uint8 volume."""
-    hard = np.rint(predict[0].cpu().numpy())  # (C, H, W, D)
-    hard = keep_largest_connected_component(
-        hard, applied_labels=(1, 2), independent=False, connectivity=3)
-    hard[0] = 1.0 - hard[1] - hard[2]
-    target = one_hot_map(labels_to_device(masks, predict.device), args.num_classes)
-    export = np.argmax(hard, axis=0).transpose(2, 0, 1).astype(np.uint8)
-    return torch.from_numpy(hard[None]).to(predict.device), target, export
-
-
 def main(args):
-    inference_embed_attn.main(args, largest_component_volume, multi_class=True)
+    inference_embed_attn.main(args, multi_class=True)
 
 
 if __name__ == "__main__":

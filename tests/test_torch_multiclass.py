@@ -30,7 +30,7 @@ import torch
 from lintransunet_tpu.cli import common as jax_common
 from lintransunet_tpu.losses import multiclass as jax_multiclass
 from lintransunet_tpu.models import MaskTransUnet as JaxMaskTransUnet
-from lintransunet_tpu_torch.cli import (inference_multi_classes, split_dataset,
+from lintransunet_tpu_torch.cli import (inference_multi_classes, postprocess, split_dataset,
                                         train3d_monai_version, train3d_multi_class)
 from lintransunet_tpu_torch.cli.common import get_multi_criterion_list
 from lintransunet_tpu_torch.compat import from_ncdhw, to_ncdhw
@@ -233,9 +233,7 @@ def test_largest_component_volume():
     probs[0, 2, 6:7, 6:7, 0:1] = 0.6   # class 2 inside it: kept
     masks = np.zeros((1, 10, 10, 4), np.uint8)
     masks[0, 5:9, 5:9, 0:3] = 1
-    args = types.SimpleNamespace(num_classes=3)
-    hard, target, export = inference_multi_classes.largest_component_volume(
-        torch.from_numpy(probs), masks, args)
+    hard, target, export = postprocess.largest_component_volume(torch.from_numpy(probs), masks, 3)
     assert hard[0, 1, 1, 1, 1] == 0 and hard[0, 1, 6, 6, 1] == 1 and hard[0, 2, 6, 6, 0] == 1
     torch.testing.assert_close(hard.sum(dim=1), torch.ones(1, 10, 10, 4))
     assert target.shape == (1, 3, 10, 10, 4) and target[0, 1, 6, 6, 1] == 1
