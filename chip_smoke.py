@@ -131,7 +131,33 @@ last line):
     ``MaskSkipTransUnet`` the bottleneck bridge and ``mask_list[0]`` upstream
     of its first ROI box and then the labels); then one f32
     ``MaskSkipTransUnet`` training step on phase 7's patch (the backward at
-    d = 16), kernel vs plain within TRAIN_TOL.
+    d = 16), kernel vs plain within TRAIN_TOL;
+13. data parallelism over ``torch.distributed`` and the "attn" recompute
+    policy. Two ranks share the one card over gloo, which reduces CUDA
+    tensors (NCCL refuses two ranks on one device); each phase that spawns
+    ranks forms their group itself, and a rank that fails fails the script:
+    a. NCCL at world size 1 (a mesh from ``torchrun``'s environment): the
+       DP train step on phase 7's patch (bf16, dropout 0.3, the step
+       generator) against the step without a mesh, and ``run_batch`` over
+       volumes of depths 144 and 80 against the runner's call on each, bit
+       for bit; where a rerun of the step without a mesh does not
+       reproduce it bit for bit on the card, within TRAIN_TOL beside that
+       rerun's differences, and the line says which;
+    b. two gloo ranks, the flagship in f32 (TF32 off, dropout 0): the DP
+       step with one 512 x 512 x 32 patch a rank against one process's
+       step on the joined batch of 2 within TRAIN_TOL, 32 forward and 32
+       backward attention launches a rank, the ranks' parameters bit-equal
+       after the step; ``batched_predictions`` over three volumes (the group
+       padded to 4) equal to the runner's call on each, on both ranks;
+    c. REMAT "attn" on phase 7's bf16 step: 64 forward and 32 backward
+       attention launches, the loss and gradients against the step without
+       recompute (held as in a), and both steps' peak memory;
+    d. ``train3d`` on two torchrun-style gloo ranks over phase 10's
+       workspace, one epoch with its eval: held as phase 10 with each
+       rank's exact launches (its patients' steps and its eval volume's
+       windows), only rank 0 writing ``metrics.jsonl`` and the checkpoints,
+       the ranks' parameters bit-equal at the end; ms per step beside phase
+       10's.
 
 The last two lines are a JSON summary of the kernels (bf16; the forward
 kernels' per-window sums over their serving calls, the backward's per-step
@@ -148,6 +174,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -155,9 +182,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 
-from lintransunet_tpu_torch import data, engine, kernels, native
+from lintransunet_tpu_torch import data, engine, kernels, native, parallel
 from lintransunet_tpu_torch.cli import (
     inference_embed_attn,
     inference_multi_classes,
@@ -1309,6 +1338,31 @@ def _train_dataset(ds):
         isinstance(ds, data.CachePanDataset) and ds.train)
 
 
+@contextlib.contextmanager
+def train_waits(waits):
+    """Append to ``waits`` the host time the train loop waits for each batch
+    of a training dataset's loader."""
+    loader_iter = data.DataLoader.__iter__
+
+    def each(loader):
+        it = loader_iter(loader)
+        train = _train_dataset(loader.dataset)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            if train:
+                waits.append(time.perf_counter() - t0)
+            yield batch
+
+    data.DataLoader.__iter__ = each
+    try:
+        yield
+    finally:
+        data.DataLoader.__iter__ = loader_iter
+
+
 def run_cli_path(root, shape, patients, train_flags, infer_flags, multi_class=False):
     """``train3d`` then ``inference_embed_attn`` on the checkpoint it wrote
     (``multi_class``: ``train3d_multi_class`` then
@@ -1321,21 +1375,6 @@ def run_cli_path(root, shape, patients, train_flags, infer_flags, multi_class=Fa
     train_ids, test_ids = data.load_fold(split, 0)
     out = {"epoch_s": [], "eval_s": [], "waits": [], "items": [], "volume_s": [],
            "data_dir": data_dir, "split": split}
-    loader_iter = data.DataLoader.__iter__
-
-    def train_waits(loader):  # host time the train loop waits for each batch
-        it = loader_iter(loader)
-        if not _train_dataset(loader.dataset):
-            yield from it
-            return
-        while True:
-            t0 = time.perf_counter()
-            batch = next(it, None)
-            if batch is None:
-                return
-            out["waits"].append(time.perf_counter() - t0)
-            yield batch
-
     train_argv = ["--dir_data", data_dir, "--split_json", split, "--fold_num", "0",
                   "--log_dir", os.path.join(root, "runs"),
                   "--model_dir", os.path.join(root, "out"), *train_flags]
@@ -1343,15 +1382,12 @@ def run_cli_path(root, shape, patients, train_flags, infer_flags, multi_class=Fa
         args = train_cli.get_parse()
     with timed(loop, "train_on_epoch", out["epoch_s"]), \
             timed(loop, "eval_on_epoch", out["eval_s"]), \
-            timed(data.IdPosPanCTDataset, "__getitem__", out["items"]):
-        data.DataLoader.__iter__ = train_waits
-        try:
-            reset_launch_counts()
-            train_cli.main(args)
-            _sync()
-            out["train_launches"] = launch_counts()
-        finally:
-            data.DataLoader.__iter__ = loader_iter
+            timed(data.IdPosPanCTDataset, "__getitem__", out["items"]), \
+            train_waits(out["waits"]):
+        reset_launch_counts()
+        train_cli.main(args)
+        _sync()
+        out["train_launches"] = launch_counts()
     eval_roi = (args.image_crop, args.image_crop, args.eval_depth)
     out["eval_windows"] = sum(_windows(shape[1:] + shape[:1], eval_roi, EvalConfig().overlap)
                               for _ in test_ids)
@@ -1482,7 +1518,7 @@ def print_cli_run(tag, out, steps, train_ms, multi_class=False):
 
 def phase_cli(train_ms):
     """Phase 10: the binary CLIs at full width; returns the attention
-    kernels' launches in ``train3d``."""
+    kernels' launches in ``train3d`` and its ms per step."""
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         out = run_cli_path(root, CLI_SHAPE, CLI_PATIENTS, CLI_TRAIN_FLAGS, CLI_INFER_FLAGS)
@@ -1496,7 +1532,7 @@ def phase_cli(train_ms):
         f"native {hu[0]:.3f} ms, numpy fallback {hu[1]:.3f} ms (same bits; host time, "
         f"best of 3)"), flush=True)
     print(f"[cli] phase 10 took {total_s:.1f} s", flush=True)
-    return out["train_launches"]
+    return out["train_launches"], sum(out["epoch_s"]) / steps * 1e3
 
 
 def run_monai(root, data_dir, split):
@@ -1511,7 +1547,6 @@ def run_monai(root, data_dir, split):
     with command_line(argv):
         args = train3d_monai_version.get_parse()
     item = data.CachePanDataset.__getitem__
-    loader_iter = data.DataLoader.__iter__
 
     def eval_item(self, index):  # the eval volumes' shapes, for the window count
         got = item(self, index)
@@ -1519,21 +1554,9 @@ def run_monai(root, data_dir, split):
             out["eval_shapes"].append(got[0].shape[1:4])
         return got
 
-    def train_waits(loader):
-        it = loader_iter(loader)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(it, None)
-            if batch is None:
-                return
-            if _train_dataset(loader.dataset):
-                out["waits"].append(time.perf_counter() - t0)
-            yield batch
-
     data.CachePanDataset.__getitem__ = eval_item
-    data.DataLoader.__iter__ = train_waits
     try:
-        with timed(loop, "eval_on_epoch", out["eval_s"]):
+        with timed(loop, "eval_on_epoch", out["eval_s"]), train_waits(out["waits"]):
             reset_launch_counts()
             t0 = time.perf_counter()
             train3d_monai_version.main(args)
@@ -1542,7 +1565,6 @@ def run_monai(root, data_dir, split):
             out["launches"] = launch_counts()
     finally:
         data.CachePanDataset.__getitem__ = item
-        data.DataLoader.__iter__ = loader_iter
     run_dir = os.path.join(root, "monai_out", os.listdir(os.path.join(root, "monai_out"))[0])
     out["artifacts"] = sorted(os.listdir(os.path.join(run_dir, "fold_0")))
     out["state"] = torch.load(os.path.join(run_dir, "fold_0", "train_state"),
@@ -1735,6 +1757,400 @@ def phase_mask_skip_train(images, labels):
         fail("kernel and plain attention MaskSkipTransUnet steps disagree in float32")
 
 
+# Phase 13: data parallelism over torch.distributed and the "attn" recompute
+# policy. Two ranks share the one card over gloo, which reduces CUDA tensors
+# (NCCL refuses two ranks on one device); NCCL runs at world size 1.
+DP_RANKS = 2
+# Under ``deterministic()`` a bf16 train step reruns bit for bit on an H100.
+# Without PyTorch's deterministic algorithms it does not: on an NVIDIA H100
+# 80GB HBM3 a rerun moved the gradients by up to 1.9 of a parameter's max
+# |gradient| (a conv bias ahead of an InstanceNorm, whose exact gradient is
+# 0), median 9.1e-3, the loss equal to the bit. Where a rerun differs, a
+# change that only reorders sums differs from the reference step as much,
+# while a wrong average or a lost gradient differs by O(1) of the median.
+FLOOR_MARGIN = 3.0
+DP_WORLD_ONE_DEPTHS = (144, 80)    # 13a: run_batch's two volumes
+DP_BATCH_DEPTHS = (80, 64, 48)     # 13b: three volumes, the group padded to 4
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env(rank, world, port, local_rank=0):
+    """The environment ``torchrun`` gives a rank (here every rank's card is
+    card 0 unless ``local_rank`` says otherwise)."""
+    names = {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(local_rank),
+             "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(names)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's and PyTorch's deterministic algorithms where they have one
+    (an op without one, such as the trilinear upsample's backward, warns and
+    runs as always), no autotuning: what a bit-for-bit comparison of two
+    runs needs."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def step_snapshot(loss, logs, model):
+    """A train step's loss, logs, gradients and updated parameters, on the host."""
+    return {"loss": loss.item(), "logs": {k: v.item() for k, v in logs.items()},
+            "grads": {n: p.grad.float().cpu() for n, p in model.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+
+
+def same_step(a, b):
+    return (a["loss"] == b["loss"] and a["logs"] == b["logs"]
+            and all(torch.equal(a[k][n], b[k][n]) for k in ("grads", "params")
+                    for n in a[k]))
+
+
+def hold_steps(tag, got, want, again):
+    """``got`` against ``want``, two steps from the same weights, batch and
+    generator that differ in one thing only: bit for bit when ``again`` (a
+    rerun of ``want``) shows the card reproduces the step; else the loss and
+    the gradients (largest and median difference, as phase 8 measures them)
+    within FLOOR_MARGIN times the rerun's own differences (the floor), or
+    TRAIN_TOL where that is larger. Returns the verdict printed."""
+    if same_step(got, want):
+        verdict = "bit for bit"
+    elif same_step(again, want):
+        diff = compare_steps(tag, (got["loss"], got["grads"]), (want["loss"], want["grads"]))
+        fail(f"{tag}: the steps differ by {diff} though a rerun of the reference step "
+             "reproduces it bit for bit")
+    else:
+        floor = compare_steps(f"{tag}, the reference step against its rerun (the floor)",
+                              (again["loss"], again["grads"]), (want["loss"], want["grads"]))
+        diff = compare_steps(tag, (got["loss"], got["grads"]), (want["loss"], want["grads"]))
+        gate = [max(FLOOR_MARGIN * f, t) for f, t in zip(
+            floor, (TRAIN_TOL["loss"], TRAIN_TOL["grad"], TRAIN_TOL["grad_median"]))]
+        if not all(d <= g for d, g in zip(diff, gate)):
+            fail(f"{tag}: differs by {diff}, over {gate}: {FLOOR_MARGIN:g} x the reference "
+                 f"step's rerun floor {floor} or TRAIN_TOL")
+        verdict = (f"within {FLOOR_MARGIN:g} x the floor (the card does not reproduce the "
+                   f"step bit for bit: its rerun differs by loss rel {floor[0]:.2e}, gradients "
+                   f"{floor[1]:.2e}, median {floor[2]:.2e}; this step by {diff[0]:.2e}, "
+                   f"{diff[1]:.2e}, {diff[2]:.2e})")
+    print(f"[dp] {tag}: {verdict}", flush=True)
+    return verdict
+
+
+def flagship_step(images, labels, criterions, dtype=torch.bfloat16, dropout=0.3, mesh=None):
+    """One train step of the seed's flagship; (snapshot, launches, peak GiB)."""
+    model = MaskTransUnet(**FLAGSHIP, dtype=dtype, dropout=dropout)
+    init_random_(model, torch.Generator(device="cpu").manual_seed(SEED))
+    model.train()
+    state = engine.create_train_state(model, learning_rate=1e-4)
+    step = engine.make_train_step(model, criterions, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    loss, logs = step(state, images, labels, DYNAMIC_WEIGHT, dropout_generator())
+    torch.cuda.synchronize()
+    out = step_snapshot(loss, logs, model), launch_counts(), torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp_world_one(images, labels, criterions):
+    """13a: NCCL at world size 1, a mesh made from torchrun's environment:
+    the DP step equals the step without a mesh, and run_batch the runner's
+    call on each volume."""
+    with torchrun_env(0, 1, free_port()):
+        mesh = parallel.make_mesh()
+    try:
+        backend = dist.get_backend()
+        with deterministic():
+            plain, _, _ = flagship_step(images, labels, criterions)
+            dp, launches, _ = flagship_step(images, labels, criterions, mesh=mesh)
+            again, _, _ = flagship_step(images, labels, criterions)
+        if launches != PER_WINDOW["train"]:
+            fail(f"the DP step launched {launches}, not {PER_WINDOW['train']}")
+        verdict = hold_steps(f"13a {backend} world size {mesh.size}, DP step vs no mesh "
+                             "(bf16, dropout 0.3, the step generator)", dp, plain, again)
+
+        model = build_model()
+        _, runner = make_eval_runner(model, EvalConfig(roi_size=512, depth_size=64,
+                                                       overlap=0.6, mode="constant"))
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 11)
+        volumes = [torch.randn(VOLUME[:4] + (d,), generator=gen).to("cuda")
+                   for d in DP_WORLD_ONE_DEPTHS]
+        with deterministic():
+            want = [runner(v) for v in volumes]
+            got = runner.run_batch(volumes, mesh=mesh)
+        shapes = [tuple(o.shape) for o in got]
+        if shapes != [(1, 2) + VOLUME[2:4] + (d,) for d in DP_WORLD_ONE_DEPTHS]:
+            fail(f"13a run_batch gave {shapes}")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail("13a run_batch over the mesh differs from the runner's call on each volume")
+        print(f"[dp] 13a {backend} world size 1: run_batch over volumes of depths "
+              f"{DP_WORLD_ONE_DEPTHS} equals the runner's call on each, bit for bit", flush=True)
+        del model, runner, volumes, want, got
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return verdict
+
+
+def dp_batch():
+    """13b's global batch, phase 7's patch and a second seeded one, each with
+    the label box; and the criterion schedule."""
+    images, labels, criterions = train_inputs()
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 12)
+    images = torch.cat([images, torch.randn(PATCH, generator=gen).to("cuda")])
+    return images, labels.expand(DP_RANKS, *labels.shape[1:]).contiguous(), criterions
+
+
+def dp_volumes():
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    return [torch.randn(VOLUME[:4] + (d,), generator=gen) for d in DP_BATCH_DEPTHS]
+
+
+def f32_flagship():
+    model = MaskTransUnet(**FLAGSHIP, dtype=torch.float32, dropout=0.0)
+    return init_random_(model, torch.Generator(device="cpu").manual_seed(SEED))
+
+
+def dp_rank(rank, world, port, workdir):
+    """13b: one of two ranks on the card (gloo, the group formed here from
+    torchrun's environment): the f32 DP step on this rank's patch, then
+    batched_predictions over 13b's three volumes; writes ``rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torchrun_env(rank, world, port):
+        dist.init_process_group("gloo", init_method="env://")
+        mesh = parallel.make_mesh()
+    try:
+        images, labels, criterions = dp_batch()
+        model = f32_flagship().train()
+        parallel.replicate(mesh, model)
+        state = engine.create_train_state(model, learning_rate=1e-4)
+        step = engine.make_train_step(model, criterions, mesh=mesh)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, logs = step(state, parallel.shard_batch(mesh, images),
+                          parallel.shard_batch(mesh, labels), DYNAMIC_WEIGHT)
+        torch.cuda.synchronize()
+        result = {"step_s": time.perf_counter() - t0, "launches": launch_counts(),
+                  "step": step_snapshot(loss, logs, model),
+                  "mesh": (mesh.rank, mesh.size, str(mesh.device), dist.get_backend())}
+        del images, labels, state, model
+        torch.cuda.empty_cache()
+        # the seed's weights again, as the reference serves them
+        _, runner = make_eval_runner(f32_flagship(), EvalConfig(roi_size=512, depth_size=64,
+                                                                overlap=0.6, mode="constant"))
+        loader = [(v.movedim(1, -1).numpy()[:, None], np.zeros(1)) for v in dp_volumes()]
+        reset_launch_counts()
+        with deterministic():
+            result["preds"] = [(i, p.cpu()) for i, _, _, p in
+                               loop.batched_predictions(loader, runner, mesh)]
+        result["eval_launches"] = launch_counts()
+        torch.save(result, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_two_ranks():
+    """13b: two gloo ranks on the card against the single-process step on
+    the joined batch (f32, TF32 off, dropout 0) and the runner's call on
+    each volume."""
+    images, labels, criterions = dp_batch()
+    model = f32_flagship().train()
+    state = engine.create_train_state(model, learning_rate=1e-4)
+    loss, logs = engine.make_train_step(model, criterions)(state, images, labels, DYNAMIC_WEIGHT)
+    joined = step_snapshot(loss, logs, model)
+    del images, labels, state, model
+    torch.cuda.empty_cache()
+    _, runner = make_eval_runner(f32_flagship(), EvalConfig(roi_size=512, depth_size=64,
+                                                            overlap=0.6, mode="constant"))
+    with deterministic():
+        want = [runner(v).cpu() for v in dp_volumes()]
+    del runner
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(DP_RANKS, free_port(), workdir), nprocs=DP_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=True)
+                 for r in range(DP_RANKS)]
+    for r, result in enumerate(ranks):
+        if result["mesh"] != (r, DP_RANKS, "cuda:0", "gloo"):
+            fail(f"13b rank {r}'s mesh is {result['mesh']}")
+        if result["launches"] != PER_WINDOW["train"]:
+            fail(f"13b rank {r}'s DP step launched {result['launches']}, not {PER_WINDOW['train']}")
+    steps = [result["step"] for result in ranks]
+    if not all(torch.equal(steps[0]["params"][n], steps[1]["params"][n]) for n in steps[0]["params"]):
+        fail("13b: the ranks' parameters differ after the step")
+    if steps[0]["loss"] != steps[1]["loss"]:
+        fail(f"13b: the ranks report different losses {steps[0]['loss']}, {steps[1]['loss']}")
+    loss_rel, worst, median = compare_steps(
+        f"13b {DP_RANKS} gloo ranks on one card, the f32 DP step vs one process on the "
+        f"joined batch of {DP_RANKS}", (steps[0]["loss"], steps[0]["grads"]),
+        (joined["loss"], joined["grads"]))
+    ok = (loss_rel <= TRAIN_TOL["loss"] and worst <= TRAIN_TOL["grad"]
+          and median <= TRAIN_TOL["grad_median"])
+    print(f"[dp] 13b: tol loss {TRAIN_TOL['loss']:g}, gradients {TRAIN_TOL['grad']:g}, median "
+          f"{TRAIN_TOL['grad_median']:g} {'ok' if ok else 'TOO FAR'}; the ranks' parameters "
+          f"bit-equal after the step; per rank {ranks[0]['launches']['linear_attention']} "
+          f"forward and {ranks[0]['launches']['linear_attention_backward']} backward attention "
+          f"launches; the DP step took {[round(x['step_s'] * 1e3, 2) for x in ranks]} ms "
+          f"(first step of each process, gloo's host copies of the gradients included)",
+          flush=True)
+    if not ok:
+        fail("13b: the DP step and the joined batch's step disagree")
+
+    for r, result in enumerate(ranks):
+        preds = result["preds"]
+        if [i for i, _ in preds] != list(range(len(DP_BATCH_DEPTHS))):
+            fail(f"13b rank {r} yielded volumes {[i for i, _ in preds]}")
+        if not all(torch.equal(p, w) for (_, p), w in zip(preds, want)):
+            fail(f"13b rank {r}: run_batch's outputs differ from the runner's call on each volume")
+    windows = [_windows(VOLUME[2:4] + (d,), (512, 512, 64), 0.6) for d in DP_BATCH_DEPTHS]
+    eval_launches = [x["eval_launches"]["linear_attention"] for x in ranks]
+    # groups of 2: (0, 1), then (2, and 2 again as the pad): rank 0 serves
+    # volumes 0 and 2, rank 1 volume 1 and the pad
+    want_launches = [32 * (windows[0] + windows[2]), 32 * (windows[1] + windows[2])]
+    if eval_launches != want_launches:
+        fail(f"13b run_batch launched {eval_launches} forward attention kernels, not {want_launches}")
+    print(f"[dp] 13b: batched_predictions over {len(DP_BATCH_DEPTHS)} volumes of depths "
+          f"{DP_BATCH_DEPTHS} (the group padded to 4) equals the runner's call on each, bit for "
+          f"bit, on both ranks; forward launches per rank {eval_launches}; the two ranks' "
+          f"processes took {spawn_s:.1f} s", flush=True)
+
+
+def phase_remat(images, labels, criterions):
+    """13c: REMAT "attn" on phase 7's bf16 step (dropout 0.3, the step
+    generator): the recompute's launches, its loss and gradients against the
+    step without it, and both peaks."""
+    with deterministic():
+        plain, plain_launches, plain_peak = flagship_step(images, labels, criterions)
+        blocks.REMAT = "attn"
+        try:
+            remat, launches, peak = flagship_step(images, labels, criterions)
+        finally:
+            blocks.REMAT = ""
+        again, _, _ = flagship_step(images, labels, criterions)
+    want = _per(linear_attention=64, linear_attention_backward=32)
+    if launches != want:
+        fail(f"the recompute step launched {launches}, not {want}")
+    verdict = hold_steps("13c REMAT attn vs none (bf16, dropout 0.3, the step generator)",
+                         remat, plain, again)
+    print(f"[dp] 13c: launches {launches['linear_attention']} forward and "
+          f"{launches['linear_attention_backward']} backward attention kernels (without "
+          f"recompute {plain_launches['linear_attention']} and "
+          f"{plain_launches['linear_attention_backward']}); peak memory {peak:.2f} GiB with "
+          f"recompute, {plain_peak:.2f} GiB without", flush=True)
+    return verdict, peak, plain_peak
+
+
+def cli_rank(rank, world, port, root, data_dir, split):
+    """13d: one torchrun-style rank of ``train3d`` on phase 10's workspace
+    (the gloo group formed here, before the CLI joins it); writes
+    ``cli<r>.pt``."""
+    with torchrun_env(rank, world, port):
+        dist.init_process_group("gloo", init_method="env://")
+        try:
+            argv = ["--dir_data", data_dir, "--split_json", split, "--fold_num", "0",
+                    "--log_dir", os.path.join(root, "runs"),
+                    "--model_dir", os.path.join(root, "out"), *CLI_TRAIN_FLAGS]
+            with command_line(argv):
+                args = train3d.get_parse()
+            epoch_s, waits = [], []
+            with timed(loop, "train_on_epoch", epoch_s), train_waits(waits):
+                reset_launch_counts()
+                state = train3d.main(args)
+                _sync()
+            result = {"launches": launch_counts(), "epoch_s": epoch_s, "waits": waits,
+                      "step": state.step,
+                      "params": {n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                      "finite": bool(grads_finite(state.model))}
+            torch.save(result, os.path.join(root, f"cli{rank}.pt"))
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_dp_cli(train_ms, cli_ms):
+    """13d: ``train3d`` on two torchrun-style gloo ranks on the card, one
+    epoch with its eval, over phase 10's workspace."""
+    with tempfile.TemporaryDirectory() as root:
+        data_dir, split = cli_workspace(root, CLI_SHAPE, CLI_PATIENTS)
+        train_ids, test_ids = data.load_fold(split, 0)
+        t0 = time.perf_counter()
+        mp.spawn(cli_rank, args=(DP_RANKS, free_port(), root, data_dir, split),
+                 nprocs=DP_RANKS, join=True)
+        total_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"cli{r}.pt"), weights_only=True)
+                 for r in range(DP_RANKS)]
+        runs = {d: os.listdir(os.path.join(root, d)) for d in ("out", "runs")}
+        if len(runs["out"]) != 1 or runs["runs"] != runs["out"]:
+            fail(f"13d: the ranks wrote run directories {runs}, not rank 0's one")
+        run = os.path.join(root, "out", runs["out"][0], "fold_0")
+        artifacts = sorted(os.listdir(run))
+        logs = [os.path.join(d, f) for d, _, files in os.walk(os.path.join(root, "runs"))
+                for f in files if f == "metrics.jsonl"]
+        records = [json.loads(line) for line in open(logs[0])] if len(logs) == 1 else []
+    if len(logs) != 1:
+        fail(f"13d: {len(logs)} metrics.jsonl written, not rank 0's one")
+    if not {"temp_model", "train_state", "model"} <= set(artifacts):
+        fail(f"13d: rank 0 wrote {artifacts}")
+    tags = {r["tag"] for r in records}
+    if not {"train/total_loss", "eval/DiceClassLoss"} <= tags or not all(
+            math.isfinite(r["value"]) for r in records):
+        fail(f"13d: metrics.jsonl {records}")
+    num_samples = int(CLI_TRAIN_FLAGS[CLI_TRAIN_FLAGS.index("--num_samples") + 1])
+    steps = -(-len(train_ids) // DP_RANKS) * num_samples
+    # the eval: the 2 test volumes one a rank, each on its own window grid
+    per_volume = _windows(CLI_SHAPE[1:] + CLI_SHAPE[:1], (512, 512, 64), EvalConfig().overlap)
+    want = _per(linear_attention=32 * (steps + per_volume), linear_attention_backward=32 * steps)
+    for r, result in enumerate(ranks):
+        if result["step"] != steps or not result["finite"]:
+            fail(f"13d rank {r}: {result['step']} steps (want {steps}), finite {result['finite']}")
+        if result["launches"] != want:
+            fail(f"13d rank {r} launched {result['launches']}, not {want}")
+    if not all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in ranks[0]["params"]):
+        fail("13d: the ranks' parameters differ at the end")
+    ms = [sum(x["epoch_s"]) / steps * 1e3 for x in ranks]
+    waits = [sum(x["waits"]) for x in ranks]
+    busy_ms = [(sum(x["epoch_s"]) - w) / steps * 1e3 for x, w in zip(ranks, waits)]
+    losses = [round(r["value"], 6) for r in records if r["tag"] == "train/total_loss"]
+    print(f"[dp] 13d: train3d on {DP_RANKS} torchrun-style gloo ranks on one card "
+          f"({len(train_ids)} train patients, one a rank, {num_samples} steps each of a global "
+          f"batch of {DP_RANKS}; {len(test_ids)} eval volumes, one a rank): launches per rank "
+          f"{ranks[0]['launches']}; only rank 0 wrote ({artifacts}, one metrics.jsonl, patient "
+          f"losses {losses}); the ranks' parameters bit-equal at the end; "
+          f"{[round(x, 2) for x in ms]} ms per step through the CLI with the data waits "
+          f"(each rank waited {[round(w, 3) for w in waits]} s for its patient), "
+          f"{[round(x, 2) for x in busy_ms]} without, against phase 10's {cli_ms:.2f} with "
+          f"its waits and phase 7's {train_ms:.2f}; {total_s:.1f} s with the processes' start",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on an NVIDIA GPU")
@@ -1771,7 +2187,7 @@ def main():
     torch.cuda.empty_cache()
     launches["probes"] = phase_probe_path(probe_path(probe_inputs()))
     torch.cuda.empty_cache()
-    cli_launches = phase_cli(train_ms)
+    cli_launches, cli_ms = phase_cli(train_ms)
     phase_multi_class_cli(train_ms)
     torch.cuda.empty_cache()
     window = torch.randn(WINDOW, generator=torch.Generator().manual_seed(SEED + 10)).to("cuda")
@@ -1781,6 +2197,14 @@ def main():
     images, labels, _ = train_inputs()
     phase_mask_skip_train(images, labels)
     del images, labels
+    torch.cuda.empty_cache()
+    images, labels, criterions = train_inputs()
+    phase_dp_world_one(images, labels, criterions)
+    phase_remat(images, labels, criterions)
+    del images, labels
+    torch.cuda.empty_cache()
+    phase_dp_two_ranks()
+    phase_dp_cli(train_ms, cli_ms)
 
     # name: (source, the TPU kernel it replaces, the path whose launches it reports)
     sources = {"linear_attention": ("linear_attention", "pallas_attention.py:126", "default"),

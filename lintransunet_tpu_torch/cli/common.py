@@ -1,8 +1,8 @@
 """Shared CLI plumbing (port of ``lintransunet_tpu/cli/common.py``): the
 criterion schedule, the eval runner, the model factory, the per-volume
 predictions (``engine.loop.batched_predictions``, which the eval loop
-iterates too) and the run directories. The mesh path of
-``batched_predictions`` is not ported yet."""
+iterates too), the run directories, and the data-parallel mesh of a run
+under ``torchrun`` (``cli_mesh``)."""
 
 import os
 import time
@@ -14,7 +14,8 @@ from lintransunet_tpu_torch.core.config import EvalConfig, ModelConfig
 from lintransunet_tpu_torch.engine.loop import batched_predictions
 
 __all__ = ["EvalConfig", "get_criterion_list", "get_multi_criterion_list",
-           "make_eval_runner", "build_model", "batched_predictions", "run_dirs"]
+           "make_eval_runner", "build_model", "batched_predictions", "run_dirs",
+           "cli_mesh"]
 
 
 def get_criterion_list(num_levels: int, criterion_list, loss_module=None
@@ -76,8 +77,21 @@ def make_eval_runner(model: nn.Module, cfg, sw_batch_size: int = 1):
     return eval_fwd, runner
 
 
-def build_model(args) -> nn.Module:
-    """The model of the CLI flags, on ``args.device`` (the card by default)."""
+def cli_mesh(args):
+    """The data-parallel mesh of a CLI run (``parallel.make_mesh`` on
+    ``args.device``) when it runs under ``torchrun`` with more than one
+    process or inside a process group its caller initialised, as the JAX
+    CLIs build one when ``jax.device_count() > 1``; else None."""
+    from lintransunet_tpu_torch import parallel
+
+    if not parallel.distributed_requested():
+        return None
+    return parallel.make_mesh(device=getattr(args, "device", "cuda"))
+
+
+def build_model(args, device=None) -> nn.Module:
+    """The model of the CLI flags, on ``device`` or else ``args.device`` (the
+    card by default)."""
     return ModelConfig(
         model_name=args.model_name,
         num_layers=tuple(args.num_layers),
@@ -88,7 +102,7 @@ def build_model(args) -> nn.Module:
         kernel_size=args.kernel_size,
         compute_dtype=getattr(args, "compute_dtype", "bfloat16"),
         attn_layers=getattr(args, "attn_layers", 8),
-    ).build(getattr(args, "device", "cuda"))
+    ).build(device or getattr(args, "device", "cuda"))
 
 
 def run_dirs(log_dir: str, model_dir: str, fold_num: int):

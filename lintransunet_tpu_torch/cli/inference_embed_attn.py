@@ -13,6 +13,10 @@ card, ``cuda``, by default; ``--device cpu`` runs on the CPU). Run:
 
     python -m lintransunet_tpu_torch.cli.inference_embed_attn \\
         --dir_data <root> --pretrained_dir <run> --split_json <split>
+
+Under ``torchrun`` the ranks split the volumes, one card each
+(``SlidingWindowRunner.run_batch``, as the JAX CLI shards them over its
+chips); rank 0 scores every volume and writes the exports and the summary.
 """
 
 import argparse
@@ -77,7 +81,7 @@ def main(args, multi_class: bool = False):
 
     from lintransunet_tpu_torch import data, engine
     from lintransunet_tpu_torch.cli.common import (batched_predictions, build_model,
-                                                   make_eval_runner)
+                                                   cli_mesh, make_eval_runner)
     from lintransunet_tpu_torch.core.config import EvalConfig
     from lintransunet_tpu_torch.data.split import load_fold
     from lintransunet_tpu_torch.losses import binary, multiclass
@@ -90,13 +94,15 @@ def main(args, multi_class: bool = False):
     name_list = sorted(os.listdir(os.path.join(args.dir_data, "image")))
     out_dict = {}
 
-    model = build_model(args)
+    mesh = cli_mesh(args)
+    writer = mesh is None or mesh.rank == 0
+    model = build_model(args, None if mesh is None else mesh.device)
     device = next(model.parameters()).device
     eval_cfg = EvalConfig(roi_size=args.roi_size, depth_size=args.depth_size,
                           overlap=args.overlap)
     _, runner = make_eval_runner(model, eval_cfg, sw_batch_size=args.sw_batch_size)
 
-    if args.is_save:
+    if args.is_save and writer:
         os.makedirs(args.saved_folder, exist_ok=True)
 
     for fold_num in range(args.fold_nums):
@@ -110,10 +116,15 @@ def main(args, multi_class: bool = False):
         model.load_state_dict(engine.restore_params(os.path.join(
             args.pretrained_dir, f"fold_{fold_num}", "temp_model"), device))
 
+        predictions = batched_predictions(loader, runner, mesh)
+        if not writer:
+            for _ in predictions:  # this rank's share of the volumes
+                pass
+            continue
         summary_patient_loss = []
         total_loss = [0.0] * len(criterions)
         n = 0
-        for i, images, masks, predict in batched_predictions(loader, runner):
+        for i, images, masks, predict in predictions:
             name = name_list[test_ids[i]]
             predict2, target, export = score_volume(predict, masks, args)
             # one host read per volume
@@ -137,6 +148,8 @@ def main(args, multi_class: bool = False):
         out_dict[f"patient_{fold_num}"] = summary_patient_loss
         out_dict[f"summary_{fold_num}"] = total_loss
 
+    if not writer:
+        return
     final_loss = [f / args.fold_nums for f in final_loss]
     for loss_name, value in zip(criterions, final_loss):
         print(f"eval final average {loss_name} loss", value)

@@ -10,6 +10,18 @@ checkpoint, a full-state checkpoint after each such epoch's training. Every
 model of ``Model_Dict`` builds from ``--model_name``. Run:
 
     python -m lintransunet_tpu_torch.cli.train3d --dir_data <root> --epochs 10
+
+Under ``torchrun`` it trains data-parallel, one process a card, as the JAX
+CLI does over every chip (``cli.common.cli_mesh``):
+
+    torchrun --nproc_per_node 4 -m lintransunet_tpu_torch.cli.train3d --dir_data <root>
+
+Each rank loads its own share of the training patients, ``--batch_size``
+of them a batch (the global batch is ``--batch_size`` x ranks, JAX's
+``batch_size * num_devices``), draws its frames and dropout masks from
+its own seeded streams, and averages its gradients with the others' every
+micro-step; the ranks split the eval volumes; only rank 0 writes metrics
+and checkpoints.
 """
 
 import argparse
@@ -67,17 +79,34 @@ def _restore(args, fold_num, state, engine):
     return state, {}
 
 
+def setup_rank(args, model, mesh, engine):
+    """(writer, model_dir) of this rank: the run's directories and metric
+    writer on rank 0, no directory and a ``NullWriter`` elsewhere; every
+    rank's parameters made rank 0's."""
+    from lintransunet_tpu_torch import parallel
+    from lintransunet_tpu_torch.cli.common import run_dirs
+
+    if mesh is not None:
+        parallel.replicate(mesh, model)
+        if mesh.rank != 0:
+            return engine.NullWriter(), None
+    log_dir, model_dir = run_dirs(args.log_dir, args.model_dir, args.fold_num)
+    return engine.MetricWriter(log_dir), model_dir
+
+
 def main(args, multi_class: bool = False):
-    """Train one fold. ``multi_class`` is ``train3d_multi_class``'s run
-    (train3D_multi_class.py): the multi-class datasets, CE + Dice1 + Dice2
-    on every level, the criterion weights on one-hot targets, and model
-    selection on DiceClassLoss + DiceClassLoss2 of the unthresholded blend."""
+    """Train one fold; returns the final train state. ``multi_class`` is
+    ``train3d_multi_class``'s run (train3D_multi_class.py): the multi-class
+    datasets, CE + Dice1 + Dice2 on every level, the criterion weights on
+    one-hot targets, and model selection on DiceClassLoss + DiceClassLoss2
+    of the unthresholded blend."""
     import torch
 
-    from lintransunet_tpu_torch import data, engine
-    from lintransunet_tpu_torch.cli.common import (build_model, get_criterion_list,
+    from lintransunet_tpu_torch import data, engine, parallel
+    from lintransunet_tpu_torch.cli.common import (build_model, cli_mesh,
+                                                   get_criterion_list,
                                                    get_multi_criterion_list,
-                                                   make_eval_runner, run_dirs)
+                                                   make_eval_runner)
     from lintransunet_tpu_torch.core.config import EvalConfig
     from lintransunet_tpu_torch.data.split import load_fold
     from lintransunet_tpu_torch.engine import loop
@@ -87,6 +116,8 @@ def main(args, multi_class: bool = False):
     fold_num = args.fold_num
     batch_size = args.batch_size
     step_times = max(args.num_samples // 3, 1)
+    mesh = cli_mesh(args)
+    shard = {} if mesh is None else {"rank": mesh.rank, "world_size": mesh.size}
 
     if multi_class:
         train_cls, test_cls = data.MultiClassPanCTDataset, data.MultiClassEvaDataset
@@ -99,10 +130,10 @@ def main(args, multi_class: bool = False):
         ids=train_ids, image_crop=args.image_crop, seed=args.seed)
     test_ds = test_cls(root=args.dir_data, depth_size=args.depth_size, ids=test_ids)
     train_dl = data.DataLoader(train_ds, batch_size=batch_size, shuffle=True,
-                               num_workers=12, seed=args.seed)
+                               num_workers=12, seed=args.seed, **shard)
     test_dl = data.DataLoader(test_ds, batch_size=1, shuffle=False, num_workers=2)
 
-    model = build_model(args)
+    model = build_model(args, None if mesh is None else mesh.device)
     device = next(model.parameters()).device
     init_random_(model, torch.Generator().manual_seed(args.seed))
     state = engine.create_train_state(model, learning_rate=args.learning_rate,
@@ -118,13 +149,13 @@ def main(args, multi_class: bool = False):
             len(args.num_layers), args.criterion_list, multiclass)
         step_fn = engine.make_train_step(
             model, criterions, criterion_weight=list(args.criterion_weight),
-            num_classes=args.num_classes)
+            num_classes=args.num_classes, mesh=mesh)
         eval_args = dict(num_classes=args.num_classes,
                          selection_metrics=("DiceClassLoss", "DiceClassLoss2"))
     else:
         criterions, eval_criterions = get_criterion_list(
             len(args.num_layers), args.criterion_list, binary)
-        step_fn = engine.make_train_step(model, criterions)
+        step_fn = engine.make_train_step(model, criterions, mesh=mesh)
         eval_args = dict(threshold=eval_cfg.threshold)
     _, runner = make_eval_runner(model, eval_cfg)
 
@@ -136,8 +167,7 @@ def main(args, multi_class: bool = False):
         scheduler = engine.ReduceLROnPlateau(**resume_aux["scheduler"])
         engine.set_learning_rate(state, scheduler.lr)
 
-    log_dir, model_dir = run_dirs(args.log_dir, args.model_dir, fold_num)
-    writer = engine.MetricWriter(log_dir)
+    writer, model_dir = setup_rank(args, model, mesh, engine)
 
     dynamic_weight_list = engine.get_dynamic_weight(
         epochs=args.epochs, T=args.weight_T, warmup_step=args.warmup_step,
@@ -147,9 +177,11 @@ def main(args, multi_class: bool = False):
     best_eval_loss = resume_aux.get("best_eval_loss", float("inf"))
     global_step = resume_aux.get("global_step", 0)
     start_epoch = resume_aux.get("epoch", -1) + 1
-    host_rng = np.random.default_rng(args.seed)
-    # every dropout draws from this one generator on the model's device
-    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+    # this rank's streams: its frames, and every dropout's masks (a
+    # generator on the model's device)
+    host_rng = np.random.default_rng(parallel.rank_seed(args.seed, mesh))
+    generator = torch.Generator(device=device).manual_seed(
+        parallel.rank_seed(args.seed + 1, mesh))
 
     for epoch in range(start_epoch, args.epochs):
         dynamic_weight = dynamic_weight_list[epoch]
@@ -158,13 +190,15 @@ def main(args, multi_class: bool = False):
 
         if epoch % args.eval_epoch == 0:
             eval_loss, global_step = loop.eval_on_epoch(
-                runner, test_dl, eval_criterions, writer, global_step, **eval_args)
+                runner, test_dl, eval_criterions, writer, global_step, mesh=mesh,
+                **eval_args)
             engine.set_learning_rate(state, scheduler.step(eval_loss))
             if eval_loss <= best_eval_loss:
                 best_eval_loss = eval_loss
-                engine.save_params(os.path.join(model_dir, "temp_model"),
-                                   model.state_dict())
-                print("Best eval loss", eval_loss)
+                if model_dir is not None:
+                    engine.save_params(os.path.join(model_dir, "temp_model"),
+                                       model.state_dict())
+                    print("Best eval loss", eval_loss)
 
         state, train_loss, global_step = loop.train_on_epoch(
             state, train_dl, step_fn, dynamic_weight,
@@ -173,6 +207,8 @@ def main(args, multi_class: bool = False):
             generator=generator)
         writer.add_scalar("lr_rate", engine.get_learning_rate(state),
                           global_step)
+        if model_dir is None:
+            continue
         print(f"epoch {epoch}: train loss {train_loss:.5f}")
         if epoch % args.eval_epoch == 0:
             # full-state checkpoint AFTER the epoch's training, so that a
@@ -183,9 +219,11 @@ def main(args, multi_class: bool = False):
                      "global_step": global_step,
                      "scheduler": scheduler.state_dict()})
 
-    engine.save_checkpoint(os.path.join(model_dir, "model"),
-                           {"params": model.state_dict()})
+    if model_dir is not None:
+        engine.save_checkpoint(os.path.join(model_dir, "model"),
+                               {"params": model.state_dict()})
     writer.close()
+    return state
 
 
 if __name__ == "__main__":

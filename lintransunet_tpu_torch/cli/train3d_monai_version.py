@@ -11,6 +11,11 @@ here. The same flags and defaults as the JAX CLI, and ``--device`` (the
 card, ``cuda``, by default; ``--device cpu`` runs on the CPU). Run:
 
     python -m lintransunet_tpu_torch.cli.train3d_monai_version --dir_data <root>
+
+Under ``torchrun`` it trains data-parallel as ``train3d`` does: each rank's
+loader holds its share of the patients, padded by wrap-around so that every
+rank takes the same number of equal steps (the JAX CLI pads a ragged global
+batch the same way, train3d_monai_version.py:178-185).
 """
 
 import os
@@ -40,9 +45,10 @@ def get_parse():
 def main(args):
     import torch
 
-    from lintransunet_tpu_torch import data, engine
-    from lintransunet_tpu_torch.cli.common import (build_model, get_multi_criterion_list,
-                                                   make_eval_runner, run_dirs)
+    from lintransunet_tpu_torch import data, engine, parallel
+    from lintransunet_tpu_torch.cli.common import (build_model, cli_mesh,
+                                                   get_multi_criterion_list,
+                                                   make_eval_runner)
     from lintransunet_tpu_torch.core.config import EvalConfig
     from lintransunet_tpu_torch.data.split import load_fold
     from lintransunet_tpu_torch.engine import loop
@@ -51,6 +57,8 @@ def main(args):
 
     fold_num = args.fold_num
     batch_size = args.batch_size
+    mesh = cli_mesh(args)
+    shard = {} if mesh is None else {"rank": mesh.rank, "world_size": mesh.size}
 
     train_ids, test_ids = load_fold(args.split_json, fold_num)
     prep = dict(
@@ -64,10 +72,10 @@ def main(args):
     test_ds = data.EvaPanDataset(root=args.dir_data, depth_size=args.depth_size,
                                  ids=test_ids, **prep)
     train_dl = data.DataLoader(train_ds, batch_size=batch_size, shuffle=True,
-                               num_workers=8, seed=args.seed)
+                               num_workers=8, seed=args.seed, **shard)
     test_dl = data.DataLoader(test_ds, batch_size=1, shuffle=False, num_workers=2)
 
-    model = build_model(args)
+    model = build_model(args, None if mesh is None else mesh.device)
     device = next(model.parameters()).device
     init_random_(model, torch.Generator().manual_seed(args.seed))
     # one step per batch: no accumulation (utils_3D_monai.py:103-105)
@@ -81,7 +89,7 @@ def main(args):
         len(args.num_layers), args.criterion_list, multiclass)
     step_fn = engine.make_train_step(
         model, criterions, criterion_weight=list(args.criterion_weight),
-        num_classes=args.num_classes)
+        num_classes=args.num_classes, mesh=mesh)
 
     eval_cfg = EvalConfig(roi_size=args.image_crop,
                           depth_size=getattr(args, "eval_depth", 64))
@@ -95,8 +103,7 @@ def main(args):
         scheduler = engine.ReduceLROnPlateau(**resume_aux["scheduler"])
         engine.set_learning_rate(state, scheduler.lr)
 
-    log_dir, model_dir = run_dirs(args.log_dir, args.model_dir, fold_num)
-    writer = engine.MetricWriter(log_dir)
+    writer, model_dir = train3d.setup_rank(args, model, mesh, engine)
 
     dynamic_weight_list = engine.get_dynamic_weight(
         epochs=args.epochs, T=args.weight_T, warmup_step=args.warmup_step,
@@ -106,8 +113,9 @@ def main(args):
     best_eval_loss = resume_aux.get("best_eval_loss", float("inf"))
     global_step = resume_aux.get("global_step", 0)
     start_epoch = resume_aux.get("epoch", -1) + 1
-    # every dropout draws from this one generator on the model's device
-    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+    # every dropout of this rank draws from this generator on the model's device
+    generator = torch.Generator(device=device).manual_seed(
+        parallel.rank_seed(args.seed + 1, mesh))
 
     for epoch in range(start_epoch, args.epochs):
         dynamic_weight = dynamic_weight_list[epoch]
@@ -119,13 +127,14 @@ def main(args):
             eval_loss, global_step = loop.eval_on_epoch(
                 runner, test_dl, eval_criterions, writer, global_step,
                 num_classes=args.num_classes,
-                selection_metrics=("DiceClassLoss", "DiceClassLoss2"))
+                selection_metrics=("DiceClassLoss", "DiceClassLoss2"), mesh=mesh)
             engine.set_learning_rate(state, scheduler.step(eval_loss))
             if eval_loss <= best_eval_loss:
                 best_eval_loss = eval_loss
-                engine.save_params(os.path.join(model_dir, "temp_model"),
-                                   model.state_dict())
-                print("Best eval loss", eval_loss)
+                if model_dir is not None:
+                    engine.save_params(os.path.join(model_dir, "temp_model"),
+                                       model.state_dict())
+                    print("Best eval loss", eval_loss)
 
         losses = []
         for images, masks in train_dl:
@@ -138,8 +147,10 @@ def main(args):
         epoch_loss = torch.stack(losses).sum().item() if losses else 0.0
         writer.add_scalar("train/total_loss", epoch_loss / max(len(losses), 1),
                           global_step)
-        print(f"epoch {epoch}: train loss {epoch_loss / max(len(losses), 1):.5f}")
         global_step += 1
+        if model_dir is None:
+            continue
+        print(f"epoch {epoch}: train loss {epoch_loss / max(len(losses), 1):.5f}")
         if epoch % args.eval_epoch == 0:
             engine.save_train_state(
                 os.path.join(model_dir, "train_state"), state,
@@ -147,9 +158,11 @@ def main(args):
                      "global_step": global_step,
                      "scheduler": scheduler.state_dict()})
 
-    engine.save_checkpoint(os.path.join(model_dir, "model"),
-                           {"params": model.state_dict()})
+    if model_dir is not None:
+        engine.save_checkpoint(os.path.join(model_dir, "model"),
+                               {"params": model.state_dict()})
     writer.close()
+    return state
 
 
 if __name__ == "__main__":

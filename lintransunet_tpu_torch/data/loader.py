@@ -21,11 +21,19 @@ class DataLoader:
     Yields tuples of stacked numpy arrays with a leading batch dim, matching
     the reference loader's (B, num_samples, ...) nesting, which the train
     loop flattens (utils_3D_embed_full.py:46-47).
+
+    ``rank`` of ``world_size`` (a data-parallel run's training loader):
+    every rank shuffles alike, pads the order by wrap-around to a multiple
+    of ``world_size`` (as torch's ``DistributedSampler``) and takes every
+    ``world_size``-th item from its rank on; so the ranks cover the dataset,
+    disjoint but for the padding, and run the same number of equal batches.
     """
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 0, drop_last: bool = False,
-                 prefetch: int = 2):
+                 prefetch: int = 2, rank: int = 0, world_size: int = 1):
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} is not in a world of {world_size}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -33,10 +41,16 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.rank = rank
+        self.world_size = world_size
         self._epoch = 0
 
+    def _items(self) -> int:
+        """This rank's number of items."""
+        return -(-len(self.dataset) // self.world_size)
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._items()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -45,6 +59,8 @@ class DataLoader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(order)
+        if self.world_size > 1:  # np.resize repeats the order cyclically
+            order = np.resize(order, self._items() * self.world_size)[self.rank::self.world_size]
         for i in range(len(self)):
             yield order[i * self.batch_size:(i + 1) * self.batch_size]
 

@@ -23,6 +23,7 @@ from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from lintransunet_tpu_torch import parallel
 from lintransunet_tpu_torch.losses.functional import one_hot_map
 
 
@@ -93,18 +94,40 @@ def train_on_epoch(
     return state, batch_level_loss / max(n_batches, 1), global_step
 
 
-def batched_predictions(loader, runner) -> Iterator[
+def batched_predictions(loader, runner, mesh=None) -> Iterator[
         Tuple[int, np.ndarray, np.ndarray, torch.Tensor]]:
     """Yield (index, images, masks, predict) per eval volume: the loader's
     channels-last host arrays with the (batch, samples) dims flattened, and
     the runner's (N, C, H, W, D) f32 blend on the runner's device (a runner
-    built without one raises: ``make_eval_runner`` gives it the model's)."""
+    built without one raises: ``make_eval_runner`` gives it the model's).
+
+    With ``mesh`` (every rank iterating the same loader), volumes go through
+    ``runner.run_batch`` mesh-size at a time, each rank blending its own; a
+    short last group is padded with its first volume, whose extra output is
+    discarded. Every rank yields every volume, as without a mesh."""
     if runner.device is None:
         raise ValueError("the runner has no device; build it with make_eval_runner")
-    for i, (images, masks) in enumerate(loader):
-        images = images.reshape((-1,) + images.shape[2:])
-        masks = masks.reshape((-1,) + masks.shape[2:])
-        yield i, images, masks, runner(to_device(images, runner.device))
+    items = ((i, images.reshape((-1,) + images.shape[2:]), masks.reshape((-1,) + masks.shape[2:]))
+             for i, (images, masks) in enumerate(loader))
+    if mesh is None:
+        for i, images, masks in items:
+            yield i, images, masks, runner(to_device(images, runner.device))
+        return
+
+    def flush(group):
+        vols = [to_device(images, runner.device) for _, images, _ in group]
+        vols += [vols[0]] * ((-len(vols)) % mesh.size)
+        preds = runner.run_batch(vols, mesh=mesh)
+        return [(i, images, masks, preds[j]) for j, (i, images, masks) in enumerate(group)]
+
+    group = []
+    for item in items:
+        group.append(item)
+        if len(group) == mesh.size:
+            yield from flush(group)
+            group = []
+    if group:
+        yield from flush(group)
 
 
 def eval_on_epoch(
@@ -116,6 +139,7 @@ def eval_on_epoch(
     threshold: float = 0.5,
     num_classes: Optional[int] = None,
     selection_metrics: Sequence[str] = ("DiceClassLoss",),
+    mesh=None,
 ):
     """Sliding-window eval; returns (selection metric value, global_step+1).
 
@@ -124,10 +148,14 @@ def eval_on_epoch(
     thresholds the blend at 0.5 (utils_3D_embed_full.py:153); the
     multi-class eval defines a threshold but never applies it
     (utils_3D_multi_class.py:168) and gives its criterions one-hot targets
-    (:174-180)."""
+    (:174-180).
+
+    With ``mesh`` the ranks split the volumes (``batched_predictions``),
+    every rank scores every volume, and the selection metric is averaged
+    over the group, so that every rank's plateau scheduler sees one value."""
     totals = {name: 0.0 for name in criterions}
     n = 0
-    for _, _, masks, predict in batched_predictions(loader, runner):
+    for _, _, masks, predict in batched_predictions(loader, runner, mesh):
         target = labels_to_device(masks, predict.device)
         if num_classes is None:
             predict = (predict >= threshold).float()
@@ -147,4 +175,7 @@ def eval_on_epoch(
         if name in selection_metrics:
             out_loss += mean
         writer.add_scalar(f"eval/{name}", mean, global_step)
+    if mesh is not None:
+        mean = torch.tensor([out_loss], dtype=torch.float64, device=mesh.device)
+        out_loss = parallel.all_reduce_mean(mesh, [mean])[0].item()
     return out_loss, global_step + 1

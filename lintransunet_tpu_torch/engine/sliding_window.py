@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from lintransunet_tpu_torch import parallel
+
 Predictor = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -203,3 +205,33 @@ class SlidingWindowRunner:
             volume, self.roi_size, self.sw_batch_size, self.predictor,
             self.overlap, self.mode, self.sigma_scale)
         return _with_background(out) if self.derive_background else out
+
+    def run_batch(self, volumes: Sequence[torch.Tensor], mesh=None) -> list:
+        """Multi-volume inference (JAX ``run_batch``): ``volumes`` is a list of
+        (1, C, H, W, D_i) volumes sharing C, H and W; each keeps its own
+        exact MONAI window grid (a depth below the window's padded
+        symmetrically and cropped back). Returns every volume's (1, C', H, W,
+        D_i) output.
+
+        With ``mesh`` (``parallel.make_mesh``; its size must divide
+        len(volumes), as JAX's): every rank passes the same list, volume i
+        runs on rank i mod size, and every rank gets every output, gathered
+        by one summing ``all_reduce`` of a zero-filled buffer into which each
+        rank wrote its own volumes' outputs (exact, and on gloo and NCCL
+        alike). Without a mesh it is the runner's call on each volume."""
+        if mesh is None:
+            return [self(v) for v in volumes]
+        if len(volumes) % mesh.size:
+            raise ValueError(f"{len(volumes)} volumes do not split over {mesh.size} ranks")
+        if len({tuple(v.shape[:4]) for v in volumes}) != 1 or volumes[0].shape[0] != 1:
+            raise ValueError("run_batch takes (1, C, H, W, D_i) volumes sharing C, H and W: "
+                             f"{[tuple(v.shape) for v in volumes]}")
+        mine = {i: self(volumes[i]) for i in range(mesh.rank, len(volumes), mesh.size)}
+        first = next(iter(mine.values()))
+        depths = [int(v.shape[-1]) for v in volumes]
+        buffer = torch.zeros((len(volumes),) + tuple(first.shape[1:-1]) + (max(depths),),
+                             dtype=first.dtype, device=mesh.device)
+        for i, out in mine.items():
+            buffer[i, ..., :depths[i]] = out[0]
+        parallel.all_reduce_sum(mesh, buffer)
+        return [buffer[i:i + 1, ..., :d] for i, d in enumerate(depths)]

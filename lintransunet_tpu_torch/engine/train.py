@@ -15,14 +15,28 @@
 The step updates its ``TrainState`` in place (JAX's returns a new one) and
 leaves each parameter's ``.grad`` holding the step's gradient until the
 next step, so a caller can inspect it.
+
+Data parallelism (``make_train_step(..., mesh=)``): each rank runs the loss
+and backward on its own shard, and one ``all_reduce`` averages the
+gradients, the loss and the logs. The mean over ranks of per-shard means of
+per-sample terms is the global batch's mean when the shards are equal, so
+the step then equals the single-process step on the joined batch, as JAX's
+SPMD step does. A criterion whose value couples the samples of a batch
+(``losses.multiclass.ClassifyLoss``: a ratio of batch sums) reduces its
+coupling term over the group itself (its ``over_group``). Dropout is the
+one difference from JAX: JAX draws the global batch's masks once, while
+each rank here draws its own from its generator, so a DP step equals the
+joined batch's only at dropout 0.
 """
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from lintransunet_tpu_torch import parallel
 from lintransunet_tpu_torch.losses.functional import one_hot_map
 from lintransunet_tpu_torch.ops.pool import max_pool3d
 
@@ -152,9 +166,16 @@ def deep_supervision_loss(out: torch.Tensor, mask_list: Sequence[torch.Tensor],
     return total, logs
 
 
+def _over_group(criterions, mesh):
+    """Each criterion that couples a batch's samples, bound to the group."""
+    return [{name: (functools.partial(fn.over_group, mesh) if hasattr(fn, "over_group")
+                    else fn) for name, fn in level.items()} for level in criterions]
+
+
 def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
                     criterion_weight: Optional[Sequence[float]] = None,
-                    num_classes: Optional[int] = None) -> Callable:
+                    num_classes: Optional[int] = None,
+                    mesh: Optional[parallel.Mesh] = None) -> Callable:
     """``step(state, images, labels, dynamic_weight, generator) -> (loss,
     logs)``; updates ``state`` in place.
 
@@ -164,11 +185,20 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
     from (as JAX's step takes ``rng``), or None for the global one.
     ``step.loss_fn(images, labels, dynamic_weight, generator)`` is the loss
     alone, (loss, logs), for a caller that differentiates it itself.
+
+    With ``mesh`` (``parallel.make_mesh``), images and labels are this
+    rank's shard of the global batch (every rank's the same size) and the
+    step averages the gradients over the group before the update (each
+    micro-step's, under accumulation); it returns the loss and logs
+    averaged over the group, the global batch's, on every rank. The
+    parameters must start equal on every rank (``parallel.replicate``).
     """
     from lintransunet_tpu_torch.models.blocks import dropout_generator
     from lintransunet_tpu_torch.models.registry import MaskTransUnet
 
     aux = {"return_aux": True} if isinstance(model, MaskTransUnet) else {}
+    if mesh is not None:
+        criterions = _over_group(criterions, mesh)
 
     def loss_fn(images, labels, dynamic_weight, generator=None):
         with dropout_generator(generator):
@@ -186,8 +216,20 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
         state.optimizer.zero_grad(set_to_none=True)
         loss, logs = loss_fn(images, labels, dynamic_weight, generator)
         loss.backward()
+        loss = loss.detach()
+        logs = {name: v.detach() for name, v in logs.items()}
+        if mesh is not None:
+            # one bucket: every gradient (a parameter without one, such as a
+            # dead bridge's, contributes zeros), then the loss and the logs
+            params = [p for p in model.parameters() if p.requires_grad]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            values = [loss.float()] + [v.float() for v in logs.values()]
+            parallel.all_reduce_mean(mesh, [p.grad for p in params] + values)
+            loss, logs = values[0], dict(zip(logs, values[1:]))
         apply_gradients(state)
-        return loss.detach(), {name: v.detach() for name, v in logs.items()}
+        return loss, logs
 
     step.loss_fn = loss_fn
     return step

@@ -15,6 +15,7 @@ target its marginals sum every channel.
 
 import torch
 
+from lintransunet_tpu_torch import parallel
 from lintransunet_tpu_torch.losses import binary as _binary
 from lintransunet_tpu_torch.losses.functional import flatten_tokens
 
@@ -208,18 +209,36 @@ class CrossEntroLoss:
 
 
 class ClassifyLoss:
-    """Expected-class MSE over foreground voxels (multi_criterions.py:617-636)."""
+    """Expected-class MSE over foreground voxels (multi_criterions.py:617-636).
+
+    The only criterion that couples a batch's samples: a ratio of sums over
+    the whole batch. ``over_group`` is its value on a data-parallel rank."""
 
     def __init__(self, eps: float = 1e-5):
         self.eps = eps
 
-    def __call__(self, predict, target):
+    def _sums(self, predict, target):
+        """(sum of fg * squared error, foreground voxel count)."""
         p, t = _pair(predict, target)
         weights = torch.arange(p.shape[-1], dtype=torch.float32, device=p.device)
         tc = torch.sum(weights * t, dim=-1)
         pc = torch.sum(weights * p, dim=-1)
         fg = 1.0 - t[:, :, 0]
-        return torch.sum(fg * (pc - tc) ** 2) / (torch.sum(fg) + self.eps)
+        return torch.sum(fg * (pc - tc) ** 2), torch.sum(fg)
+
+    def __call__(self, predict, target):
+        error, count = self._sums(predict, target)
+        return error / (count + self.eps)
+
+    def over_group(self, mesh, predict, target):
+        """This rank's share of the global batch's loss, scaled so that the
+        mean over ranks (the DP step's average) is the global value and its
+        gradient: ``size * error_rank / (count_global + eps)``. The count
+        depends on the targets alone, so its sum over the group carries no
+        gradient."""
+        error, count = self._sums(predict, target)
+        total = parallel.all_reduce_sum(mesh, count.detach().clone())
+        return mesh.size * error / (total + self.eps)
 
 
 class CrossEntroLoss0:

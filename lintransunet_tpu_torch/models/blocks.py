@@ -25,6 +25,13 @@ Dropout draws its masks from the generator that ``dropout_generator``
 installs (the train step's, as JAX's step takes ``rng``), or from PyTorch's
 global generator outside it.
 
+``REMAT`` (``LINTRANSUNET_REMAT``, read once at import, the JAX package's
+knob and values): "attn" checkpoints every ``SelfAttentionLayer`` of a
+``TransEncoder`` or ``_TokenStack`` in training, so the backward recomputes
+each layer's attention and FFN intermediates instead of keeping them
+(``attention_layer``). Eval, the fused configuration and the state_dict are
+unaffected.
+
 A fresh ``Conv3d`` or ``Linear`` initialises as flax's ``nn.Conv`` and
 ``nn.Dense`` do: ``lecun_normal`` kernels (:func:`lecun_normal_`) and zero
 biases.
@@ -33,16 +40,22 @@ biases.
 import contextlib
 import contextvars
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lintransunet_tpu_torch import ops
 from lintransunet_tpu_torch.ops import attention, conv_unit, fused_stack
 from lintransunet_tpu_torch.ops import linear_attention as fused
 
+
+# Recompute policy of the training backward (JAX blocks.REMAT): "attn"
+# checkpoints every SelfAttentionLayer call; "" keeps every intermediate.
+REMAT = os.environ.get("LINTRANSUNET_REMAT", "")
 
 # flax's variance_scaling "truncated_normal": the std of a standard normal
 # cut at +-2, by which the scale is divided so the cut draw keeps its variance
@@ -264,6 +277,40 @@ class SelfAttentionLayer(nn.Module):
         return self.layer_norm2(x + drop(h))
 
 
+def attention_layer(layer: SelfAttentionLayer, x: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``layer(x, mask)``, checkpointed in training under ``REMAT == "attn"``.
+
+    The recompute runs inside the backward, outside the step's
+    ``dropout_generator`` and, for CUDA tensors, on autograd's own thread,
+    and ``torch.utils.checkpoint`` restores only the default generators. So
+    the step's generator and its state at this call are captured here: the
+    recompute draws from that state, then puts the generator back where the
+    rest of the step left it, so the masks and the generator's stream are
+    those of a run without recompute."""
+    if not (layer.training and REMAT == "attn"):
+        return layer(x, mask)
+    generator = _GENERATOR.get()
+    start = None if generator is None else generator.get_state()
+    recompute = False
+
+    def run(x, mask):
+        nonlocal recompute
+        if start is None or not recompute:
+            recompute = True
+            with dropout_generator(generator):
+                return layer(x, mask)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            with dropout_generator(generator):
+                return layer(x, mask)
+        finally:
+            generator.set_state(resume)
+
+    return checkpoint(run, x, mask, use_reentrant=False)
+
+
 class TransEncoder(nn.Module):
     """``n_layers`` SelfAttentionLayers (trans_block.py:214-232); the mask,
     if any, reaches every layer's attention."""
@@ -279,7 +326,7 @@ class TransEncoder(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"layers_{i}")(x, mask)
+            x = attention_layer(getattr(self, f"layers_{i}"), x, mask)
         return x
 
 
@@ -333,7 +380,7 @@ class _TokenStack(nn.Module):
         if mask is not None:
             mask = to_tokens_dhw(mask)[0] != 0
         for i in range(self.n_layers):
-            tokens = getattr(self, f"layers_{i}")(tokens, mask)
+            tokens = attention_layer(getattr(self, f"layers_{i}"), tokens, mask)
             if i == 0:
                 tokens = peg_on_tokens(tokens, hwd, getattr(self, self.peg_name))
         return from_tokens_dhw(tokens, hwd)

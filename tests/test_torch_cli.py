@@ -27,30 +27,16 @@ from lintransunet_tpu_torch.cli import (inference_embed_attn, inference_multi_cl
                                         train3d_monai_version, train3d_multi_class)
 from lintransunet_tpu_torch.cli.common import build_model
 from lintransunet_tpu_torch.core.config import MODEL_NAMES, InferenceConfig, TrainConfig
+from torch_port_helpers import CLI_TINY, cli_infer_args, cli_train_args, cli_workspace
 
 torch.set_num_threads(2)
 
-TINY = dict(model_name="MaskTransUnet", num_layers=(8, 32), roi_size_list=(8, 4),
-            is_roi_list=(False, True), dim_input=1, dim_output=2, kernel_size=3,
-            compute_dtype="float32", attn_layers=1)
+TINY = CLI_TINY
 
 
 @pytest.fixture(scope="module")
 def workspace(tmp_path_factory):
-    root = tmp_path_factory.mktemp("ws")
-    data = root / "data"
-    os.makedirs(data / "image")
-    os.makedirs(data / "label")
-    rng = np.random.default_rng(1)
-    for i in range(4):
-        img = rng.normal(40.0, 60.0, (8, 32, 32)).astype(np.float32)
-        lbl = np.zeros((8, 32, 32), np.uint8)
-        lbl[2:5, 8:20, 10:22] = 1
-        np.save(data / "image" / f"{i:04d}.npy", img)
-        np.save(data / "label" / f"{i:04d}.npy", lbl)
-    split = str(root / "split.json")
-    _run_main(split_dataset.main, ["--dir_data", str(data), "--k_folds", "2", "--out", split])
-    return {"root": str(root), "data": str(data), "split": split}
+    return cli_workspace(str(tmp_path_factory.mktemp("ws")))
 
 
 def _run_main(main, argv):
@@ -62,22 +48,6 @@ def _run_main(main, argv):
         sys.argv = saved
 
 
-def _train_args(ws, tmp):
-    return types.SimpleNamespace(
-        dir_data=ws["data"], is_transform=True, split_ratio=0.9,
-        is_pretrained=False, pretrained_dir="", batch_size=1, depth_size=8,
-        num_samples=2, device="cpu", epochs=2, eval_epoch=2,
-        log_dir=os.path.join(tmp, "runs"), model_dir=os.path.join(tmp, "out"),
-        criterion_list=("CrossEntroLoss", "DiceClassLoss"),
-        criterion_weight=(1.0, 1.0),
-        weight_list=(0.1, 1.0), final_weight=(2.0, 1.0),
-        initial_weight=(0.1, 1.0), fold_num=0, split_json=ws["split"],
-        learning_rate=1e-3, plateau_factor=0.8, plateau_patience=5,
-        plateau_threshold=1e-2, plateau_cooldown=1, min_lr=1e-7,
-        warmup_step=1, weight_T=12.0, num_classes=2, seed=0,
-        image_crop=16, eval_depth=8, **TINY)
-
-
 def _metric_tags(tmp):
     logs = [os.path.join(dp, f) for dp, _, fn in os.walk(os.path.join(tmp, "runs"))
             for f in fn if f == "metrics.jsonl"]
@@ -86,7 +56,7 @@ def _metric_tags(tmp):
 
 
 def test_train_and_inference_cli(workspace, tmp_path, monkeypatch):
-    args = _train_args(workspace, str(tmp_path))
+    args = cli_train_args(workspace, str(tmp_path))
     train3d.main(args)
 
     out_root = os.path.join(str(tmp_path), "out")
@@ -100,14 +70,8 @@ def test_train_and_inference_cli(workspace, tmp_path, monkeypatch):
     assert all(np.isfinite(r["value"]) for r in records if r["tag"].startswith("train/"))
 
     monkeypatch.chdir(tmp_path)
-    infer_args = types.SimpleNamespace(
-        dir_data=workspace["data"], pretrained_dir=os.path.join(out_root, run_dirs[0]),
-        batch_size=1, depth_size=8, roi_size=16, sw_batch_size=1, overlap=0.6,
-        threshold=0.5,
-        criterion_list=("DiceClassLoss", "Recall", "Precision", "LocalizationLoss"),
-        is_save=True, saved_folder=str(tmp_path / "pred"), fold_nums=1,
-        split_json=workspace["split"], device="cpu", **TINY)
-    inference_embed_attn.main(infer_args)
+    inference_embed_attn.main(cli_infer_args(
+        workspace, os.path.join(out_root, run_dirs[0]), str(tmp_path / "pred")))
     summary = json.load(open("summary_4_fold.json"))
     assert sorted(summary) == ["patient_0", "summary_0"]
     assert len(summary["patient_0"]) == 1  # the last test id is dropped
@@ -122,7 +86,7 @@ def test_train_and_inference_cli(workspace, tmp_path, monkeypatch):
 def test_full_state_resume(workspace, tmp_path):
     """A resume restores the full train state and continues at the next
     epoch: the second run trains epoch 1 on top of the first run's 4 steps."""
-    args = _train_args(workspace, str(tmp_path))
+    args = cli_train_args(workspace, str(tmp_path))
     args.epochs, args.eval_epoch = 1, 1
     train3d.main(args)
     out_root = os.path.join(str(tmp_path), "out")
@@ -130,7 +94,7 @@ def test_full_state_resume(workspace, tmp_path):
     first = torch.load(os.path.join(run_dir, "fold_0", "train_state"), weights_only=True)
     assert (first["step"], first["aux"]["epoch"]) == (4, 0)
 
-    args2 = _train_args(workspace, str(tmp_path / "second"))
+    args2 = cli_train_args(workspace, str(tmp_path / "second"))
     args2.epochs, args2.eval_epoch = 2, 1
     args2.is_pretrained, args2.pretrained_dir = True, run_dir
     train3d.main(args2)

@@ -44,7 +44,7 @@ from lintransunet_tpu_torch.cli.common import get_criterion_list
 from lintransunet_tpu_torch.compat import from_flax, to_ncdhw
 from lintransunet_tpu_torch.models import MaskTransUnet, init_random_
 from lintransunet_tpu_torch.ops import pool
-from torch_port_helpers import SMALL, load_port, random_params, t
+from torch_port_helpers import SMALL, load_port, random_params, t, worst_grad_error
 
 torch.set_num_threads(2)
 
@@ -238,27 +238,13 @@ def small_step():
                 want_grads=want_grads, moved_grads=moved_grads, state=state)
 
 
-def _grad_errors(got, want):
-    """{name: max |got - want| over max |want|, or over 1e-1 of the
-    largest gradient where the gradient vanishes (max |want| below 1e-5 of
-    it), so that 1e-4 on that share is 1e-5 of the largest gradient}."""
-    top = max(w.abs().max().item() for w in want.values())
-    errors = {}
-    for name, w in want.items():
-        scale = w.abs().max().item()
-        if scale < 1e-5 * top:
-            scale = 1e-1 * top
-        errors[name] = (got[name] - w).abs().max().item() / scale
-    return errors
-
-
 def test_small_step_seed_keeps_clear_of_the_box_threshold(small_step):
     levels = len(SMALL["num_layers"])
     for j, mask in enumerate(small_step["masks"]):
         if SMALL["is_roi_list"][levels - 2 - j]:
             assert np.min(np.abs(1.0 - mask[..., 0] - 0.5)) > 1e-5, j
-    moved = _grad_errors(small_step["moved_grads"], small_step["want_grads"])
-    assert max(moved.values()) < 1e-3, max(moved.items(), key=lambda kv: kv[1])
+    moved = worst_grad_error(small_step["moved_grads"], small_step["want_grads"])
+    assert moved[1] < 1e-3, moved
 
 
 def test_small_train_step_matches_jax(small_step):
@@ -268,8 +254,8 @@ def test_small_train_step_matches_jax(small_step):
     grads, want = small_step["grads"], small_step["want_grads"]
     assert set(grads) == set(want)
     assert all(grads[name].shape == w.shape for name, w in want.items())
-    errors = _grad_errors(grads, want)
-    assert max(errors.values()) <= 1e-4, max(errors.items(), key=lambda kv: kv[1])
+    worst = worst_grad_error(grads, want)
+    assert worst[1] <= 1e-4, worst
     state = small_step["state"]
     assert (state.step, state.gradient_step) == (1, 1)
 
