@@ -19,13 +19,22 @@ reference runs first, in this process on card 0. Prints:
 * ``run_batch``: K volumes through ``run_batch`` over the mesh (bf16, under
   ``chip_smoke.deterministic``), every volume equal bit for bit to one card's
   runner output, and the volumes per second of K cards against one card's
-  (the runner's call on each volume in turn), both warm.
+  (the runner's call on each volume in turn), both warm;
+* ``cli``: ``train3d`` then ``inference_embed_attn`` on its checkpoint, each
+  started by ``torchrun --standalone --nproc_per_node K`` as a user starts
+  them, over ``chip_smoke.py`` phase 10's workspace with 2K volumes (fold 0
+  trains K patients, one a rank) and phase 10's flags: both exit 0, one run
+  directory with its three artifacts and one ``metrics.jsonl`` (rank 0's),
+  num_samples steps of a global batch of K, a finite summary and the
+  exports; each launcher's wall time, the processes' start included.
 
 On the CPU (``--device cpu``) the same code runs at a small width and
 size, a rehearsal of the ranks' control flow; its times are the CPU's.
 """
 
 import argparse
+import json
+import math
 import os
 import subprocess
 import sys
@@ -33,11 +42,13 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
 from lintransunet_tpu_torch import engine, kernels, parallel  # noqa: E402
@@ -57,6 +68,24 @@ GEOMETRY = {
                 patch=(1, 1, 64, 64, 8), box=(slice(20, 44), slice(24, 40), slice(2, 6)),
                 volume=(1, 1, 64, 64, 20), roi=(64, 64, 8), dtype=torch.float32),
 }
+
+
+# the CLIs' workspace shape (D, H, W) and flags: phase 10's on the card; on
+# the CPU the tiny model of tests/test_torch_cli.py
+CLI_FLAGS = {
+    "cuda": dict(shape=chip_smoke.CLI_SHAPE, train=list(chip_smoke.CLI_TRAIN_FLAGS),
+                 infer=list(chip_smoke.CLI_INFER_FLAGS)),
+    "cpu": dict(shape=(8, 32, 32),
+                train=["--image_crop", "16", "--depth_size", "8", "--eval_depth", "8",
+                       "--num_samples", "2", "--batch_size", "1", "--epochs", "1",
+                       "--eval_epoch", "1", "--device", "cpu"],
+                infer=["--roi_size", "16", "--depth_size", "8", "--overlap", "0.6",
+                       "--is_save", "true", "--device", "cpu"]),
+}
+MODEL_FLAGS = ["--num_layers", "8,32", "--roi_size_list", "8,4", "--is_roi_list", "false,true",
+               "--attn_layers", "1", "--compute_dtype", "float32"]
+CLI_FLAGS["cpu"]["train"] += MODEL_FLAGS
+CLI_FLAGS["cpu"]["infer"] += MODEL_FLAGS
 
 
 def build(device, dtype, dropout):
@@ -209,7 +238,8 @@ def main():
     print(f"[dp cards] dp step: within TRAIN_TOL {tol}; the {k} ranks' parameters bit-equal",
           flush=True)
     ms = [r["step_ms"] for r in ranks]
-    print(f"[dp cards] dp time: bf16 step of one patch a rank, {STEPS} warm steps back to back: "
+    print(f"[dp cards] dp time: {str(GEOMETRY[device.type]['dtype'])[6:]} step of one patch a "
+          f"rank, {STEPS} warm steps back to back: "
           f"{[round(x, 2) for x in ms]} ms on the {k} ranks against {one_ms:.2f} ms on one card "
           f"alone ({k} patches a step against 1)", flush=True)
     if not all(torch.equal(o, w) for o, w in zip(ranks[0]["outs"], want)):
@@ -218,6 +248,61 @@ def main():
     print(f"[dp cards] run_batch: {k} volumes of {GEOMETRY[device.type]['volume'][2:]} equal to "
           f"one card's runner, bit for bit; {k / serve_s:.3f} volumes/s on {k} ranks "
           f"({serve_s:.3f} s) against {k / one_s:.3f} on one card ({one_s:.3f} s)", flush=True)
+    cli_on_cards(k, device)
+
+
+def torchrun(k, module, flags, cwd):
+    """``torchrun --standalone --nproc_per_node k -m module flags`` in
+    ``cwd``; returns its wall seconds, fails on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          f"--nproc_per_node={k}", "-m", module, *flags],
+                         cwd=cwd, env=env, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        print(run.stdout[-4000:], run.stderr[-8000:], flush=True)
+        chip_smoke.fail(f"torchrun of {module} exited {run.returncode}")
+    return seconds
+
+
+def cli_on_cards(k, device):
+    """``train3d`` then ``inference_embed_attn`` under ``torchrun`` on k ranks."""
+    flags = CLI_FLAGS[device.type]
+    with tempfile.TemporaryDirectory() as root:
+        data_dir, split = chip_smoke.cli_workspace(root, flags["shape"], 2 * k)
+        common = ["--dir_data", data_dir, "--split_json", split]
+        train_s = torchrun(k, "lintransunet_tpu_torch.cli.train3d",
+                           common + ["--fold_num", "0", "--log_dir", os.path.join(root, "runs"),
+                                     "--model_dir", os.path.join(root, "out"), *flags["train"]],
+                           root)
+        runs = os.listdir(os.path.join(root, "out"))
+        if len(runs) != 1 or os.listdir(os.path.join(root, "runs")) != runs:
+            chip_smoke.fail(f"train3d on {k} ranks wrote run directories {runs}")
+        run = os.path.join(root, "out", runs[0])
+        artifacts = sorted(os.listdir(os.path.join(run, "fold_0")))
+        state = torch.load(os.path.join(run, "fold_0", "train_state"), map_location="cpu",
+                           weights_only=True)
+        logs = [os.path.join(d, f) for d, _, files in os.walk(os.path.join(root, "runs"))
+                for f in files if f == "metrics.jsonl"]
+        infer_s = torchrun(k, "lintransunet_tpu_torch.cli.inference_embed_attn",
+                           common + ["--pretrained_dir", run,
+                                     "--saved_folder", os.path.join(root, "pred"),
+                                     *flags["infer"]], root)
+        summary = json.load(open(os.path.join(root, "summary_4_fold.json")))
+        exports = len(os.listdir(os.path.join(root, "pred")))
+    samples = int(flags["train"][flags["train"].index("--num_samples") + 1])
+    values = [v for vs in summary.values() for v in np.ravel(vs)]
+    if (artifacts != ["model", "temp_model", "train_state"] or len(logs) != 1
+            or state["step"] != samples or not values
+            or not all(math.isfinite(v) for v in values)):
+        chip_smoke.fail(f"the CLIs on {k} ranks: artifacts {artifacts}, {len(logs)} metrics "
+                        f"logs, {state['step']} steps (want {samples}), summary {summary}")
+    print(f"[dp cards] cli: train3d on {k} ranks ({k} train patients, one a rank, {samples} "
+          f"steps of a global batch of {k}, then the eval split over the ranks) {train_s:.1f} s, "
+          f"inference_embed_attn on its checkpoint {infer_s:.1f} s ({exports} volumes exported), "
+          f"both with the launcher's and the processes' start; one run directory with "
+          f"{artifacts} and one metrics.jsonl; summary {summary}", flush=True)
 
 
 if __name__ == "__main__":
