@@ -140,9 +140,8 @@ last line):
        DP train step on phase 7's patch (bf16, dropout 0.3, the step
        generator) against the step without a mesh, and ``run_batch`` over
        volumes of depths 144 and 80 against the runner's call on each, bit
-       for bit; where a rerun of the step without a mesh does not
-       reproduce it bit for bit on the card, within TRAIN_TOL beside that
-       rerun's differences, and the line says which;
+       for bit (under ``deterministic()`` the card reruns a step bit for
+       bit);
     b. two gloo ranks, the flagship in f32 (TF32 off, dropout 0): the DP
        step with one 512 x 512 x 32 patch a rank against one process's
        step on the joined batch of 2 within TRAIN_TOL, 32 forward and 32
@@ -151,7 +150,7 @@ last line):
        padded to 4) equal to the runner's call on each, on both ranks;
     c. REMAT "attn" on phase 7's bf16 step: 64 forward and 32 backward
        attention launches, the loss and gradients against the step without
-       recompute (held as in a), and both steps' peak memory;
+       recompute bit for bit, and both steps' peak memory;
     d. ``train3d`` on two torchrun-style gloo ranks over phase 10's
        workspace, one epoch with its eval: held as phase 10 with each
        rank's exact launches (its patients' steps and its eval volume's
@@ -1761,14 +1760,8 @@ def phase_mask_skip_train(images, labels):
 # policy. Two ranks share the one card over gloo, which reduces CUDA tensors
 # (NCCL refuses two ranks on one device); NCCL runs at world size 1.
 DP_RANKS = 2
-# Under ``deterministic()`` a bf16 train step reruns bit for bit on an H100.
-# Without PyTorch's deterministic algorithms it does not: on an NVIDIA H100
-# 80GB HBM3 a rerun moved the gradients by up to 1.9 of a parameter's max
-# |gradient| (a conv bias ahead of an InstanceNorm, whose exact gradient is
-# 0), median 9.1e-3, the loss equal to the bit. Where a rerun differs, a
-# change that only reorders sums differs from the reference step as much,
-# while a wrong average or a lost gradient differs by O(1) of the median.
-FLOOR_MARGIN = 3.0
+# Under ``deterministic()`` a bf16 train step reruns bit for bit on an H100,
+# so phase 13 holds each step that should equal another to the bit.
 DP_WORLD_ONE_DEPTHS = (144, 80)    # 13a: run_batch's two volumes
 DP_BATCH_DEPTHS = (80, 64, 48)     # 13b: three volumes, the group padded to 4
 
@@ -1828,34 +1821,15 @@ def same_step(a, b):
                     for n in a[k]))
 
 
-def hold_steps(tag, got, want, again):
+def hold_steps(tag, got, want):
     """``got`` against ``want``, two steps from the same weights, batch and
-    generator that differ in one thing only: bit for bit when ``again`` (a
-    rerun of ``want``) shows the card reproduces the step; else the loss and
-    the gradients (largest and median difference, as phase 8 measures them)
-    within FLOOR_MARGIN times the rerun's own differences (the floor), or
-    TRAIN_TOL where that is larger. Returns the verdict printed."""
-    if same_step(got, want):
-        verdict = "bit for bit"
-    elif same_step(again, want):
+    generator under ``deterministic()``: bit for bit, or fail with their
+    differences (the loss and the gradients, largest and median, as phase 8
+    measures them)."""
+    if not same_step(got, want):
         diff = compare_steps(tag, (got["loss"], got["grads"]), (want["loss"], want["grads"]))
-        fail(f"{tag}: the steps differ by {diff} though a rerun of the reference step "
-             "reproduces it bit for bit")
-    else:
-        floor = compare_steps(f"{tag}, the reference step against its rerun (the floor)",
-                              (again["loss"], again["grads"]), (want["loss"], want["grads"]))
-        diff = compare_steps(tag, (got["loss"], got["grads"]), (want["loss"], want["grads"]))
-        gate = [max(FLOOR_MARGIN * f, t) for f, t in zip(
-            floor, (TRAIN_TOL["loss"], TRAIN_TOL["grad"], TRAIN_TOL["grad_median"]))]
-        if not all(d <= g for d, g in zip(diff, gate)):
-            fail(f"{tag}: differs by {diff}, over {gate}: {FLOOR_MARGIN:g} x the reference "
-                 f"step's rerun floor {floor} or TRAIN_TOL")
-        verdict = (f"within {FLOOR_MARGIN:g} x the floor (the card does not reproduce the "
-                   f"step bit for bit: its rerun differs by loss rel {floor[0]:.2e}, gradients "
-                   f"{floor[1]:.2e}, median {floor[2]:.2e}; this step by {diff[0]:.2e}, "
-                   f"{diff[1]:.2e}, {diff[2]:.2e})")
-    print(f"[dp] {tag}: {verdict}", flush=True)
-    return verdict
+        fail(f"{tag}: the steps differ by {diff}, not bit for bit")
+    print(f"[dp] {tag}: bit for bit", flush=True)
 
 
 def flagship_step(images, labels, criterions, dtype=torch.bfloat16, dropout=0.3, mesh=None):
@@ -1887,11 +1861,10 @@ def phase_dp_world_one(images, labels, criterions):
         with deterministic():
             plain, _, _ = flagship_step(images, labels, criterions)
             dp, launches, _ = flagship_step(images, labels, criterions, mesh=mesh)
-            again, _, _ = flagship_step(images, labels, criterions)
         if launches != PER_WINDOW["train"]:
             fail(f"the DP step launched {launches}, not {PER_WINDOW['train']}")
-        verdict = hold_steps(f"13a {backend} world size {mesh.size}, DP step vs no mesh "
-                             "(bf16, dropout 0.3, the step generator)", dp, plain, again)
+        hold_steps(f"13a {backend} world size {mesh.size}, DP step vs no mesh "
+                   "(bf16, dropout 0.3, the step generator)", dp, plain)
 
         model = build_model()
         _, runner = make_eval_runner(model, EvalConfig(roi_size=512, depth_size=64,
@@ -1913,7 +1886,6 @@ def phase_dp_world_one(images, labels, criterions):
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    return verdict
 
 
 def dp_batch():
@@ -2055,18 +2027,15 @@ def phase_remat(images, labels, criterions):
             remat, launches, peak = flagship_step(images, labels, criterions)
         finally:
             blocks.REMAT = ""
-        again, _, _ = flagship_step(images, labels, criterions)
     want = _per(linear_attention=64, linear_attention_backward=32)
     if launches != want:
         fail(f"the recompute step launched {launches}, not {want}")
-    verdict = hold_steps("13c REMAT attn vs none (bf16, dropout 0.3, the step generator)",
-                         remat, plain, again)
+    hold_steps("13c REMAT attn vs none (bf16, dropout 0.3, the step generator)", remat, plain)
     print(f"[dp] 13c: launches {launches['linear_attention']} forward and "
           f"{launches['linear_attention_backward']} backward attention kernels (without "
           f"recompute {plain_launches['linear_attention']} and "
           f"{plain_launches['linear_attention_backward']}); peak memory {peak:.2f} GiB with "
           f"recompute, {plain_peak:.2f} GiB without", flush=True)
-    return verdict, peak, plain_peak
 
 
 def cli_rank(rank, world, port, root, data_dir, split):

@@ -11,7 +11,8 @@
 The data pipeline yields the JAX package's channels-last arrays;
 ``to_device`` turns them into the model's (N, C, H, W, D) here, on the way
 to the device: in ``train_on_epoch`` and in ``batched_predictions``, which
-``eval_on_epoch`` and the inference CLI iterate. The host reads the device once per patient (train) or
+``eval_on_epoch`` and the inference CLI iterate (over a mesh, a rank moves
+only the volumes it serves). The host reads the device once per patient (train) or
 volume (eval): a ``float()`` per logged value per micro-step would wait for
 the device each time and serialise the host with the card. For the same
 reason a patient's frames go to the device in one copy, and each
@@ -27,11 +28,16 @@ from lintransunet_tpu_torch import parallel
 from lintransunet_tpu_torch.losses.functional import one_hot_map
 
 
+def to_host(images: np.ndarray) -> torch.Tensor:
+    """Channels-last host images (N, H, W, D, C) -> an (N, C, H, W, D) f32
+    view of them on the host (a copy only of non-f32 or strided arrays)."""
+    return torch.from_numpy(np.ascontiguousarray(images, np.float32)).movedim(-1, 1)
+
+
 def to_device(images: np.ndarray, device) -> torch.Tensor:
     """Channels-last host images (N, H, W, D, C) -> (N, C, H, W, D) f32 on
     ``device``."""
-    x = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(device)
-    return x.movedim(-1, 1).contiguous()
+    return to_host(images).to(device).contiguous()
 
 
 def labels_to_device(masks: np.ndarray, device) -> torch.Tensor:
@@ -115,7 +121,9 @@ def batched_predictions(loader, runner, mesh=None) -> Iterator[
         return
 
     def flush(group):
-        vols = [to_device(images, runner.device) for _, images, _ in group]
+        # host views: run_batch moves this rank's volumes to its card and
+        # reads only the shapes of the others
+        vols = [to_host(images) for _, images, _ in group]
         vols += [vols[0]] * ((-len(vols)) % mesh.size)
         preds = runner.run_batch(vols, mesh=mesh)
         return [(i, images, masks, preds[j]) for j, (i, images, masks) in enumerate(group)]

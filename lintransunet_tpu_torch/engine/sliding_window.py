@@ -200,7 +200,7 @@ class SlidingWindowRunner:
     def __call__(self, volume: torch.Tensor) -> torch.Tensor:
         """(N, C, H, W, D) -> f32 (N, C', H, W, D) on the runner's device."""
         if self.device is not None:
-            volume = volume.to(self.device)
+            volume = volume.to(self.device).contiguous()
         out = sliding_window_inference(
             volume, self.roi_size, self.sw_batch_size, self.predictor,
             self.overlap, self.mode, self.sigma_scale)
@@ -218,7 +218,9 @@ class SlidingWindowRunner:
         runs on rank i mod size, and every rank gets every output, gathered
         by one summing ``all_reduce`` of a zero-filled buffer into which each
         rank wrote its own volumes' outputs (exact, and on gloo and NCCL
-        alike). Without a mesh it is the runner's call on each volume."""
+        alike). The volumes may lie on the host: a rank moves only its own
+        to the runner's device. Without a mesh it is the runner's call on
+        each volume."""
         if mesh is None:
             return [self(v) for v in volumes]
         if len(volumes) % mesh.size:

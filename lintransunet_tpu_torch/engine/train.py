@@ -87,13 +87,21 @@ def get_learning_rate(state: TrainState) -> float:
     return float(state.optimizer.param_groups[0]["lr"])
 
 
-def apply_gradients(state: TrainState) -> None:
-    """One micro-step on the gradients in each parameter's ``.grad``:
-    ``optax.MultiSteps(adamw, every_k_schedule=step_times)``'s update."""
-    params = [p for p in state.model.parameters() if p.requires_grad]
+def _with_grads(model: nn.Module) -> List[nn.Parameter]:
+    """The trainable parameters, each given a zero ``.grad`` where it has
+    none (a dead bridge's), so that the update and the all-reduce see every
+    parameter."""
+    params = [p for p in model.parameters() if p.requires_grad]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    return params
+
+
+def apply_gradients(state: TrainState) -> None:
+    """One micro-step on the gradients in each parameter's ``.grad``:
+    ``optax.MultiSteps(adamw, every_k_schedule=step_times)``'s update."""
+    params = _with_grads(state.model)
     state.step += 1
     if state.step_times == 1:
         state.optimizer.step()
@@ -219,14 +227,9 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
         loss = loss.detach()
         logs = {name: v.detach() for name, v in logs.items()}
         if mesh is not None:
-            # one bucket: every gradient (a parameter without one, such as a
-            # dead bridge's, contributes zeros), then the loss and the logs
-            params = [p for p in model.parameters() if p.requires_grad]
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+            # one bucket: every gradient, then the loss and the logs
             values = [loss.float()] + [v.float() for v in logs.values()]
-            parallel.all_reduce_mean(mesh, [p.grad for p in params] + values)
+            parallel.all_reduce_mean(mesh, [p.grad for p in _with_grads(model)] + values)
             loss, logs = values[0], dict(zip(logs, values[1:]))
         apply_gradients(state)
         return loss, logs

@@ -36,10 +36,9 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1D data-parallel mesh: the process group (None: the default one),
-    this process's rank in it, its size and this rank's device."""
+    """A 1D data-parallel mesh over the default process group: this
+    process's rank in it, its size and this rank's device."""
 
-    group: Optional[dist.ProcessGroup]
     rank: int
     size: int
     device: torch.device
@@ -76,7 +75,7 @@ def make_mesh(n_devices: Optional[int] = None,
     size = dist.get_world_size()
     if n_devices is not None and n_devices != size:
         raise ValueError(f"the process group has {size} ranks, not {n_devices}")
-    return Mesh(None, dist.get_rank(), size, device)
+    return Mesh(dist.get_rank(), size, device)
 
 
 def rank_seed(seed: int, mesh: Optional[Mesh]) -> int:
@@ -114,7 +113,7 @@ def replicate(mesh: Mesh, module: nn.Module) -> nn.Module:
     with torch.no_grad():
         for _, group in _buckets(list(module.parameters()) + list(module.buffers())):
             flat = torch.cat([t.reshape(-1) for t in group])
-            dist.broadcast(flat, src=0, group=mesh.group)
+            dist.broadcast(flat, src=0)
             for t, part in zip(group, flat.split([t.numel() for t in group])):
                 t.copy_(part.view_as(t))
     return module
@@ -126,7 +125,7 @@ def all_reduce_mean(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> Sequence[tor
     with torch.no_grad():
         for _, group in _buckets(tensors):
             flat = torch.cat([t.reshape(-1) for t in group])
-            dist.all_reduce(flat, group=mesh.group)
+            dist.all_reduce(flat)
             flat /= mesh.size
             for t, part in zip(group, flat.split([t.numel() for t in group])):
                 t.copy_(part.view_as(t))
@@ -137,5 +136,5 @@ def all_reduce_sum(mesh: Mesh, tensor: torch.Tensor) -> torch.Tensor:
     """Sum ``tensor`` over the group, in place. It gathers, exactly, a buffer
     in which each rank wrote its own entries and left the others 0
     (x + 0 == x)."""
-    dist.all_reduce(tensor, group=mesh.group)
+    dist.all_reduce(tensor)
     return tensor

@@ -301,7 +301,7 @@ def test_run_batch_matches_jax(inputs, ranks, mesh):
 
 
 def test_run_batch_needs_an_even_split():
-    mesh = parallel.Mesh(None, 0, 2, torch.device("cpu"))
+    mesh = parallel.Mesh(0, 2, torch.device("cpu"))
     runner = SlidingWindowRunner(lambda x: x, ROI, 1, device="cpu")
     with pytest.raises(ValueError, match="do not split"):
         runner.run_batch([torch.zeros((1, 1, 8, 8, 8))] * 3, mesh=mesh)

@@ -2,12 +2,11 @@
 ``run_batch``, held against one card and timed.
 
     python3 tools/dp_cards.py [--cards K]       # K cards, one rank each (default: all)
-    python3 tools/dp_cards.py --device cpu --cards 4   # K gloo ranks on the CPU, small widths
 
 Spawns K ranks as ``torchrun`` would (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``); each forms the group through
-``parallel.make_mesh`` (NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU). The
-reference runs first, in this process on card 0. Prints:
+``parallel.make_mesh`` (NCCL on ``cuda:LOCAL_RANK``). The reference runs first,
+in this process on card 0. Prints:
 
 * ``dp step``: the f32 DP step (TF32 off, dropout 0), one patch a rank,
   against one process's step on the joined batch of K, within
@@ -19,17 +18,21 @@ reference runs first, in this process on card 0. Prints:
 * ``run_batch``: K volumes through ``run_batch`` over the mesh (bf16, under
   ``chip_smoke.deterministic``), every volume equal bit for bit to one card's
   runner output, and the volumes per second of K cards against one card's
-  (the runner's call on each volume in turn), both warm;
+  (the runner's call on each volume in turn), both warm, the volumes
+  already in host memory;
+* ``loaded``: ``engine.loop.batched_predictions`` (the eval and inference
+  CLIs' loop) over the 2K volumes of the CLIs' workspace, reading and
+  preparing each volume included, on K cards against one card: seconds a
+  volume, the second of two passes (every rank reads every volume: the
+  eval loader is not sharded);
 * ``cli``: ``train3d`` then ``inference_embed_attn`` on its checkpoint, each
   started by ``torchrun --standalone --nproc_per_node K`` as a user starts
   them, over ``chip_smoke.py`` phase 10's workspace with 2K volumes (fold 0
   trains K patients, one a rank) and phase 10's flags: both exit 0, one run
   directory with its three artifacts and one ``metrics.jsonl`` (rank 0's),
   num_samples steps of a global batch of K, a finite summary and the
-  exports; each launcher's wall time, the processes' start included.
-
-On the CPU (``--device cpu``) the same code runs at a small width and
-size, a rehearsal of the ranks' control flow; its times are the CPU's.
+  exports; each launcher's wall time, the processes' start included, and
+  ``inference_embed_attn``'s with ``--nproc_per_node 1`` beside it.
 """
 
 import argparse
@@ -51,68 +54,37 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
-from lintransunet_tpu_torch import engine, kernels, parallel  # noqa: E402
+from lintransunet_tpu_torch import data, engine, kernels, parallel  # noqa: E402
+from lintransunet_tpu_torch.engine.loop import batched_predictions  # noqa: E402
 from lintransunet_tpu_torch.cli.common import EvalConfig, get_criterion_list, make_eval_runner  # noqa: E402
 from lintransunet_tpu_torch.models import MaskTransUnet, init_random_  # noqa: E402
 
 STEPS = 5
-# the geometry of each device: the model's widths, a patch, a served volume
-# and its window, the compute dtype of the timed steps and the serving (the
-# card's are chip_smoke.py's)
-GEOMETRY = {
-    "cuda": dict(model=chip_smoke.FLAGSHIP, patch=chip_smoke.PATCH, box=chip_smoke.LABEL_BOX,
-                 volume=chip_smoke.VOLUME, roi=(512, 512, 64), dtype=torch.bfloat16),
-    "cpu": dict(model=dict(num_layers=(8, 16, 32, 32, 64), roi_size_list=(16, 12, 8, 6, 4),
-                           is_roi_list=(False, True, True, True, True), dim_input=1,
-                           dim_output=2, n_layers=1),
-                patch=(1, 1, 64, 64, 8), box=(slice(20, 44), slice(24, 40), slice(2, 6)),
-                volume=(1, 1, 64, 64, 20), roi=(64, 64, 8), dtype=torch.float32),
-}
-
-
-# the CLIs' workspace shape (D, H, W) and flags: phase 10's on the card; on
-# the CPU the tiny model of tests/test_torch_cli.py
-CLI_FLAGS = {
-    "cuda": dict(shape=chip_smoke.CLI_SHAPE, train=list(chip_smoke.CLI_TRAIN_FLAGS),
-                 infer=list(chip_smoke.CLI_INFER_FLAGS)),
-    "cpu": dict(shape=(8, 32, 32),
-                train=["--image_crop", "16", "--depth_size", "8", "--eval_depth", "8",
-                       "--num_samples", "2", "--batch_size", "1", "--epochs", "1",
-                       "--eval_epoch", "1", "--device", "cpu"],
-                infer=["--roi_size", "16", "--depth_size", "8", "--overlap", "0.6",
-                       "--is_save", "true", "--device", "cpu"]),
-}
-MODEL_FLAGS = ["--num_layers", "8,32", "--roi_size_list", "8,4", "--is_roi_list", "false,true",
-               "--attn_layers", "1", "--compute_dtype", "float32"]
-CLI_FLAGS["cpu"]["train"] += MODEL_FLAGS
-CLI_FLAGS["cpu"]["infer"] += MODEL_FLAGS
+ROI = (512, 512, 64)          # the served window
+EVAL = EvalConfig(roi_size=ROI[0], depth_size=ROI[2], overlap=0.6, mode="constant")
 
 
 def build(device, dtype, dropout):
-    g = GEOMETRY[device.type]
-    model = MaskTransUnet(**g["model"], dtype=dtype, dropout=dropout, device=device)
+    model = MaskTransUnet(**chip_smoke.FLAGSHIP, dtype=dtype, dropout=dropout, device=device)
     return init_random_(model, torch.Generator(device="cpu").manual_seed(chip_smoke.SEED))
 
 
 def batch(device, k):
     """K seeded patches with the label box, and the criterion schedule."""
-    g = GEOMETRY[device.type]
     gen = torch.Generator(device="cpu").manual_seed(chip_smoke.SEED + 5)
-    images = torch.randn((k,) + g["patch"][1:], generator=gen).to(device)
-    labels = torch.zeros((k,) + g["patch"][2:], dtype=torch.long, device=device)
-    labels[(slice(None),) + g["box"]] = 1
+    images = torch.randn((k,) + chip_smoke.PATCH[1:], generator=gen).to(device)
+    labels = torch.zeros((k,) + chip_smoke.PATCH[2:], dtype=torch.long, device=device)
+    labels[(slice(None),) + chip_smoke.LABEL_BOX] = 1
     return images, labels, get_criterion_list(5, ["CrossEntroLoss", "DiceClassLoss"])[0]
 
 
-def volumes(device, k):
-    g = GEOMETRY[device.type]
+def volumes(k):
     gen = torch.Generator(device="cpu").manual_seed(chip_smoke.SEED + 14)
-    return [torch.randn(g["volume"], generator=gen) for _ in range(k)]
+    return [torch.randn(chip_smoke.VOLUME, generator=gen) for _ in range(k)]
 
 
 def sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    torch.cuda.synchronize(device)
 
 
 def f32_step(device, images, labels, criterions, mesh=None):
@@ -127,9 +99,8 @@ def f32_step(device, images, labels, criterions, mesh=None):
 
 
 def step_ms(device, images, labels, criterions, seed, mesh=None):
-    """ms per step (bf16 on the card), STEPS warm steps back to back, one
-    synchronise."""
-    model = build(device, GEOMETRY[device.type]["dtype"], 0.3).train()
+    """ms per bf16 step, STEPS warm steps back to back, one synchronise."""
+    model = build(device, torch.bfloat16, 0.3).train()
     if mesh is not None:
         parallel.replicate(mesh, model)
     state = engine.create_train_state(model, learning_rate=1e-4)
@@ -147,10 +118,7 @@ def step_ms(device, images, labels, criterions, seed, mesh=None):
 
 def serve(device, vols, mesh=None):
     """(outputs on the host, seconds for all the volumes, warm)."""
-    model = build(device, GEOMETRY[device.type]["dtype"], 0.3)
-    g = GEOMETRY[device.type]
-    _, runner = make_eval_runner(model, EvalConfig(roi_size=g["roi"][0], depth_size=g["roi"][2],
-                                                   overlap=0.6, mode="constant"))
+    _, runner = make_eval_runner(build(device, torch.bfloat16, 0.3), EVAL)
     with chip_smoke.deterministic():
         for _ in range(2):  # the second run is timed, warm
             sync(device)
@@ -162,12 +130,29 @@ def serve(device, vols, mesh=None):
     return [o.cpu() for o in outs], seconds
 
 
-def rank_main(rank, k, port, device_type, workdir):
+def serve_loaded(device, data_dir, mesh=None):
+    """Seconds a volume of ``batched_predictions`` over every volume of
+    ``data_dir``, the eval dataset's reading and preparation included: the
+    second of two passes."""
+    _, runner = make_eval_runner(build(device, torch.bfloat16, 0.3), EVAL)
+    dataset = data.EvaPanCTDataset(root=data_dir, depth_size=ROI[2])
+    loader = data.DataLoader(dataset, batch_size=1, shuffle=False, num_workers=4)
+    for _ in range(2):
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in batched_predictions(loader, runner, mesh):
+            pass
+        sync(device)
+        seconds = time.perf_counter() - t0
+    return seconds / len(dataset)
+
+
+def rank_main(rank, k, port, workdir, data_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // k))
     with chip_smoke.torchrun_env(rank, k, port, local_rank=rank):
-        mesh = parallel.make_mesh(device=device_type)
+        mesh = parallel.make_mesh()
     try:
         device = mesh.device
         images, labels, criterions = batch(device, k)
@@ -176,9 +161,11 @@ def rank_main(rank, k, port, device_type, workdir):
         mine = slice(rank, rank + 1)
         result["step_ms"] = step_ms(device, images[mine], labels[mine], criterions,
                                     parallel.rank_seed(chip_smoke.SEED + 6, mesh), mesh)
-        outs, result["serve_s"] = serve(device, volumes(device, k), mesh)
+        del images, labels
+        outs, result["serve_s"] = serve(device, volumes(k), mesh)
         if rank == 0:
             result["outs"] = outs
+        result["loaded_s"] = serve_loaded(device, data_dir, mesh)
         torch.save(result, os.path.join(workdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -187,68 +174,72 @@ def rank_main(rank, k, port, device_type, workdir):
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--cards", type=int, default=None)
-    parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            sys.exit("no CUDA device: pass --device cpu for the CPU rehearsal")
-        k = args.cards or torch.cuda.device_count()
-        if k > torch.cuda.device_count():
-            sys.exit(f"{k} cards asked for, {torch.cuda.device_count()} visible")
-        device = torch.device("cuda", 0)
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True).stdout.strip(), flush=True)
-        kernels.load("linear_attention")
-    else:
-        k = args.cards or 2
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    k = args.cards or torch.cuda.device_count()
+    if k > torch.cuda.device_count():
+        sys.exit(f"{k} cards asked for, {torch.cuda.device_count()} visible")
+    device = torch.device("cuda", 0)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip(), flush=True)
+    kernels.load("linear_attention")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    images, labels, criterions = batch(device, k)
-    joined = f32_step(device, images, labels, criterions)
-    one_ms = step_ms(device, images[:1], labels[:1], criterions, chip_smoke.SEED + 6)
-    del images, labels
-    vols = volumes(device, k)
-    want, one_s = serve(device, vols)
-    if device.type == "cuda":
+    with tempfile.TemporaryDirectory() as root:
+        # the CLIs' workspace: 2K volumes, served whole by ``loaded``
+        data_dir, split = chip_smoke.cli_workspace(root, chip_smoke.CLI_SHAPE, 2 * k)
+        images, labels, criterions = batch(device, k)
+        joined = f32_step(device, images, labels, criterions)
+        one_ms = step_ms(device, images[:1], labels[:1], criterions, chip_smoke.SEED + 6)
+        del images, labels
+        vols = volumes(k)
+        want, one_s = serve(device, vols)
+        one_loaded_s = serve_loaded(device, data_dir)
         torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as workdir:
+        workdir = os.path.join(root, "ranks")
+        os.makedirs(workdir)
         t0 = time.perf_counter()
-        mp.spawn(rank_main, args=(k, chip_smoke.free_port(), device.type, workdir),
+        mp.spawn(rank_main, args=(k, chip_smoke.free_port(), workdir, data_dir),
                  nprocs=k, join=True)
         spawn_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=True)
                  for r in range(k)]
 
-    print(f"[dp cards] {k} ranks: {[r['mesh'] for r in ranks]}; {spawn_s:.1f} s with the "
-          f"processes' start", flush=True)
-    steps = [r["step"] for r in ranks]
-    if not all(torch.equal(s["params"][n], steps[0]["params"][n]) for s in steps[1:]
-               for n in steps[0]["params"]):
-        chip_smoke.fail("the ranks' parameters differ after the DP step")
-    loss_rel, worst, median = chip_smoke.compare_steps(
-        f"dp step, f32 DP step on {k} ranks vs one process on the joined batch of {k}",
-        (steps[0]["loss"], steps[0]["grads"]), (joined["loss"], joined["grads"]))
-    tol = chip_smoke.TRAIN_TOL
-    if not (loss_rel <= tol["loss"] and worst <= tol["grad"] and median <= tol["grad_median"]):
-        chip_smoke.fail("the DP step and the joined batch's step disagree")
-    print(f"[dp cards] dp step: within TRAIN_TOL {tol}; the {k} ranks' parameters bit-equal",
-          flush=True)
-    ms = [r["step_ms"] for r in ranks]
-    print(f"[dp cards] dp time: {str(GEOMETRY[device.type]['dtype'])[6:]} step of one patch a "
-          f"rank, {STEPS} warm steps back to back: "
-          f"{[round(x, 2) for x in ms]} ms on the {k} ranks against {one_ms:.2f} ms on one card "
-          f"alone ({k} patches a step against 1)", flush=True)
-    if not all(torch.equal(o, w) for o, w in zip(ranks[0]["outs"], want)):
-        chip_smoke.fail("run_batch over the mesh differs from one card's runner")
-    serve_s = max(r["serve_s"] for r in ranks)
-    print(f"[dp cards] run_batch: {k} volumes of {GEOMETRY[device.type]['volume'][2:]} equal to "
-          f"one card's runner, bit for bit; {k / serve_s:.3f} volumes/s on {k} ranks "
-          f"({serve_s:.3f} s) against {k / one_s:.3f} on one card ({one_s:.3f} s)", flush=True)
-    cli_on_cards(k, device)
+        print(f"[dp cards] {k} ranks: {[r['mesh'] for r in ranks]}; {spawn_s:.1f} s with the "
+              f"processes' start", flush=True)
+        steps = [r["step"] for r in ranks]
+        if not all(torch.equal(s["params"][n], steps[0]["params"][n]) for s in steps[1:]
+                   for n in steps[0]["params"]):
+            chip_smoke.fail("the ranks' parameters differ after the DP step")
+        loss_rel, worst, median = chip_smoke.compare_steps(
+            f"dp step, f32 DP step on {k} ranks vs one process on the joined batch of {k}",
+            (steps[0]["loss"], steps[0]["grads"]), (joined["loss"], joined["grads"]))
+        tol = chip_smoke.TRAIN_TOL
+        if not (loss_rel <= tol["loss"] and worst <= tol["grad"] and median <= tol["grad_median"]):
+            chip_smoke.fail("the DP step and the joined batch's step disagree")
+        print(f"[dp cards] dp step: within TRAIN_TOL {tol}; the {k} ranks' parameters bit-equal",
+              flush=True)
+        ms = [r["step_ms"] for r in ranks]
+        print(f"[dp cards] dp time: bfloat16 step of one patch a rank, {STEPS} warm steps back "
+              f"to back: {[round(x, 2) for x in ms]} ms on the {k} ranks against {one_ms:.2f} ms "
+              f"on one card alone ({k} patches a step against 1)", flush=True)
+        if not all(torch.equal(o, w) for o, w in zip(ranks[0]["outs"], want)):
+            chip_smoke.fail("run_batch over the mesh differs from one card's runner")
+        serve_s = max(r["serve_s"] for r in ranks)
+        print(f"[dp cards] run_batch: {k} volumes of {chip_smoke.VOLUME[2:]} equal to one card's "
+              f"runner, bit for bit; {k / serve_s:.3f} volumes/s on {k} ranks ({serve_s:.3f} s) "
+              f"against {k / one_s:.3f} on one card ({one_s:.3f} s), the volumes in host memory",
+              flush=True)
+        loaded = [r["loaded_s"] for r in ranks]
+        print(f"[dp cards] loaded: batched_predictions over {2 * k} volumes of "
+              f"{chip_smoke.CLI_SHAPE} (D, H, W), reading and preparing them included: "
+              f"{[round(x, 3) for x in loaded]} s a volume on the {k} ranks against "
+              f"{one_loaded_s:.3f} s on one card ({one_loaded_s / max(loaded):.2f}x)", flush=True)
+        cli_on_cards(k, root, data_dir, split)
 
 
 def torchrun(k, module, flags, cwd):
@@ -266,32 +257,33 @@ def torchrun(k, module, flags, cwd):
     return seconds
 
 
-def cli_on_cards(k, device):
-    """``train3d`` then ``inference_embed_attn`` under ``torchrun`` on k ranks."""
-    flags = CLI_FLAGS[device.type]
-    with tempfile.TemporaryDirectory() as root:
-        data_dir, split = chip_smoke.cli_workspace(root, flags["shape"], 2 * k)
-        common = ["--dir_data", data_dir, "--split_json", split]
-        train_s = torchrun(k, "lintransunet_tpu_torch.cli.train3d",
-                           common + ["--fold_num", "0", "--log_dir", os.path.join(root, "runs"),
-                                     "--model_dir", os.path.join(root, "out"), *flags["train"]],
-                           root)
-        runs = os.listdir(os.path.join(root, "out"))
-        if len(runs) != 1 or os.listdir(os.path.join(root, "runs")) != runs:
-            chip_smoke.fail(f"train3d on {k} ranks wrote run directories {runs}")
-        run = os.path.join(root, "out", runs[0])
-        artifacts = sorted(os.listdir(os.path.join(run, "fold_0")))
-        state = torch.load(os.path.join(run, "fold_0", "train_state"), map_location="cpu",
-                           weights_only=True)
-        logs = [os.path.join(d, f) for d, _, files in os.walk(os.path.join(root, "runs"))
-                for f in files if f == "metrics.jsonl"]
-        infer_s = torchrun(k, "lintransunet_tpu_torch.cli.inference_embed_attn",
-                           common + ["--pretrained_dir", run,
-                                     "--saved_folder", os.path.join(root, "pred"),
-                                     *flags["infer"]], root)
-        summary = json.load(open(os.path.join(root, "summary_4_fold.json")))
-        exports = len(os.listdir(os.path.join(root, "pred")))
-    samples = int(flags["train"][flags["train"].index("--num_samples") + 1])
+def cli_on_cards(k, root, data_dir, split):
+    """``train3d`` then ``inference_embed_attn`` under ``torchrun`` on k ranks,
+    and ``inference_embed_attn`` on one."""
+    common = ["--dir_data", data_dir, "--split_json", split]
+    train_s = torchrun(k, "lintransunet_tpu_torch.cli.train3d",
+                       common + ["--fold_num", "0", "--log_dir", os.path.join(root, "runs"),
+                                 "--model_dir", os.path.join(root, "out"),
+                                 *chip_smoke.CLI_TRAIN_FLAGS], root)
+    runs = os.listdir(os.path.join(root, "out"))
+    if len(runs) != 1 or os.listdir(os.path.join(root, "runs")) != runs:
+        chip_smoke.fail(f"train3d on {k} ranks wrote run directories {runs}")
+    run = os.path.join(root, "out", runs[0])
+    artifacts = sorted(os.listdir(os.path.join(run, "fold_0")))
+    state = torch.load(os.path.join(run, "fold_0", "train_state"), map_location="cpu",
+                       weights_only=True)
+    logs = [os.path.join(d, f) for d, _, files in os.walk(os.path.join(root, "runs"))
+            for f in files if f == "metrics.jsonl"]
+    infer_s = {}
+    for ranks in (k, 1):
+        infer_s[ranks] = torchrun(ranks, "lintransunet_tpu_torch.cli.inference_embed_attn",
+                                  common + ["--pretrained_dir", run,
+                                            "--saved_folder", os.path.join(root, f"pred{ranks}"),
+                                            *chip_smoke.CLI_INFER_FLAGS], root)
+        if ranks == k:
+            summary = json.load(open(os.path.join(root, "summary_4_fold.json")))
+    exports = len(os.listdir(os.path.join(root, f"pred{k}")))
+    samples = int(chip_smoke.CLI_TRAIN_FLAGS[chip_smoke.CLI_TRAIN_FLAGS.index("--num_samples") + 1])
     values = [v for vs in summary.values() for v in np.ravel(vs)]
     if (artifacts != ["model", "temp_model", "train_state"] or len(logs) != 1
             or state["step"] != samples or not values
@@ -300,9 +292,10 @@ def cli_on_cards(k, device):
                         f"logs, {state['step']} steps (want {samples}), summary {summary}")
     print(f"[dp cards] cli: train3d on {k} ranks ({k} train patients, one a rank, {samples} "
           f"steps of a global batch of {k}, then the eval split over the ranks) {train_s:.1f} s, "
-          f"inference_embed_attn on its checkpoint {infer_s:.1f} s ({exports} volumes exported), "
-          f"both with the launcher's and the processes' start; one run directory with "
-          f"{artifacts} and one metrics.jsonl; summary {summary}", flush=True)
+          f"inference_embed_attn on its checkpoint {infer_s[k]:.1f} s on {k} ranks and "
+          f"{infer_s[1]:.1f} s on one ({exports} volumes exported), all with the launcher's and "
+          f"the processes' start; one run directory with {artifacts} and one metrics.jsonl; "
+          f"summary {summary}", flush=True)
 
 
 if __name__ == "__main__":
