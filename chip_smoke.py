@@ -142,12 +142,16 @@ last line):
        volumes of depths 144 and 80 against the runner's call on each, bit
        for bit (under ``deterministic()`` the card reruns a step bit for
        bit);
-    b. two gloo ranks, the flagship in f32 (TF32 off, dropout 0): the DP
-       step with one 512 x 512 x 32 patch a rank against one process's
-       step on the joined batch of 2 within TRAIN_TOL, 32 forward and 32
+    b. two gloo ranks, the flagship in f32 (TF32 off): the DP step with
+       one 512 x 512 x 32 patch a rank against one process's step on the
+       joined batch of 2 within TRAIN_TOL, at dropout 0 and at dropout 0.3
+       (every rank's generator seeded as the joined step's: each mask is
+       the global batch's, the rank's rows kept), 32 forward and 32
        backward attention launches a rank, the ranks' parameters bit-equal
-       after the step; ``batched_predictions`` over three volumes (the group
-       padded to 4) equal to the runner's call on each, on both ranks;
+       after each step; the ranks' element and channel dropout masks equal
+       to their rows of the joined batch's, bit for bit;
+       ``batched_predictions`` over three volumes (the group padded to 4)
+       equal to the runner's call on each, on both ranks;
     c. REMAT "attn" on phase 7's bf16 step: 64 forward and 32 backward
        attention launches, the loss and gradients against the step without
        recompute bit for bit, and both steps' peak memory;
@@ -1764,6 +1768,8 @@ DP_RANKS = 2
 # so phase 13 holds each step that should equal another to the bit.
 DP_WORLD_ONE_DEPTHS = (144, 80)    # 13a: run_batch's two volumes
 DP_BATCH_DEPTHS = (80, 64, 48)     # 13b: three volumes, the group padded to 4
+DP_DROPOUT = 0.3                   # 13b's second DP step
+DP_MASK_SHAPE = (1, 32, 16, 16, 8)  # 13b: one rank's shard of activations to mask
 
 
 def free_port():
@@ -1902,14 +1908,44 @@ def dp_volumes():
     return [torch.randn(VOLUME[:4] + (d,), generator=gen) for d in DP_BATCH_DEPTHS]
 
 
-def f32_flagship():
-    model = MaskTransUnet(**FLAGSHIP, dtype=torch.float32, dropout=0.0)
+def f32_flagship(dropout=0.0):
+    model = MaskTransUnet(**FLAGSHIP, dtype=torch.float32, dropout=dropout)
     return init_random_(model, torch.Generator(device="cpu").manual_seed(SEED))
+
+
+def dp_masks(shard, rows):
+    """13b: an element and a channel dropout mask of ``rows`` samples, drawn
+    under ``shard`` (rank, size) from the step generator's seed; on the host."""
+    ones = torch.ones((rows,) + DP_MASK_SHAPE[1:], device="cuda")
+    with blocks.dropout_generator(dropout_generator(), shard):
+        return [blocks.dropout(ones, DP_DROPOUT, True).cpu(),
+                blocks.dropout(ones, DP_DROPOUT, True, channel=True).cpu()]
+
+
+def dp_step(mesh, images, labels, criterions, dropout):
+    """13b: one f32 DP step of the seed's flagship on this rank's shard,
+    dropout from the step generator (seeded alike on every rank); (the
+    step's snapshot, launches, seconds)."""
+    model = f32_flagship(dropout).train()
+    parallel.replicate(mesh, model)
+    state = engine.create_train_state(model, learning_rate=1e-4)
+    step = engine.make_train_step(model, criterions, mesh=mesh)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, logs = step(state, parallel.shard_batch(mesh, images),
+                      parallel.shard_batch(mesh, labels), DYNAMIC_WEIGHT, dropout_generator())
+    torch.cuda.synchronize()
+    out = step_snapshot(loss, logs, model), launch_counts(), time.perf_counter() - t0
+    del state, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def dp_rank(rank, world, port, workdir):
     """13b: one of two ranks on the card (gloo, the group formed here from
-    torchrun's environment): the f32 DP step on this rank's patch, then
+    torchrun's environment): the f32 DP step on this rank's patch at
+    dropout 0 and at DP_DROPOUT, the rank's dropout masks, then
     batched_predictions over 13b's three volumes; writes ``rank<r>.pt``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1918,21 +1954,13 @@ def dp_rank(rank, world, port, workdir):
         mesh = parallel.make_mesh()
     try:
         images, labels, criterions = dp_batch()
-        model = f32_flagship().train()
-        parallel.replicate(mesh, model)
-        state = engine.create_train_state(model, learning_rate=1e-4)
-        step = engine.make_train_step(model, criterions, mesh=mesh)
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, logs = step(state, parallel.shard_batch(mesh, images),
-                          parallel.shard_batch(mesh, labels), DYNAMIC_WEIGHT)
-        torch.cuda.synchronize()
-        result = {"step_s": time.perf_counter() - t0, "launches": launch_counts(),
-                  "step": step_snapshot(loss, logs, model),
-                  "mesh": (mesh.rank, mesh.size, str(mesh.device), dist.get_backend())}
-        del images, labels, state, model
-        torch.cuda.empty_cache()
+        result = {"mesh": (mesh.rank, mesh.size, str(mesh.device), dist.get_backend())}
+        result["step"], result["launches"], result["step_s"] = dp_step(
+            mesh, images, labels, criterions, 0.0)
+        result["dropout_step"], result["dropout_launches"], _ = dp_step(
+            mesh, images, labels, criterions, DP_DROPOUT)
+        result["masks"] = dp_masks((mesh.rank, mesh.size), 1)
+        del images, labels
         # the seed's weights again, as the reference serves them
         _, runner = make_eval_runner(f32_flagship(), EvalConfig(roi_size=512, depth_size=64,
                                                                 overlap=0.6, mode="constant"))
@@ -1949,14 +1977,21 @@ def dp_rank(rank, world, port, workdir):
 
 def phase_dp_two_ranks():
     """13b: two gloo ranks on the card against the single-process step on
-    the joined batch (f32, TF32 off, dropout 0) and the runner's call on
-    each volume."""
+    the joined batch (f32, TF32 off; dropout 0, then DP_DROPOUT from the
+    step generator), the joined batch's dropout masks and the runner's call
+    on each volume."""
     images, labels, criterions = dp_batch()
-    model = f32_flagship().train()
-    state = engine.create_train_state(model, learning_rate=1e-4)
-    loss, logs = engine.make_train_step(model, criterions)(state, images, labels, DYNAMIC_WEIGHT)
-    joined = step_snapshot(loss, logs, model)
-    del images, labels, state, model
+    joined = {}
+    for dropout in (0.0, DP_DROPOUT):
+        model = f32_flagship(dropout).train()
+        state = engine.create_train_state(model, learning_rate=1e-4)
+        loss, logs = engine.make_train_step(model, criterions)(
+            state, images, labels, DYNAMIC_WEIGHT, dropout_generator())
+        joined[dropout] = step_snapshot(loss, logs, model)
+        del state, model
+        torch.cuda.empty_cache()
+    joined_masks = dp_masks((0, 1), DP_RANKS)
+    del images, labels
     torch.cuda.empty_cache()
     _, runner = make_eval_runner(f32_flagship(), EvalConfig(roi_size=512, depth_size=64,
                                                             overlap=0.6, mode="constant"))
@@ -1974,28 +2009,40 @@ def phase_dp_two_ranks():
     for r, result in enumerate(ranks):
         if result["mesh"] != (r, DP_RANKS, "cuda:0", "gloo"):
             fail(f"13b rank {r}'s mesh is {result['mesh']}")
-        if result["launches"] != PER_WINDOW["train"]:
-            fail(f"13b rank {r}'s DP step launched {result['launches']}, not {PER_WINDOW['train']}")
-    steps = [result["step"] for result in ranks]
-    if not all(torch.equal(steps[0]["params"][n], steps[1]["params"][n]) for n in steps[0]["params"]):
-        fail("13b: the ranks' parameters differ after the step")
-    if steps[0]["loss"] != steps[1]["loss"]:
-        fail(f"13b: the ranks report different losses {steps[0]['loss']}, {steps[1]['loss']}")
-    loss_rel, worst, median = compare_steps(
-        f"13b {DP_RANKS} gloo ranks on one card, the f32 DP step vs one process on the "
-        f"joined batch of {DP_RANKS}", (steps[0]["loss"], steps[0]["grads"]),
-        (joined["loss"], joined["grads"]))
-    ok = (loss_rel <= TRAIN_TOL["loss"] and worst <= TRAIN_TOL["grad"]
-          and median <= TRAIN_TOL["grad_median"])
-    print(f"[dp] 13b: tol loss {TRAIN_TOL['loss']:g}, gradients {TRAIN_TOL['grad']:g}, median "
-          f"{TRAIN_TOL['grad_median']:g} {'ok' if ok else 'TOO FAR'}; the ranks' parameters "
-          f"bit-equal after the step; per rank {ranks[0]['launches']['linear_attention']} "
+        for key in ("launches", "dropout_launches"):
+            if result[key] != PER_WINDOW["train"]:
+                fail(f"13b rank {r}'s DP step launched {result[key]}, not {PER_WINDOW['train']}")
+        for kind, got, want in zip(("element", "channel"), result["masks"], joined_masks):
+            if not torch.equal(got, want[r:r + 1]):
+                fail(f"13b rank {r}'s {kind} dropout mask is not its row of the joined batch's")
+    for key, dropout in (("step", 0.0), ("dropout_step", DP_DROPOUT)):
+        steps = [result[key] for result in ranks]
+        if not all(torch.equal(steps[0]["params"][n], steps[1]["params"][n])
+                   for n in steps[0]["params"]):
+            fail(f"13b: the ranks' parameters differ after the step at dropout {dropout}")
+        if steps[0]["loss"] != steps[1]["loss"]:
+            fail(f"13b: the ranks report different losses {steps[0]['loss']}, {steps[1]['loss']}")
+        loss_rel, worst, median = compare_steps(
+            f"13b {DP_RANKS} gloo ranks on one card, the f32 DP step at dropout {dropout:g} vs "
+            f"one process on the joined batch of {DP_RANKS}",
+            (steps[0]["loss"], steps[0]["grads"]),
+            (joined[dropout]["loss"], joined[dropout]["grads"]))
+        ok = (loss_rel <= TRAIN_TOL["loss"] and worst <= TRAIN_TOL["grad"]
+              and median <= TRAIN_TOL["grad_median"])
+        print(f"[dp] 13b at dropout {dropout:g}: tol loss {TRAIN_TOL['loss']:g}, gradients "
+              f"{TRAIN_TOL['grad']:g}, median {TRAIN_TOL['grad_median']:g} "
+              f"{'ok' if ok else 'TOO FAR'}; the ranks' parameters bit-equal after the step",
+              flush=True)
+        if not ok:
+            fail(f"13b: the DP step at dropout {dropout:g} and the joined batch's step disagree")
+    if joined[0.0]["loss"] == joined[DP_DROPOUT]["loss"]:
+        fail("13b: dropout did not change the joined batch's loss")
+    print(f"[dp] 13b: each rank's element and channel dropout masks are its rows of the "
+          f"joined batch's, bit for bit; per rank {ranks[0]['launches']['linear_attention']} "
           f"forward and {ranks[0]['launches']['linear_attention_backward']} backward attention "
-          f"launches; the DP step took {[round(x['step_s'] * 1e3, 2) for x in ranks]} ms "
-          f"(first step of each process, gloo's host copies of the gradients included)",
+          f"launches a step; the first DP step took {[round(x['step_s'] * 1e3, 2) for x in ranks]} "
+          f"ms (first step of each process, gloo's host copies of the gradients included)",
           flush=True)
-    if not ok:
-        fail("13b: the DP step and the joined batch's step disagree")
 
     for r, result in enumerate(ranks):
         preds = result["preds"]

@@ -18,9 +18,10 @@ CLI does over every chip (``cli.common.cli_mesh``):
 
 Each rank loads its own share of the training patients, ``--batch_size``
 of them a batch (the global batch is ``--batch_size`` x ranks, JAX's
-``batch_size * num_devices``), draws its frames and dropout masks from
-its own seeded streams, and averages its gradients with the others' every
-micro-step; the ranks split the eval volumes; only rank 0 writes metrics
+``batch_size * num_devices``), draws its frames from its own seeded
+stream and its dropout masks as its rows of the global batch's (one seed
+on every rank, as JAX's step draws the global batch's masks once), and
+averages its gradients with the others' every micro-step; the ranks split the eval volumes; only rank 0 writes metrics
 and checkpoints.
 """
 
@@ -177,11 +178,11 @@ def main(args, multi_class: bool = False):
     best_eval_loss = resume_aux.get("best_eval_loss", float("inf"))
     global_step = resume_aux.get("global_step", 0)
     start_epoch = resume_aux.get("epoch", -1) + 1
-    # this rank's streams: its frames, and every dropout's masks (a
-    # generator on the model's device)
+    # this rank's own stream of frames; and every dropout's masks, from a
+    # generator on the model's device seeded alike on every rank (each mask
+    # is the global batch's, this rank's rows kept)
     host_rng = np.random.default_rng(parallel.rank_seed(args.seed, mesh))
-    generator = torch.Generator(device=device).manual_seed(
-        parallel.rank_seed(args.seed + 1, mesh))
+    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
 
     for epoch in range(start_epoch, args.epochs):
         dynamic_weight = dynamic_weight_list[epoch]

@@ -45,7 +45,7 @@ def get_parse():
 def main(args):
     import torch
 
-    from lintransunet_tpu_torch import data, engine, parallel
+    from lintransunet_tpu_torch import data, engine
     from lintransunet_tpu_torch.cli.common import (build_model, cli_mesh,
                                                    get_multi_criterion_list,
                                                    make_eval_runner)
@@ -113,9 +113,10 @@ def main(args):
     best_eval_loss = resume_aux.get("best_eval_loss", float("inf"))
     global_step = resume_aux.get("global_step", 0)
     start_epoch = resume_aux.get("epoch", -1) + 1
-    # every dropout of this rank draws from this generator on the model's device
-    generator = torch.Generator(device=device).manual_seed(
-        parallel.rank_seed(args.seed + 1, mesh))
+    # every dropout draws from this generator on the model's device, seeded
+    # alike on every rank (each mask is the global batch's, this rank's rows
+    # kept)
+    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
 
     for epoch in range(start_epoch, args.epochs):
         dynamic_weight = dynamic_weight_list[epoch]

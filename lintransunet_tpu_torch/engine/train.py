@@ -23,10 +23,11 @@ per-sample terms is the global batch's mean when the shards are equal, so
 the step then equals the single-process step on the joined batch, as JAX's
 SPMD step does. A criterion whose value couples the samples of a batch
 (``losses.multiclass.ClassifyLoss``: a ratio of batch sums) reduces its
-coupling term over the group itself (its ``over_group``). Dropout is the
-one difference from JAX: JAX draws the global batch's masks once, while
-each rank here draws its own from its generator, so a DP step equals the
-joined batch's only at dropout 0.
+coupling term over the group itself (its ``over_group``). Dropout draws
+each mask at the global batch's shape and keeps this rank's rows
+(``blocks.dropout_generator``'s shard), as JAX's SPMD step draws the global
+batch's masks once: with every rank's generator seeded alike, a DP step
+equals the joined batch's at any dropout.
 """
 
 import dataclasses
@@ -199,7 +200,9 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
     step averages the gradients over the group before the update (each
     micro-step's, under accumulation); it returns the loss and logs
     averaged over the group, the global batch's, on every rank. The
-    parameters must start equal on every rank (``parallel.replicate``).
+    parameters must start equal on every rank (``parallel.replicate``), and
+    so must ``generator``: each dropout draws the global batch's mask and
+    keeps this rank's rows.
     """
     from lintransunet_tpu_torch.models.blocks import dropout_generator
     from lintransunet_tpu_torch.models.registry import MaskTransUnet
@@ -208,8 +211,10 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
     if mesh is not None:
         criterions = _over_group(criterions, mesh)
 
+    shard = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+
     def loss_fn(images, labels, dynamic_weight, generator=None):
-        with dropout_generator(generator):
+        with dropout_generator(generator, shard):
             # as JAX's step: every model's train output is unpacked as
             # (probabilities, mask_list); a model that returns probabilities
             # alone does not train here, in either package

@@ -23,7 +23,8 @@ neither (``MaskTransUnet.train()`` refuses them).
 
 Dropout draws its masks from the generator that ``dropout_generator``
 installs (the train step's, as JAX's step takes ``rng``), or from PyTorch's
-global generator outside it.
+global generator outside it; under a data-parallel step, at the global
+batch's shape, each rank keeping its own rows.
 
 ``REMAT`` (``LINTRANSUNET_REMAT``, read once at import, the JAX package's
 knob and values): "attn" checkpoints every ``SelfAttentionLayer`` of a
@@ -155,14 +156,26 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
-_GENERATOR = contextvars.ContextVar("dropout_generator", default=None)
+# (generator, (rank, size)): what dropout draws from, and this rank's shard
+# of the global batch
+_GENERATOR = contextvars.ContextVar("dropout_generator", default=(None, (0, 1)))
 
 
 @contextlib.contextmanager
-def dropout_generator(generator: Optional[torch.Generator]):
+def dropout_generator(generator: Optional[torch.Generator],
+                      shard: Tuple[int, int] = (0, 1)):
     """Every dropout inside the block draws from ``generator`` (a
-    ``torch.Generator`` on the activations' device)."""
-    token = _GENERATOR.set(generator)
+    ``torch.Generator`` on the activations' device). ``shard`` (rank, size)
+    says that the activations are rank's rows of a global batch split
+    evenly over size ranks, as a data-parallel step's are: each mask is then
+    drawn at the global batch's shape and rank's rows kept, so that ranks
+    whose generators start alike draw together the mask that one process
+    draws for the joined batch, as JAX's SPMD step draws the global batch's
+    masks once. (0, 1), one process, draws as it always did."""
+    rank, size = shard
+    if not 0 <= rank < size:
+        raise ValueError(f"shard {shard} is not a (rank, size) pair")
+    token = _GENERATOR.set((generator, (rank, size)))
     try:
         yield
     finally:
@@ -174,12 +187,17 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
     1 / (1 - rate), in x's dtype. ``channel`` draws one mask value per
     (N, C) and broadcasts it over the spatial dims (``broadcast_dims`` of
-    every spatial axis, torch Dropout3d)."""
+    every spatial axis, torch Dropout3d). Dim 0 of ``x`` is the batch: under
+    a ``dropout_generator`` shard the mask is the global batch's rows of
+    this rank."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
+    generator, (rank, size) = _GENERATOR.get()
     shape = x.shape[:2] + (1,) * (x.dim() - 2) if channel else x.shape
-    mask = torch.rand(shape, generator=_GENERATOR.get(), device=x.device) < keep
+    n = shape[0]
+    draw = torch.rand((n * size,) + tuple(shape[1:]), generator=generator, device=x.device)
+    mask = draw[rank * n:(rank + 1) * n] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -284,13 +302,13 @@ def attention_layer(layer: SelfAttentionLayer, x: torch.Tensor,
     The recompute runs inside the backward, outside the step's
     ``dropout_generator`` and, for CUDA tensors, on autograd's own thread,
     and ``torch.utils.checkpoint`` restores only the default generators. So
-    the step's generator and its state at this call are captured here: the
-    recompute draws from that state, then puts the generator back where the
+    the step's generator, its shard and its state at this call are captured
+    here: the recompute draws from that state with that shard, then puts the generator back where the
     rest of the step left it, so the masks and the generator's stream are
     those of a run without recompute."""
     if not (layer.training and REMAT == "attn"):
         return layer(x, mask)
-    generator = _GENERATOR.get()
+    generator, shard = _GENERATOR.get()
     start = None if generator is None else generator.get_state()
     recompute = False
 
@@ -298,12 +316,12 @@ def attention_layer(layer: SelfAttentionLayer, x: torch.Tensor,
         nonlocal recompute
         if start is None or not recompute:
             recompute = True
-            with dropout_generator(generator):
+            with dropout_generator(generator, shard):
                 return layer(x, mask)
         resume = generator.get_state()
         generator.set_state(start)
         try:
-            with dropout_generator(generator):
+            with dropout_generator(generator, shard):
                 return layer(x, mask)
         finally:
             generator.set_state(resume)

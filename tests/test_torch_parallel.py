@@ -21,12 +21,16 @@ The ranks are spawned (``tests/torch_port_helpers.py``: ``dp_worker``,
   from each criterion's deep-supervision loss (the chain rule of
   ``make_train_step``'s ``value_and_grad``; one compile serves the 36
   criteria), and for the CLI's criterions from ``make_train_step`` itself.
-  Dropout stays 0: JAX draws the global batch's masks once, each rank here
-  its own (the one difference from JAX), so only a dropout-free DP step
-  equals the joined batch's.
+  Dropout is 0 in these cases: JAX's masks are other random numbers.
 * ``step_times`` 2: the ranks accumulate the group-averaged gradients as
   ``optax.MultiSteps`` does.
-* The ranks' dropout generators draw different masks.
+* Dropout under a mesh: the ranks, seeded alike, draw the rows of the
+  mask that one process draws for the joined batch (element and channel
+  masks; without a mesh the masks are the draws they always were), and the
+  DP step at dropout 0.3 equals the port's single-process step on the
+  joined batch (the loss within 1e-6 relative, gradients by the 1e-4 rule,
+  the ranks' parameters bit-equal), as JAX's SPMD step draws the global
+  batch's masks once.
 * ``run_batch`` and ``batched_predictions`` with and without a mesh equal
   JAX's ``run_batch`` on volumes of depths 7, 10 and 12 (7 below the
   window's 8), bit for bit between the ranks and the single process.
@@ -59,7 +63,8 @@ from lintransunet_tpu_torch.data import DataLoader
 from lintransunet_tpu_torch.engine.sliding_window import SlidingWindowRunner
 from lintransunet_tpu_torch.losses import binary, multiclass
 from lintransunet_tpu_torch.models import MaskTransUnet
-from torch_port_helpers import DP_TINY, random_params, t, worst_grad_error
+from lintransunet_tpu_torch.models import blocks
+from torch_port_helpers import DP_MASK_SHAPE, DP_TINY, random_params, t, worst_grad_error
 
 torch.set_num_threads(2)
 
@@ -69,10 +74,13 @@ LR = 1e-3
 DYNAMIC_WEIGHT = [0.5, 1.0]
 CLI_CRITERIA = ("CrossEntroLoss", "DiceClassLoss")
 KINDS = {"binary": (2, jax_binary, binary), "multi": (3, jax_multiclass, multiclass)}
-CASES = {f"{kind}/{name}": (kind, (name,), 1)
+# key: (kind, criteria, step_times, dropout)
+CASES = {f"{kind}/{name}": (kind, (name,), 1, 0.0)
          for kind, (_, _, module) in KINDS.items() for name in module.Loss_Dict}
-CASES["cli"] = ("binary", CLI_CRITERIA, 1)  # train3d's criterions at every level
-CASES["accumulate"] = ("binary", CLI_CRITERIA, 2)
+CASES["cli"] = ("binary", CLI_CRITERIA, 1, 0.0)  # train3d's criterions at every level
+CASES["accumulate"] = ("binary", CLI_CRITERIA, 2, 0.0)
+CASES["dropout"] = ("binary", CLI_CRITERIA, 1, 0.3)
+DROPOUT_SEED = 7  # every rank's dropout generator, and the joined step's
 ROI = (8, 8, 8)
 DEPTHS = (7, 10, 12)
 
@@ -107,6 +115,7 @@ def ranks(inputs, tmp_path_factory):
     """Both ranks' results of ``dp_worker`` over ``inputs``."""
     workdir = str(tmp_path_factory.mktemp("dp"))
     spec = {"cases": CASES, "lr": LR, "dynamic_weight": DYNAMIC_WEIGHT, "roi": ROI,
+            "dropout_seed": DROPOUT_SEED,
             "params": {k: from_flax(p) for k, p in inputs["params"].items()},
             "batches": {k: [(t(to_ncdhw(x)), t(y)) for x, y in b]
                         for k, b in inputs["batches"].items()},
@@ -152,11 +161,12 @@ def _jax_step(inputs, jax_forward, kind, names, batch=0):
         jax.tree.map(np.asarray, grads))
 
 
-def _joined_step(inputs, kind, names):
-    """The port's single-process step on the joined batch: (loss, logs,
-    gradients, parameters after the update)."""
+def _joined_step(inputs, kind, names, dropout=0.0):
+    """The port's single-process step on the joined batch, dropout from a
+    generator seeded as the ranks': (loss, logs, gradients, parameters
+    after the update)."""
     classes, _, module = KINDS[kind]
-    model = MaskTransUnet(**DP_TINY, dim_output=classes, device="cpu")
+    model = MaskTransUnet(**{**DP_TINY, "dropout": dropout}, dim_output=classes, device="cpu")
     helpers.load_port(model, inputs["params"][kind])
     crit = [module.get_criterions(list(names))] * len(DP_TINY["num_layers"])
     multi = kind == "multi"
@@ -165,15 +175,16 @@ def _joined_step(inputs, kind, names):
                                   num_classes=classes if multi else None)
     state = engine.create_train_state(model, LR)
     x, y = inputs["batches"][kind][0]
-    loss, logs = step(state, t(to_ncdhw(x)), t(y), DYNAMIC_WEIGHT)
+    loss, logs = step(state, t(to_ncdhw(x)), t(y), DYNAMIC_WEIGHT,
+                      torch.Generator().manual_seed(DROPOUT_SEED))
     return (loss.item(), {k: v.item() for k, v in logs.items()},
             {n: p.grad for n, p in model.named_parameters()},
             {n: p.detach() for n, p in model.named_parameters()})
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c != "accumulate"])
+@pytest.mark.parametrize("case", [c for c in CASES if c not in ("accumulate", "dropout")])
 def test_dp_step_equals_the_joined_batch(case, inputs, ranks, jax_forward):
-    kind, names, _ = CASES[case]
+    kind, names, _, _ = CASES[case]
     (loss0, logs0, grads0, params0, _), (loss1, logs1, grads1, params1, _) = (
         r["steps"][case] for r in ranks)
     assert torch.equal(loss0, loss1)
@@ -260,11 +271,49 @@ def test_dp_accumulation_matches_optax(inputs, ranks, jax_forward):
                                    err_msg=name)
 
 
-def test_rank_generators_draw_different_masks(ranks):
-    masks = [r["mask"] for r in ranks]
-    assert all(set(m.unique().tolist()) == {0.0, 2.0} for m in masks)
-    assert not torch.equal(masks[0], masks[1])
+def test_rank_masks_are_the_joined_batch_rows(ranks):
+    """Each rank's element and channel masks are its rows of the masks one
+    process draws for the joined batch from the same seed, and those are
+    the draws a mask always was without a mesh."""
+    joined_shape = (len(ranks),) + DP_MASK_SHAPE[1:]
+    generator = torch.Generator().manual_seed(DROPOUT_SEED)
+    with blocks.dropout_generator(generator):
+        joined = [blocks.dropout(torch.ones(joined_shape), 0.5, True),
+                  blocks.dropout(torch.ones(joined_shape), 0.5, True, channel=True)]
+    draws = torch.Generator().manual_seed(DROPOUT_SEED)
+    want = [torch.rand(joined_shape, generator=draws) < 0.5,
+            torch.rand(joined_shape[:2] + (1, 1, 1), generator=draws) < 0.5]
+    for mask, keep in zip(joined, want):
+        assert torch.equal(mask, torch.where(keep, 2.0, 0.0).expand(joined_shape))
+    for r, result in enumerate(ranks):
+        assert len(result["masks"]) == 2
+        for got, mask in zip(result["masks"], joined):
+            assert torch.equal(got, mask[r:r + 1]), r
+    assert not torch.equal(joined[0][0], joined[0][1])
     assert parallel.rank_seed(7, None) == 7
+
+
+def test_dp_step_with_dropout_equals_the_joined_batch(inputs, ranks):
+    """At dropout 0.3 the ranks, their generators seeded alike, take the
+    step that one process takes on the joined batch: the loss within 1e-6
+    relative, gradients by the file's 1e-4 rule, parameters bit-equal across
+    the ranks; and dropout did act (the loss differs from dropout 0's)."""
+    kind, names, _, dropout = CASES["dropout"]
+    (loss0, logs0, grads0, params0, _), (loss1, logs1, grads1, params1, _) = (
+        r["steps"]["dropout"] for r in ranks)
+    assert torch.equal(loss0, loss1)
+    assert all(torch.equal(logs0[k], logs1[k]) for k in logs0)
+    for name in params0:
+        assert torch.equal(params0[name], params1[name]), name
+    assert np.isfinite(loss0.item())
+
+    loss, logs, grads, _ = _joined_step(inputs, kind, names, dropout)
+    np.testing.assert_allclose(loss0.item(), loss, rtol=1e-6)
+    for k in logs:
+        np.testing.assert_allclose(logs0[k].item(), logs[k], rtol=1e-6, atol=1e-8, err_msg=k)
+    worst = worst_grad_error(grads0, grads)
+    assert worst[1] <= 1e-4, worst
+    assert loss != pytest.approx(_joined_step(inputs, kind, names)[0], rel=1e-3)
 
 
 def _jax_run_batch(volumes):

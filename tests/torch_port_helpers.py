@@ -143,9 +143,12 @@ def cli_infer_args(ws, pretrained_dir, saved_folder):
 # The data-parallel step's tiny model: no ROI level, since a DP step and the
 # joined batch's step differ at the rounding level, which can move an ROI
 # box by a pixel (the boxes are per sample, so they add nothing that DP must
-# hold); dropout 0, since each rank draws its own masks.
+# hold); dropout 0 against JAX (whose masks are other random numbers), and
+# a case's own rate against the joined batch.
 DP_TINY = dict(num_layers=(8, 32), roi_size_list=(8, 4), is_roi_list=(False, False),
                dim_input=1, n_layers=1, dropout=0.0)
+# one rank's shard of activations whose dropout masks the ranks draw
+DP_MASK_SHAPE = (1, 8, 4, 4, 2)
 
 
 def _init_rank(rank, world, store):
@@ -172,9 +175,10 @@ def _dp_cases(mesh, spec):
 
     train.apply_gradients = recording
     out = {}
-    for key, (kind, names, step_times) in spec["cases"].items():
+    for key, (kind, names, step_times, dropout) in spec["cases"].items():
         multi = kind == "multi"
-        model = MaskTransUnet(**DP_TINY, dim_output=3 if multi else 2, device="cpu")
+        model = MaskTransUnet(**{**DP_TINY, "dropout": dropout}, dim_output=3 if multi else 2,
+                              device="cpu")
         model.load_state_dict(spec["params"][kind])
         module = multiclass if multi else binary
         criterions = [module.get_criterions(list(names))] * len(DP_TINY["num_layers"])
@@ -182,10 +186,13 @@ def _dp_cases(mesh, spec):
             model, criterions, criterion_weight=[1.0] * len(names) if multi else None,
             num_classes=3 if multi else None, mesh=mesh)
         state = engine.create_train_state(model, spec["lr"], step_times)
+        # one dropout seed on every rank: each mask is the global batch's
+        generator = torch.Generator().manual_seed(spec["dropout_seed"])
         received.clear()
         for images, labels in spec["batches"][kind][:step_times]:
             loss, logs = step(state, parallel.shard_batch(mesh, images),
-                              parallel.shard_batch(mesh, labels), spec["dynamic_weight"])
+                              parallel.shard_batch(mesh, labels), spec["dynamic_weight"],
+                              generator)
         out[key] = (loss, logs, {n: p.grad.clone() for n, p in model.named_parameters()},
                     {n: p.detach().clone() for n, p in model.named_parameters()},
                     list(received))
@@ -196,7 +203,8 @@ def _dp_cases(mesh, spec):
 def dp_worker(rank, world, store, workdir):
     """One rank of tests/test_torch_parallel.py: the DP train steps of
     ``spec.pt``, run_batch and batched_predictions over its volumes, the
-    rank's dropout masks, and the collectives; writes ``rank<r>.pt``."""
+    rank's dropout masks (an element mask, then a channel mask, of a
+    one-sample shard), and the collectives; writes ``rank<r>.pt``."""
     from lintransunet_tpu_torch import engine, parallel
     from lintransunet_tpu_torch.engine import loop
     from lintransunet_tpu_torch.models import blocks
@@ -208,9 +216,11 @@ def dp_worker(rank, world, store, workdir):
         result = {"mesh": (mesh.rank, mesh.size, str(mesh.device)),
                   "steps": _dp_cases(mesh, spec)}
 
-        generator = torch.Generator().manual_seed(parallel.rank_seed(7, mesh))
-        with blocks.dropout_generator(generator):
-            result["mask"] = blocks.dropout(torch.ones(256), 0.5, True)
+        generator = torch.Generator().manual_seed(spec["dropout_seed"])
+        with blocks.dropout_generator(generator, (mesh.rank, mesh.size)):
+            result["masks"] = [blocks.dropout(torch.ones(DP_MASK_SHAPE), 0.5, True),
+                               blocks.dropout(torch.ones(DP_MASK_SHAPE), 0.5, True,
+                                              channel=True)]
 
         runner = engine.SlidingWindowRunner(
             lambda x: torch.cat([x + x.mean(dim=(2, 3, 4), keepdim=True), -x], dim=1),

@@ -160,7 +160,7 @@ def rank_main(rank, k, port, workdir, data_dir):
                   "step": f32_step(device, images, labels, criterions, mesh)}
         mine = slice(rank, rank + 1)
         result["step_ms"] = step_ms(device, images[mine], labels[mine], criterions,
-                                    parallel.rank_seed(chip_smoke.SEED + 6, mesh), mesh)
+                                    chip_smoke.SEED + 6, mesh)
         del images, labels
         outs, result["serve_s"] = serve(device, volumes(k), mesh)
         if rank == 0:
