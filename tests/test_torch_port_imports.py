@@ -42,14 +42,15 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, rest = proc.stdout.split(" ", 1)
     bad, names = rest.split("] ", 1)
-    assert int(count) >= 63  # every subpackage and module was imported
+    assert int(count) >= 66  # every subpackage and module was imported
     assert bad.strip() == "["
     for name in ("losses", "losses.binary", "losses.functional", "ops.pool",
                  "engine.train", "engine.schedule", "engine.checkpoint", "cli.common",
                  "experiments", "experiments.common", "experiments.dot_probe",
                  "experiments.rowoffset_probe", "experiments.inner_probe",
                  "experiments.conv_prototype", "experiments.conv_retired",
-                 "experiments.in_stats_probe",
+                 "experiments.in_stats_probe", "experiments.roofline",
+                 "experiments.stage_flops", "experiments.parity_training",
                  "core", "core.config", "data", "data.nifti", "data.transforms",
                  "data.split", "data.datasets", "data.loader", "native",
                  "engine.metrics", "engine.loop", "compat.torch_import",
