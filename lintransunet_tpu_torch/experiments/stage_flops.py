@@ -17,7 +17,9 @@ prints each stage's FLOPs, bytes and floor on the CPU without a card.
 ``--time`` also runs the window with the kernels on the card, 10 runs back
 to back, CUDA events recorded by forward hooks at each stage's entry and
 exit, and prints each stage's median time, its spread and its share of its
-floor, with the card's name and power limit; without a card it raises.
+floor, with the card's name and power limit; without a card it raises. The
+program's own row times what runs outside the model (its time less the
+model's), which its bytes do not bound, so it has no share.
 """
 
 import argparse
@@ -161,11 +163,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Tuple[str, roofline.Cost]
     if args.time:
         roofline.require_card()
     cost = roofline.count("window", args.batch)
-    rows = stage_costs(cost, roofline.build_model("window"))
+    model = roofline.build_model("window")  # its module tree names the stages
+    rows = stage_costs(cost, model)
     timed = None
     if args.time:
         per_run = time_stages(args.batch)
-        model = roofline.build_model("window")
         timed = [split(run, model, run[PROGRAM_IO]) for run in per_run]
         print(f"card {card()}; {len(per_run)} warm windows back to back, batch {args.batch}",
               flush=True)
@@ -177,9 +179,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Tuple[str, roofline.Cost]
         if timed is not None:
             ms = [run[i][1] for run in timed]
             median = statistics.median(ms)
-            share = stage.floor_ms() / median * 100 if median > 0 else float("nan")
-            line += (f" {median:8.3f} ms (spread {min(ms):.3f}-{max(ms):.3f}), "
-                     f"{share:6.2f}% of its floor")
+            line += f" {median:8.3f} ms (spread {min(ms):.3f}-{max(ms):.3f})"
+            # the program's own row times what runs outside the model, not its bytes
+            if label != PROGRAM_IO and stage.floor_ms() > 0 and median > 0:
+                line += f", {stage.floor_ms() / median * 100:6.2f}% of its floor"
         print(line, flush=True)
     print(roofline.count_line(f"window batch {args.batch}, the stages' sum", cost), flush=True)
     return rows
