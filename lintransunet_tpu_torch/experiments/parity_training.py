@@ -125,15 +125,15 @@ def make_data(kind: str, steps: int = STEPS):
 
 
 def build_model(kind: str, device="cuda", attention_impl: str = "kernel",
-                state_dict: Optional[Dict[str, torch.Tensor]] = None, seed: int = SEED):
+                state_dict: Optional[Dict[str, torch.Tensor]] = None):
     """The f32 SMALL model of ``kind`` at dropout 0, in train mode, from
-    ``state_dict`` or else random weights from ``seed``."""
+    ``state_dict`` or else random weights from ``SEED``."""
     from lintransunet_tpu_torch.models import MaskTransUnet, init_random_
 
     model = MaskTransUnet(**SMALL, dim_output=KINDS[kind].classes, dropout=0.0,
                           dtype=torch.float32, device=device, attention_impl=attention_impl)
     if state_dict is None:
-        init_random_(model, torch.Generator(device="cpu").manual_seed(seed))
+        init_random_(model, torch.Generator(device="cpu").manual_seed(SEED))
     else:
         model.load_state_dict(state_dict, strict=True)
     return model.train()

@@ -36,8 +36,7 @@ at the bf16 peak for the flagship's bf16 programs. ``per_module`` splits a
 count by module (inclusive: a module's figure holds its submodules'), as
 ``FlopCounterMode`` attributes FLOPs; ``stage_flops`` turns it into stages.
 
-    python -m lintransunet_tpu_torch.experiments.roofline [--batch 1 2]
-        [--programs window fused volume step] [--time]
+    python -m lintransunet_tpu_torch.experiments.roofline [--batch 1 2] [--time]
 
 prints the counts on the CPU without a card. ``--time`` times each program
 warm on the card (10 runs back to back, one synchronise, CUDA events; the
@@ -329,7 +328,6 @@ def timed(program: str, batch: int = 1, runs: int = RUNS) -> list:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[Tuple[str, int], Cost]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--batch", type=int, nargs="+", default=[1, 2])
-    parser.add_argument("--programs", nargs="+", choices=PROGRAMS, default=list(PROGRAMS))
     parser.add_argument("--time", action="store_true",
                         help="also time each program on the card (needs one)")
     args = parser.parse_args(argv)
@@ -337,7 +335,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[Tuple[str, int], Cost]:
         require_card()
     card_name = card() if args.time else None
     costs = {}
-    for program in args.programs:
+    for program in PROGRAMS:
         for batch in args.batch:
             t0 = time.perf_counter()
             cost = costs[program, batch] = count(program, batch)

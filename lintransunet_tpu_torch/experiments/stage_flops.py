@@ -11,7 +11,7 @@ the model run outside those children (the decoder's upsamples, softmaxes
 and concats; the model's input cast, the embedding and the epilogue); then
 the program's input and output. The stages' figures sum to the window's.
 
-    python -m lintransunet_tpu_torch.experiments.stage_flops [--batch 1] [--time]
+    python -m lintransunet_tpu_torch.experiments.stage_flops [--time]
 
 prints each stage's FLOPs, bytes and floor on the CPU without a card.
 ``--time`` also runs the window with the kernels on the card, 10 runs back
@@ -48,10 +48,6 @@ def stage_modules(model) -> Dict[str, torch.nn.Module]:
     return out
 
 
-def _own(label: str) -> str:
-    return f"{label}, outside its children"
-
-
 def split(values: Dict[str, float], model, total: float) -> List[Tuple[str, float]]:
     """Stage rows that sum to ``total`` from inclusive per-module
     ``values`` keyed as ``stage_modules``: the children, each parent's own
@@ -66,7 +62,7 @@ def split(values: Dict[str, float], model, total: float) -> List[Tuple[str, floa
         own = values.get(parent, zero)
         for _, value in children:
             own = own - value
-        rows.append((_own(parent), own))
+        rows.append((f"{parent}, outside its children", own))
     own = values.get(ROOT, zero)
     for parent in PARENTS:
         own = own - values.get(parent, zero)
@@ -122,15 +118,14 @@ class StageTimer:
             handle.remove()
 
 
-def time_stages(batch: int = 1, runs: int = roofline.RUNS) -> List[Dict[str, float]]:
+def time_stages(runs: int = roofline.RUNS) -> List[Dict[str, float]]:
     """Per run, {stage label: ms}, with ``PROGRAM_IO``'s key holding the
     whole program's time: the window with the kernels on the card, warm,
     ``runs`` runs back to back and one synchronise."""
     roofline.require_card()
     model = roofline.build_model("window", device="cuda", attention_impl="kernel")
     fn, args = roofline.build_program(
-        "window", model, batch, generator=torch.Generator(device="cuda").manual_seed(
-            roofline.SEED + 1))
+        "window", model, generator=torch.Generator(device="cuda").manual_seed(roofline.SEED + 1))
     fn(*args)
     torch.cuda.synchronize()
     timer = StageTimer(stage_modules(model))
@@ -156,21 +151,19 @@ def time_stages(batch: int = 1, runs: int = roofline.RUNS) -> List[Dict[str, flo
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Tuple[str, roofline.Cost]]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--batch", type=int, default=1)
     parser.add_argument("--time", action="store_true",
                         help="also time each stage on the card (needs one)")
     args = parser.parse_args(argv)
     if args.time:
         roofline.require_card()
-    cost = roofline.count("window", args.batch)
+    cost = roofline.count("window")
     model = roofline.build_model("window")  # its module tree names the stages
     rows = stage_costs(cost, model)
     timed = None
     if args.time:
-        per_run = time_stages(args.batch)
+        per_run = time_stages()
         timed = [split(run, model, run[PROGRAM_IO]) for run in per_run]
-        print(f"card {card()}; {len(per_run)} warm windows back to back, batch {args.batch}",
-              flush=True)
+        print(f"card {card()}; {len(per_run)} warm windows back to back", flush=True)
     print(f"{'stage':<44s} {'GF':>9s} {'fused GB':>9s} {'eager GB':>9s} {'floor ms':>9s} by",
           flush=True)
     for i, (label, stage) in enumerate(rows):
@@ -184,7 +177,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Tuple[str, roofline.Cost]
             if label != PROGRAM_IO and stage.floor_ms() > 0 and median > 0:
                 line += f", {stage.floor_ms() / median * 100:6.2f}% of its floor"
         print(line, flush=True)
-    print(roofline.count_line(f"window batch {args.batch}, the stages' sum", cost), flush=True)
+    print(roofline.count_line("window, the stages' sum", cost), flush=True)
     return rows
 
 

@@ -72,9 +72,7 @@ def analytic_flops(program):
     of the plain SMALL model (its forward; for "step" the forward of a
     train step, with the backward by the rules of the module docstring)."""
     model = roofline.build_model(program, **CONFIG)
-    forward = collections.Counter()
-    backward = 0
-    records = []
+    records = []  # (a product's forward FLOPs, times it runs forward and backward)
 
     def conv(m, args, out):
         per = 2 * _prod(m.weight.shape[1:]) * out.numel()
@@ -121,8 +119,7 @@ def analytic_flops(program):
     for h in handles:
         h.remove()
     forward = sum(per for per, _ in records)
-    if program == "step":
-        backward = sum(per * times for per, times in records)
+    backward = sum(per * times for per, times in records) if program == "step" else 0
     return forward + backward
 
 
@@ -229,7 +226,7 @@ def test_stages_sum_to_the_window(window_cost):
 def test_timing_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        roofline.main(["--time", "--programs", "window", "--batch", "1"])
+        roofline.main(["--time"])
     with pytest.raises(RuntimeError, match="CUDA"):
         stage_flops.main(["--time"])
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,6 +1,6 @@
 """Training-trajectory parity of the port against the JAX package, on the CPU.
 
-    JAX_PLATFORMS=cpu python tools/parity_training.py [--steps 40]
+    JAX_PLATFORMS=cpu python tools/parity_training.py
 
 Both packages train the SMALL ``MaskTransUnet`` (dropout 0, f32) in lockstep
 on the same seeded 64 x 64 x 16 stream from the same parameters: JAX's
@@ -210,15 +210,13 @@ def record(kind, lr, steps, port_traj, jax_traj, seconds, init="jax"):
 
 
 def main():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--steps", type=int, default=port.STEPS)
-    args = parser.parse_args()
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")  # as the JAX scripts ran
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
     for kind, lr, init in RUNS:
-        port_traj, jax_traj, seconds = compare(kind, lr, args.steps, init=init)
-        out = record(kind, lr, args.steps, port_traj, jax_traj, seconds, init)
+        port_traj, jax_traj, seconds = compare(kind, lr, port.STEPS, init=init)
+        out = record(kind, lr, port.STEPS, port_traj, jax_traj, seconds, init)
         name = "parity_training" + ("_multiclass" if kind == "multiclass" else "")
         path = HERE / f"{name}_lr{lr:g}{'_torch_init' if init == 'torch' else ''}.json"
         with open(path, "w") as f:
