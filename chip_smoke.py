@@ -2058,8 +2058,8 @@ def phase_dp_two_ranks():
         for key in ("launches", "dropout_launches"):
             if result[key] != PER_WINDOW["train"]:
                 fail(f"13b rank {r}'s DP step launched {result[key]}, not {PER_WINDOW['train']}")
-        for kind, got, want in zip(("element", "channel"), result["masks"], joined_masks):
-            if not torch.equal(got, want[r:r + 1]):
+        for kind, got, mask in zip(("element", "channel"), result["masks"], joined_masks):
+            if not torch.equal(got, mask[r:r + 1]):
                 fail(f"13b rank {r}'s {kind} dropout mask is not its row of the joined batch's")
     for key, dropout in (("step", 0.0), ("dropout_step", DP_DROPOUT)):
         steps = [result[key] for result in ranks]
@@ -2105,7 +2105,11 @@ def phase_dp_two_ranks():
         if [i for i, _ in preds] != list(range(len(DP_BATCH_DEPTHS))):
             fail(f"13b rank {r} yielded volumes {[i for i, _ in preds]}")
         if not all(torch.equal(p, w) for (_, p), w in zip(preds, want)):
-            fail(f"13b rank {r}: run_batch's outputs differ from the runner's call on each volume")
+            diffs = [((p - w).abs().max().item(), (p != w).float().mean().item())
+                     for (_, p), w in zip(preds, want)]
+            fail(f"13b rank {r}: run_batch's outputs differ from the runner's call on each "
+                 f"volume (largest difference and share of values that differ, a volume: "
+                 f"{diffs})")
     windows = [_windows(VOLUME[2:4] + (d,), (512, 512, 64), 0.6) for d in DP_BATCH_DEPTHS]
     eval_launches = [x["eval_launches"]["linear_attention"] for x in ranks]
     # groups of 2: (0, 1), then (2, and 2 again as the pad): rank 0 serves
