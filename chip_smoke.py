@@ -21,14 +21,17 @@ last line):
    least time the card could take: the larger of the compulsory bytes at
    3.35 TB/s and the operations at 989 TFLOP/s in bf16, 67 TFLOP/s in f32):
    a. linear attention at the four attention shapes of a window in the
-      model's layout (the head-split view of a (1, N, BH*d) projection;
-      these calls make the kernels line), the same at batch 2 (a served
+      head-split layout (the view of a (1, N, BH*d) projection; these calls
+      make the kernels line), the same at batch 2 (a served
       volume's two windows in one batch, as phase 10 serves them), then
       contiguous at the same shapes plus a ragged and a one-token case,
       then the head widths the other models of ``Model_Dict`` add on a
-      window in the model's layout (``SkipTransUnet``'s d = 2, 4, 8, 16 at
+      window in the head-split layout (``SkipTransUnet``'s d = 2, 4, 8, 16 at
       4,194,304 to 32,768 tokens, ``MaskSkipTransUnet``'s d = 16 calls),
-      with their per-window sums; each case also prints one call's
+      with their per-window sums, then the model's layout, the fused QKV
+      projection's (the three thirds of one (1, N, 3*BH*d) projection, as
+      ``MultiheadLinearAttention`` passes them), at the four shapes, timed
+      beside the head-split layout; each case also prints one call's
       CUDA launches (the host's ``cudaLaunch*`` calls under
       ``torch.profiler``, ``kernels.launches``) and fails above two;
    b. the conv unit at the seven units of a window of the fused
@@ -40,11 +43,12 @@ last line):
       seven layers, with its executed TFLOP/s and share of its bound (no
       single PyTorch call computes a stack);
    d. the linear-attention backward likewise at the four attention shapes
-      of the training patch, in the model's layout at batch 1 and at batch 3
+      of the training patch, in the head-split layout at batch 1 and at batch 3
       (train3d's default ``--batch_size``) and then contiguous, plus a
       ragged and a one-token case and the other models' head widths as in
-      a, with one call's CUDA launches (no single PyTorch call computes
-      it);
+      a, and the model's fused QKV layout at the four shapes (dq, dk and dv written
+      into the thirds of one (1, N, 3*BH*d) buffer), with one call's CUDA
+      launches (no single PyTorch call computes it);
    e. the six conv probes (``lintransunet_tpu_torch/experiments``, the H100
       counterparts of the TPU probes under ``experiments/``) at their TPU
       probes' main shapes in bf16 (``conv3d_cl_rows`` also in f32), beside
@@ -69,6 +73,13 @@ last line):
    in bf16 and f32 the ConnectBridge output and the coarsest mask (both
    upstream of the first ROI box threshold) within PRE_THRESHOLD_TOL; the
    f32 foreground labels agree on at least 99.9% of voxels;
+4b. the model's one QKV product against the three products of the JAX
+    package's default path (``three_products``, patched in for
+    ``MultiheadLinearAttention.forward``) on the same weights: one window
+    held as phase 4 (bf16 and f32 upstream of the first ROI box, the f32
+    labels), 32 attention launches a window, the window's CUDA launches
+    each way; one f32 train step within TRAIN_TOL, 32 forward and 32
+    backward attention launches;
 5. the fused configuration at full width: the same weights with
    ``fused_s1=True, fused_stack=True`` answer the same three volumes; per
    window exactly 7 conv-unit and 8 stack launches, and no standalone
@@ -180,10 +191,22 @@ last line):
        ``deterministic()``: every loss finite and the largest relative loss
        difference within TRAJECTORY_TOL.
 
+15. the user-facing entry points, each as a user starts it:
+    a. ``python3 -m lintransunet_tpu_torch.bench`` (serving), the same with
+       ``LINTRANSUNET_FUSED_S1=1 LINTRANSUNET_FUSED_STACK=1``, and ``...bench
+       --train``, each in a subprocess: rc 0, a finite positive value, 5
+       windows a volume, each kernel's launches per window (or step) as
+       phases 3, 5 and 7 hold them; each JSON line printed beside the card;
+    b. ``entry.entry()``: the flagship's bf16 eval forward on the zero 96^3
+       patch, a finite one-hot (1, 2, 96, 96, 96), 32 attention launches;
+    c. ``entry.dryrun_multichip(2)``: two gloo ranks sharing the card, bf16,
+       the JAX dry run's sequence with every check held in the ranks.
+
 The last two lines are a JSON summary of the kernels (bf16; the forward
 kernels' per-window sums over their serving calls, the backward's per-step
 sum over its training calls, each probe's one call at its main shape; the
-attention kernels' ``cli_launches`` are phase 10's ``train3d`` counts) and
+attention kernels' ``cli_launches`` are phase 10's ``train3d`` counts, and
+their ``packed_qkv`` the same sums on the model's fused QKV layout) and
 ``{"ok": true, "device": {...}}``.
 Imports nothing of jax.
 """
@@ -208,6 +231,7 @@ import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 from lintransunet_tpu_torch import data, engine, kernels, native, parallel
+from lintransunet_tpu_torch import entry as entry_points
 from lintransunet_tpu_torch.cli import (
     inference_embed_attn,
     inference_multi_classes,
@@ -236,6 +260,7 @@ from lintransunet_tpu_torch.experiments.common import (
     bound,
     card,
     card_line,
+    card_ms,
     cuda_ms,
     in_turns,
 )
@@ -243,20 +268,18 @@ from lintransunet_tpu_torch.kernels.launches import cuda_launches
 from lintransunet_tpu_torch.losses import binary as binary_losses
 from lintransunet_tpu_torch.models import blocks
 from lintransunet_tpu_torch.models import (
-    MaskTransUnet,
+    FLAGSHIP,
     MultiheadLinearAttention,
+    flagship,
     get_model_dict,
     init_random_,
 )
+from lintransunet_tpu_torch.ops import attention
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import fused_stack as fs
 from lintransunet_tpu_torch.ops import linear_attention as fused
 
 SEED = 0
-FLAGSHIP = dict(num_layers=(16, 32, 64, 128, 256),
-                roi_size_list=(100, 65, 40, 25, 10),
-                is_roi_list=(False, True, True, True, True),
-                dim_input=1, dim_output=2, n_layers=8)
 VOLUME = (1, 1, 512, 512, 144)
 N_VOLUMES = 3
 WINDOWS_PER_VOLUME = 5      # depth 144, roi depth 64, overlap 0.6
@@ -397,6 +420,7 @@ class Summary:
         self.library_ms = None
         self.max_abs_err = 0.0
         self.other_models = None
+        self.packed_qkv = None
 
     def add(self, dtype, calls, ms, plain_ms, flops, nbytes, library_ms=None):
         if dtype != torch.bfloat16:
@@ -416,6 +440,8 @@ class Summary:
                "library_ms": self.library_ms}
         if self.other_models:
             out["other_models"] = self.other_models
+        if self.packed_qkv:
+            out["packed_qkv"] = self.packed_qkv
         return out
 
 
@@ -485,12 +511,12 @@ def attention_inputs(count, bh, n, d, layout, dtype, gen, batch=1):
 
 def attention_cases(shapes, batch):
     """(shape, layout, batch) of phases 2a and 2d: the main shapes in the
-    model's layout at batch 1, then at ``batch`` (the windows of a served
+    head-split layout at batch 1, then at ``batch`` (the windows of a served
     volume go through the model together, and a train step takes
     ``--batch_size`` frames: phase 10's served path runs at 2, train3d's
     default batch size is 3), then contiguous at the main shapes and the
     ragged and one-token cases, then the other models' head widths in the
-    model's layout."""
+    head-split layout."""
     return ([(shape, "heads", 1) for shape in shapes]
             + [(shape, "heads", batch) for shape in shapes]
             + [(shape, "contiguous", 1) for shape in shapes + EXTRA_SHAPES]
@@ -580,12 +606,89 @@ def phase_attention_vs_plain():
                 fail(f"kernel disagrees with plain at {dtype} {layout} {(batch, bh, n, d)}")
             check_launches("attention", label,
                            cuda_launches(lambda: fused.linear_attention(q, k, v), 3))
-    print(f"[attention] one window's 32 bf16 calls (the model's layout): kernel "
+    print(f"[attention] one window's 32 bf16 calls (the head-split layout): kernel "
           f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
           f"{summary.bound_ms:.4f} ms; no single PyTorch call computes linear attention "
           f"(scaled_dot_product_attention is softmax attention)", flush=True)
     summary.other_models = width_summaries(widths, "attention", "forward")
+    summary.packed_qkv = packed_qkv_cases("attention", MAIN_SHAPES, False, gen)
     return summary
+
+
+def packed_qkv_cases(tag, shapes, backward, gen):
+    """2a / 2d, the fused QKV projection's layout: the kernels on the three
+    thirds of one (1, N, 3*BH*d) projection (``split_qkv``: head stride d,
+    token stride 3*BH*d) at ``shapes``, in f32 (against the plain version
+    in f64) and bf16 at TOL, with one call's launches (at most two), timed
+    against the plain version and against the kernel on the head-split
+    layout of the same shape (in turns), by CUDA events (host-bound at these
+    sizes) and in card time (calls queued behind a sleep,
+    ``experiments.common.card_ms``). The backward writes dq, dk and dv
+    into the thirds of one (1, N, 3*BH*d) buffer, as the model's
+    ``PackedLinearAttentionFunction`` does. Returns the bf16 sums over a
+    window's (or a step's) 32 calls: {ms, heads_ms, plain_ms, bound_ms,
+    card_ms, heads_card_ms}."""
+    sums = {"ms": 0.0, "heads_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "card_ms": 0.0,
+            "heads_card_ms": 0.0}
+    reference = (fused.linear_attention_backward_reference if backward
+                 else fused.linear_attention_reference)
+    for dtype in (torch.float32, torch.bfloat16):
+        for bh, n, d in shapes:
+            qkv = torch.randn((1, n, 3 * bh * d), generator=gen).to("cuda", dtype)
+            q, k, v = fused.split_qkv(qkv, bh)
+            heads = attention_inputs(3, bh, n, d, "heads", dtype, gen)
+            if backward:
+                g = attention_inputs(1, bh, n, d, "heads", dtype, gen)[0]
+                buffer = torch.empty_like(qkv)
+                thirds = fused.split_qkv(buffer, bh)
+                kern = lambda: fused.linear_attention_backward(q, k, v, g, out=thirds)  # noqa: E731
+                heads_kern = lambda: fused.linear_attention_backward(*heads, g)  # noqa: E731
+                plain = lambda: reference(q, k, v, g)  # noqa: E731
+                want = reference(*exact(q, k, v, g))
+            else:
+                kern = lambda: fused.linear_attention_qkv(qkv, bh)  # noqa: E731
+                heads_kern = lambda: fused.linear_attention(*heads)  # noqa: E731
+                plain = lambda: reference(q, k, v)  # noqa: E731
+                want = reference(*exact(q, k, v))
+            got = kern()
+            torch.cuda.synchronize()
+            if backward:
+                if [t.data_ptr() for t in got] != [t.data_ptr() for t in thirds]:
+                    fail(f"{tag} packed QKV: the gradients are not the buffer's thirds")
+                err, rel = backward_errors(got, want)
+                nbytes, flops = 7 * bh * n * d * qkv.element_size(), 10 * bh * n * d * d
+            else:
+                if got.shape != (1, bh, n, d) or got.dtype != dtype:
+                    fail(f"{tag} packed QKV output {got.dtype} {tuple(got.shape)}")
+                err, rel = rel_err(got, want)
+                nbytes, flops = 4 * bh * n * d * qkv.element_size(), 4 * bh * n * d * d
+            ms, plain_ms = pkkp(plain, kern, 20)
+            ms2, heads_ms = pkkp(heads_kern, kern, 20)
+            card1, heads1, heads2, card2 = (card_ms(fn) for fn in
+                                            (kern, heads_kern, heads_kern, kern))
+            card_t, heads_card = (card1 + card2) / 2, (heads1 + heads2) / 2
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
+            if dtype == torch.bfloat16:
+                for key, value in (("ms", (ms + ms2) / 2), ("heads_ms", heads_ms),
+                                   ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                                   ("card_ms", card_t), ("heads_card_ms", heads_card)):
+                    sums[key] += 8 * value
+            ok = rel <= TOL[dtype]
+            label = f"{str(dtype)[6:]:8s} packed QKV B=1 BH={bh} N={n} d={d}"
+            print(f"[{tag}] {label}: max_abs_err {err:.3e} rel {rel:.3e} (tol {TOL[dtype]:g}) "
+                  f"kernel {ms:.4f} ms ({ms2:.4f} beside the head-split layout's "
+                  f"{heads_ms:.4f}; card time {card_t:.4f} against {heads_card:.4f}) plain "
+                  f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+                  f"{'ok' if ok else 'TOO FAR'}", flush=True)
+            if not ok:
+                fail(f"{tag}: the kernel disagrees with plain on the packed QKV layout at "
+                     f"{dtype} {(bh, n, d)}")
+            check_launches(tag, label, cuda_launches(kern, 3))
+    print(f"[{tag}] one {'step' if backward else 'window'}'s 32 bf16 calls on the packed QKV "
+          f"layout: kernel {sums['ms']:.4f} ms, on the head-split layout {sums['heads_ms']:.4f} "
+          f"ms (card time {sums['card_ms']:.4f} against {sums['heads_card_ms']:.4f} ms), plain "
+          f"{sums['plain_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms", flush=True)
+    return sums
 
 
 def phase_conv_vs_plain():
@@ -749,11 +852,12 @@ def phase_attention_backward_vs_plain():
                      f"{(batch, bh, n, d)}")
             check_launches("attention_bwd", label, cuda_launches(
                 lambda: fused.linear_attention_backward(q, k, v, g), 3))
-    print(f"[attention_bwd] one train step's 32 bf16 calls (the model's layout): kernel "
+    print(f"[attention_bwd] one train step's 32 bf16 calls (the head-split layout): kernel "
           f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
           f"{summary.bound_ms:.4f} ms; no single PyTorch call computes this backward",
           flush=True)
     summary.other_models = width_summaries(widths, "attention_bwd", "backward")
+    summary.packed_qkv = packed_qkv_cases("attention_bwd", TRAIN_SHAPES, True, gen)
     return summary
 
 
@@ -957,13 +1061,8 @@ def phase_probe_path(path):
 
 def build_model(attention_impl="kernel", dtype=torch.bfloat16, state=None,
                 fused_config=False):
-    model = MaskTransUnet(**FLAGSHIP, dtype=dtype, attention_impl=attention_impl,
-                          fused_s1=fused_config, fused_stack=fused_config)
-    if state is None:
-        init_random_(model, torch.Generator(device="cpu").manual_seed(SEED))
-    else:
-        model.load_state_dict(state)
-    return model.eval()
+    return flagship(SEED, state, dtype=dtype, attention_impl=attention_impl,
+                    fused_s1=fused_config, fused_stack=fused_config).eval()
 
 
 COUNTED = {"linear_attention": fused.linear_attention,
@@ -1102,6 +1201,104 @@ def phase_fused_vs_default(default, fused_model, window):
               f"foreground labels agree on {agreement * 100:.4f}% of voxels "
               f"(informational: the fused conv rounds its operands to bf16); "
               f"window {times[0]:.4f} s fused, {times[1]:.4f} s default", flush=True)
+
+
+def three_products(self, x, mask=None):
+    """``MultiheadLinearAttention.forward`` as the JAX package's default
+    path runs it: three projections, then the attention on their head-split
+    views (the kernel for ``attention_impl="kernel"``). 4b's yardstick."""
+    b, d_k = x.shape[0], self.d_model // self.nhead
+    q, k, v = (getattr(self, f"linears_{i}")(x).view(b, -1, self.nhead, d_k).transpose(1, 2)
+               for i in range(3))
+    if mask is not None:
+        out = attention.linear_attention(q, k, v, mask=mask[:, None])
+    elif self.attention_impl == "kernel":
+        out = fused.linear_attention(q, k, v)
+    else:
+        out = fused.linear_attention_reference(q, k, v)
+    return self.linears_3(out.transpose(1, 2).reshape(b, -1, self.d_model))
+
+
+@contextlib.contextmanager
+def projection(fused_qkv):
+    """Every ``MultiheadLinearAttention`` inside the block runs its own one
+    QKV product (``fused_qkv``) or ``three_products``."""
+    saved = MultiheadLinearAttention.forward
+    if not fused_qkv:
+        MultiheadLinearAttention.forward = three_products
+    try:
+        yield
+    finally:
+        MultiheadLinearAttention.forward = saved
+
+
+def phase_fused_qkv(model, window):
+    """4b: the default path's one QKV product against ``three_products``,
+    same weights, on one window: held as phase 4 (upstream of the first ROI
+    box within PRE_THRESHOLD_TOL in bf16 and f32, the f32 labels on
+    MIN_AGREEMENT of the voxels), 32 attention launches and no other
+    kernel's a window; the window's CUDA launches each way; then one f32
+    train step (TF32 off), one product against three, within TRAIN_TOL, 32
+    forward and 32 backward attention launches."""
+    state = model.state_dict()
+    for dtype in (torch.bfloat16, torch.float32):
+        m = model if dtype == torch.bfloat16 else build_model("kernel", dtype, state)
+        name = str(dtype)[6:]
+        reset_launch_counts()
+        got = pre_threshold(m, window)
+        launches = launch_counts()
+        if launches != PER_WINDOW["default"]:
+            fail(f"4b: a {name} window launched {launches}, not {PER_WINDOW['default']}")
+        with projection(False):
+            want = pre_threshold(m, window)
+        for what, a, b in zip(("ConnectBridge output", "mask_list[0]"), got, want):
+            err, rel = rel_err(a, b)
+            ok = rel <= PRE_THRESHOLD_TOL[dtype]
+            print(f"[fused_qkv] 4b {name} window, {what}, one QKV product vs three: "
+                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {PRE_THRESHOLD_TOL[dtype]:g}) "
+                  f"{'ok' if ok else 'TOO FAR'}", flush=True)
+            if not ok:
+                fail(f"4b: one QKV product and three disagree in {name} at the {what}")
+        fwd = make_eval_forward(m)
+        outs, times, counts = [], [], []
+        for fused_qkv in (True, False):
+            with projection(fused_qkv):
+                fwd(window)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(fwd(window))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts.append(len(cuda_launches(lambda: fwd(window)).launches))
+        agreement = (outs[0] == outs[1]).float().mean().item()
+        held = f"need >= {MIN_AGREEMENT * 100:.1f}%" if dtype == torch.float32 else "informational"
+        print(f"[fused_qkv] 4b {name} window: foreground labels agree on {agreement * 100:.4f}% "
+              f"of voxels ({held}); window {times[0]:.4f} s with one QKV product, "
+              f"{times[1]:.4f} s with three; CUDA launches per window {counts[0]} with one, "
+              f"{counts[1]} with three", flush=True)
+        if dtype == torch.float32 and agreement < MIN_AGREEMENT:
+            fail("4b: one QKV product and three disagree end to end in f32")
+        del m, fwd, outs
+    torch.cuda.empty_cache()
+
+    images, labels, criterions = train_inputs()
+    reset_launch_counts()
+    one = train_step_grads("kernel", torch.float32, images, labels, criterions)
+    launches = launch_counts()
+    with projection(False):
+        three = train_step_grads("kernel", torch.float32, images, labels, criterions)
+    if launches != PER_WINDOW["train"]:
+        fail(f"4b: a train step launched {launches}, not {PER_WINDOW['train']}")
+    loss_rel, worst, median = compare_steps("float32 step, one QKV product vs three", one, three)
+    ok = (loss_rel <= TRAIN_TOL["loss"] and worst <= TRAIN_TOL["grad"]
+          and median <= TRAIN_TOL["grad_median"])
+    print(f"[fused_qkv] 4b float32 step: tol loss {TRAIN_TOL['loss']:g}, gradients "
+          f"{TRAIN_TOL['grad']:g}, median {TRAIN_TOL['grad_median']:g} "
+          f"{'ok' if ok else 'TOO FAR'}", flush=True)
+    if not ok:
+        fail("4b: one QKV product and three disagree in a float32 train step")
+    del one, three, images, labels
+    torch.cuda.empty_cache()
 
 
 def train_inputs():
@@ -1874,9 +2071,7 @@ def hold_steps(tag, got, want):
 
 def flagship_step(images, labels, criterions, dtype=torch.bfloat16, dropout=0.3, mesh=None):
     """One train step of the seed's flagship; (snapshot, launches, peak GiB)."""
-    model = MaskTransUnet(**FLAGSHIP, dtype=dtype, dropout=dropout)
-    init_random_(model, torch.Generator(device="cpu").manual_seed(SEED))
-    model.train()
+    model = flagship(SEED, dtype=dtype, dropout=dropout).train()
     state = engine.create_train_state(model, learning_rate=1e-4)
     step = engine.make_train_step(model, criterions, mesh=mesh)
     torch.cuda.synchronize()
@@ -1943,8 +2138,7 @@ def dp_volumes():
 
 
 def f32_flagship(dropout=0.0):
-    model = MaskTransUnet(**FLAGSHIP, dtype=torch.float32, dropout=dropout)
-    return init_random_(model, torch.Generator(device="cpu").manual_seed(SEED))
+    return flagship(SEED, dtype=torch.float32, dropout=dropout)
 
 
 def joined_step(images, labels, criterions, dropout, jitter=0.0):
@@ -2280,6 +2474,91 @@ def phase_trajectory():
         fail(f"14c: the kernels' trajectory is {rel:.3e} from the plain one")
 
 
+# Phase 15: the user-facing entry points, each started as a user starts it:
+# (label, bench arguments, environment, the launches held per window or step)
+BENCH_CALLS = (
+    ("default", [], {}, PER_WINDOW["default"]),
+    ("fused", [], {"LINTRANSUNET_FUSED_S1": "1", "LINTRANSUNET_FUSED_STACK": "1"},
+     PER_WINDOW["fused"]),
+    ("train", ["--train"], {}, PER_WINDOW["train"]),
+)
+BENCH_TIMEOUT = 600
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def phase_bench():
+    """15a: ``python3 -m lintransunet_tpu_torch.bench``, then with the fused
+    configuration's two variables, then ``--train``, each in a subprocess:
+    rc 0, one JSON line with a finite positive value, 5 windows a volume,
+    and each kernel's launches per window (or step) as phases 3, 5 and 7
+    hold them. Returns {label: the JSON line}."""
+    card_name = card()
+    results = {}
+    for label, args, env, per in BENCH_CALLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "lintransunet_tpu_torch.bench", *args],
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT, cwd=REPO,
+                              env=dict(os.environ, **env))
+        took = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"15a: the {label} bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not (math.isfinite(result["value"]) and result["value"] > 0):
+            fail(f"15a: the {label} bench's value {result['value']}")
+        found = re.search(r"launches per (?:window|step) (\{.*\})", proc.stderr)
+        launches = json.loads(found.group(1)) if found else {}
+        if launches != {name: float(per[name]) for name in launches} or not launches:
+            fail(f"15a: the {label} bench launched {launches} per window or step, not {per}")
+        if label != "train" and f"windows={WINDOWS_PER_VOLUME} " not in proc.stderr:
+            fail(f"15a: the {label} bench did not serve {WINDOWS_PER_VOLUME} windows a volume: "
+                 f"{proc.stderr[-500:]}")
+        diagnostics = " | ".join(line for line in proc.stderr.splitlines()
+                                 if line.startswith(("windows=", "loss=")))
+        print(f"[bench] 15a {label}: {json.dumps(result)} ({card_name}); {diagnostics}; "
+              f"launches {launches}; {took:.1f} s with the process's start", flush=True)
+        results[label] = result
+    return results
+
+
+def phase_entry():
+    """15b: ``entry()`` on the card: the flagship's bf16 one-hot eval
+    forward on the zero 96^3 patch, (1, 2, 96, 96, 96), finite, one class a
+    voxel, 32 attention launches."""
+    fn, (model, x) = entry_points.entry()
+    reset_launch_counts()
+    out = fn(model, x)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if tuple(out.shape) != (1, 2, 96, 96, 96) or out.dtype != torch.bfloat16:
+        fail(f"15b: entry's output {out.dtype} {tuple(out.shape)}")
+    if not torch.isfinite(out).all() or not torch.equal(out.float().sum(dim=1),
+                                                        torch.ones_like(out[:, 0]).float()):
+        fail("15b: entry's output is not a finite one-hot")
+    if launches != PER_WINDOW["default"]:
+        fail(f"15b: entry's forward launched {launches}, not {PER_WINDOW['default']}")
+    print(f"[entry] 15b: entry forward: {tuple(out.shape)} {out.dtype}, finite one-hot, "
+          f"foreground share {out[:, 1].float().mean().item():.4f}; launches {launches}",
+          flush=True)
+    del model, x, out
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun():
+    """15c: ``dryrun_multichip(2)``: two gloo ranks sharing the card, bf16,
+    every check of the dry run held in the ranks."""
+    t0 = time.perf_counter()
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        entry_points.dryrun_multichip(DP_RANKS)
+    lines = [line for line in report.getvalue().splitlines() if line.startswith("dryrun")]
+    if len(lines) != 4:
+        fail(f"15c: the dry run printed {lines}")
+    for line in lines:
+        print(f"[entry] 15c: {line}", flush=True)
+    print(f"[entry] 15c: dryrun_multichip({DP_RANKS}) on gloo ranks sharing the card passed in "
+          f"{time.perf_counter() - t0:.1f} s with the processes' start", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on an NVIDIA GPU")
@@ -2303,6 +2582,7 @@ def main():
     default = build_model()
     launches = {"default": phase_slice(default, volumes, "default")}
     phase_end_to_end(default, window)
+    phase_fused_qkv(default, window)
     fused_model = build_model(fused_config=True)
     launches["fused"] = phase_slice(fused_model, volumes, "fused")
     phase_fused_vs_default(default, fused_model, window)
@@ -2339,6 +2619,12 @@ def main():
     torch.cuda.empty_cache()
     phase_trajectory()
     print(f"[floor] phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_bench()
+    phase_entry()
+    phase_dryrun()
+    print(f"[entry] phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # name: (source, the TPU kernel it replaces, the path whose launches it reports)
     sources = {"linear_attention": ("linear_attention", "pallas_attention.py:126", "default"),

@@ -63,14 +63,11 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from lintransunet_tpu_torch.experiments.common import HBM_BYTES_PER_S, PEAK_FLOPS, card
 
-# The flagship and bench.py's geometry: 512 x 512 x 64 eval windows, a
-# 512 x 512 x 144 volume (5 windows at overlap 0.6, constant blending), and
-# the training step on a 512 x 512 x 32 patch with labels in the box of
-# bench.py:189-190, the 5-level criterion schedule with the epoch-0 weights
-# (bench.py:199-203) and AdamW at lr 1e-4.
-FLAGSHIP = dict(num_layers=(16, 32, 64, 128, 256), roi_size_list=(100, 65, 40, 25, 10),
-                is_roi_list=(False, True, True, True, True), dim_input=1, dim_output=2,
-                n_layers=8)
+# bench.py's geometry for the flagship (``models.FLAGSHIP``): 512 x 512 x 64
+# eval windows, a 512 x 512 x 144 volume (5 windows at overlap 0.6, constant
+# blending), and the training step on a 512 x 512 x 32 patch with labels in
+# the box of bench.py:189-190, the 5-level criterion schedule with the
+# epoch-0 weights (bench.py:199-203) and AdamW at lr 1e-4.
 WINDOW = (512, 512, 64)
 VOLUME_DEPTH = 144
 OVERLAP = 0.6
@@ -204,16 +201,14 @@ def program_cost(fn: Callable, *args) -> Cost:
 
 def build_model(program: str, device="cpu", attention_impl: str = "plain",
                 dtype: torch.dtype = torch.bfloat16, seed: int = SEED, **config):
-    """The flagship (``config`` overrides ``FLAGSHIP``) for ``program``:
+    """The flagship (``config`` overrides ``models.FLAGSHIP``) for ``program``:
     the fused eval configuration for "fused", training mode with dropout
     for "step", random weights from ``seed``."""
-    from lintransunet_tpu_torch.models import MaskTransUnet, init_random_
+    from lintransunet_tpu_torch.models import flagship
 
     fused = program == "fused"
-    model = MaskTransUnet(**{**FLAGSHIP, **config}, dtype=dtype, dropout=DROPOUT,
-                          device=device, attention_impl=attention_impl,
-                          fused_s1=fused, fused_stack=fused)
-    init_random_(model, torch.Generator(device="cpu").manual_seed(seed))
+    model = flagship(seed, **config, dtype=dtype, dropout=DROPOUT, device=device,
+                     attention_impl=attention_impl, fused_s1=fused, fused_stack=fused)
     return model.train() if program == "step" else model.eval()
 
 
@@ -262,7 +257,7 @@ def build_program(program: str, model, batch: int = 1, window=WINDOW,
 def count(program: str, batch: int = 1, dtype: torch.dtype = torch.bfloat16,
           config: Optional[dict] = None, **geometry) -> Cost:
     """``program``'s ``Cost`` at ``batch``, counted on fake tensors over a
-    fresh plain model (``config`` overrides ``FLAGSHIP``; ``geometry``
+    fresh plain model (``config`` overrides ``models.FLAGSHIP``; ``geometry``
     passes ``window``, ``volume_depth`` or ``patch`` to ``build_program``)."""
     model = build_model(program, dtype=dtype, **(config or {}))
     with FakeTensorMode(allow_non_fake_inputs=True):

@@ -2,7 +2,8 @@
 ``lintransunet_tpu/losses/binary.py``; reference: loss/criterions.py).
 
 Every class the 16-entry ``Loss_Dict`` names, ``get_criterions``, and the
-two losses outside the registry, ``SolidLoss`` and ``PyramidLoss``.
+five losses outside the registry: ``RegionDiceClassLoss``, ``MaskLoss``,
+``RegionCrossEntroLoss``, ``SolidLoss`` and ``PyramidLoss``.
 Losses are stateless callables ``loss(predict, target)`` with
 
 * ``predict``: (N, C, spatial...) softmax probabilities (channels-first)
@@ -51,6 +52,23 @@ class DiceClassLoss:
         t = flatten_labels(target)
         cross = 2 * torch.sum(p * t, dim=-1) + self.eps
         total = torch.sum(p + t, dim=-1) + self.eps
+        return 1.0 - torch.mean(cross / total)
+
+
+class RegionDiceClassLoss:
+    """Half-weighted asymmetric dice (criterions.py:73-116, the distance
+    path disabled, as in the JAX package)."""
+
+    def __init__(self, class_index: int = 1, eps: float = 1e-5):
+        self.class_index = class_index
+        self.eps = eps
+
+    def __call__(self, predict, target, dist=None, surface_distance=None):
+        p = flatten_tokens(predict)[:, :, self.class_index]
+        t = flatten_labels(target)
+        w = 0.5
+        cross = torch.sum(p * t, dim=-1) + self.eps
+        total = torch.sum(w * p + (1 - w) * t, dim=-1) + self.eps
         return 1.0 - torch.mean(cross / total)
 
 
@@ -116,6 +134,21 @@ class LocalizationLoss:
         pm = torch.sigmoid(_axis_marginals(p)[0] - self.mask_threshold)
         tm = torch.sigmoid(_axis_marginals(t)[0] - self.mask_threshold)
         return _cdf_l1(pm, tm, self.eps, scale=8.0)
+
+
+class MaskLoss:
+    """Dice over a one-channel mask (criterions.py:244-277): channel 0 of
+    ``predict`` against the raw label."""
+
+    def __init__(self, eps: float = 1e-5):
+        self.eps = eps
+
+    def __call__(self, predict, target):
+        p = flatten_tokens(predict)[..., 0]
+        t = flatten_labels(target)
+        cross = 2 * torch.sum(p * t, dim=-1) + self.eps
+        total = torch.sum(p + t, dim=-1) + self.eps
+        return 1.0 - torch.mean(cross / total)
 
 
 class _ClassRatio:
@@ -281,6 +314,19 @@ class FocalLoss:
         p = flatten_tokens(predict)
         t = one_hot(flatten_labels(target), p.shape[-1])
         return torch.mean(-((1 - p) ** self.gamma) * t * torch.log(p))
+
+
+class RegionCrossEntroLoss:
+    """Plain CE with an eps-shifted log (criterions.py:647-693, the distance
+    path disabled, as in the JAX package)."""
+
+    def __init__(self, eps: float = 1e-9):
+        self.eps = eps
+
+    def __call__(self, predict, target, dist=None, surface_distance=None):
+        p = flatten_tokens(predict)
+        t = one_hot(flatten_labels(target), p.shape[-1])
+        return torch.mean(-t * torch.log(p + self.eps))
 
 
 class CrossEntroLoss:

@@ -9,8 +9,10 @@ targets, channels-first as every prediction of the port:
 
 (the train and eval loops build the one-hot on the device:
 ``engine.train.deep_supervision_loss``, ``engine.loop.eval_on_epoch``).
-``DistributionLoss`` is the binary module's, as in JAX: given a one-hot
-target its marginals sum every channel.
+``DistributionLoss``, ``RegionDiceClassLoss`` and ``MaskLoss`` are the
+binary module's, as in JAX (which re-exports them outside its registry):
+given a one-hot target, ``DistributionLoss``'s marginals sum every
+channel.
 """
 
 import torch
@@ -77,7 +79,11 @@ class DiceClassLoss2(_DiceClass):
         super().__init__(class_index, eps)
 
 
+# the raw-label classes of the binary module, as the reference's multi-class
+# file re-declares them
+RegionDiceClassLoss = _binary.RegionDiceClassLoss
 DistributionLoss = _binary.DistributionLoss
+MaskLoss = _binary.MaskLoss
 
 
 class LocalizationLoss:

@@ -21,10 +21,13 @@ conv unit (``ops/conv_unit.py``), InstanceNorm statistics from the unit's
 epilogue, the UpBlock's concat never materialised. Training mode takes
 neither (``MaskTransUnet.train()`` refuses them).
 
-Dropout draws its masks from the generator that ``dropout_generator``
-installs (the train step's, as JAX's step takes ``rng``), or from PyTorch's
-global generator outside it; under a data-parallel step, at the global
-batch's shape, each rank keeping its own rows.
+``dropout_generator`` installs the train step's context: the generator
+dropout draws its masks from (the step's, as JAX's step takes ``rng``;
+PyTorch's global generator outside it) and the step's data-parallel shard
+(rank, size), the one place that says the batch is a shard of a global
+one. Two modules read the shard: dropout draws at the global batch's shape,
+each rank keeping its own rows, and ``BatchNorm`` takes the global batch's
+statistics.
 
 ``REMAT`` (``LINTRANSUNET_REMAT``, read once at import, the JAX package's
 knob and values): "attn" checkpoints every ``SelfAttentionLayer`` of a
@@ -32,6 +35,12 @@ knob and values): "attn" checkpoints every ``SelfAttentionLayer`` of a
 each layer's attention and FFN intermediates instead of keeping them
 (``attention_layer``). Eval, the fused configuration and the state_dict are
 unaffected.
+
+Self-attention projects q, k and v in one product, the JAX package's
+``LINTRANSUNET_FUSED_QKV=1`` formulation (exact: the same contractions, the
+same parameter tree), and hands its (B, N, 3*C) result to the attention
+kernel, which reads the three thirds in place (``MultiheadLinearAttention``).
+The fused transformer stack has its own QKV.
 
 A fresh ``Conv3d`` or ``Linear`` initialises as flax's ``nn.Conv`` and
 ``nn.Dense`` do: ``lecun_normal`` kernels (:func:`lecun_normal_`) and zero
@@ -122,7 +131,15 @@ class BatchNorm(nn.Module):
     running statistics by ``momentum`` as flax does (ra = m ra + (1 - m)
     batch, the biased variance). The running statistics are the buffers
     ``running_mean`` and ``running_var`` (flax's ``batch_stats`` mean and
-    var); the output has the input's dtype."""
+    var); the output has the input's dtype.
+
+    Under a ``dropout_generator`` shard of size > 1 (a data-parallel step,
+    the step context's shard, which dropout reads too) the batch is the
+    global one, as under JAX's sharded jit: the ranks sum
+    (sum x, sum x^2, count) over the default process group before the mean
+    and the variance, through an all-reduce whose backward all-reduces the
+    gradient, so each rank's gradient carries every rank's loss through the
+    statistics; the running statistics move by the global values."""
 
     def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -137,8 +154,12 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            _, (_, size) = _STEP.get()
+            if size == 1:
+                mean = xf.mean(dim=dims)
+                var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            else:
+                mean, var = _global_moments(xf, dims)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
                 self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
@@ -146,6 +167,19 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+def _global_moments(xf: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, biased variance) over ``dims`` of the global batch whose shard
+    on this rank is ``xf``: one differentiable all-reduce of (sum x,
+    sum x^2, count) over the default process group."""
+    from torch.distributed.nn.functional import all_reduce
+
+    c = xf.shape[-1]
+    count = xf.new_full((1,), xf.numel() // c)
+    sums = all_reduce(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), count]))
+    mean = sums[:c] / sums[-1]
+    return mean, (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -156,30 +190,33 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
-# (generator, (rank, size)): what dropout draws from, and this rank's shard
-# of the global batch
-_GENERATOR = contextvars.ContextVar("dropout_generator", default=(None, (0, 1)))
+# The train step's context, (generator, (rank, size)): what dropout draws
+# from, and this rank's shard of the global batch, which dropout and
+# BatchNorm read (``dropout_generator``)
+_STEP = contextvars.ContextVar("dropout_generator", default=(None, (0, 1)))
 
 
 @contextlib.contextmanager
 def dropout_generator(generator: Optional[torch.Generator],
                       shard: Tuple[int, int] = (0, 1)):
-    """Every dropout inside the block draws from ``generator`` (a
-    ``torch.Generator`` on the activations' device). ``shard`` (rank, size)
-    says that the activations are rank's rows of a global batch split
-    evenly over size ranks, as a data-parallel step's are: each mask is then
-    drawn at the global batch's shape and rank's rows kept, so that ranks
-    whose generators start alike draw together the mask that one process
-    draws for the joined batch, as JAX's SPMD step draws the global batch's
-    masks once. (0, 1), one process, draws as it always did."""
+    """The train step's context inside the block: every dropout draws from
+    ``generator`` (a ``torch.Generator`` on the activations' device), and
+    ``shard`` (rank, size), the step's data-parallel shard, says that the
+    activations are rank's rows of a global batch split evenly over size
+    ranks. Dropout and ``BatchNorm`` read the shard: each mask is drawn at
+    the global batch's shape and rank's rows kept, so that ranks whose
+    generators start alike draw together the mask that one process draws
+    for the joined batch, as JAX's SPMD step draws the global batch's masks
+    once; BatchNorm's statistics are the global batch's, as under JAX's
+    sharded jit. (0, 1), one process, runs as it always did."""
     rank, size = shard
     if not 0 <= rank < size:
         raise ValueError(f"shard {shard} is not a (rank, size) pair")
-    token = _GENERATOR.set((generator, (rank, size)))
+    token = _STEP.set((generator, (rank, size)))
     try:
         yield
     finally:
-        _GENERATOR.reset(token)
+        _STEP.reset(token)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -193,7 +230,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    generator, (rank, size) = _GENERATOR.get()
+    generator, (rank, size) = _STEP.get()
     shape = x.shape[:2] + (1,) * (x.dim() - 2) if channel else x.shape
     n = shape[0]
     draw = torch.rand((n * size,) + tuple(shape[1:]), generator=generator, device=x.device)
@@ -241,7 +278,15 @@ class MultiheadLinearAttention(nn.Module):
     (``attention_impl="kernel"``: the CUDA kernel on the card) or its plain
     version (``"plain"``, which ``MaskTransUnet`` sets to compare the two);
     masked calls take the plain masked op, as in JAX. The reference's
-    attention dropout touches only an unused return, so none is applied."""
+    attention dropout touches only an unused return, so none is applied.
+
+    Self-attention only: every call site, here as in JAX, passes one tensor
+    as q, k and v, so ``forward`` takes it once. It runs one ``F.linear``
+    with the weights and biases of ``linears_0..2`` concatenated (JAX's
+    ``FUSED_QKV`` path, exact); an unmasked kernel call passes the
+    (B, N, 3*C) result to ``linear_attention_qkv`` whole (gradient: one
+    (B, N, 3*C) tensor), the others take its three head-split thirds
+    (``split_qkv``), views all."""
 
     def __init__(self, d_model: int, nhead: int):
         super().__init__()
@@ -253,24 +298,18 @@ class MultiheadLinearAttention(nn.Module):
         for i in range(4):
             self.add_module(f"linears_{i}", Linear(d_model, d_model))
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b = q.shape[0]
-        d_k = self.d_model // self.nhead
-
-        def split(t):  # (B, N, C) -> (B, H, N, d_k), a view the kernel reads in place
-            return t.reshape(b, -1, self.nhead, d_k).transpose(1, 2)
-
-        q, k, v = (split(getattr(self, f"linears_{i}")(t))
-                   for i, t in enumerate((q, k, v)))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b = x.shape[0]
+        projections = [getattr(self, f"linears_{i}") for i in range(3)]
+        qkv = F.linear(x, torch.cat([p.weight for p in projections]).to(x.dtype),
+                       torch.cat([p.bias for p in projections]).to(x.dtype))
         if mask is not None:
-            x = attention.linear_attention(q, k, v, mask=mask[:, None])
+            x = attention.linear_attention(*fused.split_qkv(qkv, self.nhead), mask=mask[:, None])
         elif self.attention_impl == "kernel":
-            x = fused.linear_attention(q, k, v)
+            x = fused.linear_attention_qkv(qkv, self.nhead)
         else:
-            x = fused.linear_attention_reference(q, k, v)
-        x = x.transpose(1, 2).reshape(b, -1, self.d_model)
-        return self.linears_3(x)
+            x = fused.linear_attention_reference(*fused.split_qkv(qkv, self.nhead))
+        return self.linears_3(x.transpose(1, 2).reshape(b, -1, self.d_model))
 
 
 class SelfAttentionLayer(nn.Module):
@@ -290,7 +329,7 @@ class SelfAttentionLayer(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         drop = lambda t: dropout(t, self.dropout, self.training)
-        x = self.layer_norm1(x + drop(self.self_attn(x, x, x, mask)))
+        x = self.layer_norm1(x + drop(self.self_attn(x, mask)))
         h = self.linear2(drop(F.gelu(self.linear1(x))))
         return self.layer_norm2(x + drop(h))
 
@@ -308,7 +347,7 @@ def attention_layer(layer: SelfAttentionLayer, x: torch.Tensor,
     those of a run without recompute."""
     if not (layer.training and REMAT == "attn"):
         return layer(x, mask)
-    generator, shard = _GENERATOR.get()
+    generator, shard = _STEP.get()
     start = None if generator is None else generator.get_state()
     recompute = False
 

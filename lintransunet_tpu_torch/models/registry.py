@@ -263,3 +263,22 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             else:
                 p.copy_(lecun_normal_(torch.empty(p.shape), generator))
     return model
+
+
+# The flagship, as the JAX package's bench.py and __graft_entry__.py build it:
+# five levels 16..256 wide, ROI boxes 100..10 on the four lower levels, 8
+# attention layers a bridge, 2 classes.
+FLAGSHIP = dict(num_layers=(16, 32, 64, 128, 256), roi_size_list=(100, 65, 40, 25, 10),
+                is_roi_list=(False, True, True, True, True), dim_input=1, dim_output=2,
+                n_layers=8)
+
+
+def flagship(seed: int = 0, state: Optional[dict] = None, **kwargs) -> "MaskTransUnet":
+    """``MaskTransUnet(**FLAGSHIP)``, ``kwargs`` overriding its widths or
+    adding options (``dtype``, ``device``, ...), its parameters ``state`` or
+    drawn by ``init_random_`` from a CPU generator seeded with ``seed``."""
+    model = MaskTransUnet(**{**FLAGSHIP, **kwargs})
+    if state is not None:
+        model.load_state_dict(state)
+        return model
+    return init_random_(model, torch.Generator(device="cpu").manual_seed(seed))

@@ -14,16 +14,28 @@ when a gradient is wanted, whose backward launches the backward kernel
 (``linear_attention_backward``). Nothing catches a build or launch failure
 and carries on.
 
-The kernels take each (B, H, N, d) tensor in one of two layouts: contiguous,
-or the head-split view ``t.view(B, N, H, d).transpose(1, 2)`` of a
+The kernels take each (B, H, N, d) tensor in one of three layouts:
+contiguous; the head-split view ``t.view(B, N, H, d).transpose(1, 2)`` of a
 contiguous (B, N, H*d) projection, which is how the model passes them (no
-copies). Outputs and gradients come out in the layout of ``query``. d is
+copies); or the head-split view of one third of a contiguous (B, N, 3*H*d)
+fused QKV projection (``split_qkv``: head stride d, token stride 3*H*d). The
+outputs and gradients are allocated in the layout of ``query`` where query
+is contiguous, else as the head-split view of a new contiguous (B, N, H*d)
+tensor, and the kernels are given each output's own strides.
+``linear_attention_qkv(qkv, heads)`` is the fused projection's entry: one
+autograd node on the (B, N, 3*H*d) tensor, whose backward has the kernel
+write dq, dk and dv into the three thirds of one new (B, N, 3*H*d) buffer,
+the gradient of ``qkv`` itself, so that nothing assembles the three (the
+alternative, three (B, N, H*d) gradients, would leave autograd one
+concatenation of them a call). d is
 2, 4 or a multiple of 8 up to 32 (``HEAD_WIDTHS``): the flagship's heads are
 32 wide, ``SkipTransUnet``'s 2 to 32, ``MaskSkipTransUnet``'s 16.
 """
 
 import array
+import functools
 import math
+import operator
 
 import torch
 
@@ -83,8 +95,9 @@ def row_alignment(t: torch.Tensor) -> int:
 def layout_strides(t: torch.Tensor):
     """t's (batch, head, token) element strides if the kernels take its
     layout, else None: feature stride 1, aligned to ``row_alignment``, and
-    either contiguous (B, H, N, d) or the head-split view of a contiguous
-    (B, N, H*d) tensor (a dimension of size 1 may have any stride)."""
+    contiguous (B, H, N, d), the head-split view of a contiguous (B, N, H*d)
+    tensor, or the head-split view of a third of a contiguous (B, N, 3*H*d)
+    one (a dimension of size 1 may have any stride)."""
     return None if t.data_ptr() % row_alignment(t) else _layout(t, *t.shape)
 
 
@@ -92,10 +105,32 @@ def _layout(t, b, h, n, d):
     sb, sh, sn, sf = t.stride()
     if sf != 1:
         return None
-    if ((b == 1 or sb == h * n * d) and (h == 1 or sh == n * d) and (n == 1 or sn == d)
-            or (b == 1 or sb == n * h * d) and (h == 1 or sh == d) and (n == 1 or sn == h * d)):
-        return sb, sh, sn
+    # (batch, head, token) strides: contiguous, head-split, head-split of packed QKV
+    for layout in ((h * n * d, n * d, d), (n * h * d, d, h * d), (3 * n * h * d, d, 3 * h * d)):
+        if all(size == 1 or got == want
+               for size, got, want in zip((b, h, n), (sb, sh, sn), layout)):
+            return sb, sh, sn
     return None
+
+
+def split_qkv(qkv: torch.Tensor, heads: int):
+    """(B, N, 3*H*d) -> the (B, H, N, d) head-split views of its three
+    thirds, q, k and v, without a copy."""
+    b, n, width = qkv.shape
+    if width % (3 * heads):
+        raise ValueError(f"a fused QKV projection of width {width} does not split into "
+                         f"3 x {heads} heads")
+    return qkv.view(b, n, 3, heads, width // (3 * heads)).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _empty_out(t: torch.Tensor) -> torch.Tensor:
+    """An output of t's shape and dtype: in t's layout where t is
+    contiguous, else the head-split view of a new contiguous (B, N, H*d)
+    tensor."""
+    if t.is_contiguous():
+        return torch.empty_like(t)
+    b, h, n, d = t.shape
+    return t.new_empty((b, n, h, d)).transpose(1, 2)
 
 
 def _check_cuda_inputs(*tensors):
@@ -127,8 +162,9 @@ def _check_cuda_inputs(*tensors):
         if s is None:
             raise ValueError(
                 f"the CUDA kernel takes (B, H, N, d) contiguous or as the head-split "
-                f"view of a contiguous (B, N, H*d) tensor, aligned to {row_alignment(t)} "
-                f"bytes; got strides {t.stride()} at {t.data_ptr():#x}")
+                f"view of a contiguous (B, N, H*d) tensor or of a third of a contiguous "
+                f"(B, N, 3*H*d) one, aligned to {row_alignment(t)} bytes; got strides "
+                f"{t.stride()} at {t.data_ptr():#x}")
         strides += s
     return strides
 
@@ -142,22 +178,23 @@ def _lib():
     return _library
 
 
-def _plan(inputs):
-    """(plan, bh, scratch floats, row alignment) of a call on q, k, v (, g):
-    ``lta_call``'s sizes and strides, outputs in the layout of q. The inputs are checked
-    and the plan built once per signature (each input's shape, strides,
-    dtype and device); a call with a known signature checks only its
-    pointers' alignment (``_run``)."""
-    signature = tuple([(t.shape, t.stride(), t.dtype, t.get_device()) for t in inputs])
+def _plan(inputs, outputs):
+    """(plan, bh, scratch floats, row alignment) of a call on q, k, v (, g)
+    writing ``outputs`` (out, or dq, dk, dv): ``lta_call``'s sizes and each
+    tensor's strides, the outputs' their own. The tensors are checked and
+    the plan built once per signature (each input's shape, strides, dtype
+    and device, each output's strides); a call with a known signature checks
+    only its pointers' alignment (``_run``)."""
+    signature = tuple([(t.shape, t.stride(), t.dtype, t.get_device()) for t in inputs]
+                      + [t.stride() for t in outputs])
     plan = _plans.get(signature)
     if plan is None:
-        strides = _check_cuda_inputs(*inputs)
+        strides = _check_cuda_inputs(*inputs, *outputs)
         b, h, n, d = inputs[0].shape
         backward = len(inputs) == 4
-        outputs = strides[:3] * (3 if backward else 1)  # torch.empty_like(q) keeps its strides
         plan = _plans[signature] = (
             array.array("q", [int(backward), int(inputs[0].dtype == torch.bfloat16), b * h, h,
-                              n, d] + strides + outputs),
+                              n, d] + strides),
             b * h, _lib().lta_scratch_floats(b * h, n, int(backward)),
             row_alignment(inputs[0]))
     return plan
@@ -180,10 +217,10 @@ def _workspace(device, stream, bh, floats):
 
 def _run(planned, inputs, outputs):
     """``lta_call`` on the current stream of the inputs' device: the
-    kernels' two launches (``planned`` is ``_plan(inputs)``)."""
+    kernels' two launches (``planned`` is ``_plan(inputs, outputs)``)."""
     plan, bh, floats, align = planned
-    ptrs = [t.data_ptr() for t in inputs]
-    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[-1]) % align:  # the plan checked everything else
+    ptrs = [t.data_ptr() for t in inputs + outputs]
+    if functools.reduce(operator.or_, ptrs) % align:  # the plan checked everything else
         raise ValueError(f"the CUDA kernel takes tensors aligned to {align} bytes")
     device = inputs[0].get_device()
     stream = torch._C._cuda_getCurrentRawStream(device)
@@ -192,8 +229,7 @@ def _run(planned, inputs, outputs):
         torch.cuda.set_device(device)
     try:
         tickets, scratch = _workspace(device, stream, bh, floats)
-        call = array.array("q", [stream, tickets, scratch] + ptrs
-                           + [t.data_ptr() for t in outputs])
+        call = array.array("q", [stream, tickets, scratch] + ptrs)
         err = _library.lta_call(call.buffer_info()[0], plan.buffer_info()[0])
     finally:
         if device != previous:
@@ -203,29 +239,32 @@ def _run(planned, inputs, outputs):
 
 
 def _forward_kernel(query, key, value):
-    inputs = (query, key, value)
-    plan = _plan(inputs)
-    out = torch.empty_like(query)  # a dense view: query's strides
-    _run(plan, inputs, (out,))
+    inputs, outputs = (query, key, value), (_empty_out(query),)
+    _run(_plan(inputs, outputs), inputs, outputs)
     linear_attention.launches += 1
-    return out
+    return outputs[0]
 
 
 def linear_attention_backward(query: torch.Tensor, key: torch.Tensor,
-                              value: torch.Tensor, grad: torch.Tensor):
+                              value: torch.Tensor, grad: torch.Tensor, out=None):
     """(dq, dk, dv), semantics of ``linear_attention_backward_reference``.
     CPU tensors take the plain version; CUDA tensors launch the backward
-    kernel, and the gradients come out in the layout of ``query``.
-    ``linear_attention_backward.launches`` counts its calls (two CUDA
-    launches each)."""
+    kernel, which writes the gradients into ``out`` (three (B, H, N, d)
+    tensors in a layout the kernel takes) or into new tensors laid out as
+    ``_empty_out(query)``. ``linear_attention_backward.launches`` counts its
+    calls (two CUDA launches each)."""
     if not query.is_cuda:
-        if query.device.type == "cpu":
-            return linear_attention_backward_reference(query, key, value, grad)
-        raise ValueError(f"no linear-attention path for {query.device}")
+        if query.device.type != "cpu":
+            raise ValueError(f"no linear-attention path for {query.device}")
+        grads = linear_attention_backward_reference(query, key, value, grad)
+        if out is None:
+            return grads
+        for o, g in zip(out, grads):
+            o.copy_(g)
+        return tuple(out)
     inputs = (query, key, value, grad)
-    plan = _plan(inputs)
-    grads = (torch.empty_like(query), torch.empty_like(query), torch.empty_like(query))
-    _run(plan, inputs, grads)
+    grads = tuple(out) if out is not None else tuple(_empty_out(query) for _ in range(3))
+    _run(_plan(inputs, grads), inputs, grads)
     linear_attention_backward.launches += 1
     return grads
 
@@ -252,6 +291,44 @@ class LinearAttentionFunction(torch.autograd.Function):
         if grad.is_cuda and layout_strides(grad) is None:
             grad = grad.contiguous()
         return linear_attention_backward(query, key, value, grad)
+
+
+class PackedLinearAttentionFunction(torch.autograd.Function):
+    """Linear attention on the three thirds of one fused (B, N, 3*H*d) QKV
+    projection, CUDA only: the forward kernel reads q, k and v in place
+    (``split_qkv``) and saves the projection; the backward kernel writes dq,
+    dk and dv into the thirds of one new (B, N, 3*H*d) tensor, the
+    projection's gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(qkv)
+        return _forward_kernel(*split_qkv(qkv, heads))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (qkv,) = ctx.saved_tensors
+        if layout_strides(grad) is None:
+            grad = grad.contiguous()
+        d_qkv = torch.empty_like(qkv)  # contiguous, as the forward's plan required of qkv
+        linear_attention_backward(*split_qkv(qkv, ctx.heads), grad,
+                                  out=split_qkv(d_qkv, ctx.heads))
+        return d_qkv, None
+
+
+def linear_attention_qkv(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """``linear_attention(*split_qkv(qkv, heads))`` for a fused (B, N, 3*H*d)
+    QKV projection, contiguous: on CUDA tensors no copy of q, k or v, two
+    launches a call each way (``PackedLinearAttentionFunction`` when a
+    gradient is wanted); on CPU tensors the plain version, which autograd
+    differentiates. The output is the head-split view of a (B, N, H*d)
+    tensor."""
+    if not qkv.is_cuda:
+        return linear_attention(*split_qkv(qkv, heads))
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return PackedLinearAttentionFunction.apply(qkv, heads)
+    return _forward_kernel(*split_qkv(qkv, heads))
 
 
 def linear_attention(query: torch.Tensor, key: torch.Tensor,

@@ -37,6 +37,7 @@ Tolerances, each a share of the plain output's largest magnitude:
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from lintransunet_tpu_torch.experiments import (
     conv_prototype,
@@ -245,24 +246,90 @@ def test_each_call_is_at_most_two_launches(cuda, n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_module_copies_nothing(cuda, dtype):
-    """One MultiheadLinearAttention forward launches what its four
-    projections launch alone and the kernel's two launches, and runs no
-    copy; and the kernel build agrees with the plain one."""
+    """One MultiheadLinearAttention forward launches what its fused QKV
+    product (with the two concatenations of its weights and biases) and its
+    output projection launch alone and the kernel's two launches, and runs
+    no copy; and the kernel build agrees with the plain one."""
     from lintransunet_tpu_torch.models.blocks import MultiheadLinearAttention
 
     module = MultiheadLinearAttention(256, 8).to(cuda, dtype)
     x = torch.randn((1, 4096, 256), generator=torch.Generator().manual_seed(0)).to(cuda, dtype)
-    projections = [getattr(module, f"linears_{i}") for i in range(4)]
+    qkv = [getattr(module, f"linears_{i}") for i in range(3)]
+
+    def projections():
+        packed = F.linear(x, torch.cat([p.weight for p in qkv]), torch.cat([p.bias for p in qkv]))
+        return packed, module.linears_3(x)
+
     with torch.no_grad():
-        got = module(x, x, x)
-        alone = cuda_launches(lambda: [p(x) for p in projections])
+        got = module(x)
+        alone = cuda_launches(projections)
         before = fused.linear_attention.launches
-        found = cuda_launches(lambda: module(x, x, x))
+        found = cuda_launches(lambda: module(x))
         calls = fused.linear_attention.launches - before
         module.attention_impl = "plain"
-        want = module(x, x, x)
+        want = module(x)
     assert calls == 1
     assert len(found.launches) == len(alone.launches) + 2, (found.launches, alone.launches)
+    assert not [op for op in found.ops if "copy" in op or "clone" in op], found.ops
+    assert _rel(got, want) <= (5e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,n,h,d", [(1, 4096, 8, 32), (2, 300, 3, 32), (1, 1, 2, 32),
+                                     (1, 20000, 8, 4), (2, 129, 2, 2)])
+def test_kernels_read_the_packed_qkv_layout(cuda, b, n, h, d, dtype, tol):
+    """The thirds of a fused (B, N, 3*H*d) QKV projection, forward and
+    backward through ``linear_attention_qkv`` against the plain versions on
+    the same views: two launches a call each way, no copy, the output the
+    head-split view of a new (B, N, H*d) tensor and the gradient one
+    contiguous (B, N, 3*H*d) tensor."""
+    g = torch.Generator().manual_seed(n)
+    qkv = torch.randn((b, n, 3 * h * d), generator=g).to(cuda, dtype).requires_grad_(True)
+    grad = _heads(b, n, h, d, dtype, cuda, seed=1)
+    got = fused.linear_attention_qkv(qkv, h)
+    q, k, v = fused.split_qkv(qkv.detach(), h)
+    want = fused.linear_attention_reference(q, k, v)
+    assert got.dtype == dtype and got.shape == (b, h, n, d)
+    assert _same_layout(got, _heads(b, n, h, d, dtype, cuda))
+    assert _rel(got, want) <= tol
+    got.backward(grad)
+    want_grads = fused.linear_attention_backward_reference(q, k, v, grad)
+    d_qkv = qkv.grad
+    assert d_qkv.shape == qkv.shape and d_qkv.is_contiguous()
+    top = max(w.float().abs().max().item() for w in want_grads)
+    for a, w in zip(fused.split_qkv(d_qkv, h), want_grads):
+        err = (a.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        assert err <= BWD_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
+    with torch.no_grad():
+        forward = cuda_launches(lambda: fused.linear_attention_qkv(qkv, h), 3)
+    buffer = torch.empty_like(qkv)
+    backward = cuda_launches(lambda: fused.linear_attention_backward(
+        q, k, v, grad, out=fused.split_qkv(buffer, h)), 3)
+    assert len(forward.launches) == 6 and len(backward.launches) == 6, (forward, backward)
+    assert not [op for op in forward.ops + backward.ops if "copy" in op or "clone" in op]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_qkv_attention_module(cuda, dtype):
+    """A MultiheadLinearAttention forward is two products (the fused QKV
+    one and the output projection) and one kernel call, with no copy; it
+    agrees with three projections and the kernel on their head-split
+    views (JAX's default path)."""
+    from lintransunet_tpu_torch.models.blocks import MultiheadLinearAttention
+
+    module = MultiheadLinearAttention(256, 8).to(cuda, dtype)
+    x = torch.randn((1, 4096, 256), generator=torch.Generator().manual_seed(0)).to(cuda, dtype)
+    with torch.no_grad():
+        q, k, v = (getattr(module, f"linears_{i}")(x).view(1, -1, 8, 32).transpose(1, 2)
+                   for i in range(3))
+        want = module.linears_3(fused.linear_attention(q, k, v).transpose(1, 2).reshape(1, -1, 256))
+        got = module(x)
+        before = fused.linear_attention.launches
+        found = cuda_launches(lambda: module(x))
+        calls = fused.linear_attention.launches - before
+    assert calls == 1
+    assert found.ops.count("aten::linear") == 2, found.ops
     assert not [op for op in found.ops if "copy" in op or "clone" in op], found.ops
     assert _rel(got, want) <= (5e-5 if dtype == torch.float32 else 2e-2)
 

@@ -230,9 +230,10 @@ def test_kernel_layouts_and_limits():
 
 def test_kernel_plan_is_built_once_per_signature(monkeypatch):
     """``lta_call``'s plan array, checked on CPU tensors with the library's
-    scratch size stubbed: sizes and each tensor's strides, the outputs in
-    the layout of q; one plan per signature, and a signature the kernels do
-    not take raises before any plan is kept."""
+    scratch size stubbed: sizes and each tensor's strides, the outputs'
+    their own (allocated in the layout of q by ``_empty_out``); one plan per
+    signature, and a signature the kernels do not take raises before any
+    plan is kept."""
 
     class Library:
         @staticmethod
@@ -245,16 +246,61 @@ def test_kernel_plan_is_built_once_per_signature(monkeypatch):
     heads = torch.zeros((b, n, h * d)).view(b, n, h, d).transpose(1, 2)
     flat = torch.zeros((b, h, n, d))
     split, contiguous = [n * h * d, d, h * d], [h * n * d, n * d, d]
-    first = tfused._plan((heads, flat, heads))
+    out = (tfused._empty_out(heads),)
+    first = tfused._plan((heads, flat, heads), out)
     plan, bh, floats, align = first
     assert (bh, floats, align) == (b * h, 7, 16)
     assert list(plan) == [0, 0, b * h, h, n, d] + split + contiguous + split + split
-    assert torch.empty_like(heads).stride() == heads.stride()
-    plan, _, _, _ = tfused._plan((flat, heads, flat, heads.bfloat16().float()))
+    assert tfused._empty_out(heads).stride() == heads.stride()
+    grads = tuple(tfused._empty_out(flat) for _ in range(3))
+    plan, _, _, _ = tfused._plan((flat, heads, flat, heads.bfloat16().float()), grads)
     assert list(plan) == [1, 0, b * h, h, n, d] + contiguous + split + contiguous + split \
         + contiguous * 3
     assert len(tfused._plans) == 2
-    assert tfused._plan((heads.clone(), flat, heads)) is first  # another tensor, one signature
+    # another tensor, one signature
+    assert tfused._plan((heads.clone(), flat, heads), (tfused._empty_out(heads),)) is first
     with pytest.raises(ValueError):
-        tfused._plan((heads, flat, flat[:, :, ::2]))
+        tfused._plan((heads, flat, flat[:, :, ::2]), out)
     assert len(tfused._plans) == 2
+
+
+def test_kernel_plan_of_the_packed_qkv_layout(monkeypatch):
+    """The thirds of a fused (B, N, 3*H*d) QKV projection (``split_qkv``):
+    views, no copies, with head stride d, token stride 3*H*d and batch
+    stride N*3*H*d; the forward's output is a new head-split (B, N, H*d)
+    tensor whose strides the plan takes from the output itself (not from
+    q, whose token stride is 3*H*d); the backward's gradients are the thirds
+    of one new (B, N, 3*H*d) tensor, with its strides. Checked on CPU
+    tensors with the library's scratch size stubbed."""
+
+    class Library:
+        @staticmethod
+        def lta_scratch_floats(bh, n, backward):
+            return 7
+
+    monkeypatch.setattr(tfused, "_library", Library)
+    monkeypatch.setattr(tfused, "_plans", {})
+    b, h, n, d = 2, 3, 40, 16
+    qkv = torch.arange(b * n * 3 * h * d, dtype=torch.float32).view(b, n, 3 * h * d)
+    q, k, v = tfused.split_qkv(qkv, h)
+    packed, split = [n * 3 * h * d, d, 3 * h * d], [n * h * d, d, h * d]
+    for i, x in enumerate((q, k, v)):
+        assert x.shape == (b, h, n, d) and x.data_ptr() == qkv.data_ptr() + 4 * i * h * d
+        assert list(tfused.layout_strides(x)) == packed
+        np.testing.assert_array_equal(
+            x.numpy(), qkv.view(b, n, 3, h, d)[:, :, i].transpose(1, 2).numpy())
+    out = tfused._empty_out(q)
+    assert list(out.stride()) == split + [1]
+    plan, bh, _, align = tfused._plan((q, k, v), (out,))
+    assert (bh, align) == (b * h, 16)
+    assert list(plan) == [0, 0, b * h, h, n, d] + packed * 3 + split
+    grad = tfused._empty_out(q)
+    d_qkv = torch.empty_like(qkv)
+    plan, _, _, _ = tfused._plan((q, k, v, grad), tfused.split_qkv(d_qkv, h))
+    assert list(plan) == [1, 0, b * h, h, n, d] + packed * 3 + split + packed * 3
+    with pytest.raises(ValueError, match="does not split"):
+        tfused.split_qkv(qkv[..., :-1], h)
+    # a third of a (B, N, 2*H*d) tensor, or of a non-contiguous (B, N, 3*H*d) one
+    for wrong in (torch.zeros((b, n, 2 * h * d)).view(b, n, 2, h, d)[:, :, 0].transpose(1, 2),
+                  tfused.split_qkv(torch.zeros((b, 2 * n, 3 * h * d))[:, ::2], h)[0]):
+        assert tfused.layout_strides(wrong) is None

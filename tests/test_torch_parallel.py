@@ -31,6 +31,11 @@ The ranks are spawned (``tests/torch_port_helpers.py``: ``dp_worker``,
   joined batch (the loss within 1e-6 relative, gradients by the 1e-4 rule,
   the ranks' parameters bit-equal), as JAX's SPMD step draws the global
   batch's masks once.
+* ``SolidBlock``'s BatchNorm under a mesh takes the global batch's
+  statistics: two ranks' training forward and backward on their rows equal
+  one process on the joined batch (outputs, the input's gradient, the
+  parameters' gradients summed over the ranks, the running statistics) and
+  flax's ``BatchNorm`` on the joined batch (``jax.vjp``), atol 1e-5.
 * ``run_batch`` and ``batched_predictions`` with and without a mesh equal
   JAX's ``run_batch`` on volumes of depths 7, 10 and 12 (7 below the
   window's 8), bit for bit between the ranks and the single process.
@@ -55,6 +60,7 @@ from lintransunet_tpu.cli.common import get_criterion_list as jax_criterion_list
 from lintransunet_tpu.losses import binary as jax_binary
 from lintransunet_tpu.losses import multiclass as jax_multiclass
 from lintransunet_tpu.models import MaskTransUnet as JaxMaskTransUnet
+from lintransunet_tpu.models import blocks as jax_blocks
 from lintransunet_tpu_torch import engine, parallel
 from lintransunet_tpu_torch.cli import inference_embed_attn
 from lintransunet_tpu_torch.cli.common import get_criterion_list
@@ -62,7 +68,7 @@ from lintransunet_tpu_torch.compat import from_flax, to_ncdhw
 from lintransunet_tpu_torch.data import DataLoader
 from lintransunet_tpu_torch.engine.sliding_window import SlidingWindowRunner
 from lintransunet_tpu_torch.losses import binary, multiclass
-from lintransunet_tpu_torch.models import MaskTransUnet
+from lintransunet_tpu_torch.models import MaskTransUnet, SolidBlock
 from lintransunet_tpu_torch.models import blocks
 from torch_port_helpers import DP_MASK_SHAPE, DP_TINY, random_params, t, worst_grad_error
 
@@ -83,6 +89,7 @@ CASES["dropout"] = ("binary", CLI_CRITERIA, 1, 0.3)
 DROPOUT_SEED = 7  # every rank's dropout generator, and the joined step's
 ROI = (8, 8, 8)
 DEPTHS = (7, 10, 12)
+SOLID_SHAPE = (4, 5, 7)  # SolidBlock's joined batch: two rows of (5, 7) a rank
 
 
 def _labels(rng, kind):
@@ -107,7 +114,19 @@ def inputs():
             (rng.standard_normal(PATCH + (1,)).astype(np.float32), _labels(rng, kind))]
     out["volumes"] = [rng.standard_normal((1, 8, 8, d, 1)).astype(np.float32)
                       for d in DEPTHS]
+    x = rng.standard_normal(SOLID_SHAPE).astype(np.float32)
+    out["solid"] = {"x": x, "cotangent": rng.standard_normal(SOLID_SHAPE[:-1] + (1,))
+                    .astype(np.float32),
+                    "params": random_params(jax_blocks.SolidBlock(SOLID_SHAPE[-1]),
+                                            jnp.asarray(x), seed=SEED, scale=0.5)}
     return out
+
+
+def _solid_spec(inputs):
+    solid = inputs["solid"]
+    return {"x": t(solid["x"]), "cotangent": t(solid["cotangent"]),
+            "state": from_flax(solid["params"], {"solid_layer_1": {
+                "mean": np.zeros(12, np.float32), "var": np.ones(12, np.float32)}})}
 
 
 @pytest.fixture(scope="module")
@@ -119,7 +138,8 @@ def ranks(inputs, tmp_path_factory):
             "params": {k: from_flax(p) for k, p in inputs["params"].items()},
             "batches": {k: [(t(to_ncdhw(x)), t(y)) for x, y in b]
                         for k, b in inputs["batches"].items()},
-            "volumes": [t(to_ncdhw(v)) for v in inputs["volumes"]]}
+            "volumes": [t(to_ncdhw(v)) for v in inputs["volumes"]],
+            "solid": _solid_spec(inputs)}
     torch.save(spec, os.path.join(workdir, "spec.pt"))
     mp.spawn(helpers.dp_worker, args=(2, os.path.join(workdir, "store"), workdir),
              nprocs=2, join=True)
@@ -314,6 +334,52 @@ def test_dp_step_with_dropout_equals_the_joined_batch(inputs, ranks):
     worst = worst_grad_error(grads0, grads)
     assert worst[1] <= 1e-4, worst
     assert loss != pytest.approx(_joined_step(inputs, kind, names)[0], rel=1e-3)
+
+
+def test_batch_norm_takes_the_global_batch(inputs, ranks):
+    """C.6: under a mesh SolidBlock's BatchNorm reduces over the global
+    batch, as flax's inside JAX's sharded jit: the two ranks together equal
+    one process on the joined batch and flax's BatchNorm on it (outputs,
+    the input's gradient, the parameters' gradients summed over the ranks,
+    the running statistics on every rank), atol 1e-5."""
+    from torch_port_helpers import solid_block_step
+
+    solid = inputs["solid"]
+    spec = _solid_spec(inputs)
+    joined = solid_block_step(spec, (0, 1))
+    got = {"out": torch.cat([r["solid"]["out"] for r in ranks]),
+           "x_grad": torch.cat([r["solid"]["x_grad"] for r in ranks])}
+    grads = {n: sum(r["solid"]["grads"][n] for r in ranks) for n in joined["grads"]}
+
+    jblock = jax_blocks.SolidBlock(SOLID_SHAPE[-1])
+    stats = {"solid_layer_1": {"mean": jnp.zeros(12), "var": jnp.ones(12)}}
+
+    def apply(params, x):
+        return jblock.apply({"params": params, "batch_stats": stats}, x, train=True,
+                            mutable=["batch_stats"])
+
+    (out, updates), vjp = jax.vjp(apply, solid["params"], jnp.asarray(solid["x"]))
+    jgrads, jx_grad = vjp((jnp.asarray(solid["cotangent"]),
+                           jax.tree_util.tree_map(jnp.zeros_like, updates)))
+    jgrads = from_flax(jax.tree_util.tree_map(np.array, jgrads))
+    new = updates["batch_stats"]["solid_layer_1"]
+    for want in (joined, {"out": t(out), "x_grad": t(jx_grad), "grads": jgrads,
+                          "running": (t(new["mean"]), t(new["var"]))}):
+        for key in ("out", "x_grad"):
+            np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), atol=1e-5,
+                                       rtol=0, err_msg=key)
+        for name, g in grads.items():
+            np.testing.assert_allclose(g.numpy(), want["grads"][name].numpy(), atol=1e-5,
+                                       rtol=0, err_msg=name)
+        for r in ranks:
+            for got_stat, want_stat in zip(r["solid"]["running"], want["running"]):
+                np.testing.assert_allclose(got_stat.numpy(), want_stat.numpy(), atol=1e-5,
+                                           rtol=0)
+    # and the check can fail: rank 0's rows alone, as one process, give
+    # their own statistics and another output
+    alone = solid_block_step({"x": spec["x"][:2], "cotangent": spec["cotangent"][:2],
+                              "state": spec["state"]}, (0, 1))
+    assert (alone["out"] - got["out"][:2]).abs().max().item() > 1e-3
 
 
 def _jax_run_batch(volumes):

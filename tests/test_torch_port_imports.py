@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, rest = proc.stdout.split(" ", 1)
     bad, names = rest.split("] ", 1)
-    assert int(count) >= 66  # every subpackage and module was imported
+    assert int(count) >= 68  # every subpackage and module was imported
     assert bad.strip() == "["
     for name in ("losses", "losses.binary", "losses.functional", "ops.pool",
                  "engine.train", "engine.schedule", "engine.checkpoint", "cli.common",
@@ -56,7 +56,7 @@ def test_port_imports_no_jax():
                  "engine.metrics", "engine.loop", "compat.torch_import",
                  "cli.split_dataset", "cli.postprocess", "cli.train3d",
                  "cli.inference_embed_attn", "parallel", "parallel.mesh", "utils",
-                 "utils.debug", "utils.profiling"):
+                 "utils.debug", "utils.profiling", "bench", "entry"):
         assert f"'lintransunet_tpu_torch.{name}'" in names, name
 
 

@@ -4,8 +4,10 @@ at SMALL, on the CPU.
 * The FLOPs that ``program_cost`` counts on fake tensors (FlopCounterMode
   over the plain path) equal an independent count from the modules' shapes,
   recorded by forward hooks on a real run: 2 (C_in / groups) k^3 C_out per
-  output voxel of each ``Conv3d``, 2 in out per token of each ``Linear``,
-  4 BH N d^2 per linear-attention call (k^T v, then q against the context),
+  output voxel of each ``Conv3d``, 2 in out per token of each ``Linear``
+  called as a module and of each self-attention's one QKV product (C to
+  3C), 4 BH N d^2 per linear-attention call (k^T v, then q against the
+  context),
   and each ROI bridge's four warp products (contracting H, then W, of its
   input, and back from the crop). The step (forward, backward, AdamW) adds
   twice each product's forward FLOPs for its backward (the input's and the
@@ -85,6 +87,7 @@ def analytic_flops(program):
     def attention(m, args, out):
         b, n, c = args[0].shape
         d = c // m.nhead
+        records.append((2 * b * n * c * 3 * c, 2))  # the one QKV product (C -> 3C)
         records.append((4 * b * m.nhead * n * d * d, 2))
 
     def bridge(m, args, out):

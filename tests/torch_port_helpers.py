@@ -200,11 +200,37 @@ def _dp_cases(mesh, spec):
     return out
 
 
+def solid_block_step(spec, shard):
+    """``SolidBlock``'s training forward and backward on the ``shard``
+    (rank, size) of ``spec``'s joined batch (rows split evenly), under
+    ``dropout_generator``'s shard as a DP step runs it: {output, the input's
+    gradient, each parameter's gradient, the running statistics}, the
+    gradients of sum(output * spec["cotangent"]) over the shard's rows."""
+    from lintransunet_tpu_torch import models
+    from lintransunet_tpu_torch.models import blocks
+
+    rank, size = shard
+    rows = spec["x"].shape[0] // size
+    part = slice(rank * rows, (rank + 1) * rows)
+    block = models.SolidBlock(spec["x"].shape[-1])
+    block.load_state_dict(spec["state"], strict=True)
+    block.train()
+    x = spec["x"][part].clone().requires_grad_(True)
+    with blocks.dropout_generator(None, shard):
+        out = block(x)
+    (out * spec["cotangent"][part]).sum().backward()
+    bn = block.solid_layer_1
+    return {"out": out.detach(), "x_grad": x.grad,
+            "grads": {n: p.grad for n, p in block.named_parameters()},
+            "running": (bn.running_mean.clone(), bn.running_var.clone())}
+
+
 def dp_worker(rank, world, store, workdir):
     """One rank of tests/test_torch_parallel.py: the DP train steps of
     ``spec.pt``, run_batch and batched_predictions over its volumes, the
     rank's dropout masks (an element mask, then a channel mask, of a
-    one-sample shard), and the collectives; writes ``rank<r>.pt``."""
+    one-sample shard), ``SolidBlock``'s training call on its shard
+    (``solid_block_step``), and the collectives; writes ``rank<r>.pt``."""
     from lintransunet_tpu_torch import engine, parallel
     from lintransunet_tpu_torch.engine import loop
     from lintransunet_tpu_torch.models import blocks
@@ -230,6 +256,8 @@ def dp_worker(rank, world, store, workdir):
         loader = [(v.movedim(1, -1).numpy()[:, None], np.zeros(1)) for v in volumes]
         result["batched"] = [(i, predict) for i, _, _, predict in
                              loop.batched_predictions(loader, runner, mesh)]
+
+        result["solid"] = solid_block_step(spec["solid"], (mesh.rank, mesh.size))
 
         module = torch.nn.Linear(3, 2)
         torch.manual_seed(rank)
