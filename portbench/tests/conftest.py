@@ -1,0 +1,13 @@
+"""The benchmark's own tests: ``python -m pytest -q portbench/tests`` from the
+root of the repository (CPU; tests marked ``cuda`` skip without a card)."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")
