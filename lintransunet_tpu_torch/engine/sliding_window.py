@@ -11,9 +11,17 @@ prediction (times the importance map in gaussian mode) and is divided by the
 normalisation map, which is built on the canvas's device. The JAX package's
 static depth-region blend computes the same sums in another form for XLA's
 static shapes; eager PyTorch needs no second form.
+
+A call runs in the profiler span ``runner`` (``utils.profiling.span``; its
+``seq`` the process's count of runner calls), with ``runner.gather`` (the
+pad, and each chunk's window slices and ``cat``), ``runner.blend`` (each
+chunk's canvas adds), ``runner.normalise`` (the normalisation map and the
+divide) and ``runner.finish`` (the crop and the derived background) inside;
+the predictor runs between them.
 """
 
 import functools
+import itertools
 import math
 from typing import Callable, Sequence, Tuple
 
@@ -22,8 +30,11 @@ import torch
 import torch.nn.functional as F
 
 from lintransunet_tpu_torch import parallel
+from lintransunet_tpu_torch.utils import profiling
 
 Predictor = Callable[[torch.Tensor], torch.Tensor]
+
+_calls = itertools.count()  # runner calls in this process, the top span's seq
 
 
 def scan_interval(image_size: Sequence[int], roi_size: Sequence[int],
@@ -118,20 +129,39 @@ def _check_args(roi_size, sw_batch_size, mode):
         raise ValueError(f"mode must be 'constant' or 'gaussian', got {mode!r}")
 
 
-def _window_predictions(x: torch.Tensor, starts: np.ndarray, roi_size,
-                        sw_batch_size: int, predictor: Predictor):
-    """Yield (start, prediction) per window in grid order; windows run
-    through ``predictor`` ``sw_batch_size`` at a time, concatenated on the
-    batch dim."""
+@torch.inference_mode()
+def _blend(inputs: torch.Tensor, roi_size, sw_batch_size: int, predictor: Predictor,
+           overlap: float, mode: str, sigma_scale: float):
+    """(the canvas of the padded volume over its normalisation map, the pads).
+    Windows run through ``predictor`` ``sw_batch_size`` at a time,
+    concatenated on the batch dim, in grid order."""
+    with profiling.span("runner.gather"):
+        x, pads = _pad_to_roi(inputs, roi_size)
+    spatial = tuple(x.shape[2:])
+    starts = dense_window_starts(spatial, roi_size, overlap)
+    dev = inputs.device
+    imp = _importance(roi_size, mode, sigma_scale, dev)
     n = x.shape[0]
     rh, rw, rd = roi_size
+    canvas = None
     for c0 in range(0, len(starts), sw_batch_size):
         chunk = starts[c0:c0 + sw_batch_size]
-        batch = torch.cat([x[:, :, sx:sx + rh, sy:sy + rw, sz:sz + rd]
-                           for sx, sy, sz in chunk], dim=0)
+        with profiling.span("runner.gather"):
+            batch = torch.cat([x[:, :, sx:sx + rh, sy:sy + rw, sz:sz + rd]
+                               for sx, sy, sz in chunk], dim=0)
         preds = predictor(batch)
-        for i, start in enumerate(chunk):
-            yield tuple(int(s) for s in start), preds[i * n:(i + 1) * n]
+        with profiling.span("runner.blend"):
+            if canvas is None:
+                canvas = torch.zeros((n, preds.shape[1]) + spatial,
+                                     dtype=torch.float32, device=dev)
+            for i, (sx, sy, sz) in enumerate(chunk):
+                contrib = preds[i * n:(i + 1) * n].float()
+                if mode == "gaussian":
+                    contrib = contrib * imp
+                canvas[:, :, sx:sx + rh, sy:sy + rw, sz:sz + rd] += contrib
+    with profiling.span("runner.normalise"):
+        canvas /= normalisation_map(spatial, roi_size, overlap, mode, sigma_scale, dev)
+    return canvas, pads
 
 
 @torch.inference_mode()
@@ -144,24 +174,11 @@ def sliding_window_inference(inputs: torch.Tensor, roi_size: Sequence[int],
     -> (M, C', h, w, d). Returns f32 (N, C', H, W, D)."""
     roi_size = tuple(int(r) for r in roi_size)
     _check_args(roi_size, sw_batch_size, mode)
-    x, pads = _pad_to_roi(inputs, roi_size)
-    spatial = tuple(x.shape[2:])
-    starts = dense_window_starts(spatial, roi_size, overlap)
-    dev = inputs.device
-    imp = _importance(roi_size, mode, sigma_scale, dev)
-    rh, rw, rd = roi_size
-    canvas = None
-    for (sx, sy, sz), pred in _window_predictions(x, starts, roi_size,
-                                                  sw_batch_size, predictor):
-        contrib = pred.float()
-        if mode == "gaussian":
-            contrib = contrib * imp
-        if canvas is None:
-            canvas = torch.zeros((x.shape[0], pred.shape[1]) + spatial,
-                                 dtype=torch.float32, device=dev)
-        canvas[:, :, sx:sx + rh, sy:sy + rw, sz:sz + rd] += contrib
-    canvas /= normalisation_map(spatial, roi_size, overlap, mode, sigma_scale, dev)
-    return _crop(canvas, pads, inputs.shape[2:])
+    with profiling.span("runner", next(_calls)):
+        canvas, pads = _blend(inputs, roi_size, sw_batch_size, predictor, overlap, mode,
+                              sigma_scale)
+        with profiling.span("runner.finish"):
+            return _crop(canvas, pads, inputs.shape[2:])
 
 
 def _with_background(fg: torch.Tensor) -> torch.Tensor:
@@ -199,12 +216,14 @@ class SlidingWindowRunner:
 
     def __call__(self, volume: torch.Tensor) -> torch.Tensor:
         """(N, C, H, W, D) -> f32 (N, C', H, W, D) on the runner's device."""
-        if self.device is not None:
-            volume = volume.to(self.device).contiguous()
-        out = sliding_window_inference(
-            volume, self.roi_size, self.sw_batch_size, self.predictor,
-            self.overlap, self.mode, self.sigma_scale)
-        return _with_background(out) if self.derive_background else out
+        with profiling.span("runner", next(_calls)):
+            if self.device is not None:
+                volume = volume.to(self.device).contiguous()
+            canvas, pads = _blend(volume, self.roi_size, self.sw_batch_size, self.predictor,
+                                  self.overlap, self.mode, self.sigma_scale)
+            with profiling.span("runner.finish"):
+                out = _crop(canvas, pads, volume.shape[2:])
+                return _with_background(out) if self.derive_background else out
 
     def run_batch(self, volumes: Sequence[torch.Tensor], mesh=None) -> list:
         """Multi-volume inference (JAX ``run_batch``): ``volumes`` is a list of

@@ -28,6 +28,12 @@ each mask at the global batch's shape and keeps this rank's rows
 (``blocks.dropout_generator``'s shard), as JAX's SPMD step draws the global
 batch's masks once: with every rank's generator seeded alike, a DP step
 equals the joined batch's at any dropout.
+
+A step runs in the profiler span ``step`` (``utils.profiling.span``; its
+``seq`` the state's micro-step count), with ``step.forward`` (the model and
+the loss), ``step.backward``, ``step.allreduce`` (under a mesh) and
+``step.update`` inside; ``apply_gradients`` splits the update into
+``update.accumulate`` and ``update.optimizer``.
 """
 
 import dataclasses
@@ -40,6 +46,7 @@ from torch import nn
 from lintransunet_tpu_torch import parallel
 from lintransunet_tpu_torch.losses.functional import one_hot_map
 from lintransunet_tpu_torch.ops.pool import max_pool3d
+from lintransunet_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -105,23 +112,25 @@ def apply_gradients(state: TrainState) -> None:
     params = _with_grads(state.model)
     state.step += 1
     if state.step_times == 1:
-        state.optimizer.step()
+        with profiling.span("update.optimizer"):
+            state.optimizer.step()
         state.gradient_step += 1
         return
-    if state.acc_grads is None:
-        state.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-    n = state.mini_step
-    with torch.no_grad():
+    with profiling.span("update.accumulate"), torch.no_grad():
+        if state.acc_grads is None:
+            state.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        n = state.mini_step
         for acc, p in zip(state.acc_grads, params):
             acc.add_((p.grad.float() - acc) / (n + 1))
-    state.mini_step = (n + 1) % state.step_times
-    if state.mini_step == 0:
-        with torch.no_grad():
-            for acc, p in zip(state.acc_grads, params):
-                p.grad.copy_(acc)
-                acc.zero_()
+        state.mini_step = (n + 1) % state.step_times
+        if state.mini_step:
+            return
+        for acc, p in zip(state.acc_grads, params):  # the mean goes to the optimizer
+            p.grad.copy_(acc)
+            acc.zero_()
+    with profiling.span("update.optimizer"):
         state.optimizer.step()
-        state.gradient_step += 1
+    state.gradient_step += 1
 
 
 def label_pyramid_kernel(level: int):
@@ -225,19 +234,24 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
     def step(state: TrainState, images, labels, dynamic_weight, generator=None):
         if state.model is not model:
             raise ValueError("the train state holds another model than this step's")
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, logs = loss_fn(images, labels, dynamic_weight, generator)
-        loss.backward()
-        loss = loss.detach()
-        logs = {name: v.detach() for name, v in logs.items()}
-        if mesh is not None:
-            # one bucket: every gradient, then the loss and the logs
-            values = [loss.float()] + [v.float() for v in logs.values()]
-            parallel.all_reduce_mean(mesh, [p.grad for p in _with_grads(model)] + values)
-            loss, logs = values[0], dict(zip(logs, values[1:]))
-        apply_gradients(state)
-        return loss, logs
+        with profiling.span("step", state.step):
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            with profiling.span("step.forward"):
+                loss, logs = loss_fn(images, labels, dynamic_weight, generator)
+            with profiling.span("step.backward"):
+                loss.backward()
+            loss = loss.detach()
+            logs = {name: v.detach() for name, v in logs.items()}
+            if mesh is not None:
+                with profiling.span("step.allreduce"):
+                    # one bucket: every gradient, then the loss and the logs
+                    values = [loss.float()] + [v.float() for v in logs.values()]
+                    parallel.all_reduce_mean(mesh, [p.grad for p in _with_grads(model)] + values)
+                loss, logs = values[0], dict(zip(logs, values[1:]))
+            with profiling.span("step.update"):
+                apply_gradients(state)
+            return loss, logs
 
     step.loss_fn = loss_fn
     return step

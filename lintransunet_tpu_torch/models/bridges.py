@@ -16,6 +16,7 @@ from lintransunet_tpu_torch.models.blocks import (
     EmbedAttention3DBlock,
     PosAttention3DBlock,
 )
+from lintransunet_tpu_torch.utils import profiling
 
 
 class ConnectBridge(nn.Module):
@@ -99,7 +100,8 @@ class Bridge(nn.Module):
     ConnectBridge on the bottleneck, then per level, coarse to fine, a
     sigmoid 1x1x1 mask conv upsampled x2 on every axis gives the next
     level's ROIBridge its box. Returns (bottleneck, transformed skips fine
-    to coarse, mask_list coarse to fine)."""
+    to coarse, mask_list coarse to fine). Each level's bridge and mask conv
+    run in the profiler span ``bridge.level<i>``."""
 
     def __init__(self, num_layers, roi_size: int = 16, nhead_lens: int = 16,
                  dropout: float = 0.2, n_layers: int = 4):
@@ -118,6 +120,7 @@ class Bridge(nn.Module):
                 dropout, n_layers, roi_sizes[-i]))
             if i != n - 1:
                 self.add_module(f"mask_conv_list_{level}", Conv3d(layers[level], 1, 1))
+        self._spans = [f"bridge.level{level}" for level in range(n)]
 
     def _mask(self, level: int, x: torch.Tensor) -> torch.Tensor:
         mask = torch.sigmoid(getattr(self, f"mask_conv_list_{level}")(x))
@@ -125,14 +128,16 @@ class Bridge(nn.Module):
 
     def forward(self, x: torch.Tensor, skips):
         n = self.n_levels
-        x = getattr(self, f"bridge_list_{n - 1}")(x)
-        mask = self._mask(n - 1, x)
+        with profiling.span(self._spans[n - 1]):
+            x = getattr(self, f"bridge_list_{n - 1}")(x)
+            mask = self._mask(n - 1, x)
         mask_list, trans_list = [mask], []
         for i in range(1, n):
             level = n - 1 - i
-            out = getattr(self, f"bridge_list_{level}")(skips[-i], mask)
-            trans_list.append(out)
-            if i != n - 1:
-                mask = self._mask(level, out)
-                mask_list.append(mask)
+            with profiling.span(self._spans[level]):
+                out = getattr(self, f"bridge_list_{level}")(skips[-i], mask)
+                trans_list.append(out)
+                if i != n - 1:
+                    mask = self._mask(level, out)
+                    mask_list.append(mask)
         return x, trans_list[::-1], mask_list

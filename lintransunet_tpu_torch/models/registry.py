@@ -10,7 +10,9 @@ unmasked attention layer runs the fused op, the CUDA kernel on the card;
 returns (probabilities, mask_list) in training and the one-hot argmax in
 eval; ``TraditionUnet``, ``BottleTransUnet`` and ``SkipTransUnet`` return
 the softmax probabilities in both modes; ``MaskSkipTransUnet`` returns
-(probabilities, mask_list) in both.
+(probabilities, mask_list) in both. Every forward runs in a profiler span
+``model`` (``utils.profiling.span``), and each op of it in one stage span
+inside: the encoder's, a bridge's or the decoder's.
 """
 
 from typing import Optional, Sequence, Union
@@ -25,6 +27,7 @@ from lintransunet_tpu_torch.models.blocks import (
 )
 from lintransunet_tpu_torch.models.bridges import Bridge, ConnectBridge
 from lintransunet_tpu_torch.models.unet import Decoder, Encoder, ROIDecoder
+from lintransunet_tpu_torch.utils import profiling
 
 ATTENTION_IMPLS = ("kernel", "plain")
 # Levels whose stride-1 convs the fused configuration routes through the
@@ -129,13 +132,15 @@ class MaskTransUnet(nn.Module):
             raise ValueError("fg_only eval requires dim_output == 2")
         if return_aux is None:
             return_aux = self.training
-        bottle, skips = self.encode(x.to(self.dtype))
-        out, mask_list = self.decode(bottle, skips, apply_softmax=return_aux)
-        if return_aux:
-            return out, mask_list
-        if fg_only:
-            return (out[:, 1:2] > out[:, 0:1]).to(out.dtype)
-        return one_hot_argmax(out)
+        with profiling.span("model"):
+            bottle, skips = self.encode(x, self.dtype)
+            out, mask_list = self.decode(bottle, skips, apply_softmax=return_aux)
+            if return_aux:
+                return out, mask_list
+            with profiling.span("decoder.head"):
+                if fg_only:
+                    return (out[:, 1:2] > out[:, 0:1]).to(out.dtype)
+                return one_hot_argmax(out)
 
 
 class _UnetModel(nn.Module):
@@ -156,7 +161,8 @@ class _UnetModel(nn.Module):
         _place(self, attention_impl, device)
 
     def forward(self, x: torch.Tensor):
-        return self._forward(*self.encode(x.to(self.dtype)))
+        with profiling.span("model"):
+            return self._forward(*self.encode(x, self.dtype))
 
 
 class TraditionUnet(_UnetModel):
@@ -184,10 +190,13 @@ class BottleTransUnet(_UnetModel):
                  attention_impl: str = "kernel"):
         super().__init__(num_layers, dim_input, dim_output, kernel_size, dropout)
         self.connect_bridge = ConnectBridge(num_layers[-1], 8, dropout, 4)
+        self._bridge_span = f"bridge.level{len(num_layers) - 1}"
         self._finish(dtype, device, attention_impl)
 
     def _forward(self, bottle, skips):
-        return self.decode(self.connect_bridge(bottle), skips)
+        with profiling.span(self._bridge_span):
+            bottle = self.connect_bridge(bottle)
+        return self.decode(bottle, skips)
 
 
 class SkipTransUnet(_UnetModel):
@@ -204,13 +213,17 @@ class SkipTransUnet(_UnetModel):
         super().__init__(num_layers, dim_input, dim_output, kernel_size, dropout)
         for i, width in enumerate(num_layers):
             self.add_module(f"connect_bridge_list_{i}", ConnectBridge(width, 8, dropout, 4))
+        self._bridge_spans = [f"bridge.level{i}" for i in range(len(num_layers))]
         self._finish(dtype, device, attention_impl)
 
     def _forward(self, bottle, skips):
         n = len(self.num_layers)
         for i in range(n - 1):
-            getattr(self, f"connect_bridge_list_{i}")(skips[i])  # dead compute, kept
-        return self.decode(getattr(self, f"connect_bridge_list_{n - 1}")(bottle), skips)
+            with profiling.span(self._bridge_spans[i]):
+                getattr(self, f"connect_bridge_list_{i}")(skips[i])  # dead compute, kept
+        with profiling.span(self._bridge_spans[n - 1]):
+            bottle = getattr(self, f"connect_bridge_list_{n - 1}")(bottle)
+        return self.decode(bottle, skips)
 
 
 class MaskSkipTransUnet(_UnetModel):

@@ -9,6 +9,11 @@ and are not ported. Depth schedule: encoder block i (1-based) strides
 ``(2, 2, (i-1) % 2 + 1)``; the decoder mirrors it with alternating
 ``(2, 2, 2)`` / ``(2, 2, 1)`` trilinear upsamples.
 
+Each level runs in a profiler span of its own (``utils.profiling.span``):
+``encoder.embed``, ``encoder.level<i>``, ``decoder.level<i>`` (each ROI
+bridge inside it as ``bridge.level<i>``, the bottleneck bridge as
+``bridge.level<L-1>``) and ``decoder.head``.
+
 ``fused_s1_levels`` is the port's counterpart of the JAX ``packed_levels``
 with ``LINTRANSUNET_FUSED_S1=1``: at eval, the stride-1 convolutions of the
 top levels (the input block, the first DownBlocks' conv1, the last
@@ -29,6 +34,7 @@ from lintransunet_tpu_torch.models.blocks import (
     fused_conv_norm_act,
 )
 from lintransunet_tpu_torch.models.bridges import ConnectBridge, InitialBridge, ROIBridge
+from lintransunet_tpu_torch.utils import profiling
 
 
 def encoder_stride(i: int) -> Tuple[int, int, int]:
@@ -62,8 +68,12 @@ class Encoder(nn.Module):
                               encoder_stride(i), dropout)
             block.fused_s1 = i <= levels
             self.add_module(f"block_list_{i - 1}", block)
+        self._spans = [f"encoder.level{i}" for i in range(1, len(num_layers))]
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """``dtype``: the compute dtype the input is cast to first (the
+        model's)."""
         n_blocks = len(self.num_layers) - 1
         hw_div = self.emb_window * 2 ** n_blocks
         d_div = 2 ** sum(encoder_stride(i)[2] == 2 for i in range(1, n_blocks + 1))
@@ -73,14 +83,18 @@ class Encoder(nn.Module):
                 f"input spatial dims (H={h}, W={w}, D={d}) must be divisible "
                 f"by ({hw_div}, {hw_div}, {d_div}) for {n_blocks} encoder "
                 f"levels with window embedding {self.emb_window}")
-        x = ops.windows_embedding(x, self.emb_window)
-        if self.fused_s1 and not self.training:
-            x = fused_conv_norm_act(x, self.input_block)
-        else:
-            x = ops.leaky_relu(ops.instance_norm(self.input_block(x)))
+        with profiling.span("encoder.embed"):
+            if dtype is not None:
+                x = x.to(dtype)
+            x = ops.windows_embedding(x, self.emb_window)
+            if self.fused_s1 and not self.training:
+                x = fused_conv_norm_act(x, self.input_block)
+            else:
+                x = ops.leaky_relu(ops.instance_norm(self.input_block(x)))
         skips = []
         for i in range(n_blocks):
-            x, skip = getattr(self, f"block_list_{i}")(x)
+            with profiling.span(self._spans[i]):
+                x, skip = getattr(self, f"block_list_{i}")(x)
             skips.append(skip)
         return x, skips
 
@@ -107,14 +121,17 @@ class Decoder(nn.Module):
                 layers[n - i], layers[n - i - 1], kernel_size, dropout))
         self.final_block = conv3d_same(layers[0], dim_output * emb_window ** 2,
                                        kernel_size)
+        self._spans = [f"decoder.level{n - 1 - i}" for i in range(1, n)]
 
     def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]) -> torch.Tensor:
         n = self.n_levels
         for i in range(1, n):
-            x = ops.resize_linear_align_corners(x, decoder_scale(n, i))
-            x = getattr(self, f"block_list_{i - 1}")(x, skips[-i])
-        x = ops.windows_unembedding(self.final_block(x), self.emb_window)
-        return torch.softmax(x.float(), dim=1)
+            with profiling.span(self._spans[i - 1]):
+                x = ops.resize_linear_align_corners(x, decoder_scale(n, i))
+                x = getattr(self, f"block_list_{i - 1}")(x, skips[-i])
+        with profiling.span("decoder.head"):
+            x = ops.windows_unembedding(self.final_block(x), self.emb_window)
+            return torch.softmax(x.float(), dim=1)
 
 
 class MaskDecoder(nn.Module):
@@ -179,25 +196,37 @@ class ROIDecoder(nn.Module):
             self.add_module(f"block_list_{i - 1}", block)
         self.final_block = conv3d_same(layers[0], dim_output * emb_window ** 2,
                                        kernel_size)
+        self._spans = [f"decoder.level{level}" for level in range(n - 1)]
+        # the identity bridges get no span
+        self._bridge_spans = [f"bridge.level{level}" if level == n - 1 or is_roi_list[level]
+                              else None for level in range(n)]
 
     def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor],
                 apply_softmax: bool = True):
         n = self.n_levels
-        x = getattr(self, f"bridge_list_{n - 1}")(x)
+        with profiling.span(self._bridge_spans[n - 1]):
+            x = getattr(self, f"bridge_list_{n - 1}")(x)
         mask_list = []
         for i in range(1, n):
             level = n - 1 - i
-            x = ops.resize_linear_align_corners(x, decoder_scale(n, i))
-            mask = torch.softmax(
-                getattr(self, f"mask_conv_list_{level}")(x).float(), dim=1)
-            mask_list.append(mask)
-            skip = skips[-i]
-            gate = getattr(self, f"att_conv_list_{level}")(skip, x)
-            skip = skip * gate.to(skip.dtype)
-            foreground = (1.0 - mask[:, 0:1]).to(skip.dtype)
-            bridged = getattr(self, f"bridge_list_{level}")(skip, foreground)
-            x = getattr(self, f"block_list_{i - 1}")(x, bridged)
-        x = ops.windows_unembedding(self.final_block(x), self.emb_window)
-        if apply_softmax:
-            x = torch.softmax(x.float(), dim=1)
+            with profiling.span(self._spans[level]):
+                x = ops.resize_linear_align_corners(x, decoder_scale(n, i))
+                mask = torch.softmax(
+                    getattr(self, f"mask_conv_list_{level}")(x).float(), dim=1)
+                mask_list.append(mask)
+                skip = skips[-i]
+                gate = getattr(self, f"att_conv_list_{level}")(skip, x)
+                skip = skip * gate.to(skip.dtype)
+                foreground = (1.0 - mask[:, 0:1]).to(skip.dtype)
+                bridge = getattr(self, f"bridge_list_{level}")
+                if self._bridge_spans[level] is None:
+                    bridged = bridge(skip, foreground)
+                else:
+                    with profiling.span(self._bridge_spans[level]):
+                        bridged = bridge(skip, foreground)
+                x = getattr(self, f"block_list_{i - 1}")(x, bridged)
+        with profiling.span("decoder.head"):
+            x = ops.windows_unembedding(self.final_block(x), self.emb_window)
+            if apply_softmax:
+                x = torch.softmax(x.float(), dim=1)
         return x, mask_list

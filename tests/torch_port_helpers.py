@@ -5,7 +5,8 @@ Parameters come from the flax tree's SHAPES (``jax.eval_shape`` of
 than a minute on the CPU) filled with seeded numpy normals; the same tree
 goes to the JAX module and, through ``from_flax``, to the port.
 
-The data-parallel tests' ranks (``dp_worker``, ``cli_worker``) live here,
+The data-parallel tests' ranks (``dp_worker``, ``cli_worker``,
+``tracing_worker``) live here,
 where ``torch.multiprocessing.spawn`` can pickle them by name; they import
 torch and the port only (jax is imported inside ``random_params``).
 """
@@ -301,5 +302,37 @@ def cli_worker(rank, world, store, workdir, cli):
             out = os.path.join(workdir, "out")
             run = os.path.join(out, os.listdir(out)[0])
             inference_embed_attn.main(cli_infer_args(ws, run, os.path.join(workdir, "pred")))
+    finally:
+        dist.destroy_process_group()
+
+
+def tracing_worker(rank, world, store, workdir):
+    """One rank of tests/test_torch_tracing.py: a DP micro-step of the tiny
+    model under a host-only ``torch.profiler``; writes the rank's ``ltu.*``
+    ranges, (name, start ns, end ns), to ``spans<r>.pt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lintransunet_tpu_torch import engine, parallel
+    from lintransunet_tpu_torch.cli.common import get_criterion_list
+    from lintransunet_tpu_torch.models import MaskTransUnet
+
+    _init_rank(rank, world, store)
+    try:
+        mesh = parallel.make_mesh(device="cpu")
+        torch.manual_seed(0)
+        model = MaskTransUnet(**DP_TINY, dim_output=2, device="cpu")
+        parallel.replicate(mesh, model)
+        criterions, _ = get_criterion_list(len(DP_TINY["num_layers"]),
+                                           ("CrossEntroLoss", "DiceClassLoss"))
+        step = engine.make_train_step(model, criterions, mesh=mesh)
+        state = engine.create_train_state(model, 1e-4)
+        images = torch.randn(1, 1, 16, 16, 4, generator=torch.Generator().manual_seed(rank))
+        labels = torch.zeros(1, 16, 16, 4, dtype=torch.long)
+        labels[:, 4:12, 4:12, 1:3] = 1
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(state, images, labels, torch.ones(len(DP_TINY["num_layers"])))
+        spans = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                 if e.name().startswith("ltu.")]
+        torch.save(spans, os.path.join(workdir, f"spans{rank}.pt"))
     finally:
         dist.destroy_process_group()

@@ -11,10 +11,6 @@ in this process on card 0. Prints:
 * ``dp step``: the f32 DP step (TF32 off, dropout 0), one patch a rank,
   against one process's step on the joined batch of K, within
   ``chip_smoke.TRAIN_TOL``; the ranks' parameters bit-equal after it;
-* ``dp time``: the bf16 DP step (dropout 0.3, each rank's generator), STEPS
-  warm steps back to back with one synchronise, on every rank, against one
-  card's step on one patch (the same work a rank does): the collective's
-  cost on top of it;
 * ``run_batch``: K volumes through ``run_batch`` over the mesh (bf16, under
   ``chip_smoke.deterministic``), every volume equal bit for bit to one card's
   runner output, and the volumes per second of K cards against one card's
@@ -59,7 +55,6 @@ from lintransunet_tpu_torch.engine.loop import batched_predictions  # noqa: E402
 from lintransunet_tpu_torch.cli.common import EvalConfig, get_criterion_list, make_eval_runner  # noqa: E402
 from lintransunet_tpu_torch.models import MaskTransUnet, init_random_  # noqa: E402
 
-STEPS = 5
 ROI = (512, 512, 64)          # the served window
 EVAL = EvalConfig(roi_size=ROI[0], depth_size=ROI[2], overlap=0.6, mode="constant")
 
@@ -96,24 +91,6 @@ def f32_step(device, images, labels, criterions, mesh=None):
     loss, logs = engine.make_train_step(model, criterions, mesh=mesh)(
         state, images, labels, chip_smoke.DYNAMIC_WEIGHT)
     return chip_smoke.step_snapshot(loss, logs, model)
-
-
-def step_ms(device, images, labels, criterions, seed, mesh=None):
-    """ms per bf16 step, STEPS warm steps back to back, one synchronise."""
-    model = build(device, torch.bfloat16, 0.3).train()
-    if mesh is not None:
-        parallel.replicate(mesh, model)
-    state = engine.create_train_state(model, learning_rate=1e-4)
-    step = engine.make_train_step(model, criterions, mesh=mesh)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    for _ in range(2):
-        step(state, images, labels, chip_smoke.DYNAMIC_WEIGHT, gen)
-    sync(device)
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        step(state, images, labels, chip_smoke.DYNAMIC_WEIGHT, gen)
-    sync(device)
-    return (time.perf_counter() - t0) / STEPS * 1e3
 
 
 def serve(device, vols, mesh=None):
@@ -158,9 +135,6 @@ def rank_main(rank, k, port, workdir, data_dir):
         images, labels, criterions = batch(device, k)
         result = {"mesh": (mesh.rank, mesh.size, str(device), dist.get_backend()),
                   "step": f32_step(device, images, labels, criterions, mesh)}
-        mine = slice(rank, rank + 1)
-        result["step_ms"] = step_ms(device, images[mine], labels[mine], criterions,
-                                    chip_smoke.SEED + 6, mesh)
         del images, labels
         outs, result["serve_s"] = serve(device, volumes(k), mesh)
         if rank == 0:
@@ -193,7 +167,6 @@ def main():
         data_dir, split = chip_smoke.cli_workspace(root, chip_smoke.CLI_SHAPE, 2 * k)
         images, labels, criterions = batch(device, k)
         joined = f32_step(device, images, labels, criterions)
-        one_ms = step_ms(device, images[:1], labels[:1], criterions, chip_smoke.SEED + 6)
         del images, labels
         vols = volumes(k)
         want, one_s = serve(device, vols)
@@ -223,10 +196,6 @@ def main():
             chip_smoke.fail("the DP step and the joined batch's step disagree")
         print(f"[dp cards] dp step: within TRAIN_TOL {tol}; the {k} ranks' parameters bit-equal",
               flush=True)
-        ms = [r["step_ms"] for r in ranks]
-        print(f"[dp cards] dp time: bfloat16 step of one patch a rank, {STEPS} warm steps back "
-              f"to back: {[round(x, 2) for x in ms]} ms on the {k} ranks against {one_ms:.2f} ms "
-              f"on one card alone ({k} patches a step against 1)", flush=True)
         if not all(torch.equal(o, w) for o, w in zip(ranks[0]["outs"], want)):
             chip_smoke.fail("run_batch over the mesh differs from one card's runner")
         serve_s = max(r["serve_s"] for r in ranks)
