@@ -40,6 +40,9 @@ SIGNATURES = {
                             _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
         "cu_num_partials": (_I, [_I] * 9),
     },
+    "conv_wgrad": {
+        "cw_depthwise": (_I, [_P, _P, _P, _P, _P, _I, _P]),
+    },
     "fused_stack": {
         "fst_forward": (_I, [_P] * 10 + [_I] * 6 + [_P]),
         "fst_num_tiles": (_I, [_I, _I]),

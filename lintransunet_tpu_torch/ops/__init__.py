@@ -5,7 +5,8 @@ Attention lives in two submodules, imported by name: ``ops.attention``
 fused op whose CUDA kernel is in ``csrc/``, with its plain version). The
 fused eval configuration's ops are submodules too: ``ops.conv_unit`` (the
 stride-1 conv unit) and ``ops.fused_stack`` (the transformer stack), each a
-CUDA kernel in ``csrc/`` with its plain version. ``ops.pool`` holds the
+CUDA kernel in ``csrc/`` with its plain version; so is ``ops.conv_wgrad``,
+the training path's weight gradient of the wide depthwise convolutions. ``ops.pool`` holds the
 training path's pooling.
 """
 

@@ -1,7 +1,9 @@
 """3D convolution, InstanceNorm and LeakyReLU on ``(N, C, H, W, D)``.
 
 Port of ``lintransunet_tpu/ops/conv.py``. The convolution is PyTorch's own
-(cuDNN on the card). InstanceNorm matches ``nn.InstanceNorm3d`` defaults
+(cuDNN on the card), but for the weight gradient of the depthwise
+convolutions that cuDNN computes with its generic engine
+(``ops.conv_wgrad``). InstanceNorm matches ``nn.InstanceNorm3d`` defaults
 (affine-free, eps 1e-5, biased variance) but computes its statistics in
 f32 in the JAX package's single pass, E[x^2] - E[x]^2 (``moment_stats``),
 not torch's two-pass form.
@@ -12,14 +14,20 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from lintransunet_tpu_torch.ops import conv_wgrad
+
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride=1, padding=0,
            groups: int = 1) -> torch.Tensor:
     """Conv with symmetric explicit padding, computed in ``x``'s dtype
-    (parameters are cast to it, as flax ``dtype`` does)."""
+    (parameters are cast to it, as flax ``dtype`` does). The convolutions
+    that ``conv_wgrad.routes`` picks take ``conv_wgrad.DepthwiseConv3d``,
+    the same forward with the weight gradient of ``csrc/conv_wgrad.cu``."""
     if bias is not None:
         bias = bias.to(x.dtype)
+    if conv_wgrad.routes(x, weight, stride, padding, groups):
+        return conv_wgrad.DepthwiseConv3d.apply(x, weight, bias)
     return F.conv3d(x, weight.to(x.dtype), bias, stride, padding, 1, groups)
 
 

@@ -27,6 +27,10 @@ Tolerances, each a share of the plain output's largest magnitude:
   order); bf16 3e-2 (the kernel rounds every product's operands to bf16, as
   the TPU kernel does; the plain version computes in f32 and rounds the
   tokens once a layer).
+* depthwise weight gradient (``ops.conv_wgrad``): 1e-5 of the plain f32
+  gradient's largest magnitude (both sum the same bf16 products in f32,
+  over 240-9,216 voxels, in another order); its data and bias gradients
+  through ``DepthwiseConv3d`` are cuDNN's own calls, equal to the bit.
 * probes (``lintransunet_tpu_torch/experiments``): bf16 2e-2 (the same bf16
   operands, products summed in f32 in another order, each side rounding
   its result to bf16 once); variant E's bf16 accumulation 3e-2 (a bf16
@@ -50,6 +54,7 @@ from lintransunet_tpu_torch.experiments import (
 from lintransunet_tpu_torch import kernels
 from lintransunet_tpu_torch.kernels.launches import cuda_launches
 from lintransunet_tpu_torch.ops import conv_unit as cu
+from lintransunet_tpu_torch.ops import conv_wgrad as cw
 from lintransunet_tpu_torch.ops import fused_stack as fs
 from lintransunet_tpu_torch.ops import linear_attention as fused
 
@@ -888,3 +893,102 @@ def test_probes_reject_what_they_do_not_take(cuda):
         conv_prototype.conv3d_cl(xc, k.float())
     with pytest.raises(TypeError):
         in_stats_probe.lane_sums(xc.float())
+
+
+# (N, C, S1, S2, S3) of every depthwise convolution that the flagship's and
+# the bottle model's training steps route to the kernel (the bottle model's
+# one is the flagship's bottleneck shape), then ragged ones: voxel counts
+# that split unevenly, channels that are not a multiple of 32, one voxel.
+DEPTHWISE_ROUTED = [(3, 256, 8, 24, 14), (3, 256, 8, 16, 16), (3, 256, 8, 15, 9)]
+DEPTHWISE_RAGGED = [(1, 256, 3, 5, 7), (2, 160, 1, 1, 1), (1, 300, 7, 9, 11), (5, 129, 2, 3, 1)]
+
+
+def _depthwise_inputs(shape, layout, device, seed=0):
+    """x and the output gradient in bf16, each laid out as the model's PEG
+    lays them out (``channels_last``: a permuted view of (N, S1, S2, S3, C)
+    tokens) or contiguous."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n, c, s1, s2, s3 = shape
+    out = []
+    for _ in range(2):
+        t = torch.randn((n, s1, s2, s3, c), generator=g).to(device, torch.bfloat16)
+        t = t.permute(0, 4, 1, 2, 3)
+        out.append(t if layout == "channels_last" else t.contiguous())
+    return out
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+@pytest.mark.parametrize("shape", DEPTHWISE_ROUTED + DEPTHWISE_RAGGED)
+def test_depthwise_wgrad_matches_plain(cuda, shape, layout):
+    x, grad = _depthwise_inputs(shape, layout, cuda)
+    before = cw.depthwise_weight_grad.launches
+    got = cw.depthwise_weight_grad(x, grad)
+    want = cw.depthwise_weight_grad_reference(x, grad)
+    torch.cuda.synchronize()
+    assert cw.depthwise_weight_grad.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * top
+
+
+def test_depthwise_wgrad_is_deterministic(cuda):
+    x, grad = _depthwise_inputs(DEPTHWISE_ROUTED[0], "channels_last", cuda)
+    first = cw.depthwise_weight_grad(x, grad)
+    second = cw.depthwise_weight_grad(x, grad)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_depthwise_wgrad_launches_conv_unit_kernels(cuda):
+    """Two launches a call, each a kernel named ``conv_unit...`` (which the
+    benchmark's cuDNN reader leaves out), and no cuDNN kernel."""
+    x, grad = _depthwise_inputs(DEPTHWISE_ROUTED[1], "channels_last", cuda)
+    seen = cuda_launches(lambda: cw.depthwise_weight_grad(x, grad))
+    assert len(seen.launches) == 2
+    kernels = [r for r in seen.rows if not r.startswith(("Memcpy", "Memset"))]
+    assert kernels and all("conv_unit" in r for r in kernels), kernels
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_routed_conv_keeps_cudnn_forward_and_data_gradient(cuda, bias):
+    """``ops.conv3d`` on a routed convolution: the forward, the data and the
+    bias gradients are F.conv3d's through autograd, to the bit; the weight
+    gradient is the kernel's. Under ``torch.inference_mode()`` the call
+    routes nowhere and launches no kernel of ours."""
+    from lintransunet_tpu_torch.ops import conv3d
+
+    x0, g = _depthwise_inputs(DEPTHWISE_ROUTED[2], "channels_last", cuda, seed=1)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    w0 = (torch.randn((256, 1, 3, 3, 3), generator=gen) * 0.2).to(cuda)
+    b0 = torch.randn((256,), generator=gen).to(cuda)
+    got, want = {}, {}
+    for out, routed in ((got, True), (want, False)):
+        x = x0.detach().clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        b = b0.clone().requires_grad_() if bias else None
+        if routed:
+            before = cw.depthwise_weight_grad.launches
+            y = conv3d(x, w, b, 1, 1, 256)
+        else:
+            y = F.conv3d(x, w.to(x.dtype), None if b is None else b.to(x.dtype), 1, 1, 1, 256)
+        y.backward(g)
+        out.update(y=y.detach(), x=x.grad, w=w.grad, b=None if b is None else b.grad)
+    assert cw.depthwise_weight_grad.launches == before + 1
+    assert torch.equal(got["y"], want["y"]) and torch.equal(got["x"], want["x"])
+    if bias:
+        assert torch.equal(got["b"], want["b"])
+    plain = cw.depthwise_weight_grad_reference(x0, g)
+    assert (got["w"] - plain).abs().max().item() <= 1e-5 * plain.abs().max().item()
+    with torch.inference_mode():
+        before = cw.depthwise_weight_grad.launches
+        served = conv3d(x0, w0, b0 if bias else None, 1, 1, 256)
+    assert cw.depthwise_weight_grad.launches == before
+    assert torch.equal(served, want["y"])
+
+
+def test_depthwise_wgrad_rejects_what_it_does_not_take(cuda):
+    x, grad = _depthwise_inputs((1, 256, 3, 4, 5), "contiguous", cuda)
+    with pytest.raises(ValueError):
+        cw.depthwise_weight_grad(x.float(), grad.float())
+    with pytest.raises(ValueError):
+        cw.depthwise_weight_grad(x, grad[:, :, :2])
