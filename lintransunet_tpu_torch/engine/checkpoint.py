@@ -83,9 +83,44 @@ def restore_train_state(path: str, state: TrainState) -> Tuple[TrainState, dict]
         raise ValueError(f"the checkpoint accumulates {payload['step_times']} "
                          f"micro-steps, this state {state.step_times}")
     state.model.load_state_dict(payload["params"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    _load_optimizer(state.optimizer, payload["optimizer"])
     state.step = payload["step"]
     state.mini_step = payload["mini_step"]
     state.gradient_step = payload["gradient_step"]
-    state.acc_grads = payload["acc_grads"]
+    state.acc_grads = _into(state.acc_grads, payload["acc_grads"])
     return state, payload["aux"]
+
+
+def _into(held, loaded):
+    """The saved tensors ``loaded`` written into the tensors ``held`` and
+    ``held`` returned, where every one has a counterpart of its shape or
+    none was saved (then zeros, the state a missing one stands for: no
+    accumulation, AdamW's first moments); else ``loaded``."""
+    if held is None or (loaded is not None and (len(held) != len(loaded) or any(
+            h.shape != v.shape for h, v in zip(held, loaded)))):
+        return loaded
+    with torch.no_grad():
+        for i, h in enumerate(held):
+            h.zero_() if loaded is None else h.copy_(loaded[i])
+    return held
+
+
+def _load_optimizer(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """``optimizer.load_state_dict(saved)``, keeping the tensors the
+    optimizer already holds (its moments, step counts and a device learning
+    rate) and writing the saved values into them: a train step's captured
+    update reads those tensors (``engine.train``)."""
+    held = {p: {k: v for k, v in s.items() if torch.is_tensor(v)}
+            for p, s in optimizer.state.items()}
+    rates = [group["lr"] for group in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for p, tensors in held.items():
+        state = optimizer.state[p]
+        if state and not all(torch.is_tensor(state.get(k)) for k in tensors):
+            continue
+        state.update(zip(tensors, _into(list(tensors.values()),
+                                        [state[k] for k in tensors] if state else None)))
+    for group, rate in zip(optimizer.param_groups, rates):
+        if torch.is_tensor(rate):
+            rate.fill_(float(group["lr"]))
+            group["lr"] = rate

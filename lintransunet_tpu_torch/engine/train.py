@@ -29,11 +29,29 @@ each mask at the global batch's shape and keeps this rank's rows
 batch's masks once: with every rank's generator seeded alike, a DP step
 equals the joined batch's at any dropout.
 
+On the card every micro-step is the replay of a CUDA graph that holds the
+whole micro-step: the forward and the loss, the backward, the all-reduce
+under a mesh, the accumulation and, on the k-th micro-step, the hand-over to
+``.grad`` and AdamW (``make_optimizer`` makes it ``capturable``). The step
+captures one graph per signature (the inputs' shapes and dtypes, the
+generator, the optimizer, the mesh) and phase (the micro-step's place in the
+``step_times`` cycle), all in one memory pool, after one eager forward and
+backward (and all-reduce under a mesh) on the signature's own stream that
+leaves the parameters, the optimizer, the counters and the generator as it
+found them. Every call
+copies its inputs into the graph's buffers and returns clones of the loss
+and the logs. The dropout generator is registered with each graph, so a
+replay draws the masks the eager step would. On the CPU the step runs
+eagerly. A capture that fails raises.
+
 A step runs in the profiler span ``step`` (``utils.profiling.span``; its
-``seq`` the state's micro-step count), with ``step.forward`` (the model and
-the loss), ``step.backward``, ``step.allreduce`` (under a mesh) and
-``step.update`` inside; ``apply_gradients`` splits the update into
-``update.accumulate`` and ``update.optimizer``.
+``seq`` the state's micro-step count). An eager micro-step has
+``step.forward`` (the model and the loss), ``step.backward``,
+``step.allreduce`` (under a mesh) and ``step.update`` inside;
+``apply_gradients`` splits the update into ``update.accumulate`` and
+``update.optimizer``. A replayed one has ``step.replay`` around the graph's
+launch. ``profiling.counts`` counts ``step.replayed`` and ``step.eager``
+micro-steps.
 """
 
 import dataclasses
@@ -69,7 +87,15 @@ class TrainState:
 def make_optimizer(params, learning_rate: float,
                    weight_decay: float = 0.01) -> torch.optim.AdamW:
     """AdamW (torch defaults, train3D.py:193): betas (0.9, 0.999), eps 1e-8,
-    decoupled weight decay on every parameter."""
+    decoupled weight decay on every parameter. For parameters on the card it
+    is ``capturable`` and its learning rate a device tensor, which
+    ``set_learning_rate`` writes in place, so that a captured update reads
+    the current rate."""
+    params = list(params)
+    if params and params[0].is_cuda:
+        lr = torch.tensor(learning_rate, dtype=torch.float32, device=params[0].device)
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=weight_decay, capturable=True)
     return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999),
                              eps=1e-8, weight_decay=weight_decay)
 
@@ -85,9 +111,13 @@ def create_train_state(model: nn.Module, learning_rate: float = 1e-4,
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:
-    """Write a new LR into every parameter group (the plateau scheduler's hook)."""
+    """Write a new LR into every parameter group (the plateau scheduler's
+    hook), into its device tensor where it has one."""
     for group in state.optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
     return state
 
 
@@ -106,31 +136,52 @@ def _with_grads(model: nn.Module) -> List[nn.Parameter]:
     return params
 
 
+def _is_update(state: TrainState) -> bool:
+    """Whether the next micro-step ends a ``step_times`` cycle (and updates)."""
+    return state.mini_step == state.step_times - 1
+
+
+def _advance(state: TrainState) -> None:
+    """The counters of one micro-step."""
+    state.step += 1
+    state.mini_step = (state.mini_step + 1) % state.step_times
+    if state.mini_step == 0:
+        state.gradient_step += 1
+
+
 def apply_gradients(state: TrainState) -> None:
     """One micro-step on the gradients in each parameter's ``.grad``:
     ``optax.MultiSteps(adamw, every_k_schedule=step_times)``'s update."""
     params = _with_grads(state.model)
-    state.step += 1
-    if state.step_times == 1:
+    update = _is_update(state)
+    if state.step_times > 1:
+        with profiling.span("update.accumulate"), torch.no_grad():
+            if state.acc_grads is None:
+                state.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            n = state.mini_step
+            for acc, p in zip(state.acc_grads, params):
+                acc.add_((p.grad.float() - acc) / (n + 1))
+            if update:
+                for acc, p in zip(state.acc_grads, params):  # the mean goes to the optimizer
+                    p.grad.copy_(acc)
+                    acc.zero_()
+    if update:
         with profiling.span("update.optimizer"):
             state.optimizer.step()
-        state.gradient_step += 1
-        return
-    with profiling.span("update.accumulate"), torch.no_grad():
-        if state.acc_grads is None:
-            state.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        n = state.mini_step
-        for acc, p in zip(state.acc_grads, params):
-            acc.add_((p.grad.float() - acc) / (n + 1))
-        state.mini_step = (n + 1) % state.step_times
-        if state.mini_step:
-            return
-        for acc, p in zip(state.acc_grads, params):  # the mean goes to the optimizer
-            p.grad.copy_(acc)
-            acc.zero_()
-    with profiling.span("update.optimizer"):
-        state.optimizer.step()
-    state.gradient_step += 1
+    _advance(state)
+
+
+def _init_moments(optimizer: torch.optim.Optimizer) -> None:
+    """AdamW's state of every parameter, as its first step would make it,
+    where it is missing: a captured update must find it, since one made in a
+    capture would be zeroed again on every replay."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
 def label_pyramid_kernel(level: int):
@@ -202,7 +253,9 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
     ``torch.Generator`` on the model's device that every dropout draws
     from (as JAX's step takes ``rng``), or None for the global one.
     ``step.loss_fn(images, labels, dynamic_weight, generator)`` is the loss
-    alone, (loss, logs), for a caller that differentiates it itself.
+    alone, (loss, logs), for a caller that differentiates it itself;
+    ``step.graphs`` holds the step's CUDA graphs (``captured``: one a
+    signature and phase).
 
     With ``mesh`` (``parallel.make_mesh``), images and labels are this
     rank's shard of the global batch (every rank's the same size) and the
@@ -231,30 +284,143 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
         return deep_supervision_loss(out, mask_list, labels, criterions,
                                      dynamic_weight, criterion_weight, num_classes)
 
+    def micro_step(state: TrainState, images, labels, dynamic_weight, generator):
+        """The micro-step as it runs eagerly and as a graph captures it."""
+        with profiling.span("step.forward"):
+            loss, logs = loss_fn(images, labels, dynamic_weight, generator)
+        with profiling.span("step.backward"):
+            loss.backward()
+        loss = loss.detach()
+        logs = {name: v.detach() for name, v in logs.items()}
+        if mesh is not None:
+            with profiling.span("step.allreduce"):
+                # one bucket: every gradient, then the loss and the logs
+                values = [loss.float()] + [v.float() for v in logs.values()]
+                parallel.all_reduce_mean(mesh, [p.grad for p in _with_grads(model)] + values)
+            loss, logs = values[0], dict(zip(logs, values[1:]))
+        with profiling.span("step.update"):
+            apply_gradients(state)
+        return loss, logs
+
+    graphs = _Graphs(model, loss_fn, micro_step, mesh)
+
     def step(state: TrainState, images, labels, dynamic_weight, generator=None):
         if state.model is not model:
             raise ValueError("the train state holds another model than this step's")
         with profiling.span("step", state.step):
             model.train()
+            if images.is_cuda:
+                return graphs.replay(state, images, labels, dynamic_weight, generator)
+            profiling.count("step.eager")
             state.optimizer.zero_grad(set_to_none=True)
-            with profiling.span("step.forward"):
-                loss, logs = loss_fn(images, labels, dynamic_weight, generator)
-            with profiling.span("step.backward"):
-                loss.backward()
-            loss = loss.detach()
-            logs = {name: v.detach() for name, v in logs.items()}
-            if mesh is not None:
-                with profiling.span("step.allreduce"):
-                    # one bucket: every gradient, then the loss and the logs
-                    values = [loss.float()] + [v.float() for v in logs.values()]
-                    parallel.all_reduce_mean(mesh, [p.grad for p in _with_grads(model)] + values)
-                loss, logs = values[0], dict(zip(logs, values[1:]))
-            with profiling.span("step.update"):
-                apply_gradients(state)
-            return loss, logs
+            return micro_step(state, images, labels, dynamic_weight, generator)
 
     step.loss_fn = loss_fn
+    step.graphs = graphs
     return step
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One captured micro-step: its graph, the static buffers it reads its
+    inputs from and writes its loss and logs to, and the gradient tensors
+    its backward writes (each parameter's ``.grad`` after a replay)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple
+    loss: torch.Tensor
+    logs: Dict[str, torch.Tensor]
+    params: List[nn.Parameter]
+    grads: List[torch.Tensor]
+
+
+class _Graphs:
+    """The CUDA graphs of one train step, one per signature and phase, in
+    one memory pool.
+
+    Each signature has its own capture stream and static inputs, shared by
+    its phases. Its own stream gives it its own linear-attention workspace
+    (``ops.linear_attention`` keeps one per stream, zeroed tickets between
+    calls): a later signature that grows a workspace cannot free one that a
+    graph reads. The graphs share the pool because they never run at once:
+    each replay finishes its temporaries before the next one starts."""
+
+    def __init__(self, model, loss_fn, micro_step, mesh):
+        self.model, self.loss_fn, self.micro_step, self.mesh = model, loss_fn, micro_step, mesh
+        self.captured = {}  # (signature, phase) -> _Captured
+        self.streams = {}   # signature -> (stream, static inputs)
+        self.pool = None
+
+    def replay(self, state, images, labels, dynamic_weight, generator):
+        weights = torch.as_tensor(dynamic_weight, dtype=torch.float32)
+        signature = (tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype,
+                     tuple(weights.shape), generator, state.optimizer, self.mesh)
+        phase = state.mini_step
+        graph = self.captured.get((signature, phase))
+        if graph is None:
+            graph = self._capture(signature, phase, state, images, labels, weights, generator)
+        for static, value in zip(graph.inputs, (images, labels, weights)):
+            static.copy_(value)
+        with profiling.span("step.replay"):
+            graph.graph.replay()
+        for p, grad in zip(graph.params, graph.grads):
+            p.grad = grad
+        _advance(state)
+        profiling.count("step.replayed")
+        return graph.loss.clone(), {name: v.clone() for name, v in graph.logs.items()}
+
+    def _capture(self, signature, phase, state, images, labels, weights, generator):
+        if signature not in self.streams:
+            inputs = tuple(torch.empty(v.shape, dtype=v.dtype, device=images.device)
+                           for v in (images, labels, weights))
+            for static, value in zip(inputs, (images, labels, weights)):
+                static.copy_(value)
+            stream = torch.cuda.Stream(images.device)
+            self._warm_up(stream, inputs, generator)
+            self.streams[signature] = (stream, inputs)
+        stream, inputs = self.streams[signature]
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        _init_moments(state.optimizer)
+        if state.step_times > 1 and state.acc_grads is None:
+            state.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        counters = (state.step, state.mini_step, state.gradient_step)
+        state.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        stream.wait_stream(torch.cuda.current_stream(images.device))
+        # thread_local: the NCCL watchdog's thread may query events meanwhile
+        with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            loss, logs = self.micro_step(state, *inputs, generator)
+        torch.cuda.current_stream(images.device).wait_stream(stream)
+        state.step, state.mini_step, state.gradient_step = counters
+        captured = self.captured[(signature, phase)] = _Captured(
+            graph, inputs, loss, logs, params, [p.grad for p in params])
+        return captured
+
+    def _warm_up(self, stream, inputs, generator):
+        """One forward and backward on the capture stream, and under a mesh
+        the gradients' all-reduce, so that a capture finds its libraries'
+        handles, algorithms, workspaces and communicator warmed; the
+        generator is put back and the gradients dropped."""
+        device = inputs[0].device
+        start = (torch.cuda.get_rng_state(device) if generator is None
+                 else generator.get_state())
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            loss, _ = self.loss_fn(*inputs, generator)
+            loss.backward()
+            if self.mesh is not None:
+                parallel.all_reduce_mean(self.mesh, [p.grad for p in _with_grads(self.model)])
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.model.zero_grad(set_to_none=True)
+        if generator is None:
+            torch.cuda.set_rng_state(start, device)
+        else:
+            generator.set_state(start)
 
 
 def make_eval_forward(model: nn.Module,

@@ -326,3 +326,53 @@ def test_resume_is_exact(tmp_path, step_times):
             assert torch.equal(sa[key], sb[key]), key
     if step_times > 1:
         assert all(torch.equal(x, y) for x, y in zip(a.acc_grads, b.acc_grads))
+
+
+def test_cpu_step_runs_eagerly_and_counts_it():
+    """On the CPU the step is eager: no graph, one ``step.eager`` count a
+    micro-step, no ``step.replayed`` one."""
+    from lintransunet_tpu_torch.utils import profiling
+
+    state, step, x, lbl = _train_setup(2)
+    dw = engine.get_dynamic_weight(**DYNAMIC)[0]
+    eager, replayed = profiling.counts["step.eager"], profiling.counts["step.replayed"]
+    for i in range(2):
+        step(state, x, lbl, dw, torch.Generator().manual_seed(i))
+    assert profiling.counts["step.eager"] == eager + 2
+    assert profiling.counts["step.replayed"] == replayed
+    assert not step.graphs.captured and (state.step, state.gradient_step) == (2, 1)
+
+
+def test_learning_rate_tensor_is_written_in_place():
+    """A device learning rate (the card's capturable AdamW) keeps its tensor:
+    ``set_learning_rate`` writes into it, so a captured update reads it."""
+    lin = nn.Linear(3, 2)
+    lr = torch.tensor(1e-4)
+    state = engine.TrainState(lin, torch.optim.AdamW(lin.parameters(), lr=lr))
+    engine.set_learning_rate(state, 5e-4)
+    assert state.optimizer.param_groups[0]["lr"] is lr
+    assert engine.get_learning_rate(state) == pytest.approx(5e-4)
+
+
+def test_restore_writes_into_the_held_tensors(tmp_path):
+    """Restoring into a state that already holds moments and accumulators
+    writes the saved values into those tensors (a captured step reads
+    them) and continues as a fresh restore does."""
+    dw = engine.get_dynamic_weight(**DYNAMIC)[0]
+    state, step, x, lbl = _train_setup(2)
+    step(state, x, lbl, dw, torch.Generator().manual_seed(0))
+    path = str(tmp_path / "state.pt")
+    engine.save_train_state(path, state)
+    step(state, x, lbl, dw, torch.Generator().manual_seed(1))
+    held = {p: dict(s) for p, s in state.optimizer.state.items()}
+    acc = list(state.acc_grads)
+    engine.restore_train_state(path, state)
+    assert all(state.optimizer.state[p][k] is v for p, s in held.items() for k, v in s.items())
+    assert all(a is b for a, b in zip(state.acc_grads, acc))
+    fresh = _train_setup(2)
+    engine.restore_train_state(path, fresh[0])
+    for s in (state, fresh[0]):
+        step_fn = step if s is state else fresh[1]
+        step_fn(s, x, lbl, dw, torch.Generator().manual_seed(1))
+    for p, q in zip(state.model.parameters(), fresh[0].model.parameters()):
+        assert torch.equal(p, q)
