@@ -38,11 +38,10 @@ generator, the optimizer, the mesh) and phase (the micro-step's place in the
 ``step_times`` cycle), all in one memory pool, after one eager forward and
 backward (and all-reduce under a mesh) on the signature's own stream that
 leaves the parameters, the optimizer, the counters and the generator as it
-found them. Every call
-copies its inputs into the graph's buffers and returns clones of the loss
-and the logs. The dropout generator is registered with each graph, so a
-replay draws the masks the eager step would. On the CPU the step runs
-eagerly. A capture that fails raises.
+found them. Every call copies its inputs into the graph's buffers and
+returns clones of the loss and the logs. The dropout generator is
+registered with each graph, so a replay draws the masks the eager step
+would. On the CPU the step runs eagerly. A capture that fails raises.
 
 A step runs in the profiler span ``step`` (``utils.profiling.span``; its
 ``seq`` the state's micro-step count). An eager micro-step has
@@ -136,11 +135,6 @@ def _with_grads(model: nn.Module) -> List[nn.Parameter]:
     return params
 
 
-def _is_update(state: TrainState) -> bool:
-    """Whether the next micro-step ends a ``step_times`` cycle (and updates)."""
-    return state.mini_step == state.step_times - 1
-
-
 def _advance(state: TrainState) -> None:
     """The counters of one micro-step."""
     state.step += 1
@@ -153,11 +147,10 @@ def apply_gradients(state: TrainState) -> None:
     """One micro-step on the gradients in each parameter's ``.grad``:
     ``optax.MultiSteps(adamw, every_k_schedule=step_times)``'s update."""
     params = _with_grads(state.model)
-    update = _is_update(state)
+    update = state.mini_step == state.step_times - 1  # the micro-step ends a cycle
     if state.step_times > 1:
         with profiling.span("update.accumulate"), torch.no_grad():
-            if state.acc_grads is None:
-                state.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            _make_accumulators(state, params)
             n = state.mini_step
             for acc, p in zip(state.acc_grads, params):
                 acc.add_((p.grad.float() - acc) / (n + 1))
@@ -169,6 +162,12 @@ def apply_gradients(state: TrainState) -> None:
         with profiling.span("update.optimizer"):
             state.optimizer.step()
     _advance(state)
+
+
+def _make_accumulators(state: TrainState, params: List[nn.Parameter]) -> None:
+    """The running means of ``step_times`` > 1, zero, where missing."""
+    if state.step_times > 1 and state.acc_grads is None:
+        state.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
 
 
 def _init_moments(optimizer: torch.optim.Optimizer) -> None:
@@ -311,7 +310,7 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
             model.train()
             if images.is_cuda:
                 return graphs.replay(state, images, labels, dynamic_weight, generator)
-            profiling.count("step.eager")
+            profiling.counts["step.eager"] += 1
             state.optimizer.zero_grad(set_to_none=True)
             return micro_step(state, images, labels, dynamic_weight, generator)
 
@@ -366,7 +365,7 @@ class _Graphs:
         for p, grad in zip(graph.params, graph.grads):
             p.grad = grad
         _advance(state)
-        profiling.count("step.replayed")
+        profiling.counts["step.replayed"] += 1
         return graph.loss.clone(), {name: v.clone() for name, v in graph.logs.items()}
 
     def _capture(self, signature, phase, state, images, labels, weights, generator):
@@ -382,9 +381,8 @@ class _Graphs:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         params = [p for p in self.model.parameters() if p.requires_grad]
-        _init_moments(state.optimizer)
-        if state.step_times > 1 and state.acc_grads is None:
-            state.acc_grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        _init_moments(state.optimizer)  # made here, not in the graph's pool
+        _make_accumulators(state, params)
         counters = (state.step, state.mini_step, state.gradient_step)
         state.optimizer.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()

@@ -15,9 +15,9 @@ in them, and synchronised wall-clock timing (port of
   Each live span's host-clock bounds (``time.time_ns``, the clock of the
   profiler's timestamps) are also kept: ``recorded()`` returns the last
   ``RECORDED`` of them, for a reader in this process that holds no trace;
-* ``count(name)``, ``counts``: counters of the program's events, kept
-  whether or not a profiler records (the train step counts its
-  ``step.replayed`` and ``step.eager`` micro-steps);
+* ``counts``: counters of the program's events, kept whether or not a
+  profiler records (the train step counts its ``step.replayed`` and
+  ``step.eager`` micro-steps);
 * ``timed(fn)``: the best wall time of a few calls, each ended by
   ``torch.cuda.synchronize()`` when the result holds a CUDA tensor, since a
   CUDA call returns before the card finishes.
@@ -81,11 +81,6 @@ def recorded() -> List[Tuple[str, int, int]]:
 
 
 counts = collections.Counter()
-
-
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` of ``counts``."""
-    counts[name] += n
 
 
 @contextlib.contextmanager
