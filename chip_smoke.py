@@ -64,6 +64,11 @@ last line):
       the wrap columns (not the kernels line's library call); the tap sums
       and the inner-loop probe also print their card time (the calls queued
       behind a sleep) beside their events;
+   f. the depthwise weight-gradient kernel (``ops.conv_wgrad``) at the
+      three shapes that the flagship's training patch routes to it, in the
+      PEG's channels-last layout, against the plain f32 gradient within
+      WGRAD_TOL, timed beside cuDNN's bf16 weight gradient of the same
+      call (``aten::convolution_backward``) and its bound;
 3. the default path at full width: the flagship ``MaskTransUnet`` (random
    weights from a seed, f32 parameters, bf16 compute) behind
    ``make_eval_runner`` answers three 512 x 512 x 144 volumes (5 windows
@@ -93,9 +98,20 @@ last line):
    parameters, dropout 0.3) on one 512 x 512 x 32 patch, the 5-level
    deep-supervision criterion schedule with the epoch-0 weights, AdamW at
    lr 1e-4; one warm step, then TRAIN_STEPS timed steps with one
-   synchronise at the end. Every step's loss and gradients are finite and
-   it launches exactly 32 forward and 32 backward attention kernels and
-   none of the others; prints ms per step and the peak memory;
+   synchronise at the end. Every step's loss and gradients are finite;
+   every step is a CUDA graph replay, the first after the step's warm-up
+   and capture, its two passes through Python; each pass launches exactly
+   32 forward and 32 backward attention kernels and 3 depthwise weight
+   gradients and none of the others (the replays launch theirs without
+   Python: one replay under the profiler shows each of the port's kernels,
+   none more often than the capture launched it); prints ms per step and
+   the peak memory.
+
+   On the card every train step is such a replay (``engine.train``): the
+   kernel wrappers count their calls in the passes through Python (eager
+   micro-steps, warm-ups, captures; ``engine.python_passes``), so every
+   launch count of a train step below is held a pass, and the replays
+   against the steps taken;
 8. kernel vs plain attention on one train step, same weights, batch and
    dropout generator: in f32 (TF32 off) the loss and every parameter's
    gradient within TRAIN_TOL, beside the floor that a rounding-level change
@@ -146,7 +162,9 @@ last line):
 13. data parallelism over ``torch.distributed`` and the "attn" recompute
     policy. Two ranks share the one card over gloo, which reduces CUDA
     tensors (NCCL refuses two ranks on one device); each phase that spawns
-    ranks forms their group itself, and a rank that fails fails the script:
+    ranks forms their group itself, and a rank that fails fails the script.
+    gloo's all-reduce waits on the host and is no part of a graph: a
+    gloo rank's micro-step replays two graphs around it:
     a. NCCL at world size 1 (a mesh from ``torchrun``'s environment): the
        DP train step on phase 7's patch (bf16, dropout 0.3, the step
        generator) against the step without a mesh, and ``run_batch`` over
@@ -165,9 +183,10 @@ last line):
        to their rows of the joined batch's, bit for bit;
        ``batched_predictions`` over three volumes (the group padded to 4)
        equal to the runner's call on each, on both ranks;
-    c. REMAT "attn" on phase 7's bf16 step: 64 forward and 32 backward
-       attention launches, the loss and gradients against the step without
-       recompute bit for bit, and both steps' peak memory;
+    c. REMAT "attn" on phase 7's bf16 step, captured with its recompute
+       (which takes back the forward's dropout masks): 64 forward and 32
+       backward attention launches a pass, the loss and gradients against
+       the step without recompute bit for bit, and both steps' peak memory;
     d. ``train3d`` on two torchrun-style gloo ranks over phase 10's
        workspace, one epoch with its eval: held as phase 10 with each
        rank's exact launches (its patients' steps and its eval volume's
@@ -276,14 +295,16 @@ from lintransunet_tpu_torch.models import (
 )
 from lintransunet_tpu_torch.ops import attention
 from lintransunet_tpu_torch.ops import conv_unit as cu
+from lintransunet_tpu_torch.ops import conv_wgrad
 from lintransunet_tpu_torch.ops import fused_stack as fs
 from lintransunet_tpu_torch.ops import linear_attention as fused
+from lintransunet_tpu_torch.utils import profiling
 
 SEED = 0
 VOLUME = (1, 1, 512, 512, 144)
 N_VOLUMES = 3
 WINDOWS_PER_VOLUME = 5      # depth 144, roi depth 64, overlap 0.6
-KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "probe_taps",
+KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "conv_wgrad", "probe_taps",
                 "probe_conv", "probe_stats")
 # The probes' tensor-core kernels whose registers and spills phase 1 prints
 # on a line each: (library, kernel)
@@ -300,15 +321,24 @@ PROBES = {"tap_sum": ("probe_taps", "experiments/pallas_dot_probe.py:41"),
 
 def _per(**counts):
     names = ("linear_attention", "linear_attention_backward", "conv_unit",
-             "fused_stack") + tuple(PROBES)
+             "fused_stack", "conv_wgrad") + tuple(PROBES)
     return {name: counts.get(name, 0) for name in names}
 
 
-# launches per window (serving), step (training) or run (probes) of each
-# kernel wrapper
+def times(per, n):
+    return {name: count * n for name, count in per.items()}
+
+
+# launches per window (serving), run (probes), or pass of the train step's
+# forward and backward through Python ("train": bf16, whose three 256-channel
+# PEG weight gradients route to conv_wgrad; "train_f32": f32, which routes
+# none). On the card a micro-step is a graph replay: its kernels launch
+# without Python, as the pass that captured them launched them, and the
+# wrappers' counters count the passes alone (python_passes)
 PER_WINDOW = {"default": _per(linear_attention=32),
               "fused": _per(conv_unit=7, fused_stack=8),
-              "train": _per(linear_attention=32, linear_attention_backward=32),
+              "train": _per(linear_attention=32, linear_attention_backward=32, conv_wgrad=3),
+              "train_f32": _per(linear_attention=32, linear_attention_backward=32),
               "probes": _per(**{name: 1 for name in PROBES})}
 # (BH, N, d) of the window's attention calls: bottleneck, levels 3, 2, 1
 MAIN_SHAPES = [(8, 4096, 32), (8, 2160, 32), (8, 5376, 32), (4, 28704, 32)]
@@ -390,6 +420,13 @@ TRAIN_TOL = {"loss": 1e-5, "grad": 5e-2, "grad_median": 2e-3}
 UPSTREAM_GRAD_TOL = 5e-2
 MIN_AGREEMENT = 0.999
 ITERS = 10
+# 2f: (N, C, S1, S2, S3) of the depthwise convolutions whose weight gradient
+# the flagship's training patch routes to conv_wgrad, and the kernel's
+# tolerance against the plain f32 gradient, of its largest magnitude: both
+# sum the same bf16 products in f32, over 1,080-2,688 voxels a batch
+# element, in another order
+WGRAD_SHAPES = [(3, 256, 8, 24, 14), (3, 256, 8, 16, 16), (3, 256, 8, 15, 9)]
+WGRAD_TOL = 1e-5
 
 
 def fail(msg):
@@ -751,6 +788,56 @@ def phase_conv_vs_plain():
     return summary
 
 
+def phase_wgrad_vs_plain():
+    """2f: the depthwise weight-gradient kernel at the routed shapes of the
+    training patch against the plain f32 gradient, timed beside cuDNN's
+    bf16 weight gradient of the same call and the kernel's bound (bytes:
+    x and the output gradient in bf16, the f32 partials written and read,
+    the gradient; operations: 2 x 27 a voxel and channel)."""
+    summary = Summary()
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    for shape in WGRAD_SHAPES:
+        n, c, s1, s2, s3 = shape
+        # the PEG's layout: a permuted view of (N, S1, S2, S3, C) tokens
+        x, dy = (torch.randn((n, s1, s2, s3, c), generator=gen).to("cuda", torch.bfloat16)
+                 .permute(0, 4, 1, 2, 3) for _ in range(2))
+        w = torch.randn((c, 1, 3, 3, 3), generator=gen).to("cuda", torch.bfloat16)
+        got = conv_wgrad.depthwise_weight_grad(x, dy)
+        want = conv_wgrad.depthwise_weight_grad_reference(x, dy)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        summary.max_abs_err = max(summary.max_abs_err, err)
+
+        def cudnn():
+            return torch.ops.aten.convolution_backward(
+                dy, x, w, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], c,
+                [False, True, False])
+
+        ms, plain_ms = pkkp(lambda: conv_wgrad.depthwise_weight_grad_reference(x, dy),
+                            lambda: conv_wgrad.depthwise_weight_grad(x, dy))
+        # warmed first: cuDNN picks its algorithm on the first call
+        library_ms = cuda_ms(cudnn, ITERS, 2)
+        voxels = n * s1 * s2 * s3
+        split = conv_wgrad.chunks(c, voxels, torch.cuda.get_device_properties(0)
+                                  .multi_processor_count)
+        flops = 2 * 27 * voxels * c
+        nbytes = 2 * 2 * voxels * c + 2 * 4 * split * c * 27 + 4 * c * 27
+        bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
+        summary.add(torch.bfloat16, 1, ms, plain_ms, flops, nbytes, library_ms)
+        ok = rel <= WGRAD_TOL
+        print(f"[conv_wgrad] bf16 {shape}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+              f"{WGRAD_TOL:g}); kernel {ms:.4f} ms plain f32 {plain_ms:.4f} ms cuDNN wgrad "
+              f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, {split} chunks); "
+              f"kernel at {bound_ms / ms * 100:.1f}% of its bound "
+              f"{'ok' if ok else 'TOO FAR'}", flush=True)
+        if not ok:
+            fail(f"the depthwise weight-gradient kernel disagrees with plain at {shape}")
+    print(f"[conv_wgrad] a micro-step's {len(WGRAD_SHAPES)} routed calls: kernel "
+          f"{summary.ms:.4f} ms, cuDNN wgrad {summary.library_ms:.4f} ms, bound "
+          f"{summary.bound_ms:.4f} ms", flush=True)
+    return summary
+
+
 def phase_stack_vs_plain():
     gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
     summary = Summary()
@@ -1069,6 +1156,7 @@ COUNTED = {"linear_attention": fused.linear_attention,
            "linear_attention_backward": fused.linear_attention_backward,
            "conv_unit": cu.conv_unit,
            "fused_stack": fs.fused_transformer_stack,
+           "conv_wgrad": conv_wgrad.depthwise_weight_grad,
            "tap_sum": dot_probe.tap_sum,
            "row_offset_sum": rowoffset_probe.row_offset_sum,
            "inner_step": inner_probe.inner_step_packed,
@@ -1079,6 +1167,12 @@ COUNTED = {"linear_attention": fused.linear_attention,
 
 def launch_counts():
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def python_passes():
+    """The train steps' passes of the forward and backward through Python
+    so far (eager micro-steps, warm-ups, captures) and their replays."""
+    return engine.python_passes(), profiling.counts["step.replayed"]
 
 
 def reset_launch_counts():
@@ -1287,8 +1381,8 @@ def phase_fused_qkv(model, window):
     launches = launch_counts()
     with projection(False):
         three = train_step_grads("kernel", torch.float32, images, labels, criterions)
-    if launches != PER_WINDOW["train"]:
-        fail(f"4b: a train step launched {launches}, not {PER_WINDOW['train']}")
+    if launches != PER_WINDOW["train_f32"]:
+        fail(f"4b: a train step launched {launches}, not {PER_WINDOW['train_f32']}")
     loss_rel, worst, median = compare_steps("float32 step, one QKV product vs three", one, three)
     ok = (loss_rel <= TRAIN_TOL["loss"] and worst <= TRAIN_TOL["grad"]
           and median <= TRAIN_TOL["grad_median"])
@@ -1340,6 +1434,7 @@ def phase_train(images, labels, criterions):
         return forward(q, k, v)
 
     reset_launch_counts()
+    passes = [python_passes()]
     fused._forward_kernel = recording
     try:
         loss, _ = step(state, images, labels, DYNAMIC_WEIGHT, gen)
@@ -1347,6 +1442,7 @@ def phase_train(images, labels, criterions):
         fused._forward_kernel = forward
     finite = torch.isfinite(loss) & grads_finite(model)
     per_step = [launch_counts()]
+    passes.append(python_passes())
     print(f"[train] attention shapes (BH, N, d) of the training patch: "
           f"{sorted(seen, key=lambda t: -t[1])}", flush=True)
     if seen != set(TRAIN_SHAPES):
@@ -1360,22 +1456,53 @@ def phase_train(images, labels, criterions):
         loss, logs = step(state, images, labels, DYNAMIC_WEIGHT, gen)
         finite = finite & torch.isfinite(loss) & grads_finite(model)
         per_step.append({k: v - before[k] for k, v in launch_counts().items()})
+        passes.append(python_passes())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = launch_counts()
     if not bool(finite):
         fail("a train step gave a non-finite loss or gradient")
-    if any(c != PER_WINDOW["train"] for c in per_step):
-        fail(f"train steps launched {per_step}, not {PER_WINDOW['train']} each")
+    # (passes through Python, replays) of each step: the first warms up and
+    # captures, each replays once
+    steps = [(b[0] - a[0], b[1] - a[1]) for a, b in zip(passes, passes[1:])]
+    if steps != [(2, 1)] + [(0, 1)] * TRAIN_STEPS:
+        fail(f"the train steps' (passes through Python, replays) were {steps}")
+    if any(c != times(PER_WINDOW["train"], n) for c, (n, _) in zip(per_step, steps)):
+        fail(f"train steps launched {per_step}, not {PER_WINDOW['train']} a pass of {steps}")
+    replay = replay_kernels(lambda: step(state, images, labels, DYNAMIC_WEIGHT, gen))
     print(f"[train] {TRAIN_STEPS + 1} steps of the flagship ({n_params:,} f32 "
           f"parameters, bf16 compute) on a {'x'.join(map(str, PATCH[2:]))} patch: "
           f"{ms:.2f} ms per step (mean of {TRAIN_STEPS}, one synchronise), peak "
           f"{peak:.2f} GiB; last loss {loss.item():.6f}; step {state.step}, "
-          f"optimizer updates {state.gradient_step}; launches {launches}", flush=True)
+          f"optimizer updates {state.gradient_step}; launches {launches} (the first step "
+          f"warms up and captures, the others replay)", flush=True)
+    print(f"[train] one replayed step's device rows of the port's kernels: {replay} (of "
+          f"{REPLAY_ROWS} launched)", flush=True)
     print(f"[train] last step's logs: "
           f"{ {k: round(v.item(), 6) for k, v in logs.items()} }", flush=True)
     return launches, ms
+
+
+# device rows of one replayed bf16 micro-step of the flagship, by kernel
+# name: 32 attention calls each way (lta_fold in both, then lta_out or
+# lta_bwd_tokens) and three routed weight gradients (two launches each)
+REPLAY_ROWS = {"lta_fold": 64, "lta_out": 32, "lta_bwd_tokens": 32,
+               "conv_unit_wgrad_dw": 3, "conv_unit_wgrad_sum": 3}
+
+
+def replay_kernels(fn):
+    """{kernel: device rows} of the port's kernels in one call of ``fn`` (a
+    replayed micro-step) under the profiler; fails unless each kernel shows
+    and none more often than a replay launches it (the profiler now and
+    then drops a device row, so fewer can show)."""
+    _, _, rows = cuda_launches(fn)
+    found = {name: sum(1 for row in rows if re.search(rf"\b{name}\b", row))
+             for name in REPLAY_ROWS}
+    if not all(0 < found[name] <= want for name, want in REPLAY_ROWS.items()):
+        fail(f"a replayed train step showed {found} of the port's kernels, not up to "
+             f"{REPLAY_ROWS} with each present")
+    return found
 
 
 def move_weights_(model, jitter):
@@ -1613,9 +1740,11 @@ def run_cli_path(root, shape, patients, train_flags, infer_flags, multi_class=Fa
             timed(data.IdPosPanCTDataset, "__getitem__", out["items"]), \
             train_waits(out["waits"]):
         reset_launch_counts()
+        before = python_passes()
         train_cli.main(args)
         _sync()
         out["train_launches"] = launch_counts()
+        out["passes"], out["replays"] = (b - a for a, b in zip(before, python_passes()))
     eval_roi = (args.image_crop, args.image_crop, args.eval_depth)
     out["eval_windows"] = sum(_windows(shape[1:] + shape[:1], eval_roi, EvalConfig().overlap)
                               for _ in test_ids)
@@ -1678,19 +1807,28 @@ def native_vs_numpy(shape):
     return min(times[0]), min(times[1])
 
 
+def train_launches(passes, eval_windows):
+    """The kernels' launches in a bf16 train3d run: each pass of the step's
+    forward and backward through Python (the replays launch none there) and
+    each eval window's forward."""
+    per = times(PER_WINDOW["train"], passes)
+    per["linear_attention"] += PER_WINDOW["default"]["linear_attention"] * eval_windows
+    return per
+
+
 def check_cli_run(tag, out, multi_class=False):
     """Phase 10's and 11's gates on one train + inference run; returns the
     number of train steps."""
     train_name = "train3d_multi_class" if multi_class else "train3d"
     infer_name = "inference_multi_classes" if multi_class else "inference_embed_attn"
     steps = out["patients"] * out["num_samples"]
-    if out["state"]["step"] != steps:
-        fail(f"{train_name} took {out['state']['step']} steps, not {steps}")
-    want = _per(linear_attention=32 * (steps + out["eval_windows"]),
-                linear_attention_backward=32 * steps)
+    if out["state"]["step"] != steps or out["replays"] != steps:
+        fail(f"{train_name} took {out['state']['step']} steps, {out['replays']} replayed, "
+             f"not {steps}")
+    want = train_launches(out["passes"], out["eval_windows"])
     if out["train_launches"] != want:
-        fail(f"{train_name} launched {out['train_launches']}, not {want} ({steps} steps "
-             f"and {out['eval_windows']} eval windows)")
+        fail(f"{train_name} launched {out['train_launches']}, not {want} ({out['passes']} "
+             f"passes through Python for {steps} steps, and {out['eval_windows']} eval windows)")
     want_infer = _per(linear_attention=32 * out["infer_chunks"])
     if out["infer_launches"] != want_infer:
         fail(f"{infer_name} launched {out['infer_launches']}, not {want_infer} "
@@ -1786,11 +1924,13 @@ def run_monai(root, data_dir, split):
     try:
         with timed(loop, "eval_on_epoch", out["eval_s"]), train_waits(out["waits"]):
             reset_launch_counts()
+            before = python_passes()
             t0 = time.perf_counter()
             train3d_monai_version.main(args)
             _sync()
             out["s"] = time.perf_counter() - t0
             out["launches"] = launch_counts()
+            out["passes"], out["replays"] = (b - a for a, b in zip(before, python_passes()))
     finally:
         data.CachePanDataset.__getitem__ = item
     run_dir = os.path.join(root, "monai_out", os.listdir(os.path.join(root, "monai_out"))[0])
@@ -1821,13 +1961,14 @@ def phase_multi_class_cli(train_ms):
         monai = run_monai(root, out["data_dir"], out["split"])
         total_s = time.perf_counter() - t0
     monai_steps = monai["train_patients"]  # batch 1, one sample a patient
-    if monai["state"]["step"] != monai_steps:
-        fail(f"train3d_monai_version took {monai['state']['step']} steps, not {monai_steps}")
-    want = _per(linear_attention=32 * (monai_steps + monai["eval_windows"]),
-                linear_attention_backward=32 * monai_steps)
+    if monai["state"]["step"] != monai_steps or monai["replays"] != monai_steps:
+        fail(f"train3d_monai_version took {monai['state']['step']} steps, {monai['replays']} "
+             f"replayed, not {monai_steps}")
+    want = train_launches(monai["passes"], monai["eval_windows"])
     if monai["launches"] != want:
-        fail(f"train3d_monai_version launched {monai['launches']}, not {want} ({monai_steps} "
-             f"steps and {monai['eval_windows']} eval windows)")
+        fail(f"train3d_monai_version launched {monai['launches']}, not {want} "
+             f"({monai['passes']} passes through Python for {monai_steps} steps, and "
+             f"{monai['eval_windows']} eval windows)")
     tags = {r["tag"] for r in monai["records"]}
     if not {"train/total_loss", "eval/DiceClassLoss2"} <= tags or not all(
             math.isfinite(r["value"]) for r in monai["records"]):
@@ -2070,16 +2211,19 @@ def hold_steps(tag, got, want):
 
 
 def flagship_step(images, labels, criterions, dtype=torch.bfloat16, dropout=0.3, mesh=None):
-    """One train step of the seed's flagship; (snapshot, launches, peak GiB)."""
+    """One train step of the seed's flagship; (snapshot, launches, passes
+    through Python, peak GiB)."""
     model = flagship(SEED, dtype=dtype, dropout=dropout).train()
     state = engine.create_train_state(model, learning_rate=1e-4)
     step = engine.make_train_step(model, criterions, mesh=mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    passes = engine.python_passes()
     loss, logs = step(state, images, labels, DYNAMIC_WEIGHT, dropout_generator())
     torch.cuda.synchronize()
-    out = step_snapshot(loss, logs, model), launch_counts(), torch.cuda.max_memory_allocated() / 2 ** 30
+    out = (step_snapshot(loss, logs, model), launch_counts(), engine.python_passes() - passes,
+           torch.cuda.max_memory_allocated() / 2 ** 30)
     del model, state
     torch.cuda.empty_cache()
     return out
@@ -2094,10 +2238,11 @@ def phase_dp_world_one(images, labels, criterions):
     try:
         backend = dist.get_backend()
         with deterministic():
-            plain, _, _ = flagship_step(images, labels, criterions)
-            dp, launches, _ = flagship_step(images, labels, criterions, mesh=mesh)
-        if launches != PER_WINDOW["train"]:
-            fail(f"the DP step launched {launches}, not {PER_WINDOW['train']}")
+            plain, _, _, _ = flagship_step(images, labels, criterions)
+            dp, launches, passes, _ = flagship_step(images, labels, criterions, mesh=mesh)
+        if passes != 2 or launches != times(PER_WINDOW["train"], passes):
+            fail(f"the DP step launched {launches} in {passes} passes (a warm-up and a capture), "
+                 f"not {PER_WINDOW['train']} a pass")
         hold_steps(f"13a {backend} world size {mesh.size}, DP step vs no mesh "
                    "(bf16, dropout 0.3, the step generator)", dp, plain)
 
@@ -2169,18 +2314,21 @@ def dp_masks(shard, rows):
 def dp_step(mesh, images, labels, criterions, dropout):
     """13b: one f32 DP step of the seed's flagship on this rank's shard,
     dropout from the step generator (seeded alike on every rank); (the
-    step's snapshot, launches, seconds)."""
+    step's snapshot, launches a pass through Python, seconds)."""
     model = f32_flagship(dropout).train()
     parallel.replicate(mesh, model)
     state = engine.create_train_state(model, learning_rate=1e-4)
     step = engine.make_train_step(model, criterions, mesh=mesh)
     reset_launch_counts()
+    passes = engine.python_passes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss, logs = step(state, parallel.shard_batch(mesh, images),
                       parallel.shard_batch(mesh, labels), DYNAMIC_WEIGHT, dropout_generator())
     torch.cuda.synchronize()
-    out = step_snapshot(loss, logs, model), launch_counts(), time.perf_counter() - t0
+    passes = engine.python_passes() - passes
+    out = (step_snapshot(loss, logs, model),
+           {k: v / passes for k, v in launch_counts().items()}, time.perf_counter() - t0)
     del state, model
     torch.cuda.empty_cache()
     return out
@@ -2250,8 +2398,9 @@ def phase_dp_two_ranks():
         if result["mesh"] != (r, DP_RANKS, "cuda:0", "gloo"):
             fail(f"13b rank {r}'s mesh is {result['mesh']}")
         for key in ("launches", "dropout_launches"):
-            if result[key] != PER_WINDOW["train"]:
-                fail(f"13b rank {r}'s DP step launched {result[key]}, not {PER_WINDOW['train']}")
+            if result[key] != PER_WINDOW["train_f32"]:
+                fail(f"13b rank {r}'s DP step launched {result[key]} a pass through Python, "
+                     f"not {PER_WINDOW['train_f32']}")
         for kind, got, mask in zip(("element", "channel"), result["masks"], joined_masks):
             if not torch.equal(got, mask[r:r + 1]):
                 fail(f"13b rank {r}'s {kind} dropout mask is not its row of the joined batch's")
@@ -2288,10 +2437,11 @@ def phase_dp_two_ranks():
     if joined[0.0]["loss"] == joined[DP_DROPOUT]["loss"]:
         fail("13b: dropout did not change the joined batch's loss")
     print(f"[dp] 13b: each rank's element and channel dropout masks are its rows of the "
-          f"joined batch's, bit for bit; per rank {ranks[0]['launches']['linear_attention']} "
-          f"forward and {ranks[0]['launches']['linear_attention_backward']} backward attention "
-          f"launches a step; the first DP step took {[round(x['step_s'] * 1e3, 2) for x in ranks]} "
-          f"ms (first step of each process, gloo's host copies of the gradients included)",
+          f"joined batch's, bit for bit; per rank {ranks[0]['launches']['linear_attention']:g} "
+          f"forward and {ranks[0]['launches']['linear_attention_backward']:g} backward attention "
+          f"launches a pass through Python; the first DP step took "
+          f"{[round(x['step_s'] * 1e3, 2) for x in ranks]} ms (first step of each process: its "
+          f"warm-up, capture and replay, gloo's host copies of the gradients included)",
           flush=True)
 
     for r, result in enumerate(ranks):
@@ -2322,20 +2472,22 @@ def phase_remat(images, labels, criterions):
     generator): the recompute's launches, its loss and gradients against the
     step without it, and both peaks."""
     with deterministic():
-        plain, plain_launches, plain_peak = flagship_step(images, labels, criterions)
+        plain, plain_launches, _, plain_peak = flagship_step(images, labels, criterions)
         blocks.REMAT = "attn"
         try:
-            remat, launches, peak = flagship_step(images, labels, criterions)
+            remat, launches, passes, peak = flagship_step(images, labels, criterions)
         finally:
             blocks.REMAT = ""
-    want = _per(linear_attention=64, linear_attention_backward=32)
-    if launches != want:
-        fail(f"the recompute step launched {launches}, not {want}")
+    want = times(_per(linear_attention=64, linear_attention_backward=32, conv_wgrad=3), passes)
+    if passes != 2 or launches != want:
+        fail(f"the recompute step launched {launches} in {passes} passes, not {want} in 2 (a "
+             f"warm-up and a capture)")
     hold_steps("13c REMAT attn vs none (bf16, dropout 0.3, the step generator)", remat, plain)
     print(f"[dp] 13c: launches {launches['linear_attention']} forward and "
           f"{launches['linear_attention_backward']} backward attention kernels (without "
           f"recompute {plain_launches['linear_attention']} and "
-          f"{plain_launches['linear_attention_backward']}); peak memory {peak:.2f} GiB with "
+          f"{plain_launches['linear_attention_backward']}), each over the step's warm-up and "
+          f"capture; peak memory {peak:.2f} GiB with "
           f"recompute, {plain_peak:.2f} GiB without", flush=True)
 
 
@@ -2354,9 +2506,12 @@ def cli_rank(rank, world, port, root, data_dir, split):
             epoch_s, waits = [], []
             with timed(loop, "train_on_epoch", epoch_s), train_waits(waits):
                 reset_launch_counts()
+                before = python_passes()
                 state = train3d.main(args)
                 _sync()
+            passes, replays = (b - a for a, b in zip(before, python_passes()))
             result = {"launches": launch_counts(), "epoch_s": epoch_s, "waits": waits,
+                      "passes": passes, "replays": replays,
                       "step": state.step,
                       "params": {n: p.detach().cpu() for n, p in state.model.named_parameters()},
                       "finite": bool(grads_finite(state.model))}
@@ -2397,12 +2552,14 @@ def phase_dp_cli(train_ms, cli_ms):
     steps = -(-len(train_ids) // DP_RANKS) * num_samples
     # the eval: the 2 test volumes one a rank, each on its own window grid
     per_volume = _windows(CLI_SHAPE[1:] + CLI_SHAPE[:1], (512, 512, 64), EvalConfig().overlap)
-    want = _per(linear_attention=32 * (steps + per_volume), linear_attention_backward=32 * steps)
     for r, result in enumerate(ranks):
-        if result["step"] != steps or not result["finite"]:
-            fail(f"13d rank {r}: {result['step']} steps (want {steps}), finite {result['finite']}")
+        if result["step"] != steps or result["replays"] != steps or not result["finite"]:
+            fail(f"13d rank {r}: {result['step']} steps, {result['replays']} replayed (want "
+                 f"{steps}), finite {result['finite']}")
+        want = train_launches(result["passes"], per_volume)
         if result["launches"] != want:
-            fail(f"13d rank {r} launched {result['launches']}, not {want}")
+            fail(f"13d rank {r} launched {result['launches']}, not {want} ({result['passes']} "
+                 f"passes through Python)")
     if not all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in ranks[0]["params"]):
         fail("13d: the ranks' parameters differ at the end")
     ms = [sum(x["epoch_s"]) / steps * 1e3 for x in ranks]
@@ -2570,6 +2727,7 @@ def main():
                  "conv_unit": phase_conv_vs_plain(),
                  "fused_stack": phase_stack_vs_plain(),
                  "linear_attention_backward": phase_attention_backward_vs_plain()}
+    phase_wgrad_vs_plain()
     # the cases hold the probes' inputs: drop them all before the model phases
     cases = probe_cases(probe_inputs())
     summaries.update(phase_probes_vs_plain(cases))

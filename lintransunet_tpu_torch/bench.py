@@ -39,7 +39,8 @@ warm step, max(runs, 3) synchronised steps, then as many back to back with
 one synchronise: ms per step per sample from the back-to-back basis.
 
 Each mode prints ``bench.py``'s diagnostics on stderr with the card's name
-and each kernel's launches per window (or step), and one JSON line ``{"metric", "value", "unit", "device"}`` with
+and each kernel's launches per window (or per step that passed through
+Python: on the card the others replay a captured one), and one JSON line ``{"metric", "value", "unit", "device"}`` with
 ``bench.py``'s metric strings and the device it ran on (the card's name, or
 "cpu": a CPU run's value is no device figure). ``vs_baseline`` is dropped
 (its denominators, 500 patches/s and 431 ms, are TPU figures), and so is
@@ -246,13 +247,19 @@ def time_training(training: Training, runs: int):
 def train(args) -> dict:
     training = train_setup(args.train_batch, args.device)
     print(f"device: {device_name(args.device)}; warm step...", file=sys.stderr)
+    # a replayed step launches its kernels as the pass through Python that
+    # captured it did, and the wrappers count the passes alone
+    passes = engine.python_passes()
     (_, times, loss, pipelined), launches = launches_per(
-        lambda: time_training(training, args.runs), 1 + 2 * max(args.runs, 3),
+        lambda: time_training(training, args.runs), 1,
         ("linear_attention", "linear_attention_backward"))
+    passes = engine.python_passes() - passes
+    launches = {name: n / passes for name, n in launches.items()}
     value = pipelined * 1e3 / args.train_batch
     print(f"loss={loss:.4f} times={[f'{s * 1e3:.0f}ms' for s in times]} "
           f"pipelined={pipelined * 1e3:.1f}ms/step", file=sys.stderr)
-    print(f"launches per step {json.dumps(launches)}", file=sys.stderr)
+    print(f"launches per step {json.dumps(launches)} ({passes} of the "
+          f"{1 + 2 * max(args.runs, 3)} steps passed through Python)", file=sys.stderr)
     return {"metric": "train step ms (MaskTransUnet bf16, 512x512x32 patch, "
                       "5-level deep supervision, AdamW)",
             "value": value, "unit": "ms/step", "device": device_name(args.device)}

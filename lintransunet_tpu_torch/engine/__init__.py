@@ -30,6 +30,7 @@ from lintransunet_tpu_torch.engine.train import (
     make_eval_forward,
     make_optimizer,
     make_train_step,
+    python_passes,
     set_learning_rate,
 )
 
@@ -45,6 +46,7 @@ __all__ = [
     "label_pyramid_kernel",
     "make_optimizer",
     "make_train_step",
+    "python_passes",
     "set_learning_rate",
     "get_dynamic_weight",
     "get_weight",

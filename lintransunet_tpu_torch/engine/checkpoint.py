@@ -93,12 +93,18 @@ def restore_train_state(path: str, state: TrainState) -> Tuple[TrainState, dict]
 
 def _into(held, loaded):
     """The saved tensors ``loaded`` written into the tensors ``held`` and
-    ``held`` returned, where every one has a counterpart of its shape or
-    none was saved (then zeros, the state a missing one stands for: no
-    accumulation, AdamW's first moments); else ``loaded``."""
-    if held is None or (loaded is not None and (len(held) != len(loaded) or any(
-            h.shape != v.shape for h, v in zip(held, loaded)))):
+    ``held`` returned (zeros where none was saved: the state a missing one
+    stands for, no accumulation, AdamW's first moments); ``loaded`` where
+    nothing is held. Raises where they differ in number or shape: a train
+    step's captured graphs read ``held`` (``engine.train``), and would go on
+    reading it beside a replacement."""
+    if held is None:
         return loaded
+    if loaded is not None and (len(held) != len(loaded) or any(
+            h.shape != v.shape for h, v in zip(held, loaded))):
+        raise ValueError(
+            f"the checkpoint holds {[tuple(v.shape) for v in loaded]} where the train "
+            f"state holds {[tuple(h.shape) for h in held]}")
     with torch.no_grad():
         for i, h in enumerate(held):
             h.zero_() if loaded is None else h.copy_(loaded[i])
@@ -109,7 +115,8 @@ def _load_optimizer(optimizer: torch.optim.Optimizer, saved: dict) -> None:
     """``optimizer.load_state_dict(saved)``, keeping the tensors the
     optimizer already holds (its moments, step counts and a device learning
     rate) and writing the saved values into them: a train step's captured
-    update reads those tensors (``engine.train``)."""
+    update reads those tensors (``engine.train``). Raises where a held
+    tensor has no saved tensor to take."""
     held = {p: {k: v for k, v in s.items() if torch.is_tensor(v)}
             for p, s in optimizer.state.items()}
     rates = [group["lr"] for group in optimizer.param_groups]
@@ -117,7 +124,8 @@ def _load_optimizer(optimizer: torch.optim.Optimizer, saved: dict) -> None:
     for p, tensors in held.items():
         state = optimizer.state[p]
         if state and not all(torch.is_tensor(state.get(k)) for k in tensors):
-            continue
+            raise ValueError(f"the checkpoint's optimizer state {sorted(state)} lacks one of "
+                             f"the tensors {sorted(tensors)} that the train state holds")
         state.update(zip(tensors, _into(list(tensors.values()),
                                         [state[k] for k in tensors] if state else None)))
     for group, rate in zip(optimizer.param_groups, rates):

@@ -32,25 +32,34 @@ equals the joined batch's at any dropout.
 On the card every micro-step is the replay of a CUDA graph that holds the
 whole micro-step: the forward and the loss, the backward, the all-reduce
 under a mesh, the accumulation and, on the k-th micro-step, the hand-over to
-``.grad`` and AdamW (``make_optimizer`` makes it ``capturable``). The step
-captures one graph per signature (the inputs' shapes and dtypes, the
-generator, the optimizer, the mesh) and phase (the micro-step's place in the
-``step_times`` cycle), all in one memory pool, after one eager forward and
-backward (and all-reduce under a mesh) on the signature's own stream that
-leaves the parameters, the optimizer, the counters and the generator as it
-found them. Every call copies its inputs into the graph's buffers and
-returns clones of the loss and the logs. The dropout generator is
-registered with each graph, so a replay draws the masks the eager step
-would. On the CPU the step runs eagerly. A capture that fails raises.
+``.grad`` and AdamW (``make_optimizer`` makes it ``capturable``). A group on
+another backend than NCCL (gloo, whose collectives on CUDA tensors wait on
+the host) cannot be captured: there the micro-step is two graphs, the
+forward and backward, then the update, with the all-reduce launched eagerly
+between their replays, and a criterion that reduces over the group inside
+the loss (``losses.multiclass.ClassifyLoss``) is refused when the step is
+built. The step captures once per signature (the inputs'
+shapes and dtypes, the generator, the optimizer, the mesh) and phase (the
+micro-step's place in the ``step_times`` cycle), all in one memory pool,
+after one eager forward and backward (and all-reduce under a mesh) on the
+signature's own stream that leaves the parameters, the optimizer, the
+counters and the generator as it found them. Every call copies its inputs
+into the graph's buffers and returns clones of the loss and the logs. The
+dropout generator is registered with each graph, so a replay draws the
+masks the eager step would. On the CPU the step runs eagerly. A capture
+that fails raises.
 
 A step runs in the profiler span ``step`` (``utils.profiling.span``; its
 ``seq`` the state's micro-step count). An eager micro-step has
 ``step.forward`` (the model and the loss), ``step.backward``,
 ``step.allreduce`` (under a mesh) and ``step.update`` inside;
 ``apply_gradients`` splits the update into ``update.accumulate`` and
-``update.optimizer``. A replayed one has ``step.replay`` around the graph's
-launch. ``profiling.counts`` counts ``step.replayed`` and ``step.eager``
-micro-steps.
+``update.optimizer``. A replayed one has ``step.replay`` around the graphs'
+launches (and the eager all-reduce between two). ``profiling.counts`` counts
+``step.replayed`` and ``step.eager`` micro-steps, ``step.captured``
+micro-steps captured and ``step.warmed_up`` signatures warmed up: the
+forward and backward run in Python once for each of the last three, and a
+replay repeats a captured one's launches.
 """
 
 import dataclasses
@@ -58,6 +67,7 @@ import functools
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from lintransunet_tpu_torch import parallel
@@ -183,6 +193,14 @@ def _init_moments(optimizer: torch.optim.Optimizer) -> None:
                 state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
+def python_passes() -> int:
+    """How many times train steps have run the forward and backward through
+    Python: eager micro-steps, warm-ups and captures (``profiling.counts``).
+    A replay launches what its capture launched without Python, so a
+    kernel wrapper's count of its calls counts these passes alone."""
+    return sum(profiling.counts[k] for k in ("step.eager", "step.warmed_up", "step.captured"))
+
+
 def label_pyramid_kernel(level: int):
     """Pool kernel applied after deep-supervision level ``level``
     (utils_3D_embed_full.py:73-76): even levels pool (2, 2, 2), odd
@@ -253,8 +271,8 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
     from (as JAX's step takes ``rng``), or None for the global one.
     ``step.loss_fn(images, labels, dynamic_weight, generator)`` is the loss
     alone, (loss, logs), for a caller that differentiates it itself;
-    ``step.graphs`` holds the step's CUDA graphs (``captured``: one a
-    signature and phase).
+    ``step.graphs`` holds the step's CUDA graphs (``captured``: one
+    micro-step, of one graph or two, a signature and phase).
 
     With ``mesh`` (``parallel.make_mesh``), images and labels are this
     rank's shard of the global batch (every rank's the same size) and the
@@ -270,6 +288,11 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
 
     aux = {"return_aux": True} if isinstance(model, MaskTransUnet) else {}
     if mesh is not None:
+        if (mesh.device.type == "cuda" and dist.get_backend() != "nccl"
+                and any(hasattr(fn, "over_group") for level in criterions for fn in level.values())):
+            raise ValueError("a criterion that reduces over the group inside the loss cannot be "
+                             "captured in a CUDA graph over gloo, which waits on the host: "
+                             "run the ranks over NCCL")
         criterions = _over_group(criterions, mesh)
 
     shard = (0, 1) if mesh is None else (mesh.rank, mesh.size)
@@ -283,25 +306,35 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
         return deep_supervision_loss(out, mask_list, labels, criterions,
                                      dynamic_weight, criterion_weight, num_classes)
 
-    def micro_step(state: TrainState, images, labels, dynamic_weight, generator):
-        """The micro-step as it runs eagerly and as a graph captures it."""
+    def gradients(images, labels, dynamic_weight, generator):
+        """The forward, the loss and the backward: (loss, logs), detached."""
         with profiling.span("step.forward"):
             loss, logs = loss_fn(images, labels, dynamic_weight, generator)
         with profiling.span("step.backward"):
             loss.backward()
-        loss = loss.detach()
-        logs = {name: v.detach() for name, v in logs.items()}
-        if mesh is not None:
-            with profiling.span("step.allreduce"):
-                # one bucket: every gradient, then the loss and the logs
-                values = [loss.float()] + [v.float() for v in logs.values()]
-                parallel.all_reduce_mean(mesh, [p.grad for p in _with_grads(model)] + values)
-            loss, logs = values[0], dict(zip(logs, values[1:]))
+        return loss.detach(), {name: v.detach() for name, v in logs.items()}
+
+    def all_reduce(loss, logs):
+        """Under a mesh, the gradients, the loss and the logs averaged over
+        the group in one bucket."""
+        if mesh is None:
+            return loss, logs
+        with profiling.span("step.allreduce"):
+            values = [loss.float()] + [v.float() for v in logs.values()]
+            parallel.all_reduce_mean(mesh, [p.grad for p in _with_grads(model)] + values)
+        return values[0], dict(zip(logs, values[1:]))
+
+    def update(state: TrainState):
         with profiling.span("step.update"):
             apply_gradients(state)
+
+    def micro_step(state: TrainState, images, labels, dynamic_weight, generator):
+        """The micro-step as it runs eagerly and as one graph captures it."""
+        loss, logs = all_reduce(*gradients(images, labels, dynamic_weight, generator))
+        update(state)
         return loss, logs
 
-    graphs = _Graphs(model, loss_fn, micro_step, mesh)
+    graphs = _Graphs(model, loss_fn, gradients, all_reduce, update, micro_step, mesh)
 
     def step(state: TrainState, images, labels, dynamic_weight, generator=None):
         if state.model is not model:
@@ -321,11 +354,13 @@ def make_train_step(model: nn.Module, criterions: Sequence[Dict[str, Callable]],
 
 @dataclasses.dataclass
 class _Captured:
-    """One captured micro-step: its graph, the static buffers it reads its
-    inputs from and writes its loss and logs to, and the gradient tensors
-    its backward writes (each parameter's ``.grad`` after a replay)."""
+    """One captured micro-step: its graphs (the whole micro-step, or the
+    forward and backward then the update, around an eager all-reduce), the
+    static buffers it reads its inputs from and writes its loss and logs
+    to, and the gradient tensors its backward writes (each parameter's
+    ``.grad`` after a replay)."""
 
-    graph: "torch.cuda.CUDAGraph"
+    graphs: List["torch.cuda.CUDAGraph"]
     inputs: tuple
     loss: torch.Tensor
     logs: Dict[str, torch.Tensor]
@@ -334,8 +369,8 @@ class _Captured:
 
 
 class _Graphs:
-    """The CUDA graphs of one train step, one per signature and phase, in
-    one memory pool.
+    """The CUDA graphs of one train step, one micro-step per signature and
+    phase, in one memory pool.
 
     Each signature has its own capture stream and static inputs, shared by
     its phases. Its own stream gives it its own linear-attention workspace
@@ -344,8 +379,10 @@ class _Graphs:
     graph reads. The graphs share the pool because they never run at once:
     each replay finishes its temporaries before the next one starts."""
 
-    def __init__(self, model, loss_fn, micro_step, mesh):
-        self.model, self.loss_fn, self.micro_step, self.mesh = model, loss_fn, micro_step, mesh
+    def __init__(self, model, loss_fn, gradients, all_reduce, update, micro_step, mesh):
+        self.model, self.loss_fn, self.mesh = model, loss_fn, mesh
+        self.gradients, self.all_reduce = gradients, all_reduce
+        self.update, self.micro_step = update, micro_step
         self.captured = {}  # (signature, phase) -> _Captured
         self.streams = {}   # signature -> (stream, static inputs)
         self.pool = None
@@ -355,18 +392,22 @@ class _Graphs:
         signature = (tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype,
                      tuple(weights.shape), generator, state.optimizer, self.mesh)
         phase = state.mini_step
-        graph = self.captured.get((signature, phase))
-        if graph is None:
-            graph = self._capture(signature, phase, state, images, labels, weights, generator)
-        for static, value in zip(graph.inputs, (images, labels, weights)):
+        captured = self.captured.get((signature, phase))
+        if captured is None:
+            captured = self._capture(signature, phase, state, images, labels, weights, generator)
+        for static, value in zip(captured.inputs, (images, labels, weights)):
             static.copy_(value)
-        with profiling.span("step.replay"):
-            graph.graph.replay()
-        for p, grad in zip(graph.params, graph.grads):
+        for p, grad in zip(captured.params, captured.grads):
             p.grad = grad
+        loss, logs = captured.loss, captured.logs
+        with profiling.span("step.replay"):
+            captured.graphs[0].replay()
+            if len(captured.graphs) == 2:
+                loss, logs = self.all_reduce(loss, logs)
+                captured.graphs[1].replay()
         _advance(state)
         profiling.counts["step.replayed"] += 1
-        return graph.loss.clone(), {name: v.clone() for name, v in graph.logs.items()}
+        return loss.clone(), {name: v.clone() for name, v in logs.items()}
 
     def _capture(self, signature, phase, state, images, labels, weights, generator):
         if signature not in self.streams:
@@ -385,19 +426,34 @@ class _Graphs:
         _make_accumulators(state, params)
         counters = (state.step, state.mini_step, state.gradient_step)
         state.optimizer.zero_grad(set_to_none=True)
-        graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
         stream.wait_stream(torch.cuda.current_stream(images.device))
-        # thread_local: the NCCL watchdog's thread may query events meanwhile
-        with torch.cuda.graph(graph, pool=self.pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            loss, logs = self.micro_step(state, *inputs, generator)
+        # NCCL's collectives can be captured, gloo's wait on the host
+        if self.mesh is None or dist.get_backend() == "nccl":
+            graph, (loss, logs) = self._graph(
+                stream, generator, lambda: self.micro_step(state, *inputs, generator))
+            graphs = [graph]
+        else:
+            first, (loss, logs) = self._graph(
+                stream, generator, lambda: self.gradients(*inputs, generator))
+            graphs = [first, self._graph(stream, None, lambda: self.update(state))[0]]
         torch.cuda.current_stream(images.device).wait_stream(stream)
         state.step, state.mini_step, state.gradient_step = counters
         captured = self.captured[(signature, phase)] = _Captured(
-            graph, inputs, loss, logs, params, [p.grad for p in params])
+            graphs, inputs, loss, logs, params, [p.grad for p in params])
+        profiling.counts["step.captured"] += 1
         return captured
+
+    def _graph(self, stream, generator, fn):
+        """(a graph of ``fn()`` captured on ``stream`` in the pool, what
+        ``fn`` returned); dropout's ``generator`` registered with it."""
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        # thread_local: the NCCL watchdog's thread may query events meanwhile
+        with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+        return graph, out
 
     def _warm_up(self, stream, inputs, generator):
         """One forward and backward on the capture stream, and under a mesh
@@ -419,6 +475,7 @@ class _Graphs:
             torch.cuda.set_rng_state(start, device)
         else:
             generator.set_state(start)
+        profiling.counts["step.warmed_up"] += 1
 
 
 def make_eval_forward(model: nn.Module,

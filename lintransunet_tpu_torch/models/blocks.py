@@ -194,6 +194,10 @@ class LayerNorm(nn.LayerNorm):
 # from, and this rank's shard of the global batch, which dropout and
 # BatchNorm read (``dropout_generator``)
 _STEP = contextvars.ContextVar("dropout_generator", default=(None, (0, 1)))
+# The dropout masks of one recomputed call (``attention_layer``): (the list
+# its first run appends each mask to, None), or (that list, an iterator over
+# it) while the recompute takes them back in order; (None, None) elsewhere
+_MASKS = contextvars.ContextVar("recorded_masks", default=(None, None))
 
 
 @contextlib.contextmanager
@@ -226,15 +230,22 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     (N, C) and broadcasts it over the spatial dims (``broadcast_dims`` of
     every spatial axis, torch Dropout3d). Dim 0 of ``x`` is the batch: under
     a ``dropout_generator`` shard the mask is the global batch's rows of
-    this rank."""
+    this rank. A recompute (``attention_layer``) takes back the masks its
+    first run drew instead of drawing."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    generator, (rank, size) = _STEP.get()
-    shape = x.shape[:2] + (1,) * (x.dim() - 2) if channel else x.shape
-    n = shape[0]
-    draw = torch.rand((n * size,) + tuple(shape[1:]), generator=generator, device=x.device)
-    mask = draw[rank * n:(rank + 1) * n] < keep
+    recorded, replay = _MASKS.get()
+    if replay is not None:
+        mask = next(replay)
+    else:
+        generator, (rank, size) = _STEP.get()
+        shape = x.shape[:2] + (1,) * (x.dim() - 2) if channel else x.shape
+        n = shape[0]
+        draw = torch.rand((n * size,) + tuple(shape[1:]), generator=generator, device=x.device)
+        mask = draw[rank * n:(rank + 1) * n] < keep
+        if recorded is not None:
+            recorded.append(mask)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -339,33 +350,30 @@ def attention_layer(layer: SelfAttentionLayer, x: torch.Tensor,
     """``layer(x, mask)``, checkpointed in training under ``REMAT == "attn"``.
 
     The recompute runs inside the backward, outside the step's
-    ``dropout_generator`` and, for CUDA tensors, on autograd's own thread,
-    and ``torch.utils.checkpoint`` restores only the default generators. So
-    the step's generator, its shard and its state at this call are captured
-    here: the recompute draws from that state with that shard, then puts the generator back where the
-    rest of the step left it, so the masks and the generator's stream are
-    those of a run without recompute."""
+    ``dropout_generator`` and, for CUDA tensors, on autograd's own thread.
+    So the step's context at this call is carried into it, and the first
+    run keeps every dropout mask it draws, which the recompute takes back in
+    order instead of drawing: the masks and every generator's stream are
+    those of a run without recompute, and no generator's state is read or
+    set, which a CUDA graph's capture would refuse (``engine.train``)."""
     if not (layer.training and REMAT == "attn"):
         return layer(x, mask)
     generator, shard = _STEP.get()
-    start = None if generator is None else generator.get_state()
-    recompute = False
+    masks = []
+    runs = 0
 
     def run(x, mask):
-        nonlocal recompute
-        if start is None or not recompute:
-            recompute = True
-            with dropout_generator(generator, shard):
-                return layer(x, mask)
-        resume = generator.get_state()
-        generator.set_state(start)
+        nonlocal runs
+        replay = iter(masks) if runs else None
+        runs += 1
+        token = _MASKS.set((masks, replay))
         try:
             with dropout_generator(generator, shard):
                 return layer(x, mask)
         finally:
-            generator.set_state(resume)
+            _MASKS.reset(token)
 
-    return checkpoint(run, x, mask, use_reentrant=False)
+    return checkpoint(run, x, mask, use_reentrant=False, preserve_rng_state=False)
 
 
 class TransEncoder(nn.Module):

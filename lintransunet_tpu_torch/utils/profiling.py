@@ -17,7 +17,8 @@ in them, and synchronised wall-clock timing (port of
   ``RECORDED`` of them, for a reader in this process that holds no trace;
 * ``counts``: counters of the program's events, kept whether or not a
   profiler records (the train step counts its ``step.replayed`` and
-  ``step.eager`` micro-steps);
+  ``step.eager`` micro-steps, its ``step.captured`` micro-steps and its
+  ``step.warmed_up`` signatures);
 * ``timed(fn)``: the best wall time of a few calls, each ended by
   ``torch.cuda.synchronize()`` when the result holds a CUDA tensor, since a
   CUDA call returns before the card finishes.

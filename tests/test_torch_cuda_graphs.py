@@ -208,8 +208,7 @@ def test_a_second_batch_shape_captures_its_own_graph(cuda):
     _same_state(graphed, eager)
 
 
-def _dp_compare(rank, world, out):
-    device = torch.device("cuda", rank)
+def _dp_compare(rank, world, out, device):
     mesh = parallel.make_mesh(world, device=device)
     images, labels = _batches(device, 4, seed=7)
     shard = slice(rank, rank + 1)
@@ -225,33 +224,34 @@ def _dp_compare(rank, world, out):
             log.write(f"eager micro-step {i}\n")
             assert torch.equal(loss, want)
         _same_state(graphed, eager)
+    # NCCL's all-reduce inside the one graph; gloo's between two
+    graphs = {len(c.graphs) for c in step.graphs.captured.values()}
+    assert graphs == ({1} if torch.distributed.get_backend() == "nccl" else {2})
     with open(os.path.join(out, f"rank{rank}"), "w") as f:
         f.write("ok")
 
 
-def _dp_worker(rank, world, port, out):
-    device = torch.device("cuda", rank)
+def _dp_worker(rank, world, port, out, backend):
+    """One rank: on its own card over NCCL, on card 0 beside the other over
+    gloo."""
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(device)
-    torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                                         rank=rank, world_size=world, device_id=device)
+    extra = {"device_id": device} if backend == "nccl" else {}
+    torch.distributed.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                         rank=rank, world_size=world, **extra)
     try:
-        _dp_compare(rank, world, out)
+        _dp_compare(rank, world, out, device)
         gc.collect()  # the step's graphs go before the communicator they captured
         torch.cuda.synchronize()
     finally:
         torch.distributed.destroy_process_group()
 
 
-def test_graphed_data_parallel_step_matches_eager(cuda, tmp_path):
-    """Two cards over NCCL: the graphed DP micro-step (its all-reduce
-    captured in the graph) gives the eager DP micro-step's bits on each
-    rank."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two NVIDIA GPUs")
+def _two_ranks(tmp_path, backend):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    ranks = mp.spawn(_dp_worker, args=(2, port, str(tmp_path)), nprocs=2, join=False)
+    ranks = mp.spawn(_dp_worker, args=(2, port, str(tmp_path), backend), nprocs=2, join=False)
     deadline = time.monotonic() + DP_SECONDS
     while not ranks.join(timeout=5):
         if time.monotonic() > deadline:
@@ -260,3 +260,41 @@ def test_graphed_data_parallel_step_matches_eager(cuda, tmp_path):
             progress = {name: (tmp_path / name).read_text() for name in os.listdir(tmp_path)}
             pytest.fail(f"the two ranks did not finish in {DP_SECONDS} s: {progress}")
     assert {"rank0", "rank1"} <= set(os.listdir(tmp_path))
+
+
+def test_graphed_data_parallel_step_matches_eager(cuda, tmp_path):
+    """Two cards over NCCL: the graphed DP micro-step (its all-reduce
+    captured in the graph) gives the eager DP micro-step's bits on each
+    rank."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    _two_ranks(tmp_path, "nccl")
+
+
+def test_graphed_gloo_step_matches_eager(cuda, tmp_path):
+    """Two gloo ranks sharing one card: gloo's all-reduce waits on the host
+    and cannot be captured, so each micro-step replays two graphs around an
+    eager all-reduce, and gives the eager DP micro-step's bits."""
+    _two_ranks(tmp_path, "gloo")
+
+
+def test_graphed_recompute_matches_eager(cuda, monkeypatch):
+    """Under the "attn" recompute policy (``blocks.REMAT``) the capture holds
+    the checkpointed layers, whose recompute takes back the forward's
+    dropout masks: four graphed micro-steps give the eager ones' bits and
+    leave the generator where the eager ones do."""
+    from lintransunet_tpu_torch.models import blocks
+
+    monkeypatch.setattr(blocks, "REMAT", "attn")
+    images, labels = _batches(cuda, 4, seed=9)
+    with _deterministic():
+        _, graphed, step = _setup(cuda)
+        _, eager, eager_step = _setup(cuda)
+        gens = [torch.Generator(device=cuda).manual_seed(10) for _ in range(2)]
+        for x in images:
+            loss, _ = step(graphed, x, labels, WEIGHTS, gens[0])
+            assert torch.equal(loss, _eager(eager_step, eager, x, labels, WEIGHTS, gens[1]))
+        torch.cuda.synchronize()
+    _same_state(graphed, eager)
+    assert len(step.graphs.captured) == 2
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())

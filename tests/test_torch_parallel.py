@@ -550,3 +550,23 @@ def test_monai_cli_on_two_ranks(tmp_path):
     assert torch.load(os.path.join(run, "train_state"))["step"] == 1
     p0, p1 = (torch.load(os.path.join(workdir, f"params{r}.pt")) for r in range(2))
     assert all(torch.equal(p0[k], p1[k]) for k in p0)
+
+
+def test_gloo_step_on_the_card_refuses_a_loss_that_reduces_over_the_group():
+    """gloo's collectives on CUDA tensors wait on the host, so a CUDA graph
+    cannot hold one inside the loss (``ClassifyLoss.over_group``): the step
+    refuses it when it is built. Over gloo on the CPU, which runs eagerly,
+    it builds."""
+    from lintransunet_tpu_torch.losses.multiclass import ClassifyLoss
+
+    criterions = [{"ClassifyLoss": ClassifyLoss()}]
+    torch.distributed.init_process_group(
+        "gloo", init_method="tcp://localhost:0", rank=0, world_size=1)
+    try:
+        model = torch.nn.Linear(1, 1)
+        with pytest.raises(ValueError, match="NCCL"):
+            engine.make_train_step(model, criterions,
+                                   mesh=parallel.Mesh(0, 1, torch.device("cuda", 0)))
+        engine.make_train_step(model, criterions, mesh=parallel.Mesh(0, 1, torch.device("cpu")))
+    finally:
+        torch.distributed.destroy_process_group()

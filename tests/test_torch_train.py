@@ -376,3 +376,24 @@ def test_restore_writes_into_the_held_tensors(tmp_path):
         step_fn(s, x, lbl, dw, torch.Generator().manual_seed(1))
     for p, q in zip(state.model.parameters(), fresh[0].model.parameters()):
         assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("fault", ["accumulators", "moments"])
+def test_restore_refuses_to_replace_the_held_tensors(tmp_path, fault):
+    """A checkpoint whose accumulators, or whose optimizer tensors, do not
+    match the ones the state holds raises rather than handing the state new
+    tensors: a captured step would go on reading the held ones."""
+    dw = engine.get_dynamic_weight(**DYNAMIC)[0]
+    state, step, x, lbl = _train_setup(2)
+    for i in range(3):  # an update, then an accumulation: moments and accumulators held
+        step(state, x, lbl, dw, torch.Generator().manual_seed(i))
+    path = str(tmp_path / "state.pt")
+    engine.save_train_state(path, state)
+    payload = torch.load(path, weights_only=True)
+    if fault == "accumulators":
+        payload["acc_grads"] = payload["acc_grads"][:-1]
+    else:
+        payload["optimizer"]["state"][0]["exp_avg"] = 0.0
+    torch.save(payload, path)
+    with pytest.raises(ValueError, match="train state holds"):
+        engine.restore_train_state(path, state)
