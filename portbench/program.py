@@ -34,14 +34,20 @@ def weights(config: dict, seed: int, device) -> dict:
 
 def build_model(config: dict, state: dict, device):
     """The port's model (``Model_Dict[config["model"]]``) in the configured
-    compute dtype with the attention kernel, built on ``device``, loaded
-    with ``state``."""
+    compute dtype, built on ``device``, loaded with ``state``. The
+    configuration's ``program_kwargs`` (build flags that choose an
+    implementation, not the function) go to the port alone."""
     from lintransunet_tpu_torch.models import Model_Dict
 
+    flags = config.get("program_kwargs", {})
+    both = sorted(flags.keys() & config["model_kwargs"].keys())
+    if both:
+        raise ValueError(f"configuration {config['name']!r}: {both} in both model_kwargs "
+                         "and program_kwargs")
     cls = Model_Dict[config["model"]]
     with torch.device(device):
-        model = cls(**config["model_kwargs"], dtype=COMPUTE_DTYPES[config["compute_dtype"]],
-                    device=device)
+        model = cls(**config["model_kwargs"], **flags,
+                    dtype=COMPUTE_DTYPES[config["compute_dtype"]], device=device)
     model.load_state_dict(state)
     return model
 

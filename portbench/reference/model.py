@@ -12,6 +12,7 @@ precision of the benchmark's control.
 """
 
 import contextlib
+import importlib
 import math
 
 import torch
@@ -503,8 +504,31 @@ class BottleTransUnet(nn.Module):
 MODELS = {"MaskTransUnet": MaskTransUnet, "BottleTransUnet": BottleTransUnet}
 
 
+def models(config: dict) -> dict:
+    """The reference classes a configuration draws from: ``MODELS`` of
+    ``portbench/reference/<config["reference"]>.py`` where it names a
+    module (plain PyTorch that imports nothing of the port or of JAX; its
+    convolutions and dense layers go through this module's ``conv3d`` and
+    ``linear`` so that ``fp8_products`` reaches them), else this module's."""
+    name = config.get("reference")
+    if name is None:
+        return MODELS
+    if not name.isidentifier():
+        raise ValueError(f"configuration {config['name']!r}: reference {name!r} is no module name")
+    try:
+        module = importlib.import_module(f"portbench.reference.{name}")
+    except ModuleNotFoundError as e:
+        raise ValueError(f"configuration {config['name']!r}: no reference module "
+                         f"portbench/reference/{name}.py") from e
+    return module.MODELS
+
+
 def build(config: dict, dtype=torch.float32, device="cpu") -> nn.Module:
     """The reference model of a benchmark configuration (its ``model`` and
     ``model_kwargs``), parameters uninitialised, on ``device``."""
+    registry = models(config)
+    if config["model"] not in registry:
+        raise ValueError(f"configuration {config['name']!r}: its reference has no model "
+                         f"{config['model']!r}, only {sorted(registry)}")
     with torch.device(device):
-        return MODELS[config["model"]](**config["model_kwargs"], dtype=dtype)
+        return registry[config["model"]](**config["model_kwargs"], dtype=dtype)

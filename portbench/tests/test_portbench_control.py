@@ -19,7 +19,7 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["flagship-serve", "bottle-serve"])
+@pytest.mark.parametrize("cell", ["flagship-serve", "flagship-serve-fused", "bottle-serve"])
 def test_serving_control_is_not_correct(cell):
     dev = _card()
     c = CELLS[cell]

@@ -34,7 +34,7 @@ def _train(cell, capfd, traffic=None):
     return _result(capfd)
 
 
-@pytest.mark.parametrize("cell", ["flagship-serve", "bottle-serve"])
+@pytest.mark.parametrize("cell", ["flagship-serve", "flagship-serve-fused", "bottle-serve"])
 def test_serving_sound_and_with_an_answer_altered(cell, capfd, monkeypatch):
     assert _serve(cell, capfd)["correct"] is True
     real = program.eval_runner

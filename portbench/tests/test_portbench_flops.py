@@ -7,15 +7,15 @@ import torch
 
 from portbench import generate
 
-CONFIGS = ("masktransunet-pancreas", "bottletransunet")
+CONFIGS = ("masktransunet-pancreas", "bottletransunet", "masktransunet-pancreas-fused")
 
 
 def _model(config):
     from lintransunet_tpu_torch.models import Model_Dict
 
     cls = Model_Dict[config["model"]]
-    return cls(**config["model_kwargs"], dtype=torch.bfloat16, device="cpu",
-               attention_impl="plain")
+    return cls(**config["model_kwargs"], **config.get("program_kwargs", {}),
+               dtype=torch.bfloat16, device="cpu", attention_impl="plain")
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -56,8 +56,9 @@ def test_attention_calls(name, monkeypatch):
     monkeypatch.setattr(la, "linear_attention_qkv", record)
     from lintransunet_tpu_torch.models import Model_Dict
 
-    model = Model_Dict[config["model"]](**config["model_kwargs"], dtype=torch.bfloat16,
-                                        device="cpu").eval()
+    model = Model_Dict[config["model"]](**config["model_kwargs"],
+                                        **config.get("program_kwargs", {}),
+                                        dtype=torch.bfloat16, device="cpu").eval()
     for batch, key in ((1, "window"), (3, "train_step")):
         if key not in config["attention_calls"]:
             continue

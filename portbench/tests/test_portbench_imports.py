@@ -2,7 +2,8 @@
 set-up is rehearsed on the CPU in a fresh process, and then every loaded
 module's top-level name (the part before the first dot) is compared whole
 with the forbidden ones, since the port's name begins with the JAX
-package's. The reference loads nothing of the port either."""
+package's. No reference module (``portbench/reference/*.py``, a configuration's own
+included) loads anything of the port either."""
 
 import json
 import os
@@ -33,9 +34,10 @@ else:
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 REFERENCE = """
-import json, sys
+import glob, importlib, json, os, sys
 sys.path.insert(0, {root!r})
-import portbench.reference.model, portbench.reference.train, portbench.reference.runner
+for path in sorted(glob.glob(os.path.join({root!r}, "portbench", "reference", "*.py"))):
+    importlib.import_module("portbench.reference." + os.path.basename(path)[:-3])
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 

@@ -1,5 +1,5 @@
 """The per-layer readers of the port's own spans (``portbench/program_spans.py``
-and the nine ``metrics/*`` that use it) on synthetic traces with known
+and the ``metrics/*`` that use it) on synthetic traces with known
 answers, and ``trace.Trace`` beside the port's profiler ranges."""
 
 import importlib.util
@@ -66,16 +66,6 @@ SERVE_KERNELS = [(12, 20, 22), (20, 22, 25),  # encoder: 5 ms
 SERVE = {"encoder_ms.serve": 5 / 2, "bridges_ms.serve": 9 / 2, "decoder_ms.serve": 3 / 2,
          "forward_idle_ms.serve": 33 / 2, "runner_idle_ms.serve": 40.0}
 
-TRAIN_SPANS = [("step", 0, 100), ("step.forward", 0, 40), ("model", 1, 35),
-               ("step.backward", 40, 70), ("step.update", 72, 95),
-               ("update.accumulate", 72, 90), ("update.optimizer", 90, 95)]
-TRAIN_KERNELS = [(5, 10, 30), (36, 38, 50), (45, 50, 72),
-                 (73, 74, 76), (80, 80, 85), (91, 91, 93)]  # three launched in the update
-# busy [10,30] [38,72] [74,76] [80,85] [91,93]: idle in the forward [0,10] [30,38], in
-# the backward none, in the update [72,74] [76,80] [85,91] [93,95]; two micro-steps traced
-TRAIN = {"forward_idle_ms.train": 18 / 2, "backward_idle_ms.train": 0.0,
-         "update_idle_ms.train": 14 / 2, "update_kernels_per_step.train": 3 / 2}
-
 
 def _ctx(kind, trace):
     if kind == "serve":
@@ -83,41 +73,31 @@ def _ctx(kind, trace):
     return {"kind": "train", "trace": trace, "traced_steps": 2}
 
 
-CASES = [(name, "serve", value) for name, value in SERVE.items()] + \
-        [(name, "train", value) for name, value in TRAIN.items()]
-
-
-@pytest.mark.parametrize("name,kind,want", CASES)
-def test_reader_on_a_known_trace(name, kind, want, monkeypatch):
-    spans, kernels = (SERVE_SPANS, SERVE_KERNELS) if kind == "serve" else (TRAIN_SPANS,
-                                                                              TRAIN_KERNELS)
-    _spans(monkeypatch, spans)
+@pytest.mark.parametrize("name,want", sorted(SERVE.items()))
+def test_reader_on_a_known_trace(name, want, monkeypatch):
+    _spans(monkeypatch, SERVE_SPANS)
     read = _reader(name)
-    assert read(_ctx(kind, _trace(kernels))) == pytest.approx(want, abs=1e-6)
-    other = "train" if kind == "serve" else "serve"
-    assert read(_ctx(other, _trace(kernels))) is None
+    assert read(_ctx("serve", _trace(SERVE_KERNELS))) == pytest.approx(want, abs=1e-6)
+    assert read(_ctx("train", _trace(SERVE_KERNELS))) is None
 
 
-@pytest.mark.parametrize("name,kind,want", CASES)
-def test_reader_reads_nothing_without_its_spans(name, kind, want, monkeypatch):
-    kernels = SERVE_KERNELS if kind == "serve" else TRAIN_KERNELS
+@pytest.mark.parametrize("name", sorted(SERVE))
+def test_reader_reads_nothing_without_its_spans(name, monkeypatch):
     read = _reader(name)
     _spans(monkeypatch, [])
-    assert read(_ctx(kind, _trace(kernels))) is None
+    assert read(_ctx("serve", _trace(SERVE_KERNELS))) is None
     monkeypatch.delattr(profiling, "recorded")  # a port without the spans
-    assert read(_ctx(kind, _trace(kernels))) is None
+    assert read(_ctx("serve", _trace(SERVE_KERNELS))) is None
 
 
-@pytest.mark.parametrize("name,kind,want", CASES)
-def test_reader_reads_nothing_under_90_percent_linked(name, kind, want, monkeypatch):
-    spans, kernels = (SERVE_SPANS, SERVE_KERNELS) if kind == "serve" else (TRAIN_SPANS,
-                                                                              TRAIN_KERNELS)
-    _spans(monkeypatch, spans)
+@pytest.mark.parametrize("name", sorted(SERVE))
+def test_reader_reads_nothing_under_90_percent_linked(name, monkeypatch):
+    _spans(monkeypatch, SERVE_SPANS)
     read = _reader(name)
-    assert read(_ctx(kind, _trace(kernels, unlinked=0))) is not None
-    trace = _trace(kernels, unlinked=len(kernels) // 9 + 1)
+    assert read(_ctx("serve", _trace(SERVE_KERNELS, unlinked=0))) is not None
+    trace = _trace(SERVE_KERNELS, unlinked=len(SERVE_KERNELS) // 9 + 1)
     assert trace.linked_share() < program_spans.LINKED
-    assert read(_ctx(kind, trace)) is None
+    assert read(_ctx("serve", trace)) is None
 
 
 def test_spans_outside_the_stretch_are_left_out(monkeypatch):
