@@ -4,8 +4,10 @@ by the parameters of a traffic file (``traffic/<mix>.json``).
 Volumes are CT phantoms drawn on the card: an elliptic body of soft tissue
 in a rim of fat, in air, with ellipsoid organs of fixed Hounsfield levels
 and Gaussian noise, clipped to the dataset's HU window and normalised by its
-mean and std, as the dataset's cache holds volumes. The same seed gives the
-same volumes, weights and orders; every seed gives the same set of sizes.
+mean and std, as the dataset's cache holds volumes; or, for the inference
+CLI, the same phantoms in Hounsfield units written as its eval folder. The
+same seed gives the same volumes, weights and orders; every seed gives the
+same set of sizes.
 """
 
 import json
@@ -30,8 +32,9 @@ def substream(seed: int, *path: int) -> int:
         2, np.uint64)[0] >> np.uint64(1))
 
 
-def phantom(generator: torch.Generator, shape, params: dict, device) -> torch.Tensor:
-    """One normalised (H, W, D) f32 phantom on ``device``."""
+def phantom_hu(generator: torch.Generator, shape, params: dict, device) -> torch.Tensor:
+    """One (H, W, D) f32 phantom in Hounsfield units on ``device``, before any
+    window."""
     h, w, d = shape
     r = lambda *s: torch.rand(s, generator=generator, device=device)
     x = torch.linspace(-1, 1, h, device=device).view(-1, 1, 1)
@@ -54,23 +57,77 @@ def phantom(generator: torch.Generator, shape, params: dict, device) -> torch.Te
         inside = ((x - c[0]) / s[0]) ** 2 + ((y - c[1]) / s[1]) ** 2 + ((z - c[2]) / s[2]) ** 2
         hu = torch.where((inside < 1.0) & inner,
                          torch.tensor(float(levels[k % len(levels)]), device=device), hu)
-    hu = hu + params["noise_hu"] * torch.randn(shape, generator=generator, device=device)
+    return hu + params["noise_hu"] * torch.randn(shape, generator=generator, device=device)
+
+
+def phantom(generator: torch.Generator, shape, params: dict, device) -> torch.Tensor:
+    """One normalised (H, W, D) f32 phantom on ``device``: clipped to the
+    mix's HU window and standardised, as the dataset's cache holds it."""
     low, high = params["hu_window"]
+    hu = phantom_hu(generator, shape, params, device)
     return (hu.clamp(low, high) - params["mean"]) / params["std"]
+
+
+def _replay_phantoms(seed: int, traffic: dict, device):
+    """Each depth of the mix's HU phantom, (H, W, D) on ``device``, in the
+    order the seed shuffles them to."""
+    g = torch.Generator(device=device).manual_seed(substream(seed, 1))
+    h, w = traffic["height"], traffic["width"]
+    order = np.random.default_rng(substream(seed, 2)).permutation(len(traffic["depths"]))
+    for i in order:
+        yield phantom_hu(g, (h, w, traffic["depths"][i]), traffic["phantom"], device)
 
 
 def worklist(seed: int, traffic: dict, device) -> List[np.ndarray]:
     """The replay list: one channels-last (1, H, W, D, 1) f32 host volume
     for each depth of the mix, drawn on ``device`` and copied to pageable
     host memory, in the order the seed shuffles them to."""
-    g = torch.Generator(device=device).manual_seed(substream(seed, 1))
-    h, w = traffic["height"], traffic["width"]
-    order = np.random.default_rng(substream(seed, 2)).permutation(len(traffic["depths"]))
-    volumes = []
-    for i in order:
-        vol = phantom(g, (h, w, traffic["depths"][i]), traffic["phantom"], device)
-        volumes.append(vol[None, ..., None].cpu().numpy())
-    return volumes
+    low, high = traffic["phantom"]["hu_window"]
+    mean, std = traffic["phantom"]["mean"], traffic["phantom"]["std"]
+    return [((hu.clamp(low, high) - mean) / std)[None, ..., None].cpu().numpy()
+            for hu in _replay_phantoms(seed, traffic, device)]
+
+
+def hu_folder(seed: int, traffic: dict, device) -> List[np.ndarray]:
+    """The worklist's phantoms as a scanner's export holds them: one (D, H,
+    W) int16 host volume in Hounsfield units, rounded, before any window;
+    the same draws and order as ``worklist``."""
+    return [hu.round().to(torch.int16).permute(2, 0, 1).contiguous().cpu().numpy()
+            for hu in _replay_phantoms(seed, traffic, device)]
+
+
+def eval_window(hu: np.ndarray, window: dict) -> np.ndarray:
+    """A (D, H, W) HU volume as the eval dataset hands it to the runner: a
+    channels-last (1, H, W, D, 1) f32 volume clipped to the window, less its
+    mean, times the reciprocal of its std, in f32 arithmetic."""
+    low, high = window["hu_window"]
+    x = np.clip(hu.astype(np.float32), np.float32(low), np.float32(high))
+    x = (x - np.float32(window["mean"])) * np.float32(1.0 / window["std"])
+    return x.transpose(1, 2, 0)[None, ..., None]
+
+
+def served_volumes(seed: int, traffic: dict, device) -> List[np.ndarray]:
+    """The channels-last f32 volumes a serving mix hands the runner, in its
+    replay order: the worklist's, or the eval window over the CLI folder's."""
+    if traffic["kind"] == "cli":
+        return [eval_window(hu, traffic["eval_window"])
+                for hu in hu_folder(seed, traffic, device)]
+    return worklist(seed, traffic, device)
+
+
+def write_folder(root: str, volumes: List[np.ndarray], traffic: dict) -> None:
+    """The inference CLI's eval layout under ``root``: ``image/<i>.npy``,
+    each (D, H, W) HU volume, and ``label/<i>.npy``, (D, H, W) uint8 with 1
+    in the mix's box (given as (H, W, D) ranges), ``<i>`` the position in
+    the replay list, so that the sorted listing is the replay order."""
+    for sub in ("image", "label"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    (h0, h1), (w0, w1), (d0, d1) = traffic["label_box"]
+    for i, hu in enumerate(volumes):
+        label = np.zeros(hu.shape, np.uint8)
+        label[d0:d1, h0:h1, w0:w1] = 1
+        np.save(os.path.join(root, "image", f"{i:04d}.npy"), hu)
+        np.save(os.path.join(root, "label", f"{i:04d}.npy"), label)
 
 
 def patches(seed: int, traffic: dict, count: int, device) -> Dict[str, torch.Tensor]:

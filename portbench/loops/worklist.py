@@ -93,14 +93,19 @@ def check_sample(seed: int, depths, count: int):
     return {longest, *(int(i) for i in rng.choice(others, size=count - 1, replace=False))}
 
 
+def profiled_sample(depths, count: int):
+    """Positions of the ``count`` volumes whose depths lie nearest the
+    list's mean (the same depths for every seed), nearest first."""
+    mean = sum(depths) / len(depths)
+    return sorted(range(len(depths)), key=lambda i: (abs(depths[i] - mean), depths[i]))[:count]
+
+
 def profile(model, runner, volumes, depths, windows, traffic, dev) -> dict:
     """A traced stretch of whole volumes (the ``profiled_volumes`` whose
     depths lie nearest the list's mean, the same for every seed), with the
     benchmark's spans around the copy in, the runner and the copy out, and
     the model's forwards."""
-    mean = sum(depths) / len(depths)
-    chosen = sorted(range(len(depths)), key=lambda i: (abs(depths[i] - mean), depths[i]))
-    chosen = chosen[:traffic["profiled_volumes"]]
+    chosen = profiled_sample(depths, traffic["profiled_volumes"])
     threshold = traffic["threshold"]
     hooks = tracing.ForwardSpans(model)
     copy_s = []

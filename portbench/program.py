@@ -89,3 +89,64 @@ def replicate(mesh, model):
     from lintransunet_tpu_torch import parallel
 
     return parallel.replicate(mesh, model)
+
+
+def save_params(path: str, state: dict) -> None:
+    """``state`` as the port's training CLI leaves its best parameters
+    (``engine.save_params``, the ``temp_model`` the inference CLI loads)."""
+    import os
+
+    from lintransunet_tpu_torch import engine
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    engine.save_params(path, state)
+
+
+# the configuration's model keys as the inference CLI's flags
+CLI_MODEL_FLAGS = {"num_layers": "--num_layers", "roi_size_list": "--roi_size_list",
+                   "is_roi_list": "--is_roi_list", "dim_input": "--dim_input",
+                   "dim_output": "--dim_output", "n_layers": "--attn_layers"}
+
+
+def cli_args(config: dict, traffic: dict, paths: dict, device):
+    """The inference CLI's arguments, parsed by its own parser
+    (``inference_embed_attn.get_parse``): the configuration's model, the
+    mix's window, overlap, windows a forward and threshold, and ``paths``
+    (``dir_data``, ``pretrained_dir``, ``split_json``, ``saved_folder``),
+    with the export on."""
+    import sys
+
+    from lintransunet_tpu_torch.cli import inference_embed_attn as cli
+
+    if config.get("program_kwargs"):
+        raise ValueError(f"configuration {config['name']!r}: the inference CLI has no flag "
+                         f"for the build flags {sorted(config['program_kwargs'])}")
+    flags = ["--model_name", config["model"], "--compute_dtype", config["compute_dtype"],
+             "--device", str(device), "--is_save", "true"]
+    for key, value in config["model_kwargs"].items():
+        if key == "dropout":  # the CLI has no flag for it, and eval draws none
+            continue
+        if key not in CLI_MODEL_FLAGS:
+            raise ValueError(f"configuration {config['name']!r}: the inference CLI has no "
+                             f"flag for {key!r}")
+        joined = ",".join(str(v).lower() for v in value) if isinstance(value, list) else value
+        flags += [CLI_MODEL_FLAGS[key], str(joined)]
+    h, _, d = traffic["window"]
+    flags += ["--roi_size", str(h), "--depth_size", str(d), "--overlap", str(traffic["overlap"]),
+              "--sw_batch_size", str(traffic["sw_batch"]), "--threshold", str(traffic["threshold"])]
+    for key, path in paths.items():
+        flags += [f"--{key}", path]
+    argv = sys.argv
+    sys.argv = ["inference_embed_attn", *flags]
+    try:
+        return cli.get_parse()
+    finally:
+        sys.argv = argv
+
+
+def serve_folder(args) -> None:
+    """One run of the port's inference CLI over its test folder:
+    ``inference_embed_attn.main(args)``, looked up at each call."""
+    from lintransunet_tpu_torch.cli import inference_embed_attn as cli
+
+    cli.main(args)

@@ -37,7 +37,7 @@ def _model(config, state, dtype, dev):
 
 def serve(config, traffic, seed, dev) -> dict:
     state = program.weights(config, generate.substream(seed, 0), dev)
-    volumes = generate.worklist(seed, traffic, dev)
+    volumes = generate.served_volumes(seed, traffic, dev)
     sample = check_sample(seed, [v.shape[3] for v in volumes], traffic["check_volumes"])
     one_hot = config["eval_output"] == "one_hot"
     control = _model(config, state, torch.bfloat16, dev).eval()
@@ -108,7 +108,7 @@ def main(argv=None) -> int:
     cell = {c["name"]: c for c in bench["workloads"]}[args.workload]
     config = generate.load_json("configs", cell["config"])
     traffic = generate.load_json("traffic", cell["traffic"])
-    read = serve if traffic["kind"] == "worklist" else train
+    read = train if traffic["kind"] == "train" else serve
     for seed in args.seeds:
         print(json.dumps({"workload": cell["name"], "seed": seed,
                           **read(config, traffic, seed, torch.device("cuda"))}), flush=True)
