@@ -69,11 +69,19 @@ last line):
       PEG's channels-last layout, against the plain f32 gradient within
       WGRAD_TOL, timed beside cuDNN's bf16 weight gradient of the same
       call (``aten::convolution_backward``) and its bound;
+   g. the narrow-output convolution kernel (``ops.conv_narrow``) at the
+      five calls that a flagship forward routes to it (the bottle model's
+      final block is the first), at the serve cells' window batch (4) and
+      the train cells' micro-batch (3), against the plain f32 version
+      within NARROW_TOL, timed beside ``F.conv3d`` (cuDNN) on the same
+      operands and its bound; then one graphed micro-step of the bf16
+      flagship and two replays, in two instances built alike under
+      ``deterministic()``, bit for bit after each call;
 3. the default path at full width: the flagship ``MaskTransUnet`` (random
    weights from a seed, f32 parameters, bf16 compute) behind
    ``make_eval_runner`` answers three 512 x 512 x 144 volumes (5 windows
-   each); the attention kernel must launch 32 times a window and the other
-   two kernels never;
+   each); the attention kernel must launch 32 times a window, conv_narrow 5
+   times (phase 2g's calls) and the other kernels never;
 4. kernel vs plain attention end to end on one window of the default path:
    in bf16 and f32 the ConnectBridge output and the coarsest mask (both
    upstream of the first ROI box threshold) within PRE_THRESHOLD_TOL; the
@@ -87,8 +95,8 @@ last line):
     backward attention launches;
 5. the fused configuration at full width: the same weights with
    ``fused_s1=True, fused_stack=True`` answer the same three volumes; per
-   window exactly 7 conv-unit and 8 stack launches, and no standalone
-   attention launch;
+   window exactly 7 conv-unit, 8 stack and 5 conv_narrow launches, and no
+   standalone attention launch;
 6. fused vs default end to end on one window, same weights: the
    ConnectBridge output and the coarsest mask within FUSED_TOL in bf16 and
    f32, and both configurations' window forward times. The fused conv unit
@@ -101,8 +109,8 @@ last line):
    synchronise at the end. Every step's loss and gradients are finite;
    every step is a CUDA graph replay, the first after the step's warm-up
    and capture, its two passes through Python; each pass launches exactly
-   32 forward and 32 backward attention kernels and 3 depthwise weight
-   gradients and none of the others (the replays launch theirs without
+   32 forward and 32 backward attention kernels, 3 depthwise weight
+   gradients and 5 conv_narrow forwards and none of the others (the replays launch theirs without
    Python: one replay under the profiler shows each of the port's kernels,
    none more often than the capture launched it); prints ms per step and
    the peak memory.
@@ -134,8 +142,10 @@ last line):
     ``metrics.jsonl`` with ``train/total_loss`` and ``eval/DiceClassLoss``,
     the ``temp_model``, ``train_state`` and ``model`` artifacts, 32 forward
     and 32 backward attention launches a step plus 32 forward a window of
-    the runner's grid in ``train3d`` (32 a window batch in the inference)
-    and no other kernel, a (80, 512, 512) binary export, and a finite
+    the runner's grid in ``train3d`` (32 a window batch in the inference),
+    the depthwise weight gradients, conv_narrow 5 times a forward (4 at 3
+    classes, whose final block has 12 outputs) and no other kernel, a
+    (80, 512, 512) binary export, and a finite
     ``summary_4_fold.json``. Prints ms per step through the CLI beside phase
     7's, the host's data time, s per served volume, whether the native
     preprocessing core loaded, and its HU window against the numpy
@@ -153,7 +163,9 @@ last line):
     ``BottleTransUnet``, ``SkipTransUnet``, ``MaskSkipTransUnet``) at the
     flagship's widths on one 512 x 512 x 64 window in eval, bf16, with the
     kernel: the output's shape, finite probabilities whose channels sum to
-    1, attention launches equal to the model's attention layers; kernel vs
+    1, attention launches equal to the model's attention layers, conv_narrow
+    launches equal to its routed convolutions (the bottle model's one, its
+    final block); kernel vs
     plain attention in f32 on the same window (the output, or for
     ``MaskSkipTransUnet`` the bottleneck bridge and ``mask_list[0]`` upstream
     of its first ROI box and then the labels); then one f32
@@ -294,6 +306,7 @@ from lintransunet_tpu_torch.models import (
     init_random_,
 )
 from lintransunet_tpu_torch.ops import attention
+from lintransunet_tpu_torch.ops import conv_narrow
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import conv_wgrad
 from lintransunet_tpu_torch.ops import fused_stack as fs
@@ -304,8 +317,8 @@ SEED = 0
 VOLUME = (1, 1, 512, 512, 144)
 N_VOLUMES = 3
 WINDOWS_PER_VOLUME = 5      # depth 144, roi depth 64, overlap 0.6
-KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "conv_wgrad", "probe_taps",
-                "probe_conv", "probe_stats")
+KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "conv_wgrad", "conv_narrow",
+                "probe_taps", "probe_conv", "probe_stats")
 # The probes' tensor-core kernels whose registers and spills phase 1 prints
 # on a line each: (library, kernel)
 PROBE_MMA_KERNELS = (("probe_conv", "conv_mma"), ("probe_taps", "taps_fold"),
@@ -321,7 +334,7 @@ PROBES = {"tap_sum": ("probe_taps", "experiments/pallas_dot_probe.py:41"),
 
 def _per(**counts):
     names = ("linear_attention", "linear_attention_backward", "conv_unit",
-             "fused_stack", "conv_wgrad") + tuple(PROBES)
+             "fused_stack", "conv_wgrad", "conv_narrow") + tuple(PROBES)
     return {name: counts.get(name, 0) for name in names}
 
 
@@ -332,12 +345,15 @@ def times(per, n):
 # launches per window (serving), run (probes), or pass of the train step's
 # forward and backward through Python ("train": bf16, whose three 256-channel
 # PEG weight gradients route to conv_wgrad; "train_f32": f32, which routes
-# none). On the card a micro-step is a graph replay: its kernels launch
-# without Python, as the pass that captured them launched them, and the
-# wrappers' counters count the passes alone (python_passes)
-PER_WINDOW = {"default": _per(linear_attention=32),
-              "fused": _per(conv_unit=7, fused_stack=8),
-              "train": _per(linear_attention=32, linear_attention_backward=32, conv_wgrad=3),
+# none). Every bf16 flagship forward at the phases' depths (32, 64) routes
+# NARROW_CALLS' five convolutions to conv_narrow. On the card a micro-step
+# is a graph replay: its kernels launch without Python, as the pass that
+# captured them launched them, and the wrappers' counters count the passes
+# alone (python_passes)
+PER_WINDOW = {"default": _per(linear_attention=32, conv_narrow=5),
+              "fused": _per(conv_unit=7, fused_stack=8, conv_narrow=5),
+              "train": _per(linear_attention=32, linear_attention_backward=32, conv_wgrad=3,
+                            conv_narrow=5),
               "train_f32": _per(linear_attention=32, linear_attention_backward=32),
               "probes": _per(**{name: 1 for name in PROBES})}
 # (BH, N, d) of the window's attention calls: bottleneck, levels 3, 2, 1
@@ -427,6 +443,17 @@ ITERS = 10
 # element, in another order
 WGRAD_SHAPES = [(3, 256, 8, 24, 14), (3, 256, 8, 16, 16), (3, 256, 8, 15, 9)]
 WGRAD_TOL = 1e-5
+# 2g: (C, O, (H, W, D)) of the five convolutions of a flagship forward on a
+# 32-deep window that route to conv_narrow: the final block (the bottle
+# model's one) and the mask heads of levels 0-3; at the serve cells' window
+# batch and the train cells' micro-batch
+NARROW_CALLS = [(16, 8, (256, 256, 32)), (32, 2, (256, 256, 32)), (64, 2, (128, 128, 32)),
+                (128, 2, (64, 64, 16)), (256, 2, (32, 32, 16))]
+NARROW_BATCHES = (4, 3)
+# max |kernel - plain| <= NARROW_TOL * max |plain|: the same bf16 operands,
+# products summed in f32 in another order, each side rounding its f32 sum
+# to bf16 once (one bf16 ulp is 2^-8 of a value)
+NARROW_TOL = 2 ** -7
 
 
 def fail(msg):
@@ -838,6 +865,96 @@ def phase_wgrad_vs_plain():
     return summary
 
 
+def phase_narrow_vs_plain():
+    """2g: the narrow-output convolution kernel at NARROW_CALLS, a forward's
+    window batch (4) and a micro-batch (3), against the plain f32 version,
+    timed beside ``F.conv3d`` (cuDNN, bf16, as ``ops.conv3d`` called it) on
+    the same operands and the kernel's bound (bytes: x read and y written
+    once in bf16, the f32 weights; operations: 2 x 27 x C x O a voxel), and
+    by card time (queued behind a sleep) with the device time of each of
+    its two kernels; then ``narrow_graph_replays``."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 14)
+    worst = 0.0
+    for batch in NARROW_BATCHES:
+        summary = Summary()
+        for c, o, spatial in NARROW_CALLS:
+            x = torch.randn((batch, c) + spatial, generator=gen).to("cuda", torch.bfloat16)
+            w = (torch.randn((o, c, 3, 3, 3), generator=gen) / math.sqrt(c * 27)).to("cuda")
+            b = torch.randn(o, generator=gen).to("cuda", torch.bfloat16)
+            if not conv_narrow.routes(x, w, 1, 1, 1):
+                fail(f"2g: ({batch}, {c}) {spatial} -> {o} does not route to conv_narrow")
+            got = conv_narrow.conv_narrow(x, w, b)
+            want = conv_narrow.conv_narrow_reference(x, w, b)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            worst = max(worst, rel)
+            ms, plain_ms = pkkp(lambda: conv_narrow.conv_narrow_reference(x, w, b),
+                                lambda: conv_narrow.conv_narrow(x, w, b))
+            wb = w.to(torch.bfloat16)
+            # warmed first: cuDNN picks its algorithm on the first call
+            library_ms = cuda_ms(lambda: F.conv3d(x, wb, b, 1, 1), ITERS, 2)
+            voxels = batch * spatial[0] * spatial[1] * spatial[2]
+            flops = 2 * voxels * c * o * 27
+            nbytes = 2 * voxels * (c + o) + 4 * w.numel() + 2 * o
+            bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
+            summary.add(torch.bfloat16, 1, ms, plain_ms, flops, nbytes, library_ms)
+            ok = rel <= NARROW_TOL
+            print(f"[conv_narrow] ({batch}, {c}, {spatial}) -> {o}: max_abs_err "
+                  f"{err:.3e} rel {rel:.3e} (tol {NARROW_TOL:g}); kernel {ms:.4f} ms plain f32 "
+                  f"{plain_ms:.4f} ms F.conv3d {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+                  f"({bound_by}); kernel at {bound_ms / ms * 100:.1f}% of its bound, "
+                  f"{library_ms / ms:.2f}x F.conv3d {'ok' if ok else 'TOO FAR'};"
+                  + card_line(lambda: conv_narrow.conv_narrow(x, w, b),
+                              lambda: F.conv3d(x, wb, b, 1, 1), kernels=True, label="F.conv3d"),
+                  flush=True)
+            if not ok:
+                fail(f"2g: the narrow-convolution kernel disagrees with plain at ({batch}, {c}) "
+                     f"{spatial} -> {o}")
+            del x, w, b, wb, got, want
+        print(f"[conv_narrow] the {len(NARROW_CALLS)} routed calls of a forward of {batch}: "
+              f"kernel {summary.ms:.4f} ms ({summary.ms / batch:.4f} a window), F.conv3d "
+              f"{summary.library_ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
+              f"{summary.bound_ms:.4f} ms (kernel at "
+              f"{summary.bound_ms / summary.ms * 100:.1f}% of it)", flush=True)
+    print(f"[conv_narrow] worst relative error {worst:.3e} against the limit {NARROW_TOL:g}",
+          flush=True)
+    torch.cuda.empty_cache()
+    narrow_graph_replays()
+
+
+def narrow_graph_replays():
+    """One graphed micro-step of the bf16 flagship on the training patch and
+    two more calls (the update phase's capture, then a replay of the first
+    phase), in two instances built alike under ``deterministic()``: the
+    loss, gradients and parameters the same bits after every call, every
+    call a replay, and 5 conv_narrow launches in each pass through Python."""
+    images, labels, criterions = train_inputs()
+    runs = []
+    with deterministic():
+        for _ in range(2):
+            model = build_model().train()
+            state = engine.create_train_state(model, learning_rate=1e-4)
+            step = engine.make_train_step(model, criterions)
+            gen = dropout_generator()
+            launches, passes = conv_narrow.conv_narrow.launches, python_passes()
+            snaps = []
+            for _ in range(3):
+                loss, logs = step(state, images, labels, DYNAMIC_WEIGHT, gen)
+                snaps.append(step_snapshot(loss, logs, model))
+            done = python_passes()
+            runs.append((snaps, conv_narrow.conv_narrow.launches - launches,
+                         done[0] - passes[0], done[1] - passes[1]))
+            del model, state, step
+            torch.cuda.empty_cache()
+    (first, launches, passes, replays), (second, *_) = runs
+    same = [same_step(a, b) for a, b in zip(first, second)]
+    print(f"[conv_narrow] graphed micro-steps, two instances: the same bits after each of 3 "
+          f"calls {same}; {replays} replays, {passes} passes through Python, conv_narrow "
+          f"launched {launches}", flush=True)
+    if not all(same) or replays != 3 or launches != 5 * passes:
+        fail("2g: the graphed micro-steps through conv_narrow do not replay bit for bit")
+
+
 def phase_stack_vs_plain():
     gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
     summary = Summary()
@@ -1157,6 +1274,7 @@ COUNTED = {"linear_attention": fused.linear_attention,
            "conv_unit": cu.conv_unit,
            "fused_stack": fs.fused_transformer_stack,
            "conv_wgrad": conv_wgrad.depthwise_weight_grad,
+           "conv_narrow": conv_narrow.conv_narrow,
            "tap_sum": dot_probe.tap_sum,
            "row_offset_sum": rowoffset_probe.row_offset_sum,
            "inner_step": inner_probe.inner_step_packed,
@@ -1330,8 +1448,8 @@ def phase_fused_qkv(model, window):
     """4b: the default path's one QKV product against ``three_products``,
     same weights, on one window: held as phase 4 (upstream of the first ROI
     box within PRE_THRESHOLD_TOL in bf16 and f32, the f32 labels on
-    MIN_AGREEMENT of the voxels), 32 attention launches and no other
-    kernel's a window; the window's CUDA launches each way; then one f32
+    MIN_AGREEMENT of the voxels), 32 attention launches, 5 conv_narrow
+    launches in bf16 (none in f32) and no other kernel's a window; the window's CUDA launches each way; then one f32
     train step (TF32 off), one product against three, within TRAIN_TOL, 32
     forward and 32 backward attention launches."""
     state = model.state_dict()
@@ -1341,8 +1459,11 @@ def phase_fused_qkv(model, window):
         reset_launch_counts()
         got = pre_threshold(m, window)
         launches = launch_counts()
-        if launches != PER_WINDOW["default"]:
-            fail(f"4b: a {name} window launched {launches}, not {PER_WINDOW['default']}")
+        # an f32 model routes no convolution to conv_narrow
+        want = PER_WINDOW["default"] if dtype == torch.bfloat16 else dict(
+            PER_WINDOW["default"], conv_narrow=0)
+        if launches != want:
+            fail(f"4b: a {name} window launched {launches}, not {want}")
         with projection(False):
             want = pre_threshold(m, window)
         for what, a, b in zip(("ConnectBridge output", "mask_list[0]"), got, want):
@@ -1807,12 +1928,21 @@ def native_vs_numpy(shape):
     return min(times[0]), min(times[1])
 
 
-def train_launches(passes, eval_windows):
+def narrow_calls(classes):
+    """The flagship's forward's convolutions that route to conv_narrow at
+    the phases' depths: the final block (4 outputs a class) where it has at
+    most 8 outputs, and the four mask heads (one a class)."""
+    out = conv_narrow.MAX_OUT
+    return int(4 * classes <= out) + 4 * int(classes <= out)
+
+
+def train_launches(passes, eval_windows, classes=2):
     """The kernels' launches in a bf16 train3d run: each pass of the step's
     forward and backward through Python (the replays launch none there) and
     each eval window's forward."""
     per = times(PER_WINDOW["train"], passes)
     per["linear_attention"] += PER_WINDOW["default"]["linear_attention"] * eval_windows
+    per["conv_narrow"] = narrow_calls(classes) * (passes + eval_windows)
     return per
 
 
@@ -1825,11 +1955,13 @@ def check_cli_run(tag, out, multi_class=False):
     if out["state"]["step"] != steps or out["replays"] != steps:
         fail(f"{train_name} took {out['state']['step']} steps, {out['replays']} replayed, "
              f"not {steps}")
-    want = train_launches(out["passes"], out["eval_windows"])
+    classes = 3 if multi_class else 2
+    want = train_launches(out["passes"], out["eval_windows"], classes)
     if out["train_launches"] != want:
         fail(f"{train_name} launched {out['train_launches']}, not {want} ({out['passes']} "
              f"passes through Python for {steps} steps, and {out['eval_windows']} eval windows)")
-    want_infer = _per(linear_attention=32 * out["infer_chunks"])
+    want_infer = _per(linear_attention=32 * out["infer_chunks"],
+                      conv_narrow=narrow_calls(classes) * out["infer_chunks"])
     if out["infer_launches"] != want_infer:
         fail(f"{infer_name} launched {out['infer_launches']}, not {want_infer} "
              f"({out['infer_chunks']} window batches)")
@@ -1964,7 +2096,7 @@ def phase_multi_class_cli(train_ms):
     if monai["state"]["step"] != monai_steps or monai["replays"] != monai_steps:
         fail(f"train3d_monai_version took {monai['state']['step']} steps, {monai['replays']} "
              f"replayed, not {monai_steps}")
-    want = train_launches(monai["passes"], monai["eval_windows"])
+    want = train_launches(monai["passes"], monai["eval_windows"], classes=3)
     if monai["launches"] != want:
         fail(f"train3d_monai_version launched {monai['launches']}, not {want} "
              f"({monai['passes']} passes through Python for {monai_steps} steps, and "
@@ -2026,21 +2158,42 @@ def model_forward(model, window):
     return out, masks, seen.get("out")
 
 
+def routed_narrow(model, fn):
+    """(``fn()``, the calls in it of the model's ``Conv3d`` layers that
+    ``conv_narrow.routes`` takes)."""
+    calls = []
+
+    def count(mod, args):
+        calls.extend([1] * conv_narrow.routes(args[0], mod.weight, mod.stride, mod.padding,
+                                              mod.groups))
+
+    handles = [m.register_forward_pre_hook(count) for m in model.modules()
+               if isinstance(m, blocks.Conv3d)]
+    try:
+        return fn(), len(calls)
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
 def phase_other_models(window):
     """Each of the four models on one window in bf16 with the kernel: shape,
-    finite channel probabilities, exact launches; then kernel vs plain in
-    f32 on the same window."""
+    finite channel probabilities, exact launches (the attention kernel once a
+    layer, conv_narrow once a routed convolution: the bottle model's final
+    block alone); then kernel vs plain in f32 on the same window."""
     for name in OTHER_MODELS:
         model = build_other(name)
-        want = _per(linear_attention=attention_layers(model))
         model_forward(model, window)  # warm up
         _sync()
         reset_launch_counts()
         t0 = time.perf_counter()
-        out, masks, _ = model_forward(model, window)
+        (out, masks, _), narrow = routed_narrow(model, lambda: model_forward(model, window))
         _sync()
         ms = (time.perf_counter() - t0) * 1e3
         launches = launch_counts()
+        want = _per(linear_attention=attention_layers(model), conv_narrow=narrow)
+        if narrow < 1 or (name == "BottleTransUnet" and narrow != 1):
+            fail(f"{name}: {narrow} convolutions routed to conv_narrow")
         if tuple(out.shape) != (1, 2) + WINDOW[2:] or not torch.isfinite(out).all():
             fail(f"{name}: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
         sum_err = (out.sum(dim=1) - 1.0).abs().max().item()
@@ -2478,7 +2631,8 @@ def phase_remat(images, labels, criterions):
             remat, launches, passes, peak = flagship_step(images, labels, criterions)
         finally:
             blocks.REMAT = ""
-    want = times(_per(linear_attention=64, linear_attention_backward=32, conv_wgrad=3), passes)
+    want = times(_per(linear_attention=64, linear_attention_backward=32, conv_wgrad=3,
+                      conv_narrow=5), passes)
     if passes != 2 or launches != want:
         fail(f"the recompute step launched {launches} in {passes} passes, not {want} in 2 (a "
              f"warm-up and a capture)")
@@ -2728,6 +2882,7 @@ def main():
                  "fused_stack": phase_stack_vs_plain(),
                  "linear_attention_backward": phase_attention_backward_vs_plain()}
     phase_wgrad_vs_plain()
+    phase_narrow_vs_plain()
     # the cases hold the probes' inputs: drop them all before the model phases
     cases = probe_cases(probe_inputs())
     summaries.update(phase_probes_vs_plain(cases))

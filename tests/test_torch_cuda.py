@@ -27,6 +27,11 @@ Tolerances, each a share of the plain output's largest magnitude:
   order); bf16 3e-2 (the kernel rounds every product's operands to bf16, as
   the TPU kernel does; the plain version computes in f32 and rounds the
   tokens once a layer).
+* narrow-output convolution (``ops.conv_narrow``): 2^-7 of the plain
+  version's largest magnitude (the same bf16 operands, products summed in
+  f32 in another order, each side rounding its sum to bf16 once: one bf16
+  ulp is 2^-8 of a value); its gradients are cuDNN's own calls, equal to
+  the bit under cuDNN's deterministic algorithms.
 * depthwise weight gradient (``ops.conv_wgrad``): 1e-5 of the plain f32
   gradient's largest magnitude (both sum the same bf16 products in f32,
   over 240-9,216 voxels, in another order); its data and bias gradients
@@ -53,6 +58,7 @@ from lintransunet_tpu_torch.experiments import (
 )
 from lintransunet_tpu_torch import kernels
 from lintransunet_tpu_torch.kernels.launches import cuda_launches
+from lintransunet_tpu_torch.ops import conv_narrow as cn
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import conv_wgrad as cw
 from lintransunet_tpu_torch.ops import fused_stack as fs
@@ -995,3 +1001,121 @@ def test_depthwise_wgrad_rejects_what_it_does_not_take(cuda):
         cw.depthwise_weight_grad(x.float(), grad.float())
     with pytest.raises(ValueError):
         cw.depthwise_weight_grad(x, grad[:, :, :2])
+
+
+# (N, C, O, (H, W, D)): the narrow-output convolutions of a flagship window
+# batch and micro-batch (the final block, the mask heads of levels 0-3),
+# then ragged ones: H and W off the tiles, channels not a multiple of 16,
+# each output count, each depth the tiles take.
+NARROW_ROUTED = [(4, 16, 8, (256, 256, 32)), (4, 32, 2, (256, 256, 32)),
+                 (3, 64, 2, (128, 128, 32)), (3, 128, 2, (64, 64, 16)),
+                 (4, 256, 2, (32, 32, 16))]
+NARROW_RAGGED = [(1, 20, 5, (13, 9, 24)), (2, 16, 3, (7, 11, 64)), (1, 24, 8, (5, 6, 128)),
+                 (1, 8, 4, (3, 3, 8)), (3, 40, 7, (9, 10, 40)), (1, 17, 2, (6, 5, 48)),
+                 (2, 33, 1, (10, 3, 56)), (1, 5, 6, (4, 9, 96))]
+NARROW_TOL = 2 ** -7
+
+
+def _narrow_inputs(shape, device, weight_dtype=torch.float32, seed=0):
+    n, c, o, spatial = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((n, c) + spatial, generator=g).to(device, torch.bfloat16)
+    w = (torch.randn((o, c, 3, 3, 3), generator=g) / (c * 27) ** 0.5).to(device, weight_dtype)
+    b = torch.randn((o,), generator=g).to(device, torch.bfloat16)
+    return x, w, b
+
+
+@pytest.mark.parametrize("weight_dtype,bias", [(torch.float32, True), (torch.bfloat16, False)])
+@pytest.mark.parametrize("shape", NARROW_ROUTED + NARROW_RAGGED)
+def test_narrow_conv_matches_plain(cuda, shape, weight_dtype, bias):
+    x, w, b = _narrow_inputs(shape, cuda, weight_dtype)
+    b = b if bias else None
+    assert cn.routes(x, w, 1, 1, 1)
+    before = cn.conv_narrow.launches
+    got = cn.conv_narrow(x, w, b)
+    want = cn.conv_narrow_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert cn.conv_narrow.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= NARROW_TOL * want.float().abs().max().item(), err
+
+
+def test_narrow_conv_is_deterministic(cuda):
+    x, w, b = _narrow_inputs(NARROW_ROUTED[1], cuda)
+    first = cn.conv_narrow(x, w, b)
+    second = cn.conv_narrow(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_narrow_conv_reads_a_strided_input(cuda):
+    """A non-contiguous or misaligned input is copied first: the same bits."""
+    x, w, b = _narrow_inputs(NARROW_RAGGED[0], cuda)
+    want = cn.conv_narrow(x, w, b)
+    wider = torch.zeros(x.shape[:4] + (x.shape[4] + 8,), dtype=x.dtype, device=cuda)
+    wider[..., 1:x.shape[4] + 1] = x
+    got = cn.conv_narrow(wider[..., 1:x.shape[4] + 1], w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_narrow_conv_launches_conv_unit_narrow_kernels(cuda):
+    """Two launches a call (the packing, the convolution), each a kernel
+    named ``conv_unit_narrow...`` (which the benchmark's cuDNN reader leaves
+    out and its ``narrow_conv_ms`` readers count), and no cuDNN kernel."""
+    x, w, b = _narrow_inputs(NARROW_ROUTED[0], cuda)
+    seen = cuda_launches(lambda: cn.conv_narrow(x, w, b))
+    assert len(seen.launches) == 2
+    kernels = [r for r in seen.rows if not r.startswith(("Memcpy", "Memset"))]
+    assert kernels and all("conv_unit_narrow" in r for r in kernels), kernels
+
+
+@pytest.mark.parametrize("shape", [NARROW_ROUTED[0], NARROW_ROUTED[1], NARROW_RAGGED[6]])
+def test_routed_narrow_conv_keeps_cudnn_gradients(cuda, shape):
+    """``ops.conv3d`` on a routed convolution under grad: the forward is the
+    kernel's, the input, weight and bias gradients are F.conv3d's through
+    autograd, to the bit; under ``torch.inference_mode()`` it is the kernel
+    straight from the f32 weight, the same bits."""
+    from lintransunet_tpu_torch.ops import conv3d
+
+    x0, w0, _ = _narrow_inputs(shape, cuda)
+    b0 = torch.randn((shape[2],), generator=torch.Generator().manual_seed(5)).to(cuda)
+    g = torch.randn((shape[0], shape[2]) + shape[3], generator=torch.Generator().manual_seed(6)
+                    ).to(cuda, torch.bfloat16)
+    got, want = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for out, routed in ((got, True), (want, False)):
+            x = x0.detach().clone().requires_grad_()
+            w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+            if routed:
+                before = cn.conv_narrow.launches
+                y = conv3d(x, w, b, 1, 1, 1)
+                assert type(y.grad_fn).__name__ == "NarrowConv3dBackward"
+            else:
+                y = F.conv3d(x, w.to(x.dtype), b.to(x.dtype), 1, 1)
+            y.backward(g)
+            out.update(y=y.detach(), x=x.grad, w=w.grad, b=b.grad)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert cn.conv_narrow.launches == before + 1
+    assert torch.equal(got["y"], cn.conv_narrow(x0, w0.to(torch.bfloat16), b0.to(x0.dtype)))
+    for key in ("x", "w", "b"):
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+    with torch.inference_mode():
+        served = conv3d(x0, w0, b0, 1, 1, 1)
+    assert torch.equal(served, got["y"])
+
+
+def test_narrow_conv_rejects_what_it_does_not_take(cuda):
+    x, w, b = _narrow_inputs(NARROW_ROUTED[1], cuda)
+    with pytest.raises(ValueError):
+        cn.conv_narrow(x.float(), w, b)
+    with pytest.raises(ValueError):
+        cn.conv_narrow(x[..., :12], w, b)
+    with pytest.raises(ValueError):
+        cn.conv_narrow(x, torch.cat([w] * 5), None)
+    with pytest.raises(ValueError):
+        cn.conv_narrow(x, w, b.float())

@@ -15,7 +15,9 @@ the step's CPU path runs it.
 
 The model is a small bf16 ``MaskTransUnet`` whose level-3 ROI bridge and
 bottleneck run 256-channel positional encodings, so that its backward goes
-through the depthwise weight-gradient kernel too.
+through the depthwise weight-gradient kernel too, and whose final block,
+level 0-1 mask heads and gates go through the narrow-output convolution
+kernel.
 """
 
 import gc
@@ -30,7 +32,7 @@ import torch.multiprocessing as mp
 from lintransunet_tpu_torch import engine, parallel
 from lintransunet_tpu_torch.cli.common import get_criterion_list
 from lintransunet_tpu_torch.engine.train import _with_grads
-from lintransunet_tpu_torch.ops import conv_wgrad
+from lintransunet_tpu_torch.ops import conv_narrow, conv_wgrad
 from lintransunet_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -115,6 +117,7 @@ def test_graphed_micro_steps_match_eager(cuda):
         _, eager, eager_step = _setup(cuda)
         gens = [torch.Generator(device=cuda).manual_seed(3) for _ in range(2)]
         replayed, launches = profiling.counts["step.replayed"], conv_wgrad.depthwise_weight_grad.launches
+        narrow = conv_narrow.conv_narrow.launches
         losses = []
         for x in images:
             loss, logs = step(graphed, x, labels, torch.tensor(WEIGHTS, device=cuda), gens[0])
@@ -126,6 +129,7 @@ def test_graphed_micro_steps_match_eager(cuda):
     assert profiling.counts["step.replayed"] == replayed + 4
     assert len(step.graphs.captured) == 2
     assert conv_wgrad.depthwise_weight_grad.launches > launches
+    assert conv_narrow.conv_narrow.launches > narrow
     assert len({float(v) for v in losses}) == 4
     assert torch.equal(gens[0].get_state(), gens[1].get_state())
 
