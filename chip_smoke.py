@@ -12,76 +12,20 @@ last line):
    instance of ``taps_fold``, ``taps_fold_weights`` and ``inner_taps``, with
    their registers and spills on a line of their own), and the bf16 stack
    kernels' grid, shared memory and blocks per SM;
-2. kernel vs plain, each kernel against its plain PyTorch version at the
-   shapes the main paths give it, in f32 (TF32 off) and bf16, timed with
-   CUDA events in turns plain, kernel, kernel, plain (the attention kernels'
-   f32 cases held against the plain version computed in f64 on the same
-   inputs: at millions of tokens the f32 plain version's own summation error
-   passes TOL), beside its bound (the
-   least time the card could take: the larger of the compulsory bytes at
-   3.35 TB/s and the operations at 989 TFLOP/s in bf16, 67 TFLOP/s in f32):
-   a. linear attention at the four attention shapes of a window in the
-      head-split layout (the view of a (1, N, BH*d) projection; these calls
-      make the kernels line), the same at batch 2 (a served
-      volume's two windows in one batch, as phase 10 serves them), then
-      contiguous at the same shapes plus a ragged and a one-token case,
-      then the head widths the other models of ``Model_Dict`` add on a
-      window in the head-split layout (``SkipTransUnet``'s d = 2, 4, 8, 16 at
-      4,194,304 to 32,768 tokens, ``MaskSkipTransUnet``'s d = 16 calls),
-      with their per-window sums, then the model's layout, the fused QKV
-      projection's (the three thirds of one (1, N, 3*BH*d) projection, as
-      ``MultiheadLinearAttention`` passes them), at the four shapes, timed
-      beside the head-split layout; each case also prints one call's
-      CUDA launches (the host's ``cudaLaunch*`` calls under
-      ``torch.profiler``, ``kernels.launches``) and fails above two;
-   b. the conv unit at the seven units of a window of the fused
-      configuration, with ``F.conv3d`` alone (cuDNN) on the same input and
-      weights timed as a yardstick: bf16 as the model runs it, f32 with
-      ``compute_dtype=float32``, and f32 activations with the default bf16
-      operands (what an f32 fused model runs);
-   c. the transformer stack at the four token stacks of a window, one and
-      seven layers, with its executed TFLOP/s and share of its bound (no
-      single PyTorch call computes a stack);
-   d. the linear-attention backward likewise at the four attention shapes
-      of the training patch, in the head-split layout at batch 1 and at batch 3
-      (train3d's default ``--batch_size``) and then contiguous, plus a
-      ragged and a one-token case and the other models' head widths as in
-      a, and the model's fused QKV layout at the four shapes (dq, dk and dv written
-      into the thirds of one (1, N, 3*BH*d) buffer), with one call's CUDA
-      launches (no single PyTorch call computes it);
-   e. the six conv probes (``lintransunet_tpu_torch/experiments``, the H100
-      counterparts of the TPU probes under ``experiments/``) at their TPU
-      probes' main shapes in bf16 (``conv3d_cl_rows`` also in f32), beside
-      the library call that computes the same function where there is one
-      (``einsum``; for the row-offset probe's B and C ``F.conv1d`` with
-      dilation on the taps folded per offset, the fold inside the call;
-      ``F.conv3d`` in ``channels_last_3d``; ``torch.var_mean``), plain,
-      kernel and library call timed alike (warmed, then 10-call windows in
-      turns plain, kernel, library, library, kernel, plain), each with the
-      kernel's and the library call's TFLOP/s and the kernel's share of its
-      bound; the inner-loop probe's three strategies beside ``F.conv3d`` on
-      the same tensor, a yardstick that computes the same function but at
-      the wrap columns (not the kernels line's library call); the tap sums
-      and the inner-loop probe also print their card time (the calls queued
-      behind a sleep) beside their events;
-   f. the depthwise weight-gradient kernel (``ops.conv_wgrad``) at the
-      three shapes that the flagship's training patch routes to it, in the
-      PEG's channels-last layout, against the plain f32 gradient within
-      WGRAD_TOL, timed beside cuDNN's bf16 weight gradient of the same
-      call (``aten::convolution_backward``) and its bound;
-   g. the narrow-output convolution kernel (``ops.conv_narrow``) at the
-      five calls that a flagship forward routes to it (the bottle model's
-      final block is the first), at the serve cells' window batch (4) and
-      the train cells' micro-batch (3), against the plain f32 version
-      within NARROW_TOL, timed beside ``F.conv3d`` (cuDNN) on the same
-      operands and its bound; then one graphed micro-step of the bf16
-      flagship and two replays, in two instances built alike under
-      ``deterministic()``, bit for bit after each call;
+2. each kernel's wrapper against its plain version on the card, in this
+   process: the card tests chosen by KERNEL_TEST_NAMES
+   (``tests/test_torch_cuda.py``: the attention calls of the window and the
+   training patch at the serve and train batches, in the model's layouts,
+   and at the other models' head widths; the fused build's conv units and
+   token stacks; the routed convolutions at both batches; each probe's
+   entry point at its main shape) and the bf16 flagship's graphed
+   micro-steps against the eager one (``tests/test_torch_cuda_graphs.py``);
+   the tests own every shape and tolerance, and a failure fails the script;
 3. the default path at full width: the flagship ``MaskTransUnet`` (random
    weights from a seed, f32 parameters, bf16 compute) behind
    ``make_eval_runner`` answers three 512 x 512 x 144 volumes (5 windows
    each); the attention kernel must launch 32 times a window, conv_narrow 5
-   times (phase 2g's calls) and the other kernels never;
+   times (``NARROW_CALLS``) and the other kernels never;
 4. kernel vs plain attention end to end on one window of the default path:
    in bf16 and f32 the ConnectBridge output and the coarsest mask (both
    upstream of the first ROI box threshold) within PRE_THRESHOLD_TOL; the
@@ -127,10 +71,6 @@ last line):
    the step's differences are printed, and the ConnectBridge gradients of
    the coarsest deep-supervision term alone (upstream of the first ROI box)
    are held within UPSTREAM_GRAD_TOL;
-9. the probes' path: each probe's entry point called once at its main
-   shape, through the wrapper a user of ``python -m
-   lintransunet_tpu_torch.experiments.<probe>`` calls; each launches its
-   kernel exactly once and gives finite output of the expected shape;
 10. the binary CLIs at full width, as a user runs them: a synthetic
     workspace of four 80 x 512 x 512 (D, H, W) HU volumes with
     pancreas-sized labels and a 2-fold split by ``cli.split_dataset``; then
@@ -233,12 +173,9 @@ last line):
     c. ``entry.dryrun_multichip(2)``: two gloo ranks sharing the card, bf16,
        the JAX dry run's sequence with every check held in the ranks.
 
-The last two lines are a JSON summary of the kernels (bf16; the forward
-kernels' per-window sums over their serving calls, the backward's per-step
-sum over its training calls, each probe's one call at its main shape; the
-attention kernels' ``cli_launches`` are phase 10's ``train3d`` counts, and
-their ``packed_qkv`` the same sums on the model's fused QKV layout) and
-``{"ok": true, "device": {...}}``.
+The numbering skips 9, whose probes' entry points phase 2 runs; each
+kernel's time is the benchmark's (``portbench``'s per-layer metrics). The
+last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of jax.
 """
 
@@ -259,7 +196,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
-import torch.nn.functional as F
 
 from lintransunet_tpu_torch import data, engine, kernels, native, parallel
 from lintransunet_tpu_torch import entry as entry_points
@@ -285,16 +221,7 @@ from lintransunet_tpu_torch.experiments import (
     roofline,
     rowoffset_probe,
 )
-from lintransunet_tpu_torch.experiments.common import (
-    HBM_BYTES_PER_S,
-    PEAK_FLOPS,
-    bound,
-    card,
-    card_line,
-    card_ms,
-    cuda_ms,
-    in_turns,
-)
+from lintransunet_tpu_torch.experiments.common import card
 from lintransunet_tpu_torch.kernels.launches import cuda_launches
 from lintransunet_tpu_torch.losses import binary as binary_losses
 from lintransunet_tpu_torch.models import blocks
@@ -323,47 +250,56 @@ KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "conv_wgrad", "c
 # on a line each: (library, kernel)
 PROBE_MMA_KERNELS = (("probe_conv", "conv_mma"), ("probe_taps", "taps_fold"),
                      ("probe_taps", "taps_fold_weights"), ("probe_taps", "inner_taps"))
-# The probes: name -> (kernel source, the TPU kernel's pallas_call it replaces)
-PROBES = {"tap_sum": ("probe_taps", "experiments/pallas_dot_probe.py:41"),
-          "row_offset_sum": ("probe_taps", "experiments/pallas_rowoffset_probe.py:53"),
-          "inner_step": ("probe_taps", "experiments/pallas_inner_probe.py:226"),
-          "conv3d_cl": ("probe_conv", "experiments/pallas_conv_prototype.py:90"),
-          "conv3d_cl_rows": ("probe_conv", "experiments/pallas_conv_retired.py:149"),
-          "lane_sums": ("probe_stats", "experiments/in_stats_probe.py:90")}
+
+
+# The kernel wrappers whose calls the phases count: the port's kernels and
+# the probes (on no path: every phase holds them at 0)
+COUNTED = {"linear_attention": fused.linear_attention,
+           "linear_attention_backward": fused.linear_attention_backward,
+           "conv_unit": cu.conv_unit,
+           "fused_stack": fs.fused_transformer_stack,
+           "conv_wgrad": conv_wgrad.depthwise_weight_grad,
+           "conv_narrow": conv_narrow.conv_narrow,
+           "tap_sum": dot_probe.tap_sum,
+           "row_offset_sum": rowoffset_probe.row_offset_sum,
+           "inner_step": inner_probe.inner_step_packed,
+           "conv3d_cl": conv_prototype.conv3d_cl,
+           "conv3d_cl_rows": conv_retired.conv3d_cl_rows,
+           "lane_sums": in_stats_probe.lane_sums}
 
 
 def _per(**counts):
-    names = ("linear_attention", "linear_attention_backward", "conv_unit",
-             "fused_stack", "conv_wgrad", "conv_narrow") + tuple(PROBES)
-    return {name: counts.get(name, 0) for name in names}
+    return {name: counts.get(name, 0) for name in COUNTED}
 
 
 def times(per, n):
     return {name: count * n for name, count in per.items()}
 
 
-# launches per window (serving), run (probes), or pass of the train step's
-# forward and backward through Python ("train": bf16, whose three 256-channel
-# PEG weight gradients route to conv_wgrad; "train_f32": f32, which routes
+# (C, O, (H, W, D)) of the five convolutions of a flagship forward on a
+# 32-deep window that route to conv_narrow: the final block (the bottle
+# model's one) and the mask heads of levels 0-3
+NARROW_CALLS = [(16, 8, (256, 256, 32)), (32, 2, (256, 256, 32)), (64, 2, (128, 128, 32)),
+                (128, 2, (64, 64, 16)), (256, 2, (32, 32, 16))]
+# launches per window (serving) or pass of the train step's forward and
+# backward through Python ("train": bf16, whose three 256-channel PEG
+# weight gradients route to conv_wgrad; "train_f32": f32, which routes
 # none). Every bf16 flagship forward at the phases' depths (32, 64) routes
-# NARROW_CALLS' five convolutions to conv_narrow. On the card a micro-step
-# is a graph replay: its kernels launch without Python, as the pass that
-# captured them launched them, and the wrappers' counters count the passes
-# alone (python_passes)
-PER_WINDOW = {"default": _per(linear_attention=32, conv_narrow=5),
-              "fused": _per(conv_unit=7, fused_stack=8, conv_narrow=5),
+# NARROW_CALLS to conv_narrow. On the card a micro-step is a graph replay:
+# its kernels launch without Python, as the pass that captured them
+# launched them, and the wrappers' counters count the passes alone
+# (python_passes)
+PER_WINDOW = {"default": _per(linear_attention=32, conv_narrow=len(NARROW_CALLS)),
+              "fused": _per(conv_unit=7, fused_stack=8, conv_narrow=len(NARROW_CALLS)),
               "train": _per(linear_attention=32, linear_attention_backward=32, conv_wgrad=3,
-                            conv_narrow=5),
-              "train_f32": _per(linear_attention=32, linear_attention_backward=32),
-              "probes": _per(**{name: 1 for name in PROBES})}
+                            conv_narrow=len(NARROW_CALLS)),
+              "train_f32": _per(linear_attention=32, linear_attention_backward=32)}
 # (BH, N, d) of the window's attention calls: bottleneck, levels 3, 2, 1
 MAIN_SHAPES = [(8, 4096, 32), (8, 2160, 32), (8, 5376, 32), (4, 28704, 32)]
 # the same on the 512 x 512 x 32 training patch (half the window's depth)
 TRAIN_SHAPES = [(8, 2048, 32), (8, 1080, 32), (8, 2688, 32), (4, 14352, 32)]
-# batches above 1 that the CLIs give the attention kernels: a served volume's
-# windows in one batch (phase 10: 2 windows, sw_batch_size 4) and train3d's
-# default --batch_size of frames per step
-SERVE_BATCH, TRAIN_BATCH = 2, 3
+# The window's four token stacks (N, C) in the fused configuration
+STACK_SHAPES = [(4096, 256), (2160, 256), (5376, 256), (28704, 128)]
 PATCH = (1, 1, 512, 512, 32)
 LABEL_BOX = (slice(200, 320), slice(220, 300), slice(8, 24))  # bench.py:189-190
 TRAIN_STEPS = 5
@@ -371,38 +307,6 @@ TRAIN_STEPS = 5
 DYNAMIC_WEIGHT = engine.get_dynamic_weight(
     epochs=1, T=12.0, warmup_step=10, weight_list=(0.05, 0.05, 0.1, 0.1, 1.0),
     initial_weight=(0.1, 0.2, 0.3, 0.4, 1.0), final_weight=(2.0, 1.5, 1.0, 1.0, 1.0))[0]
-EXTRA_SHAPES = [(8, 300, 32), (8, 1, 32)]
-# (BH, N, d) of the head widths the other models of Model_Dict add on a
-# 512 x 512 x 64 window, each 4 layers: SkipTransUnet's skip bridges (levels
-# 0-3; its bottleneck is MAIN_SHAPES[0]) and MaskSkipTransUnet's d = 16 calls
-# (bottleneck, then ROI levels 3, 2, 1, 0)
-WIDTH_SHAPES = {"SkipTransUnet": [(8, 4194304, 2), (8, 1048576, 4), (8, 131072, 8),
-                                  (8, 32768, 16)],
-                "MaskSkipTransUnet": [(16, 4096, 16), (8, 32480, 16), (4, 22272, 16),
-                                      (2, 27968, 16), (1, 15776, 16)]}
-MAX_LAUNCHES = 2  # CUDA launches of one attention call, forward or backward
-# The window's seven conv units in the fused configuration:
-# (name, Ca, Cb, O, (H, W, D), prologue affine on xa)
-CONV_SHAPES = [
-    ("encoder input block", 4, 0, 16, (256, 256, 64), False),
-    ("encoder block 0 conv1", 16, 0, 16, (256, 256, 64), False),
-    ("encoder block 1 conv1", 32, 0, 32, (128, 128, 64), False),
-    ("decoder level 1 conv1", 64, 0, 32, (128, 128, 64), False),
-    ("decoder level 1 conv2", 32, 32, 32, (128, 128, 64), True),
-    ("decoder level 0 conv1", 32, 0, 16, (256, 256, 64), False),
-    ("decoder level 0 conv2", 16, 16, 16, (256, 256, 64), True),
-]
-# The window's four token stacks (N, C); each runs as 1 + 7 layers
-STACK_SHAPES = [(4096, 256), (2160, 256), (5376, 256), (28704, 128)]
-# max |kernel - plain| <= TOL * max |plain|. f32: the same f32 math summed
-# in another order. bf16: each side rounds its f32 result to bf16 once, at
-# places that can differ by a bf16 ulp (2^-8 relative); conv statistics are
-# sums of outputs that can sit one ulp apart; the stack's kernel rounds
-# every product's operands to bf16 (as the TPU kernel), its plain version
-# computes in f32 (measured on an H100: 1.0e-2 at seven layers).
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-CONV_STATS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
-STACK_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 # max |kernel - plain| <= tol * max |plain| for the two builds' ConnectBridge
 # output and mask_list[0]. bf16: the kernel's few-ulp differences carried
 # through 8 post-LN layers, one upsample and the mask conv (measured on an
@@ -435,25 +339,6 @@ TRAIN_TOL = {"loss": 1e-5, "grad": 5e-2, "grad_median": 2e-3}
 # alone, which flows through nothing downstream of the first ROI box.
 UPSTREAM_GRAD_TOL = 5e-2
 MIN_AGREEMENT = 0.999
-ITERS = 10
-# 2f: (N, C, S1, S2, S3) of the depthwise convolutions whose weight gradient
-# the flagship's training patch routes to conv_wgrad, and the kernel's
-# tolerance against the plain f32 gradient, of its largest magnitude: both
-# sum the same bf16 products in f32, over 1,080-2,688 voxels a batch
-# element, in another order
-WGRAD_SHAPES = [(3, 256, 8, 24, 14), (3, 256, 8, 16, 16), (3, 256, 8, 15, 9)]
-WGRAD_TOL = 1e-5
-# 2g: (C, O, (H, W, D)) of the five convolutions of a flagship forward on a
-# 32-deep window that route to conv_narrow: the final block (the bottle
-# model's one) and the mask heads of levels 0-3; at the serve cells' window
-# batch and the train cells' micro-batch
-NARROW_CALLS = [(16, 8, (256, 256, 32)), (32, 2, (256, 256, 32)), (64, 2, (128, 128, 32)),
-                (128, 2, (64, 64, 16)), (256, 2, (32, 32, 16))]
-NARROW_BATCHES = (4, 3)
-# max |kernel - plain| <= NARROW_TOL * max |plain|: the same bf16 operands,
-# products summed in f32 in another order, each side rounding its f32 sum
-# to bf16 once (one bf16 ulp is 2^-8 of a value)
-NARROW_TOL = 2 ** -7
 
 
 def fail(msg):
@@ -466,47 +351,6 @@ def rel_err(got, want):
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     return err, (err / scale if scale else err)
-
-
-def pkkp(plain, kern, iters=ITERS):
-    """(kernel ms, plain ms): warm, then plain, kernel, kernel, plain."""
-    for fn in (kern, plain):
-        cuda_ms(fn, 2, warmup=0)
-    p1, k1, k2, p2 = (cuda_ms(fn, iters, warmup=0) for fn in (plain, kern, kern, plain))
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-class Summary:
-    """Per-window sums of one kernel's main-path calls in bf16."""
-
-    def __init__(self):
-        self.ms = self.plain_ms = self.bound_ms = self.t_ops = self.t_bytes = 0.0
-        self.library_ms = None
-        self.max_abs_err = 0.0
-        self.other_models = None
-        self.packed_qkv = None
-
-    def add(self, dtype, calls, ms, plain_ms, flops, nbytes, library_ms=None):
-        if dtype != torch.bfloat16:
-            return
-        self.ms += calls * ms
-        self.plain_ms += calls * plain_ms
-        self.bound_ms += calls * bound(flops, nbytes, dtype)[0]
-        self.t_ops += calls * flops / PEAK_FLOPS[dtype]
-        self.t_bytes += calls * nbytes / HBM_BYTES_PER_S
-        if library_ms is not None:
-            self.library_ms = (self.library_ms or 0.0) + calls * library_ms
-
-    def entry(self, launches):
-        out = {"launches": launches, "max_abs_err": self.max_abs_err,
-               "ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-               "bound_by": "operations" if self.t_ops >= self.t_bytes else "bytes",
-               "library_ms": self.library_ms}
-        if self.other_models:
-            out["other_models"] = self.other_models
-        if self.packed_qkv:
-            out["packed_qkv"] = self.packed_qkv
-        return out
 
 
 def kernel_ptxas(name, kernel):
@@ -562,725 +406,31 @@ def phase_card():
                   flush=True)
 
 
-def attention_inputs(count, bh, n, d, layout, dtype, gen, batch=1):
-    """``count`` (batch, BH, N, d) tensors on the card: contiguous, or
-    (``heads``) the head-split view of a contiguous (batch, N, BH*d)
-    projection, the layout the model passes."""
-    if layout == "heads":
-        return [torch.randn((batch, n, bh * d), generator=gen).to("cuda", dtype)
-                .view(batch, n, bh, d).transpose(1, 2) for _ in range(count)]
-    return [torch.randn((batch, bh, n, d), generator=gen).to("cuda", dtype)
-            for _ in range(count)]
+# Phase 2: the card tests that hold each kernel's wrapper against its plain
+# version at the model's shapes, and the bf16 flagship's graphed micro-steps,
+# chosen by name (a new kernel's ``*_matches_plain`` test joins unlisted)
+KERNEL_TESTS = ("tests/test_torch_cuda.py",
+                "tests/test_torch_cuda_graphs.py::test_graphed_micro_steps_match_eager[flagship]")
+KERNEL_TEST_NAMES = ("matches_plain or head_split or packed_qkv or narrow_heads "
+                     "or bf16_operands or micro_steps_match_eager")
 
 
-def attention_cases(shapes, batch):
-    """(shape, layout, batch) of phases 2a and 2d: the main shapes in the
-    head-split layout at batch 1, then at ``batch`` (the windows of a served
-    volume go through the model together, and a train step takes
-    ``--batch_size`` frames: phase 10's served path runs at 2, train3d's
-    default batch size is 3), then contiguous at the main shapes and the
-    ragged and one-token cases, then the other models' head widths in the
-    head-split layout."""
-    return ([(shape, "heads", 1) for shape in shapes]
-            + [(shape, "heads", batch) for shape in shapes]
-            + [(shape, "contiguous", 1) for shape in shapes + EXTRA_SHAPES]
-            + [(shape, "heads", 1) for model in WIDTH_SHAPES for shape in WIDTH_SHAPES[model]])
+def phase_kernels():
+    import pytest
 
-
-def _width_summary(summaries, shape, layout, batch):
-    """The other model's Summary that a (shape, layout, batch) case adds to."""
-    for model, shapes in WIDTH_SHAPES.items():
-        if layout == "heads" and batch == 1 and shape in shapes:
-            return summaries[model]
-    return None
-
-
-def width_summaries(summaries, tag, direction):
-    """Print the other models' per-window sums of their attention calls
-    (4 layers a shape) in bf16; returns {model: {ms, plain_ms, bound_ms}}."""
-    out = {}
-    for model, summary in summaries.items():
-        out[model] = {"ms": summary.ms, "plain_ms": summary.plain_ms,
-                      "bound_ms": summary.bound_ms}
-        print(f"[{tag}] {model}'s {4 * len(WIDTH_SHAPES[model])} bf16 {direction} calls "
-              f"at d = {sorted({s[2] for s in WIDTH_SHAPES[model]})} on a window: kernel "
-              f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
-              f"{summary.bound_ms:.4f} ms", flush=True)
-    return out
-
-
-def exact(*tensors):
-    """The inputs the attention kernels are held against: f32 ones in f64,
-    so that the plain version sums exactly enough. In f32 the plain
-    version's own summation error over a call's tokens grows with N: at
-    (8, 4,194,304, 2) it is 6.4e-5 of max |out| against the f64 answer, the
-    kernel's 4.5e-6 (PERF.md, PR 14). bf16 ones as they are: the plain
-    version computes in f32 and rounds once, as the kernel does."""
-    if tensors[0].dtype != torch.float32:
-        return tensors
-    return [t.double() for t in tensors]
-
-
-def check_launches(tag, label, found, calls=3):
-    """Print one call's CUDA launches (of ``calls`` profiled) and the device
-    rows kept; fail unless there are one or two launches a call and no more
-    rows than launches."""
-    launches, _, rows = found
-    per_call, rows_per_call = len(launches) / calls, len(rows) / calls
-    short = sorted({name.replace("(anonymous namespace)::", "").replace("void ", "", 1)
-                    .split("(")[0].strip() for name in rows})
-    print(f"[{tag}] {label}: CUDA launches per call {per_call:g} (device rows kept "
-          f"{rows_per_call:g}: {short})", flush=True)
-    if not 1 <= per_call <= MAX_LAUNCHES or rows_per_call > per_call:
-        fail(f"{tag} {label}: a call launched {per_call:g} CUDA kernels ({rows_per_call:g} "
-             f"device rows), not 1 to {MAX_LAUNCHES}")
-
-
-def phase_attention_vs_plain():
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-    summary = Summary()
-    widths = {model: Summary() for model in WIDTH_SHAPES}
-    for dtype in (torch.float32, torch.bfloat16):
-        for (bh, n, d), layout, batch in attention_cases(MAIN_SHAPES, SERVE_BATCH):
-            q, k, v = attention_inputs(3, bh, n, d, layout, dtype, gen, batch)
-            got = fused.linear_attention(q, k, v)
-            want = fused.linear_attention_reference(*exact(q, k, v))
-            torch.cuda.synchronize()
-            if got.dtype != dtype or got.shape != want.shape:
-                fail(f"kernel output {got.dtype} {tuple(got.shape)}")
-            err, rel = rel_err(got, want)
-            summary.max_abs_err = max(summary.max_abs_err, err)
-            ms, plain_ms = pkkp(lambda: fused.linear_attention_reference(q, k, v),
-                                lambda: fused.linear_attention(q, k, v), 20)
-            nbytes = 4 * batch * bh * n * d * q.element_size()
-            flops = 4 * batch * bh * n * d * d
-            bound_ms, bound_by = bound(flops, nbytes, dtype)
-            other = _width_summary(widths, (bh, n, d), layout, batch)
-            if other is not None:
-                other.add(dtype, 4, ms, plain_ms, flops, nbytes)
-            elif layout == "heads" and batch == 1:
-                summary.add(dtype, 8, ms, plain_ms, flops, nbytes)
-            ok = rel <= TOL[dtype]
-            label = f"{str(dtype)[6:]:8s} {layout:10s} B={batch} BH={bh} N={n} d={d}"
-            print(f"[attention] {label}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
-                  f"{TOL[dtype]:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-                  f"{bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'TOO FAR'}",
-                  flush=True)
-            if not ok:
-                fail(f"kernel disagrees with plain at {dtype} {layout} {(batch, bh, n, d)}")
-            check_launches("attention", label,
-                           cuda_launches(lambda: fused.linear_attention(q, k, v), 3))
-    print(f"[attention] one window's 32 bf16 calls (the head-split layout): kernel "
-          f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
-          f"{summary.bound_ms:.4f} ms; no single PyTorch call computes linear attention "
-          f"(scaled_dot_product_attention is softmax attention)", flush=True)
-    summary.other_models = width_summaries(widths, "attention", "forward")
-    summary.packed_qkv = packed_qkv_cases("attention", MAIN_SHAPES, False, gen)
-    return summary
-
-
-def packed_qkv_cases(tag, shapes, backward, gen):
-    """2a / 2d, the fused QKV projection's layout: the kernels on the three
-    thirds of one (1, N, 3*BH*d) projection (``split_qkv``: head stride d,
-    token stride 3*BH*d) at ``shapes``, in f32 (against the plain version
-    in f64) and bf16 at TOL, with one call's launches (at most two), timed
-    against the plain version and against the kernel on the head-split
-    layout of the same shape (in turns), by CUDA events (host-bound at these
-    sizes) and in card time (calls queued behind a sleep,
-    ``experiments.common.card_ms``). The backward writes dq, dk and dv
-    into the thirds of one (1, N, 3*BH*d) buffer, as the model's
-    ``PackedLinearAttentionFunction`` does. Returns the bf16 sums over a
-    window's (or a step's) 32 calls: {ms, heads_ms, plain_ms, bound_ms,
-    card_ms, heads_card_ms}."""
-    sums = {"ms": 0.0, "heads_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "card_ms": 0.0,
-            "heads_card_ms": 0.0}
-    reference = (fused.linear_attention_backward_reference if backward
-                 else fused.linear_attention_reference)
-    for dtype in (torch.float32, torch.bfloat16):
-        for bh, n, d in shapes:
-            qkv = torch.randn((1, n, 3 * bh * d), generator=gen).to("cuda", dtype)
-            q, k, v = fused.split_qkv(qkv, bh)
-            heads = attention_inputs(3, bh, n, d, "heads", dtype, gen)
-            if backward:
-                g = attention_inputs(1, bh, n, d, "heads", dtype, gen)[0]
-                buffer = torch.empty_like(qkv)
-                thirds = fused.split_qkv(buffer, bh)
-                kern = lambda: fused.linear_attention_backward(q, k, v, g, out=thirds)  # noqa: E731
-                heads_kern = lambda: fused.linear_attention_backward(*heads, g)  # noqa: E731
-                plain = lambda: reference(q, k, v, g)  # noqa: E731
-                want = reference(*exact(q, k, v, g))
-            else:
-                kern = lambda: fused.linear_attention_qkv(qkv, bh)  # noqa: E731
-                heads_kern = lambda: fused.linear_attention(*heads)  # noqa: E731
-                plain = lambda: reference(q, k, v)  # noqa: E731
-                want = reference(*exact(q, k, v))
-            got = kern()
-            torch.cuda.synchronize()
-            if backward:
-                if [t.data_ptr() for t in got] != [t.data_ptr() for t in thirds]:
-                    fail(f"{tag} packed QKV: the gradients are not the buffer's thirds")
-                err, rel = backward_errors(got, want)
-                nbytes, flops = 7 * bh * n * d * qkv.element_size(), 10 * bh * n * d * d
-            else:
-                if got.shape != (1, bh, n, d) or got.dtype != dtype:
-                    fail(f"{tag} packed QKV output {got.dtype} {tuple(got.shape)}")
-                err, rel = rel_err(got, want)
-                nbytes, flops = 4 * bh * n * d * qkv.element_size(), 4 * bh * n * d * d
-            ms, plain_ms = pkkp(plain, kern, 20)
-            ms2, heads_ms = pkkp(heads_kern, kern, 20)
-            card1, heads1, heads2, card2 = (card_ms(fn) for fn in
-                                            (kern, heads_kern, heads_kern, kern))
-            card_t, heads_card = (card1 + card2) / 2, (heads1 + heads2) / 2
-            bound_ms, bound_by = bound(flops, nbytes, dtype)
-            if dtype == torch.bfloat16:
-                for key, value in (("ms", (ms + ms2) / 2), ("heads_ms", heads_ms),
-                                   ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                                   ("card_ms", card_t), ("heads_card_ms", heads_card)):
-                    sums[key] += 8 * value
-            ok = rel <= TOL[dtype]
-            label = f"{str(dtype)[6:]:8s} packed QKV B=1 BH={bh} N={n} d={d}"
-            print(f"[{tag}] {label}: max_abs_err {err:.3e} rel {rel:.3e} (tol {TOL[dtype]:g}) "
-                  f"kernel {ms:.4f} ms ({ms2:.4f} beside the head-split layout's "
-                  f"{heads_ms:.4f}; card time {card_t:.4f} against {heads_card:.4f}) plain "
-                  f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
-                  f"{'ok' if ok else 'TOO FAR'}", flush=True)
-            if not ok:
-                fail(f"{tag}: the kernel disagrees with plain on the packed QKV layout at "
-                     f"{dtype} {(bh, n, d)}")
-            check_launches(tag, label, cuda_launches(kern, 3))
-    print(f"[{tag}] one {'step' if backward else 'window'}'s 32 bf16 calls on the packed QKV "
-          f"layout: kernel {sums['ms']:.4f} ms, on the head-split layout {sums['heads_ms']:.4f} "
-          f"ms (card time {sums['card_ms']:.4f} against {sums['heads_card_ms']:.4f} ms), plain "
-          f"{sums['plain_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms", flush=True)
-    return sums
-
-
-def phase_conv_vs_plain():
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
-    summary = Summary()
-    # (activation dtype, operand dtype): f32 throughout, the bf16 main path,
-    # and f32 activations with the default bf16 operands
-    for dtype, compute in ((torch.float32, torch.float32),
-                           (torch.bfloat16, torch.bfloat16),
-                           (torch.float32, torch.bfloat16)):
-        for name, ca, cb, o, spatial, affine in CONV_SHAPES:
-            rnd = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
-            w = (rnd(o, ca + cb, 3, 3, 3) / (27 * (ca + cb)) ** 0.5).to("cuda")
-            xa = rnd(1, ca, *spatial).to("cuda", dtype)
-            kw = dict(bias=(rnd(o) * 0.1).to("cuda"), compute_dtype=compute)
-            if cb:
-                kw.update(xb=rnd(1, cb, *spatial).to("cuda", dtype), wb=w[:, ca:])
-            if affine:
-                kw["affine_a"] = torch.stack([rnd(1, ca).abs() + 0.5, rnd(1, ca)],
-                                             dim=1).to("cuda")
-            wa = w[:, :ca]
-            got = cu.conv_unit(xa, wa, **kw)
-            want = cu.conv_unit_reference(xa, wa, **kw)
-            torch.cuda.synchronize()
-            if got[0].dtype != dtype or got[0].shape != want[0].shape:
-                fail(f"conv unit output {got[0].dtype} {tuple(got[0].shape)}")
-            err, rel = rel_err(got[0], want[0])
-            serr, srel = rel_err(got[1], want[1])
-            summary.max_abs_err = max(summary.max_abs_err, err)
-            ms, plain_ms = pkkp(lambda: cu.conv_unit_reference(xa, wa, **kw),
-                                lambda: cu.conv_unit(xa, wa, **kw))
-            x_cat = torch.cat([xa, kw["xb"]], dim=1) if cb else xa
-            w_dt, b_dt = w.to(dtype), kw["bias"].to(dtype)
-            # warmed first: cuDNN picks its algorithm on the first call
-            library_ms = cuda_ms(lambda: F.conv3d(x_cat, w_dt, b_dt, 1, 1), ITERS, 2)
-            voxels = spatial[0] * spatial[1] * spatial[2]
-            flops = 2 * voxels * o * 27 * (ca + cb)
-            nbytes = (xa.element_size() * voxels * (ca + cb + o)
-                      + 4 * (w.numel() + o + 2 * o + (2 * ca if affine else 0)))
-            bound_ms, bound_by = bound(flops, nbytes, compute)
-            if dtype == compute:
-                summary.add(dtype, 1, ms, plain_ms, flops, nbytes, library_ms)
-            ok = rel <= TOL[dtype] and srel <= CONV_STATS_TOL[dtype]
-            # executed rates: the function's FLOPs (27 C_in products per
-            # output value, no padding counted) and compulsory bytes
-            print(f"[conv_unit] {str(dtype)[6:]}/{str(compute)[6:]} {name}: {ca}+{cb}->{o} at "
-                  f"{spatial}: y max_abs_err {err:.3e} rel {rel:.3e} (tol "
-                  f"{TOL[dtype]:g}), stats rel {srel:.3e} (tol "
-                  f"{CONV_STATS_TOL[dtype]:g}); kernel {ms:.4f} ms plain "
-                  f"{plain_ms:.4f} ms cuDNN conv3d {library_ms:.4f} ms bound "
-                  f"{bound_ms:.4f} ms ({bound_by}); kernel {flops / ms * 1e-9:.1f} TFLOP/s "
-                  f"{nbytes / ms * 1e-6:.1f} GB/s, {bound_ms / ms * 100:.1f}% of its bound "
-                  f"{'ok' if ok else 'TOO FAR'}", flush=True)
-            if not ok:
-                fail(f"conv unit disagrees with plain at {dtype}/{compute} {name}")
-    print(f"[conv_unit] one window's 7 bf16 units: kernel {summary.ms:.4f} ms, "
-          f"plain {summary.plain_ms:.4f} ms, cuDNN conv3d alone "
-          f"{summary.library_ms:.4f} ms, bound {summary.bound_ms:.4f} ms "
-          f"(kernel at {summary.bound_ms / summary.ms * 100:.1f}% of it)", flush=True)
-    return summary
-
-
-def phase_wgrad_vs_plain():
-    """2f: the depthwise weight-gradient kernel at the routed shapes of the
-    training patch against the plain f32 gradient, timed beside cuDNN's
-    bf16 weight gradient of the same call and the kernel's bound (bytes:
-    x and the output gradient in bf16, the f32 partials written and read,
-    the gradient; operations: 2 x 27 a voxel and channel)."""
-    summary = Summary()
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 13)
-    for shape in WGRAD_SHAPES:
-        n, c, s1, s2, s3 = shape
-        # the PEG's layout: a permuted view of (N, S1, S2, S3, C) tokens
-        x, dy = (torch.randn((n, s1, s2, s3, c), generator=gen).to("cuda", torch.bfloat16)
-                 .permute(0, 4, 1, 2, 3) for _ in range(2))
-        w = torch.randn((c, 1, 3, 3, 3), generator=gen).to("cuda", torch.bfloat16)
-        got = conv_wgrad.depthwise_weight_grad(x, dy)
-        want = conv_wgrad.depthwise_weight_grad_reference(x, dy)
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, want)
-        summary.max_abs_err = max(summary.max_abs_err, err)
-
-        def cudnn():
-            return torch.ops.aten.convolution_backward(
-                dy, x, w, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], c,
-                [False, True, False])
-
-        ms, plain_ms = pkkp(lambda: conv_wgrad.depthwise_weight_grad_reference(x, dy),
-                            lambda: conv_wgrad.depthwise_weight_grad(x, dy))
-        # warmed first: cuDNN picks its algorithm on the first call
-        library_ms = cuda_ms(cudnn, ITERS, 2)
-        voxels = n * s1 * s2 * s3
-        split = conv_wgrad.chunks(c, voxels, torch.cuda.get_device_properties(0)
-                                  .multi_processor_count)
-        flops = 2 * 27 * voxels * c
-        nbytes = 2 * 2 * voxels * c + 2 * 4 * split * c * 27 + 4 * c * 27
-        bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
-        summary.add(torch.bfloat16, 1, ms, plain_ms, flops, nbytes, library_ms)
-        ok = rel <= WGRAD_TOL
-        print(f"[conv_wgrad] bf16 {shape}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
-              f"{WGRAD_TOL:g}); kernel {ms:.4f} ms plain f32 {plain_ms:.4f} ms cuDNN wgrad "
-              f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}, {split} chunks); "
-              f"kernel at {bound_ms / ms * 100:.1f}% of its bound "
-              f"{'ok' if ok else 'TOO FAR'}", flush=True)
-        if not ok:
-            fail(f"the depthwise weight-gradient kernel disagrees with plain at {shape}")
-    print(f"[conv_wgrad] a micro-step's {len(WGRAD_SHAPES)} routed calls: kernel "
-          f"{summary.ms:.4f} ms, cuDNN wgrad {summary.library_ms:.4f} ms, bound "
-          f"{summary.bound_ms:.4f} ms", flush=True)
-    return summary
-
-
-def phase_narrow_vs_plain():
-    """2g: the narrow-output convolution kernel at NARROW_CALLS, a forward's
-    window batch (4) and a micro-batch (3), against the plain f32 version,
-    timed beside ``F.conv3d`` (cuDNN, bf16, as ``ops.conv3d`` called it) on
-    the same operands and the kernel's bound (bytes: x read and y written
-    once in bf16, the f32 weights; operations: 2 x 27 x C x O a voxel), and
-    by card time (queued behind a sleep) with the device time of each of
-    its two kernels; then ``narrow_graph_replays``."""
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 14)
-    worst = 0.0
-    for batch in NARROW_BATCHES:
-        summary = Summary()
-        for c, o, spatial in NARROW_CALLS:
-            x = torch.randn((batch, c) + spatial, generator=gen).to("cuda", torch.bfloat16)
-            w = (torch.randn((o, c, 3, 3, 3), generator=gen) / math.sqrt(c * 27)).to("cuda")
-            b = torch.randn(o, generator=gen).to("cuda", torch.bfloat16)
-            if not conv_narrow.routes(x, w, 1, 1, 1):
-                fail(f"2g: ({batch}, {c}) {spatial} -> {o} does not route to conv_narrow")
-            got = conv_narrow.conv_narrow(x, w, b)
-            want = conv_narrow.conv_narrow_reference(x, w, b)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, want)
-            worst = max(worst, rel)
-            ms, plain_ms = pkkp(lambda: conv_narrow.conv_narrow_reference(x, w, b),
-                                lambda: conv_narrow.conv_narrow(x, w, b))
-            wb = w.to(torch.bfloat16)
-            # warmed first: cuDNN picks its algorithm on the first call
-            library_ms = cuda_ms(lambda: F.conv3d(x, wb, b, 1, 1), ITERS, 2)
-            voxels = batch * spatial[0] * spatial[1] * spatial[2]
-            flops = 2 * voxels * c * o * 27
-            nbytes = 2 * voxels * (c + o) + 4 * w.numel() + 2 * o
-            bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
-            summary.add(torch.bfloat16, 1, ms, plain_ms, flops, nbytes, library_ms)
-            ok = rel <= NARROW_TOL
-            print(f"[conv_narrow] ({batch}, {c}, {spatial}) -> {o}: max_abs_err "
-                  f"{err:.3e} rel {rel:.3e} (tol {NARROW_TOL:g}); kernel {ms:.4f} ms plain f32 "
-                  f"{plain_ms:.4f} ms F.conv3d {library_ms:.4f} ms bound {bound_ms:.4f} ms "
-                  f"({bound_by}); kernel at {bound_ms / ms * 100:.1f}% of its bound, "
-                  f"{library_ms / ms:.2f}x F.conv3d {'ok' if ok else 'TOO FAR'};"
-                  + card_line(lambda: conv_narrow.conv_narrow(x, w, b),
-                              lambda: F.conv3d(x, wb, b, 1, 1), kernels=True, label="F.conv3d"),
-                  flush=True)
-            if not ok:
-                fail(f"2g: the narrow-convolution kernel disagrees with plain at ({batch}, {c}) "
-                     f"{spatial} -> {o}")
-            del x, w, b, wb, got, want
-        print(f"[conv_narrow] the {len(NARROW_CALLS)} routed calls of a forward of {batch}: "
-              f"kernel {summary.ms:.4f} ms ({summary.ms / batch:.4f} a window), F.conv3d "
-              f"{summary.library_ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
-              f"{summary.bound_ms:.4f} ms (kernel at "
-              f"{summary.bound_ms / summary.ms * 100:.1f}% of it)", flush=True)
-    print(f"[conv_narrow] worst relative error {worst:.3e} against the limit {NARROW_TOL:g}",
-          flush=True)
+    t0 = time.perf_counter()
+    rc = pytest.main(["--noconftest", "-q", "-p", "no:cacheprovider", "-k", KERNEL_TEST_NAMES,
+                      *(os.path.join(REPO, path) for path in KERNEL_TESTS)])
     torch.cuda.empty_cache()
-    narrow_graph_replays()
-
-
-def narrow_graph_replays():
-    """One graphed micro-step of the bf16 flagship on the training patch and
-    two more calls (the update phase's capture, then a replay of the first
-    phase), in two instances built alike under ``deterministic()``: the
-    loss, gradients and parameters the same bits after every call, every
-    call a replay, and 5 conv_narrow launches in each pass through Python."""
-    images, labels, criterions = train_inputs()
-    runs = []
-    with deterministic():
-        for _ in range(2):
-            model = build_model().train()
-            state = engine.create_train_state(model, learning_rate=1e-4)
-            step = engine.make_train_step(model, criterions)
-            gen = dropout_generator()
-            launches, passes = conv_narrow.conv_narrow.launches, python_passes()
-            snaps = []
-            for _ in range(3):
-                loss, logs = step(state, images, labels, DYNAMIC_WEIGHT, gen)
-                snaps.append(step_snapshot(loss, logs, model))
-            done = python_passes()
-            runs.append((snaps, conv_narrow.conv_narrow.launches - launches,
-                         done[0] - passes[0], done[1] - passes[1]))
-            del model, state, step
-            torch.cuda.empty_cache()
-    (first, launches, passes, replays), (second, *_) = runs
-    same = [same_step(a, b) for a, b in zip(first, second)]
-    print(f"[conv_narrow] graphed micro-steps, two instances: the same bits after each of 3 "
-          f"calls {same}; {replays} replays, {passes} passes through Python, conv_narrow "
-          f"launched {launches}", flush=True)
-    if not all(same) or replays != 3 or launches != 5 * passes:
-        fail("2g: the graphed micro-steps through conv_narrow do not replay bit for bit")
-
-
-def phase_stack_vs_plain():
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
-    summary = Summary()
-    for dtype in (torch.float32, torch.bfloat16):
-        for n, c in STACK_SHAPES:
-            for layers in (1, 7):
-                rnd = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
-                A = (rnd(layers, c, 6 * c) / c ** 0.5).to("cuda")
-                w2 = (rnd(layers, 2 * c, c) / (2 * c) ** 0.5).to("cuda")
-                vecs = rnd(layers, 16, 2 * c) * 0.1
-                vecs[:, 6] += 1.0
-                vecs[:, 8] += 1.0
-                vecs = vecs.to("cuda")
-                x = rnd(1, n, c).to("cuda", dtype)
-                heads = c // fs.D_K
-                got = fs.fused_transformer_stack(x, A, w2, vecs, heads)
-                want = fs.fused_transformer_stack_reference(x, A, w2, vecs, heads)
-                torch.cuda.synchronize()
-                if got.dtype != dtype or got.shape != x.shape:
-                    fail(f"stack output {got.dtype} {tuple(got.shape)}")
-                err, rel = rel_err(got, want)
-                summary.max_abs_err = max(summary.max_abs_err, err)
-                ms, plain_ms = pkkp(
-                    lambda: fs.fused_transformer_stack_reference(x, A, w2, vecs, heads),
-                    lambda: fs.fused_transformer_stack(x, A, w2, vecs, heads))
-                flops = layers * n * (16 * c * c + 4 * c * fs.D_K)
-                nbytes = (2 * x.element_size() * n * c
-                          + 4 * (A.numel() + w2.numel() + vecs.numel()))
-                bound_ms, bound_by = bound(flops, nbytes, dtype)
-                summary.add(dtype, 1, ms, plain_ms, flops, nbytes)
-                ok = rel <= STACK_TOL[dtype]
-                # executed rate: the function's FLOPs (the products of every
-                # layer) over the kernel's time
-                print(f"[fused_stack] {str(dtype)[6:]:8s} N={n} C={c} L={layers}: "
-                      f"max_abs_err {err:.3e} rel {rel:.3e} (tol "
-                      f"{STACK_TOL[dtype]:g}) kernel {ms:.4f} ms plain "
-                      f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}); kernel "
-                      f"{flops / ms * 1e-9:.1f} TFLOP/s, {bound_ms / ms * 100:.1f}% of its "
-                      f"bound {'ok' if ok else 'TOO FAR'}", flush=True)
-                if not ok:
-                    fail(f"stack disagrees with plain at {dtype} {(n, c, layers)}")
-    print(f"[fused_stack] one window's 8 bf16 stack calls: kernel {summary.ms:.4f} ms, "
-          f"plain {summary.plain_ms:.4f} ms, bound {summary.bound_ms:.4f} ms (kernel at "
-          f"{summary.bound_ms / summary.ms * 100:.1f}% of it); no single PyTorch call "
-          f"computes a transformer stack", flush=True)
-    return summary
-
-
-def backward_errors(got, want):
-    """Largest (max |got - want|, that over max |want|) of dq, dk, dv. A
-    gradient below 1e-3 of the largest of the three is zero in exact
-    arithmetic (dk of one token, whose token softmax is 1: two equal sums
-    cancel) and is held against a tenth of the largest instead, the scale
-    of the terms that cancel."""
-    top = max(w.float().abs().max().item() for w in want)
-    worst = (0.0, 0.0)
-    for a, b in zip(got, want):
-        err = (a.float() - b.float()).abs().max().item()
-        scale = b.float().abs().max().item()
-        scale = scale if scale >= 1e-3 * top else 1e-1 * top
-        worst = max(worst, (err, err / scale), key=lambda e: e[1])
-    return worst
-
-
-def phase_attention_backward_vs_plain():
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
-    summary = Summary()
-    widths = {model: Summary() for model in WIDTH_SHAPES}
-    for dtype in (torch.float32, torch.bfloat16):
-        for (bh, n, d), layout, batch in attention_cases(TRAIN_SHAPES, TRAIN_BATCH):
-            q, k, v, g = attention_inputs(4, bh, n, d, layout, dtype, gen, batch)
-            got = fused.linear_attention_backward(q, k, v, g)
-            want = fused.linear_attention_backward_reference(*exact(q, k, v, g))
-            torch.cuda.synchronize()
-            if any(a.dtype != dtype or a.shape != q.shape for a in got):
-                fail(f"backward kernel output {[(a.dtype, tuple(a.shape)) for a in got]}")
-            err, rel = backward_errors(got, want)
-            summary.max_abs_err = max(summary.max_abs_err, err)
-            ms, plain_ms = pkkp(
-                lambda: fused.linear_attention_backward_reference(q, k, v, g),
-                lambda: fused.linear_attention_backward(q, k, v, g), 20)
-            # read q, k, v, g; write dq, dk, dv; five (N x d) by (d x d) products
-            nbytes = 7 * batch * bh * n * d * q.element_size()
-            flops = 10 * batch * bh * n * d * d
-            bound_ms, bound_by = bound(flops, nbytes, dtype)
-            other = _width_summary(widths, (bh, n, d), layout, batch)
-            if other is not None:
-                other.add(dtype, 4, ms, plain_ms, flops, nbytes)
-            elif layout == "heads" and batch == 1:
-                summary.add(dtype, 8, ms, plain_ms, flops, nbytes)
-            ok = rel <= TOL[dtype]
-            label = f"{str(dtype)[6:]:8s} {layout:10s} B={batch} BH={bh} N={n} d={d}"
-            print(f"[attention_bwd] {label}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
-                  f"{TOL[dtype]:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-                  f"{bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'TOO FAR'}",
-                  flush=True)
-            if not ok:
-                fail(f"backward kernel disagrees with plain at {dtype} {layout} "
-                     f"{(batch, bh, n, d)}")
-            check_launches("attention_bwd", label, cuda_launches(
-                lambda: fused.linear_attention_backward(q, k, v, g), 3))
-    print(f"[attention_bwd] one train step's 32 bf16 calls (the head-split layout): kernel "
-          f"{summary.ms:.4f} ms, plain {summary.plain_ms:.4f} ms, bound "
-          f"{summary.bound_ms:.4f} ms; no single PyTorch call computes this backward",
-          flush=True)
-    summary.other_models = width_summaries(widths, "attention_bwd", "backward")
-    summary.packed_qkv = packed_qkv_cases("attention_bwd", TRAIN_SHAPES, True, gen)
-    return summary
-
-
-# max |kernel - plain| <= tol * max |plain| for the probes: bf16 outputs as
-# TOL; variant E of the dot probe 1e-2 (a bf16 rounding after every tap, so
-# a one-ulp difference carries into the next sum; measured on an H100:
-# 3.4e-3), and its output nearer the bf16-accumulated sum than the
-# f32-accumulated one (dot_probe.E_ROUNDING_SHARE); lane sums 1e-5 of each
-# sum's max |plain| (f32 sums in another order).
-PROBE_E_TOL = 1e-2
-LANE_SUMS_TOL = 1e-5
-# the row-offset probe's variant on the probes' path and the kernels line
-ROW_OFFSET_MAIN = "C. 9 dots, misaligned offsets (k*577)"
-
-
-def lane_sums_error(got, want):
-    """The larger (max |err|, rel) of the sums and the sums of squares."""
-    return max((rel_err(got[:, :, i], want[:, :, i]) for i in (0, 1)), key=lambda e: e[1])
-
-
-def probe_inputs():
-    """Each probe's bf16 inputs at its TPU probe's main shape, on the card."""
-    device = "cuda"
-    return {"dot": dot_probe.inputs(dot_probe.GROUPS, dot_probe.M, 128, 9, 64, device),
-            "rows": rowoffset_probe.inputs(rowoffset_probe.GROUPS, rowoffset_probe.M_PAD,
-                                           device),
-            "inner": inner_probe.inputs(inner_probe.BATCH, inner_probe.HBO, device),
-            "halo": conv_prototype.inputs(conv_prototype.SHAPE, conv_prototype.N_OUT, device),
-            "conv_rows": conv_retired.inputs(conv_retired.SHAPES[0][1],
-                                             conv_retired.SHAPES[0][2], device),
-            "stats": in_stats_probe.inputs(in_stats_probe.SHAPES[1][1], device)}
-
-
-def probe_path(inp):
-    """Each probe's entry point at its main shape, as a user of ``python -m
-    lintransunet_tpu_torch.experiments.<probe>`` calls it (phase 9)."""
-    (x, w), (xr, wr), (z, kp, ku, kd) = inp["dot"], inp["rows"], inp["inner"]
-    (xc, kc), (xp, kr, br), xs = inp["halo"], inp["conv_rows"], inp["stats"]
-    return {"tap_sum": lambda: dot_probe.tap_sum(x, w),
-            "row_offset_sum": lambda: rowoffset_probe.row_offset_sum(
-                xr, wr, rowoffset_probe.OFFSETS[ROW_OFFSET_MAIN]),
-            "inner_step": lambda: inner_probe.inner_step(z, kp, ku, kd, inner_probe.HBO),
-            "conv3d_cl": lambda: conv_prototype.conv3d_cl(xc, kc),
-            "conv3d_cl_rows": lambda: conv_retired.conv3d_cl_rows(xp, kr, br),
-            "lane_sums": lambda: in_stats_probe.lane_sums(xs)}
-
-
-def probe_cases(inp):
-    """One dict per probe comparison on ``probe_inputs()`` (and #7 also in
-    f32): the kernel's call, its plain version, the library call (or None),
-    (FLOPs the function needs, compulsory bytes), the tolerance, whether it
-    is the probe's row of the kernels line, and whether its card time is
-    printed beside its events (``card``: the tap sums, host-bound by events)."""
-    bf16, f32, device = torch.bfloat16, torch.float32, "cuda"
-    cases = []
-    x, w = inp["dot"]
-    cases.append(dict(
-        name="tap_sum", what="#10 variant A, 9 taps (16 x 4096, 128) @ (128, 64)",
-        run=lambda: dot_probe.tap_sum(x, w), plain=lambda: dot_probe.tap_sum_reference(x, w),
-        library=lambda: dot_probe.library(x, w), costs=dot_probe.tap_sum_costs(x, w),
-        tol=TOL[bf16], dtype=bf16, entry=True, card=True))
-    cases.append(dict(
-        name="tap_sum", what="#10 variant E, bf16 accumulation",
-        run=lambda: dot_probe.tap_sum(x, w, acc_dtype=bf16),
-        plain=lambda: dot_probe.tap_sum_reference(x, w, acc_dtype=bf16),
-        f32_acc=lambda: dot_probe.tap_sum_reference(x, w), library=None,
-        costs=dot_probe.tap_sum_costs(x, w, acc_dtype=bf16), tol=PROBE_E_TOL, dtype=bf16,
-        card=True))
-    xr, wr = inp["rows"]
-    for variant, offsets in rowoffset_probe.OFFSETS.items():
-        cases.append(dict(
-            name="row_offset_sum", what=f"#8 {variant}",
-            run=lambda o=offsets: rowoffset_probe.row_offset_sum(xr, wr, o),
-            plain=lambda o=offsets: rowoffset_probe.row_offset_sum_reference(xr, wr, o),
-            library=rowoffset_probe.library_call(xr, wr, offsets),
-            costs=dot_probe.tap_sum_costs(xr, wr, rowoffset_probe.M, offsets),
-            tol=TOL[bf16], dtype=bf16, entry=variant == ROW_OFFSET_MAIN, card=True))
-    z, kp, ku, kd = inp["inner"]
-    # F.conv3d on the same tensor: the same function but at the wrap columns
-    # (no library call computes it), timed beside the kernel as a yardstick
-    w_conv = inner_probe.library_weight(kp, ku, kd)
-    for strategy in inner_probe.STRATEGIES:
-        packed = inner_probe.pack_inner_weights(kp, ku, kd, strategy)
-        cases.append(dict(
-            name="inner_step", what=f"#11 {strategy}, {inner_probe.BATCH} windows at "
-                                    f"hbo={inner_probe.HBO}",
-            run=lambda st=strategy, w=packed: inner_probe.inner_step_packed(
-                z, w, inner_probe.HBO, st),
-            plain=lambda: inner_probe.inner_step_reference(z, kp, ku, kd, inner_probe.HBO),
-            library=None, yardstick=lambda: inner_probe.library_conv(z, w_conv),
-            costs=inner_probe.costs(inner_probe.BATCH, inner_probe.HBO),
-            tol=TOL[bf16], dtype=bf16, entry=strategy == "dots27", card=True))
-    xc, kc = inp["halo"]
-    kc_lib = conv_prototype.library_weight(kc)
-    cases.append(dict(
-        name="conv3d_cl", what=f"#6, x {conv_prototype.SHAPE} -> "
-                               f"{conv_prototype.N_OUT}",
-        run=lambda: conv_prototype.conv3d_cl(xc, kc),
-        plain=lambda: conv_prototype.conv3d_cl_reference(xc, kc),
-        library=lambda: conv_prototype.library_conv(xc[None], kc_lib),
-        costs=conv_prototype.conv_costs(xc, kc), tol=TOL[bf16], dtype=bf16, entry=True))
-    label, shape, n_out = conv_retired.SHAPES[0]
-    for dtype in (bf16, f32):
-        xp, kr, br = (inp["conv_rows"] if dtype == bf16
-                      else conv_retired.inputs(shape, n_out, device, dtype))
-        kr_lib, br_lib = conv_prototype.library_weight(kr), br.to(dtype)
-        cases.append(dict(
-            name="conv3d_cl_rows", what=f"#7 with bias, {label} {shape} -> {n_out} "
-                                        f"{str(dtype)[6:]}",
-            run=lambda xp=xp, kr=kr, br=br: conv_retired.conv3d_cl_rows(xp, kr, br),
-            plain=lambda xp=xp, kr=kr, br=br: conv_retired.conv3d_cl_rows_reference(xp, kr, br),
-            library=lambda xp=xp, k=kr_lib, b=br_lib: conv_prototype.library_conv(xp, k, b),
-            costs=conv_prototype.conv_costs(xp, kr, dtype), tol=TOL[dtype], dtype=dtype,
-            entry=dtype == bf16))
-    label, shape, ch, n, sub = in_stats_probe.SHAPES[1]
-    xs = inp["stats"]
-    cases.append(dict(
-        name="lane_sums", what=f"#9 {label} {shape}",
-        run=lambda: in_stats_probe.lane_sums(xs),
-        plain=lambda: in_stats_probe.lane_sums_reference(xs),
-        library=lambda: in_stats_probe.library_stats(xs, ch, n, sub),
-        costs=(3 * xs.numel(), 2 * xs.numel() + 4 * 2 * xs.numel() // (
-            in_stats_probe.HBLK * shape[2])),
-        tol=LANE_SUMS_TOL, dtype=bf16, entry=True, compare=lane_sums_error))
-    return cases
-
-
-def phase_probes_vs_plain(cases):
-    """Each probe kernel against its plain version, timed beside the library
-    call and the bound; returns {name: Summary} of the kernels line's rows."""
-    summaries = {}
-    for case in cases:
-        got, want = case["run"](), case["plain"]()
-        torch.cuda.synchronize()
-        if got.dtype != want.dtype or got.shape != want.shape:
-            fail(f"{case['what']}: kernel output {got.dtype} {tuple(got.shape)}, plain "
-                 f"{want.dtype} {tuple(want.shape)}")
-        err, rel = case.get("compare", rel_err)(got, want)
-        rounding = ""
-        if "f32_acc" in case:
-            share = dot_probe.bf16_rounding_share(got, want, case["f32_acc"]())
-            rounding = (f" rounding share {share:.3e} (at most "
-                        f"{dot_probe.E_ROUNDING_SHARE:g})")
-            if share > dot_probe.E_ROUNDING_SHARE:
-                fail(f"{case['what']}: the kernel's output sits at {share:.3f} of the gap "
-                     f"between the bf16- and the f32-accumulated sums: no bf16 rounding")
-        del got, want
-        # kernel and library call timed alike: warmed, then 10-call windows
-        # in turns plain, kernel, library, library, kernel, plain (#11: its
-        # F.conv3d yardstick in the library call's place, outside the
-        # kernels line)
-        other = case["library"] or case.get("yardstick")
-        timed = [case["plain"], case["run"]] + ([other] if other else [])
-        plain_ms, ms, *lib = in_turns(timed, ITERS)
-        other_ms = lib[0] if lib else None
-        library_ms = other_ms if case["library"] else None
-        flops, nbytes = case["costs"]
-        bound_ms, bound_by = bound(flops, nbytes, case["dtype"])
-        ok = rel <= case["tol"]
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        rates = f" ({flops / ms * 1e-9:.1f} TFLOP/s" + (
-            "" if library_ms is None else f", library {flops / library_ms * 1e-9:.1f}") + ")"
-        yard = ("" if "yardstick" not in case else
-                f" F.conv3d yardstick (the same function but at the wrap columns) "
-                f"{other_ms:.4f} ms")
-        print(f"[probe] {case['name']} {case['what']}: max_abs_err {err:.3e} rel "
-              f"{rel:.3e} (tol {case['tol']:g}){rounding} kernel {ms:.4f} ms{rates} plain "
-              f"{plain_ms:.4f} ms library {lib}{yard} bound {bound_ms:.4f} ms ({bound_by}), "
-              f"kernel at {bound_ms / ms * 100:.1f}% of it {'ok' if ok else 'TOO FAR'}",
-              flush=True)
-        if case.get("card"):  # host-bound by events: the card's own time beside them
-            label = "library" if case["library"] else "F.conv3d"
-            print(f"[probe] {case['name']} {case['what']}:"
-                  f"{card_line(case['run'], other, label=label)}", flush=True)
-        if not ok:
-            fail(f"probe kernel disagrees with plain: {case['name']} {case['what']}")
-        if case.get("entry"):
-            summary = Summary()
-            summary.max_abs_err = err
-            summary.add(torch.bfloat16, 1, ms, plain_ms, flops, nbytes, library_ms)
-            summaries[case["name"]] = summary
-    return summaries
-
-
-def phase_probe_path(path):
-    """Phase 9: every probe's entry point once; each launches its kernel
-    exactly once and gives finite output."""
-    reset_launch_counts()
-    outs = {name: call() for name, call in path.items()}
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    for name, out in outs.items():
-        if not bool(torch.isfinite(out).all()):
-            fail(f"the probe {name} gave non-finite output")
-    print(f"[probes] launches {launches} (want {PER_WINDOW['probes']}); output shapes "
-          f"{ {name: tuple(out.shape) for name, out in outs.items()} }", flush=True)
-    if launches != PER_WINDOW["probes"]:
-        fail(f"the probes' path launched {launches}, not {PER_WINDOW['probes']}")
-    return launches
+    if rc != 0:
+        fail(f"2: the kernels' card tests returned {rc}")
+    print(f"[kernels] phase 2 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def build_model(attention_impl="kernel", dtype=torch.bfloat16, state=None,
                 fused_config=False):
     return flagship(SEED, state, dtype=dtype, attention_impl=attention_impl,
                     fused_s1=fused_config, fused_stack=fused_config).eval()
-
-
-COUNTED = {"linear_attention": fused.linear_attention,
-           "linear_attention_backward": fused.linear_attention_backward,
-           "conv_unit": cu.conv_unit,
-           "fused_stack": fs.fused_transformer_stack,
-           "conv_wgrad": conv_wgrad.depthwise_weight_grad,
-           "conv_narrow": conv_narrow.conv_narrow,
-           "tap_sum": dot_probe.tap_sum,
-           "row_offset_sum": rowoffset_probe.row_offset_sum,
-           "inner_step": inner_probe.inner_step_packed,
-           "conv3d_cl": conv_prototype.conv3d_cl,
-           "conv3d_cl_rows": conv_retired.conv3d_cl_rows,
-           "lane_sums": in_stats_probe.lane_sums}
 
 
 def launch_counts():
@@ -1299,8 +449,8 @@ def reset_launch_counts():
 
 
 def phase_slice(model, volumes, path):
-    """Serve ``volumes`` through ``make_eval_runner``; returns the kernels'
-    launch counts, which must be PER_WINDOW[path] x windows."""
+    """Serve ``volumes`` through ``make_eval_runner``; the kernels' launch
+    counts must be PER_WINDOW[path] x windows."""
     _, runner = make_eval_runner(model, EvalConfig(roi_size=512, depth_size=64,
                                                    overlap=0.6, mode="constant"))
     reset_launch_counts()
@@ -1330,7 +480,6 @@ def phase_slice(model, volumes, path):
           f"{[round(s, 3) for s in latencies]} s", flush=True)
     if launches != want:
         fail(f"the {path} path launched {launches}, not {want}")
-    return launches
 
 
 def pre_threshold(model, window):
@@ -1538,7 +687,7 @@ def grads_finite(model):
 
 def phase_train(images, labels, criterions):
     """TRAIN_STEPS timed train steps of the bf16 flagship after a warm one;
-    returns the launch counts of the run and the step's ms."""
+    returns the step's ms."""
     model = build_model().train()
     state = engine.create_train_state(model, learning_rate=1e-4)
     step = engine.make_train_step(model, criterions)
@@ -1602,7 +751,7 @@ def phase_train(images, labels, criterions):
           f"{REPLAY_ROWS} launched)", flush=True)
     print(f"[train] last step's logs: "
           f"{ {k: round(v.item(), 6) for k, v in logs.items()} }", flush=True)
-    return launches, ms
+    return ms
 
 
 # device rows of one replayed bf16 micro-step of the flagship, by kernel
@@ -2015,8 +1164,8 @@ def print_cli_run(tag, out, steps, train_ms, multi_class=False):
 
 
 def phase_cli(train_ms):
-    """Phase 10: the binary CLIs at full width; returns the attention
-    kernels' launches in ``train3d`` and its ms per step."""
+    """Phase 10: the binary CLIs at full width; returns ``train3d``'s ms
+    per step."""
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         out = run_cli_path(root, CLI_SHAPE, CLI_PATIENTS, CLI_TRAIN_FLAGS, CLI_INFER_FLAGS)
@@ -2030,7 +1179,7 @@ def phase_cli(train_ms):
         f"native {hu[0]:.3f} ms, numpy fallback {hu[1]:.3f} ms (same bits; host time, "
         f"best of 3)"), flush=True)
     print(f"[cli] phase 10 took {total_s:.1f} s", flush=True)
-    return out["train_launches"], sum(out["epoch_s"]) / steps * 1e3
+    return sum(out["epoch_s"]) / steps * 1e3
 
 
 def run_monai(root, data_dir, split):
@@ -2117,7 +1266,6 @@ def phase_multi_class_cli(train_ms):
           f"eval {monai['eval_s'][0]:.3f} s, the loop waited "
           f"{[round(w, 3) for w in monai['waits']]} s for its batches; eval {evals}; "
           f"artifacts {monai['artifacts']}; phase 11 took {total_s:.1f} s", flush=True)
-    return out["train_launches"]
 
 
 # Phase 12: the four other models of Model_Dict at the flagship's widths
@@ -2877,39 +2025,27 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
-    summaries = {"linear_attention": phase_attention_vs_plain(),
-                 "conv_unit": phase_conv_vs_plain(),
-                 "fused_stack": phase_stack_vs_plain(),
-                 "linear_attention_backward": phase_attention_backward_vs_plain()}
-    phase_wgrad_vs_plain()
-    phase_narrow_vs_plain()
-    # the cases hold the probes' inputs: drop them all before the model phases
-    cases = probe_cases(probe_inputs())
-    summaries.update(phase_probes_vs_plain(cases))
-    del cases
-    torch.cuda.empty_cache()
+    phase_kernels()
 
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     volumes = [torch.randn(VOLUME, generator=gen).to("cuda") for _ in range(N_VOLUMES)]
     window = volumes[0][..., :64].contiguous()
     default = build_model()
-    launches = {"default": phase_slice(default, volumes, "default")}
+    phase_slice(default, volumes, "default")
     phase_end_to_end(default, window)
     phase_fused_qkv(default, window)
     fused_model = build_model(fused_config=True)
-    launches["fused"] = phase_slice(fused_model, volumes, "fused")
+    phase_slice(fused_model, volumes, "fused")
     phase_fused_vs_default(default, fused_model, window)
     del default, fused_model, volumes
     torch.cuda.empty_cache()
 
     images, labels, criterions = train_inputs()
-    launches["train"], train_ms = phase_train(images, labels, criterions)
+    train_ms = phase_train(images, labels, criterions)
     phase_train_vs_plain(images, labels, criterions)
     del images, labels
     torch.cuda.empty_cache()
-    launches["probes"] = phase_probe_path(probe_path(probe_inputs()))
-    torch.cuda.empty_cache()
-    cli_launches, cli_ms = phase_cli(train_ms)
+    cli_ms = phase_cli(train_ms)
     phase_multi_class_cli(train_ms)
     torch.cuda.empty_cache()
     window = torch.randn(WINDOW, generator=torch.Generator().manual_seed(SEED + 10)).to("cuda")
@@ -2938,32 +2074,6 @@ def main():
     phase_entry()
     phase_dryrun()
     print(f"[entry] phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # name: (source, the TPU kernel it replaces, the path whose launches it reports)
-    sources = {"linear_attention": ("linear_attention", "pallas_attention.py:126", "default"),
-               "conv_unit": ("conv_unit", "pallas_conv.py:625", "fused"),
-               "fused_stack": ("fused_stack", "pallas_layer.py:281", "fused"),
-               "linear_attention_backward": ("linear_attention",
-                                             "pallas_attention.py:260", "train")}
-    entries = []
-    for name, (source, replaces, path) in sources.items():
-        entry = {"name": name, "route": "cuda",
-                 "source": f"lintransunet_tpu_torch/csrc/{source}.cu",
-                 "replaces": f"lintransunet_tpu/ops/{replaces}", "path": path}
-        if name == "linear_attention":
-            entry["also_replaces"] = ["lintransunet_tpu/ops/pallas_attention.py:206",
-                                      "lintransunet_tpu/ops/pallas_attention.py:233"]
-        entry.update(summaries[name].entry(launches[path][name]))
-        if name.startswith("linear_attention"):
-            entry["cli_launches"] = cli_launches[name]  # phase 10's train3d
-        entries.append(entry)
-    for name, (source, replaces) in PROBES.items():
-        entry = {"name": name, "route": "cuda",
-                 "source": f"lintransunet_tpu_torch/csrc/{source}.cu",
-                 "replaces": replaces, "path": "probes"}
-        entry.update(summaries[name].entry(launches["probes"][name]))
-        entries.append(entry)
-    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

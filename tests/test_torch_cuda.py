@@ -6,20 +6,27 @@ jax-configuring conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-The attention kernels are also held on the model's layout (the head-split
-view of a (B, N, H*d) projection), at the narrow head widths d = 2 and 4,
-to two launches a call, to the same bits on a second call, and to no copy
-in a ``MultiheadLinearAttention`` forward.
+Each kernel is held at the shapes the model's paths give it: the window's
+and the training patch's attention calls at the serve and train batches,
+the other models' head widths, the fused build's seven conv units and four
+token stacks, the routed convolutions at both batches, each probe at its
+TPU probe's main shape through its entry point. The attention kernels are
+also held on the model's layouts (the head-split view of a (B, N, H*d)
+projection, the thirds of a fused QKV one), to two launches a call, to the
+same bits on a second call, and to no copy in a
+``MultiheadLinearAttention`` forward.
 
 Tolerances, each a share of the plain output's largest magnitude:
 
-* linear attention: f32 5e-5 (sums in another order); bf16 2e-2 (both
-  round their f32 result to bf16 once, at places that can differ by one
-  bf16 ulp). Its backward: dq, dk and dv each within 1e-5 (f32) and 2e-2
-  (bf16) of their own max |plain|, for the same reasons; a gradient that is
-  zero in exact arithmetic (dk of a single token, whose token softmax is 1;
-  below 1e-3 of the largest of the three) is held against a tenth of the
-  largest instead, the scale of the two sums that cancel in it.
+* linear attention: f32 1e-5 of the plain version computed in f64 on the
+  same inputs (sums in another order; at millions of tokens the f32 plain
+  version's own summation error passes 1e-5); bf16 2e-2 (both round their
+  f32 result to bf16 once, at places that can differ by one bf16 ulp). Its
+  backward: dq, dk and dv each within the same of their own max |plain|; a
+  gradient that is zero in exact arithmetic (dk of a single token, whose
+  token softmax is 1; below 1e-3 of the largest of the three) is held
+  against a tenth of the largest instead, the scale of the two sums that
+  cancel in it.
 * conv unit: y and z f32 1e-5, bf16 2e-2 (the same operands, rounded alike,
   summed in f32 in another order; bf16 outputs one ulp apart); statistics
   f32 1e-5, bf16 1e-3 (sums of outputs that can sit one bf16 ulp apart).
@@ -43,6 +50,8 @@ Tolerances, each a share of the plain output's largest magnitude:
   next sum); f32 convs 1e-5 (f32 FMA against cuDNN in f32 with TF32 off);
   lane sums 1e-5 of each sum's max |plain| (f32 sums in another order).
 """
+
+import multiprocessing
 
 import pytest
 import torch
@@ -81,21 +90,56 @@ def _qkv(shape, dtype, device, seed=0):
     return [torch.randn(shape, generator=g).to(device, dtype) for _ in range(3)]
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
-                                       (torch.bfloat16, 2e-2)])
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _exact(*tensors):
+    """The inputs the attention kernels' plain versions run on: f32 ones in
+    f64, so that the plain version sums exactly enough (at (8, 4,194,304,
+    2) its f32 summation error is 6.4e-5 of max |out| against the f64
+    answer, the kernel's 4.5e-6); bf16 ones as they are (the plain version
+    computes in f32 and rounds once, as the kernel does)."""
+    return [t.double() if t.dtype == torch.float32 else t for t in tensors]
+
+
+def _two_launches_a_call(fn):
+    """Two CUDA launches a call, counted at the host's launch calls over
+    three calls, and no more device rows than launches. The rows bound
+    passes with no rows recorded too: late in a long process the profiler
+    keeps none (see ``_in_a_new_process``)."""
+    found = cuda_launches(fn, 3)
+    assert len(found.launches) == 6 and len(found.rows) <= 6, found
+
+
+def _hold_backward(got, want, dtype, like):
+    """dq, dk and dv in ``like``'s dtype, shape and layout, each within
+    ATTN_TOL of its own max |plain| (or of a tenth of the largest, where it
+    is zero in exact arithmetic)."""
+    top = max(w.float().abs().max().item() for w in want)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape and _same_layout(a, like)
+        err = (a.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        assert err <= ATTN_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 8, 4096, 32), (1, 4, 28704, 32),
                                    (2, 3, 300, 32), (1, 2, 1, 32),
-                                   (1, 2, 129, 16)])
-def test_kernel_matches_plain(cuda, shape, dtype, tol):
+                                   (1, 2, 129, 16),
+                                   # the window's other two, a ragged and a one-token call
+                                   (1, 8, 2160, 32), (1, 8, 5376, 32),
+                                   (1, 8, 300, 32), (1, 8, 1, 32)])
+def test_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = _qkv(shape, dtype, cuda)
     before = fused.linear_attention.launches
     got = fused.linear_attention(q, k, v)
     torch.cuda.synchronize()
     assert fused.linear_attention.launches == before + 1
-    want = fused.linear_attention_reference(q, k, v)
+    want = fused.linear_attention_reference(*_exact(q, k, v))
     assert got.dtype == dtype and got.shape == want.shape
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= tol * want.float().abs().max().item(), err
+    assert _rel(got, want) <= ATTN_TOL[dtype]
+    _two_launches_a_call(lambda: fused.linear_attention(q, k, v))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -111,13 +155,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused.linear_attention_backward(q, k, v, q[:, :, :32].contiguous())
 
 
-BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 8, 2048, 32), (1, 4, 14352, 32),
                                    (2, 3, 300, 32), (1, 2, 1, 32),
-                                   (1, 2, 129, 16)])
+                                   (1, 2, 129, 16),
+                                   # the patch's other two, a ragged and a one-token call
+                                   (1, 8, 1080, 32), (1, 8, 2688, 32),
+                                   (1, 8, 300, 32), (1, 8, 1, 32)])
 def test_backward_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = _qkv(shape, dtype, cuda)
     g = _qkv(shape, dtype, cuda, seed=1)[0]
@@ -125,13 +169,8 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype):
     got = fused.linear_attention_backward(q, k, v, g)
     torch.cuda.synchronize()
     assert fused.linear_attention_backward.launches == before + 1
-    want = fused.linear_attention_backward_reference(q, k, v, g)
-    top = max(w.float().abs().max().item() for w in want)
-    for a, b in zip(got, want):
-        assert a.dtype == dtype and a.shape == b.shape
-        err = (a.float() - b.float()).abs().max().item()
-        scale = b.float().abs().max().item()
-        assert err <= BWD_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
+    _hold_backward(got, fused.linear_attention_backward_reference(*_exact(q, k, v, g)), dtype, q)
+    _two_launches_a_call(lambda: fused.linear_attention_backward(q, k, v, g))
 
 
 def test_autograd_launches_both_kernels(cuda):
@@ -144,7 +183,7 @@ def test_autograd_launches_both_kernels(cuda):
             fused.linear_attention_backward.launches) == (before[0] + 1, before[1] + 1)
     want = fused.linear_attention_backward_reference(q.detach(), k.detach(), v.detach(), g)
     for t, w in zip((q, k, v), want):
-        assert _rel(t.grad, w) <= BWD_TOL[torch.float32]
+        assert _rel(t.grad, w) <= ATTN_TOL[torch.float32]
 
 
 def _rel(got, want):
@@ -165,59 +204,62 @@ def _same_layout(got, want):
     return all(size == 1 or a == b for size, a, b in zip(want.shape, got.stride(), want.stride()))
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,n,h,d", [(1, 4096, 8, 32), (1, 28704, 4, 32), (2, 300, 3, 32),
-                                     (1, 1, 2, 32)])
-def test_kernels_read_the_head_split_view(cuda, b, n, h, d, dtype, tol):
-    """Forward and backward on the model's layout against the plain
-    versions; out and the gradients come out in the layout of q."""
-    q, k, v, g = (_heads(b, n, h, d, dtype, cuda, seed) for seed in range(4))
+def _hold_both_ways(q, k, v, g, dtype):
+    """Forward and backward against the plain versions, out and the
+    gradients in the layout of q, two launches a call each way."""
     got = fused.linear_attention(q, k, v)
-    want = fused.linear_attention_reference(q, k, v)
+    want = fused.linear_attention_reference(*_exact(q, k, v))
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape and _same_layout(got, q)
-    assert _rel(got, want) <= tol
+    assert _rel(got, want) <= ATTN_TOL[dtype]
     got = fused.linear_attention_backward(q, k, v, g)
-    want = fused.linear_attention_backward_reference(q, k, v, g)
     torch.cuda.synchronize()
-    top = max(w.float().abs().max().item() for w in want)
-    for a, w in zip(got, want):
-        assert a.dtype == dtype and a.shape == w.shape and _same_layout(a, q)
-        err = (a.float() - w.float()).abs().max().item()
-        scale = w.float().abs().max().item()
-        assert err <= BWD_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
+    _hold_backward(got, fused.linear_attention_backward_reference(*_exact(q, k, v, g)), dtype, q)
+    _two_launches_a_call(lambda: fused.linear_attention(q, k, v))
+    _two_launches_a_call(lambda: fused.linear_attention_backward(q, k, v, g))
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+# (H, N) of the window's four attention calls (bottleneck, levels 3, 2, 1)
+# and of the training patch's, each held at batch 1 and at a batch the CLIs
+# give it: a served volume's 2 windows in one forward, train3d's default
+# --batch_size of 3
+WINDOW_CALLS = [(8, 4096), (8, 2160), (8, 5376), (4, 28704)]
+PATCH_CALLS = [(8, 2048), (8, 1080), (8, 2688), (4, 14352)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,d", [(1, 4096, 8, 32), (1, 28704, 4, 32), (2, 300, 3, 32),
+                                     (1, 1, 2, 32)]
+                         + [(b, n, h, 32) for b in (1, 2) for h, n in WINDOW_CALLS
+                            if (b, n) not in ((1, 4096), (1, 28704))]
+                         + [(b, n, h, 32) for b in (1, 3) for h, n in PATCH_CALLS])
+def test_kernels_read_the_head_split_view(cuda, b, n, h, d, dtype):
+    """Forward and backward on the model's layout against the plain
+    versions; out and the gradients come out in the layout of q."""
+    _hold_both_ways(*(_heads(b, n, h, d, dtype, cuda, seed) for seed in range(4)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,h,d,layout", [
     (1, 70001, 8, 2, "heads"), (1, 20000, 8, 4, "heads"), (2, 300, 3, 2, "heads"),
-    (2, 300, 3, 4, "contiguous"), (1, 129, 2, 2, "contiguous"), (1, 1, 2, 4, "heads")])
-def test_narrow_heads_match_plain(cuda, b, n, h, d, layout, dtype, tol):
-    """d = 2 and 4 (SkipTransUnet's two finest levels): heads of 4 or 8
-    bytes in bf16, forward and backward against the plain versions, two
-    launches a call, outputs in the layout of q."""
+    (2, 300, 3, 4, "contiguous"), (1, 129, 2, 2, "contiguous"), (1, 1, 2, 4, "heads"),
+    # SkipTransUnet's skip bridges on a 512 x 512 x 64 window (levels 0-3)
+    (1, 4194304, 8, 2, "heads"), (1, 1048576, 8, 4, "heads"), (1, 131072, 8, 8, "heads"),
+    (1, 32768, 8, 16, "heads"),
+    # MaskSkipTransUnet's d = 16 calls (bottleneck, then ROI levels 3-0)
+    (1, 4096, 16, 16, "heads"), (1, 32480, 8, 16, "heads"), (1, 22272, 4, 16, "heads"),
+    (1, 27968, 2, 16, "heads"), (1, 15776, 1, 16, "heads")])
+def test_narrow_heads_match_plain(cuda, b, n, h, d, layout, dtype):
+    """The head widths under 32 that the other models of ``Model_Dict`` run
+    (d = 2 and 4: heads of 4 or 8 bytes in bf16), forward and backward
+    against the plain versions, two launches a call, outputs in the layout
+    of q."""
     if layout == "heads":
         q, k, v, g = (_heads(b, n, h, d, dtype, cuda, seed) for seed in range(4))
     else:
         q, k, v = _qkv((b, h, n, d), dtype, cuda)
         g = _qkv((b, h, n, d), dtype, cuda, seed=1)[0]
-    got = fused.linear_attention(q, k, v)
-    want = fused.linear_attention_reference(q, k, v)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == want.shape and _same_layout(got, q)
-    assert _rel(got, want) <= tol
-    got = fused.linear_attention_backward(q, k, v, g)
-    want = fused.linear_attention_backward_reference(q, k, v, g)
-    torch.cuda.synchronize()
-    top = max(w.float().abs().max().item() for w in want)
-    for a, w in zip(got, want):
-        assert a.dtype == dtype and a.shape == w.shape and _same_layout(a, q)
-        err = (a.float() - w.float()).abs().max().item()
-        scale = w.float().abs().max().item()
-        assert err <= BWD_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
-    forward = cuda_launches(lambda: fused.linear_attention(q, k, v), 3).launches
-    backward = cuda_launches(lambda: fused.linear_attention_backward(q, k, v, g), 3).launches
-    assert len(forward) == 6 and len(backward) == 6, (forward, backward)
+    _hold_both_ways(q, k, v, g, dtype)
 
 
 def test_narrow_heads_need_their_row_alignment_only(cuda):
@@ -250,9 +292,8 @@ def test_each_call_is_at_most_two_launches(cuda, n):
     host's launch calls over three calls."""
     q, k, v, g = (_heads(1, n, 4, 32, torch.bfloat16, cuda, seed) for seed in range(4))
     fused.linear_attention_backward(q, k, v, g)  # built and loaded
-    forward = cuda_launches(lambda: fused.linear_attention(q, k, v), 3).launches
-    backward = cuda_launches(lambda: fused.linear_attention_backward(q, k, v, g), 3).launches
-    assert len(forward) == 6 and len(backward) == 6, (forward, backward)
+    _two_launches_a_call(lambda: fused.linear_attention(q, k, v))
+    _two_launches_a_call(lambda: fused.linear_attention_backward(q, k, v, g))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -285,39 +326,40 @@ def test_attention_module_copies_nothing(cuda, dtype):
     assert _rel(got, want) <= (5e-5 if dtype == torch.float32 else 2e-2)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,h,d", [(1, 4096, 8, 32), (2, 300, 3, 32), (1, 1, 2, 32),
-                                     (1, 20000, 8, 4), (2, 129, 2, 2)])
-def test_kernels_read_the_packed_qkv_layout(cuda, b, n, h, d, dtype, tol):
+                                     (1, 20000, 8, 4), (2, 129, 2, 2)]
+                         + [(1, n, h, 32) for h, n in WINDOW_CALLS[1:] + PATCH_CALLS])
+def test_kernels_read_the_packed_qkv_layout(cuda, b, n, h, d, dtype):
     """The thirds of a fused (B, N, 3*H*d) QKV projection, forward and
     backward through ``linear_attention_qkv`` against the plain versions on
     the same views: two launches a call each way, no copy, the output the
     head-split view of a new (B, N, H*d) tensor and the gradient one
-    contiguous (B, N, 3*H*d) tensor."""
+    contiguous (B, N, 3*H*d) tensor; the backward writes into the thirds of
+    a buffer it is given."""
     g = torch.Generator().manual_seed(n)
     qkv = torch.randn((b, n, 3 * h * d), generator=g).to(cuda, dtype).requires_grad_(True)
     grad = _heads(b, n, h, d, dtype, cuda, seed=1)
     got = fused.linear_attention_qkv(qkv, h)
     q, k, v = fused.split_qkv(qkv.detach(), h)
-    want = fused.linear_attention_reference(q, k, v)
+    want = fused.linear_attention_reference(*_exact(q, k, v))
     assert got.dtype == dtype and got.shape == (b, h, n, d)
     assert _same_layout(got, _heads(b, n, h, d, dtype, cuda))
-    assert _rel(got, want) <= tol
+    assert _rel(got, want) <= ATTN_TOL[dtype]
     got.backward(grad)
-    want_grads = fused.linear_attention_backward_reference(q, k, v, grad)
+    want_grads = fused.linear_attention_backward_reference(*_exact(q, k, v, grad))
     d_qkv = qkv.grad
     assert d_qkv.shape == qkv.shape and d_qkv.is_contiguous()
-    top = max(w.float().abs().max().item() for w in want_grads)
-    for a, w in zip(fused.split_qkv(d_qkv, h), want_grads):
-        err = (a.float() - w.float()).abs().max().item()
-        scale = w.float().abs().max().item()
-        assert err <= BWD_TOL[dtype] * (scale if scale >= 1e-3 * top else 1e-1 * top)
+    _hold_backward(fused.split_qkv(d_qkv, h), want_grads, dtype, q)
+    thirds = fused.split_qkv(torch.empty_like(qkv), h)
+    written = fused.linear_attention_backward(q, k, v, grad, out=thirds)
+    assert [t.data_ptr() for t in written] == [t.data_ptr() for t in thirds]
     with torch.no_grad():
         forward = cuda_launches(lambda: fused.linear_attention_qkv(qkv, h), 3)
-    buffer = torch.empty_like(qkv)
     backward = cuda_launches(lambda: fused.linear_attention_backward(
-        q, k, v, grad, out=fused.split_qkv(buffer, h)), 3)
-    assert len(forward.launches) == 6 and len(backward.launches) == 6, (forward, backward)
+        q, k, v, grad, out=thirds), 3)
+    for found in (forward, backward):
+        assert len(found.launches) == 6 and len(found.rows) <= 6, found
     assert not [op for op in forward.ops + backward.ops if "copy" in op or "clone" in op]
 
 
@@ -365,67 +407,81 @@ def test_kernel_rejects_other_layouts(cuda):
             fused.linear_attention_backward(*narrow, narrow[0])
 
 
-def _conv_inputs(n, ca, cb, o, spatial, dtype, device, seed=0):
+def _conv_inputs(n, ca, cb, o, spatial, dtype, device, seed=0, affine=True):
     g = torch.Generator(device="cpu").manual_seed(seed)
     rnd = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
     w = (rnd(o, ca + cb, 3, 3, 3) / (27 * (ca + cb)) ** 0.5).to(device)
-    kw = dict(bias=(rnd(o) * 0.1).to(device),
-              affine_a=torch.stack([rnd(n, ca).abs() + 0.5, rnd(n, ca)], 1).to(device))
+    kw = dict(bias=(rnd(o) * 0.1).to(device))
+    if affine:
+        kw["affine_a"] = torch.stack([rnd(n, ca).abs() + 0.5, rnd(n, ca)], 1).to(device)
     if cb:
         kw.update(xb=rnd(n, cb, *spatial).to(device, dtype), wb=w[:, ca:])
     return rnd(n, ca, *spatial).to(device, dtype), w[:, :ca], kw
 
 
 CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-3)}
+# (N, Ca, Cb, O, (H, W, D), the prologue affine on xa) of the seven units of
+# a 512 x 512 x 64 window in the fused build, each called as the model calls
+# it: the affine on the UpBlocks' conv2, no z
+WINDOW_UNITS = [
+    (1, 4, 0, 16, (256, 256, 64), False),    # the encoder's input block
+    (1, 16, 0, 16, (256, 256, 64), False),   # encoder block 0 conv1
+    (1, 32, 0, 32, (128, 128, 64), False),   # encoder block 1 conv1
+    (1, 64, 0, 32, (128, 128, 64), False),   # decoder level 1 conv1
+    (1, 32, 32, 32, (128, 128, 64), True),   # decoder level 1 conv2
+    (1, 32, 0, 16, (256, 256, 64), False),   # decoder level 0 conv1
+    (1, 16, 16, 16, (256, 256, 64), True),   # decoder level 0 conv2
+]
+
+
+def _check_conv_unit(device, dtype, compute, n, ca, cb, o, spatial, affine, want_z):
+    """y, the statistics and (``want_z``) z against the plain version, at
+    ``dtype``'s tolerances (the f32 ones for f32 activations, whatever the
+    operands), one launch a call."""
+    xa, wa, kw = _conv_inputs(n, ca, cb, o, spatial, dtype, device, affine=affine)
+    kw["compute_dtype"] = compute
+    before = cu.conv_unit.launches
+    got = cu.conv_unit(xa, wa, want_z=want_z, **kw)
+    torch.cuda.synchronize()
+    assert cu.conv_unit.launches == before + 1
+    want = cu.conv_unit_reference(xa, wa, want_z=want_z, **kw)
+    y_tol, stats_tol = CONV_TOL[dtype]
+    assert got[0].dtype == dtype and got[0].shape == (n, o) + spatial
+    assert _rel(got[0], want[0]) <= y_tol
+    assert _rel(got[1], want[1]) <= stats_tol
+    if want_z:
+        assert got[2].shape == xa.shape
+        assert _rel(got[2], want[2]) <= y_tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,ca,cb,o,spatial", [
-    (1, 32, 32, 32, (128, 128, 64)),   # the level-1 UpBlock's conv2
-    (1, 4, 0, 16, (256, 256, 64)),     # the input block
-    (2, 5, 0, 7, (9, 7, 13)),          # ragged in every dim
-    (1, 3, 6, 20, (6, 5, 70)),         # ragged, dual, two output tiles
-    (2, 20, 0, 16, (17, 11, 70)),      # ragged in every dim of the 4 x 4 x 32 tile
-    (1, 16, 16, 16, (256, 256, 64)),   # the level-0 UpBlock's conv2: dual, NT = 16
-    (1, 64, 0, 32, (128, 128, 64)),    # the level-1 UpBlock's conv1
-    (1, 8, 8, 24, (9, 10, 1)),         # D = 1
-    (1, 40, 0, 40, (8, 6, 16)),        # two output tiles of 32 channels
-    (1, 160, 160, 32, (6, 7, 40)),     # weights too large to stay in shared memory
-])
-def test_conv_unit_matches_plain(cuda, dtype, n, ca, cb, o, spatial):
-    xa, wa, kw = _conv_inputs(n, ca, cb, o, spatial, dtype, cuda)
-    kw["compute_dtype"] = dtype
-    before = cu.conv_unit.launches
-    got = cu.conv_unit(xa, wa, want_z=True, **kw)
-    torch.cuda.synchronize()
-    assert cu.conv_unit.launches == before + 1
-    want = cu.conv_unit_reference(xa, wa, want_z=True, **kw)
-    y_tol, stats_tol = CONV_TOL[dtype]
-    assert got[0].dtype == dtype and got[0].shape == (n, o) + spatial
-    assert got[2].shape == xa.shape
-    assert _rel(got[0], want[0]) <= y_tol
-    assert _rel(got[1], want[1]) <= stats_tol
-    assert _rel(got[2], want[2]) <= y_tol
+@pytest.mark.parametrize("n,ca,cb,o,spatial,affine,want_z", [
+    (1, 32, 32, 32, (128, 128, 64), True, True),   # the level-1 UpBlock's conv2
+    (1, 4, 0, 16, (256, 256, 64), True, True),     # the input block
+    (2, 5, 0, 7, (9, 7, 13), True, True),          # ragged in every dim
+    (1, 3, 6, 20, (6, 5, 70), True, True),         # ragged, dual, two output tiles
+    (2, 20, 0, 16, (17, 11, 70), True, True),      # ragged in every dim of the 4 x 4 x 32 tile
+    (1, 16, 16, 16, (256, 256, 64), True, True),   # the level-0 UpBlock's conv2: dual, NT = 16
+    (1, 64, 0, 32, (128, 128, 64), True, True),    # the level-1 UpBlock's conv1
+    (1, 8, 8, 24, (9, 10, 1), True, True),         # D = 1
+    (1, 40, 0, 40, (8, 6, 16), True, True),        # two output tiles of 32 channels
+    (1, 160, 160, 32, (6, 7, 40), True, True),     # weights too large to stay in shared memory
+] + [unit + (False,) for unit in WINDOW_UNITS])
+def test_conv_unit_matches_plain(cuda, dtype, n, ca, cb, o, spatial, affine, want_z):
+    _check_conv_unit(cuda, dtype, dtype, n, ca, cb, o, spatial, affine, want_z)
 
 
-@pytest.mark.parametrize("n,ca,cb,o,spatial", [
-    (1, 32, 32, 32, (128, 128, 64)),
-    (2, 5, 0, 7, (9, 7, 13)),
-    (2, 20, 0, 16, (17, 11, 70)),
-    (1, 8, 8, 24, (9, 10, 1)),
-])
-def test_conv_unit_f32_input_bf16_operands(cuda, n, ca, cb, o, spatial):
+@pytest.mark.parametrize("n,ca,cb,o,spatial,affine,want_z", [
+    (1, 32, 32, 32, (128, 128, 64), True, True),
+    (2, 5, 0, 7, (9, 7, 13), True, True),
+    (2, 20, 0, 16, (17, 11, 70), True, True),
+    (1, 8, 8, 24, (9, 10, 1), True, True),
+] + [unit + (False,) for unit in WINDOW_UNITS])
+def test_conv_unit_f32_input_bf16_operands(cuda, n, ca, cb, o, spatial, affine, want_z):
     """The default: f32 activations, operands rounded to bf16 when staged,
     y and z in f32; held to the f32 tolerance against the plain version,
     which rounds the same operands."""
-    xa, wa, kw = _conv_inputs(n, ca, cb, o, spatial, torch.float32, cuda)
-    got = cu.conv_unit(xa, wa, want_z=True, **kw)
-    want = cu.conv_unit_reference(xa, wa, want_z=True, **kw)
-    assert got[0].dtype == torch.float32
-    y_tol, stats_tol = CONV_TOL[torch.float32]
-    assert _rel(got[0], want[0]) <= y_tol
-    assert _rel(got[1], want[1]) <= stats_tol
-    assert _rel(got[2], want[2]) <= y_tol
+    _check_conv_unit(cuda, torch.float32, None, n, ca, cb, o, spatial, affine, want_z)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -463,6 +519,9 @@ def _stack_inputs(b, n, c, layers, dtype, device, seed=0):
     (2, 300, 256, 1),      # batch 2 at the 256-wide stacks
     (1, 200, 32, 2),       # the narrow widths
     (1, 200, 64, 2),
+    # the window's four token stacks at 1 and 7 layers, those not above
+    (1, 4096, 256, 7), (1, 2160, 256, 1), (1, 5376, 256, 1), (1, 5376, 256, 7),
+    (1, 28704, 128, 7),
 ])
 def test_fused_stack_matches_plain(cuda, dtype, tol, b, n, c, layers):
     _check_stack(cuda, dtype, tol, b, n, c, layers)
@@ -588,7 +647,14 @@ TAP_OFFSETS = {
 }
 
 
-@pytest.mark.parametrize("taps,k,n,offsets,acc", [
+# (groups, rows of x, output rows m) of the tap-sum cases: 3 groups of 4173
+# rows and a ragged m (4123 = 32 x 128 + 27); the TPU probe's x, m all its
+# rows (as the entry point's default)
+TAP_RAGGED = (3, 4096 + 77, 4096 + 27)
+TAP_MAIN = (dot_probe.GROUPS, dot_probe.M, dot_probe.M)
+
+
+@pytest.mark.parametrize("taps,k,n,offsets,acc,shape", [case + (TAP_RAGGED,) for case in [
     (9, 128, 64, "zero", torch.float32),        # variant A: one distinct offset, hi and lo
     (9, 128, 64, "zero", torch.bfloat16),       # variant E: the whole of K in one item
     (1, 1152, 64, "zero", torch.float32),       # variant C: a lone tap, 18 K chunks resident
@@ -604,19 +670,20 @@ TAP_OFFSETS = {
     (9, 1152, 64, "zero", torch.bfloat16),      # bf16 accumulation by (tap, K chunk)
     (27, 16, 16, "zero", torch.float32),        # the conv unit's smallest taps
     (1, 27 * 32, 32, "zero", torch.float32),    # tap-folded K = 27 C_in
-])
-def test_tap_sum_matches_plain(cuda, taps, k, n, offsets, acc):
-    """``taps_fold`` on 3 groups of 4173 rows and a ragged m (4123 = 32 x 128
-    + 27), one launch a call; bf16 accumulation also nearer the
+]] + [(9, 128, 64, "zero", torch.float32, TAP_MAIN),     # #10 A at its main shape
+      (9, 128, 64, "zero", torch.bfloat16, TAP_MAIN)])   # #10 E
+def test_tap_sum_matches_plain(cuda, taps, k, n, offsets, acc, shape):
+    """``taps_fold``, one launch a call; bf16 accumulation also nearer the
     bf16-accumulated sum than the f32 one."""
-    x, w = _probe_taps(3, 4096 + 77, k, taps, n, cuda)
-    offs, m = TAP_OFFSETS[offsets](taps), 4096 + 27
+    groups, rows, m = shape
+    x, w = _probe_taps(groups, rows, k, taps, n, cuda)
+    offs = TAP_OFFSETS[offsets](taps)
     before = dot_probe.tap_sum.launches
     got = dot_probe.tap_sum(x, w, offs, m, acc_dtype=acc)
     torch.cuda.synchronize()
     assert dot_probe.tap_sum.launches == before + 1
     want = dot_probe.tap_sum_reference(x, w, offs, m, acc_dtype=acc)
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (3, m, n)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (groups, m, n)
     assert _rel(got, want) <= (1e-2 if acc == torch.bfloat16 else 2e-2)
     assert _rel(got[:, -27:], want[:, -27:]) <= (1e-2 if acc == torch.bfloat16 else 2e-2)
     if acc == torch.bfloat16:  # nearer the bf16-accumulated sum than the f32 one
@@ -679,33 +746,35 @@ def test_tap_sum_fold_is_the_reference_fold(cuda, taps, k, n, offsets, acc):
     assert not padding.any()
 
 
+@pytest.mark.parametrize("groups", [2, rowoffset_probe.GROUPS])
 @pytest.mark.parametrize("variant", sorted(rowoffset_probe.OFFSETS))
-def test_row_offset_sum_matches_plain(cuda, variant):
-    x, w = rowoffset_probe.inputs(2, rowoffset_probe.M_PAD, cuda)
+def test_row_offset_sum_matches_plain(cuda, variant, groups):
+    x, w = rowoffset_probe.inputs(groups, rowoffset_probe.M_PAD, cuda)
     offsets = rowoffset_probe.OFFSETS[variant]
     before = rowoffset_probe.row_offset_sum.launches
     got = rowoffset_probe.row_offset_sum(x, w, offsets)
     torch.cuda.synchronize()
     assert rowoffset_probe.row_offset_sum.launches == before + 1
     want = rowoffset_probe.row_offset_sum_reference(x, w, offsets)
-    assert got.shape == (2, rowoffset_probe.M, rowoffset_probe.N)
+    assert got.shape == (groups, rowoffset_probe.M, rowoffset_probe.N)
     assert _rel(got, want) <= PROBE_TOL[torch.bfloat16]
     lib = rowoffset_probe.library_call(x, w, offsets)()
     assert _rel(lib, want) <= PROBE_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("strategy", inner_probe.STRATEGIES)
-@pytest.mark.parametrize("batch,hbo", [(3, 12), (1, 2), (1, 1), (5, 3), (200, 1)])
+@pytest.mark.parametrize("batch,hbo", [(3, 12), (1, 2), (1, 1), (5, 3), (200, 1),
+                                       (inner_probe.BATCH, inner_probe.HBO)])
 def test_inner_step_matches_plain(cuda, strategy, batch, hbo):
-    """Every strategy is held to the dots27 function on all rows, the two
-    clipped edge rows included. The last 192-row tile of a window is ragged
-    (hbo * 136 rows: 1,632, 272, 136, 408), some of its warpgroups wholly
-    past the rows (one at hbo 12, two at hbo 1); 200 windows of one short
-    tile each make more tiles than SMs."""
+    """Every strategy, through the entry point, is held to the dots27
+    function on all rows, the two clipped edge rows included. The last
+    192-row tile of a window is ragged (hbo * 136 rows: 1,632, 272, 136,
+    408), some of its warpgroups wholly past the rows (one at hbo 12, two
+    at hbo 1); 200 windows of one short tile each make more tiles than SMs;
+    the TPU probe's 64 windows at hbo 12 last."""
     z, kp, ku, kd = inner_probe.inputs(batch, hbo, cuda)
-    packed = inner_probe.pack_inner_weights(kp, ku, kd, strategy)
     before = inner_probe.inner_step_packed.launches
-    got = inner_probe.inner_step_packed(z, packed, hbo, strategy)
+    got = inner_probe.inner_step(z, kp, ku, kd, hbo, strategy)
     torch.cuda.synchronize()
     assert inner_probe.inner_step_packed.launches == before + 1
     want = inner_probe.inner_step_reference(z, kp, ku, kd, hbo)
@@ -755,6 +824,7 @@ def test_inner_step_rejects_views(cuda):
 @pytest.mark.parametrize("shape,n_out", [
     ((32, 16, 64, 64), 64),     # the TPU probe's C and D
     ((8, 12, 32, 32), 128),     # D 32: a 1 x 4 x 32 tile, 128 outputs
+    (conv_prototype.SHAPE, conv_prototype.N_OUT),   # the TPU probe's main shape
 ])
 def test_conv3d_cl_matches_plain(cuda, dtype, shape, n_out):
     x, k = conv_prototype.inputs(shape, n_out, cuda, dtype)
@@ -772,6 +842,7 @@ def test_conv3d_cl_matches_plain(cuda, dtype, shape, n_out):
     ((2, 16, 8, 64, 64), 64),     # the level-0 packed C4 = O4 = 64
     ((1, 8, 8, 64, 128), 128),    # the 8C-lane C4 = O4 = 128
     ((1, 6, 8, 32, 32), 64),
+    conv_retired.SHAPES[0][1:],   # the TPU probe's main shape, level-0 packed
 ])
 def test_conv3d_cl_rows_matches_plain(cuda, dtype, shape, n_out):
     xp, k, bias = conv_retired.inputs(shape, n_out, cuda, dtype)
@@ -857,7 +928,7 @@ def test_conv_probes_are_deterministic(cuda, dtype):
 
 
 @pytest.mark.parametrize("shape,scale", [((4, 16, 8, 256), 1.0), ((2, 24, 16, 128), 0.7),
-                                         ((32, 128, 128, 128), 1.0)])
+                                         ((32, 128, 128, 128), 1.0)])  # the TPU probe's main
 def test_lane_sums_matches_plain(cuda, shape, scale):
     x = in_stats_probe.inputs(shape, cuda)
     before = in_stats_probe.lane_sums.launches
@@ -948,11 +1019,25 @@ def test_depthwise_wgrad_is_deterministic(cuda):
     assert torch.equal(first, second)
 
 
+def _in_a_new_process(fn):
+    """``fn()`` in a spawned process. In a process that has profiled many
+    calls the profiler on the H100 keeps no device rows for long stretches
+    (a run of this whole file loses them for its last few dozen tests; the
+    host's launch calls stay), so a test of the kernels' names profiles in
+    a process that has profiled nothing."""
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply_async(fn).get(timeout=300)
+
+
+def _wgrad_call_profiled():
+    x, grad = _depthwise_inputs(DEPTHWISE_ROUTED[1], "channels_last", torch.device("cuda"))
+    return cuda_launches(lambda: cw.depthwise_weight_grad(x, grad))
+
+
 def test_depthwise_wgrad_launches_conv_unit_kernels(cuda):
     """Two launches a call, each a kernel named ``conv_unit...`` (which the
     benchmark's cuDNN reader leaves out), and no cuDNN kernel."""
-    x, grad = _depthwise_inputs(DEPTHWISE_ROUTED[1], "channels_last", cuda)
-    seen = cuda_launches(lambda: cw.depthwise_weight_grad(x, grad))
+    seen = _in_a_new_process(_wgrad_call_profiled)
     assert len(seen.launches) == 2
     kernels = [r for r in seen.rows if not r.startswith(("Memcpy", "Memset"))]
     assert kernels and all("conv_unit" in r for r in kernels), kernels
@@ -1004,12 +1089,15 @@ def test_depthwise_wgrad_rejects_what_it_does_not_take(cuda):
 
 
 # (N, C, O, (H, W, D)): the narrow-output convolutions of a flagship window
-# batch and micro-batch (the final block, the mask heads of levels 0-3),
-# then ragged ones: H and W off the tiles, channels not a multiple of 16,
+# batch (4) and micro-batch (3) (the final block, the mask heads of levels
+# 0-3), each at both batches, then ragged ones: H and W off the tiles, channels not a multiple of 16,
 # each output count, each depth the tiles take.
 NARROW_ROUTED = [(4, 16, 8, (256, 256, 32)), (4, 32, 2, (256, 256, 32)),
                  (3, 64, 2, (128, 128, 32)), (3, 128, 2, (64, 64, 16)),
-                 (4, 256, 2, (32, 32, 16))]
+                 (4, 256, 2, (32, 32, 16)),
+                 (3, 16, 8, (256, 256, 32)), (3, 32, 2, (256, 256, 32)),
+                 (4, 64, 2, (128, 128, 32)), (4, 128, 2, (64, 64, 16)),
+                 (3, 256, 2, (32, 32, 16))]
 NARROW_RAGGED = [(1, 20, 5, (13, 9, 24)), (2, 16, 3, (7, 11, 64)), (1, 24, 8, (5, 6, 128)),
                  (1, 8, 4, (3, 3, 8)), (3, 40, 7, (9, 10, 40)), (1, 17, 2, (6, 5, 48)),
                  (2, 33, 1, (10, 3, 56)), (1, 5, 6, (4, 9, 96))]
@@ -1060,12 +1148,16 @@ def test_narrow_conv_reads_a_strided_input(cuda):
     assert torch.equal(got, want)
 
 
+def _narrow_call_profiled():
+    x, w, b = _narrow_inputs(NARROW_ROUTED[0], torch.device("cuda"))
+    return cuda_launches(lambda: cn.conv_narrow(x, w, b))
+
+
 def test_narrow_conv_launches_conv_unit_narrow_kernels(cuda):
     """Two launches a call (the packing, the convolution), each a kernel
     named ``conv_unit_narrow...`` (which the benchmark's cuDNN reader leaves
     out and its ``narrow_conv_ms`` readers count), and no cuDNN kernel."""
-    x, w, b = _narrow_inputs(NARROW_ROUTED[0], cuda)
-    seen = cuda_launches(lambda: cn.conv_narrow(x, w, b))
+    seen = _in_a_new_process(_narrow_call_profiled)
     assert len(seen.launches) == 2
     kernels = [r for r in seen.rows if not r.startswith(("Memcpy", "Memset"))]
     assert kernels and all("conv_unit_narrow" in r for r in kernels), kernels

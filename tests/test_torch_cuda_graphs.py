@@ -15,9 +15,11 @@ the step's CPU path runs it.
 
 The model is a small bf16 ``MaskTransUnet`` whose level-3 ROI bridge and
 bottleneck run 256-channel positional encodings, so that its backward goes
-through the depthwise weight-gradient kernel too, and whose final block,
-level 0-1 mask heads and gates go through the narrow-output convolution
-kernel.
+through the depthwise weight-gradient kernel too, and whose 3x3x3
+convolutions of at most 8 outputs (the final block, the level 0-1 mask
+heads, the 8-wide conv blocks) go through the narrow-output convolution
+kernel; the first comparison also runs on the flagship at its published
+widths on the 512 x 512 x 32 training patch.
 """
 
 import gc
@@ -32,14 +34,23 @@ import torch.multiprocessing as mp
 from lintransunet_tpu_torch import engine, parallel
 from lintransunet_tpu_torch.cli.common import get_criterion_list
 from lintransunet_tpu_torch.engine.train import _with_grads
+from lintransunet_tpu_torch.models import FLAGSHIP
 from lintransunet_tpu_torch.ops import conv_narrow, conv_wgrad
 from lintransunet_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
-SMALL = dict(num_layers=(8, 16, 32, 64, 256), roi_size_list=(16, 12, 8, 6, 4),
-             is_roi_list=(False, True, True, True, True), dim_input=1, dim_output=2,
-             n_layers=2, dropout=0.3)
+# The models the comparisons build: widths, (H, W, D) of a patch, patches a
+# micro-batch, the label box, and the convolutions of a forward that route
+# to conv_narrow
+SIZES = {
+    "small": (dict(num_layers=(8, 16, 32, 64, 256), roi_size_list=(16, 12, 8, 6, 4),
+                   is_roi_list=(False, True, True, True, True), dim_input=1, dim_output=2,
+                   n_layers=2, dropout=0.3),
+              (64, 64, 8), 2, (slice(20, 44), slice(24, 40), slice(2, 6)), 7),
+    "flagship": (dict(FLAGSHIP, dropout=0.3), (512, 512, 32), 1,
+                 (slice(200, 320), slice(220, 300), slice(8, 24)), 5),
+}
 WEIGHTS = [0.15, 0.25, 0.4, 0.5, 1.0]
 DP_SECONDS = 150  # a collective that waits on a rank that is gone never returns
 
@@ -57,24 +68,26 @@ def _deterministic():
     return chip_smoke.deterministic()
 
 
-def _model(device):
+def _model(device, size):
     from lintransunet_tpu_torch.models import MaskTransUnet, init_random_
 
-    model = MaskTransUnet(**SMALL, dtype=torch.bfloat16, device=device)
+    model = MaskTransUnet(**SIZES[size][0], dtype=torch.bfloat16, device=device)
     init_random_(model, torch.Generator(device="cpu").manual_seed(1))
     return model
 
 
-def _batches(device, count, batch=2, seed=0):
+def _batches(device, count, batch=None, seed=0, size="small"):
+    _, spatial, patches, box, _ = SIZES[size]
+    batch = patches if batch is None else batch
     g = torch.Generator(device="cpu").manual_seed(seed)
-    labels = torch.zeros((batch, 64, 64, 8), dtype=torch.long)
-    labels[:, 20:44, 24:40, 2:6] = 1
-    return ([torch.randn((batch, 1, 64, 64, 8), generator=g).to(device) for _ in range(count)],
+    labels = torch.zeros((batch,) + spatial, dtype=torch.long)
+    labels[(slice(None),) + box] = 1
+    return ([torch.randn((batch, 1) + spatial, generator=g).to(device) for _ in range(count)],
             labels.to(device))
 
 
-def _setup(device, step_times=2, mesh=None):
-    model = _model(device)
+def _setup(device, step_times=2, mesh=None, size="small"):
+    model = _model(device, size)
     criterions, _ = get_criterion_list(5, ["CrossEntroLoss", "DiceClassLoss"])
     state = engine.create_train_state(model, 1e-4, step_times=step_times)
     return model, state, engine.make_train_step(model, criterions, mesh=mesh)
@@ -106,18 +119,20 @@ def _same_state(a, b):
     assert (a.step, a.mini_step, a.gradient_step) == (b.step, b.mini_step, b.gradient_step)
 
 
-def test_graphed_micro_steps_match_eager(cuda):
+@pytest.mark.parametrize("size", ["small", "flagship"])
+def test_graphed_micro_steps_match_eager(cuda, size):
     """Four micro-steps of step_times 2 (both phases, twice): the same bits
     as eager, one graph a phase, every micro-step a replay, the routed
-    convolutions through the kernel, and the returned losses distinct
-    (clones, not the graph's buffer)."""
-    images, labels = _batches(cuda, 4)
+    convolutions through the kernels (conv_narrow's calls a forward in each
+    pass through Python), and the returned losses distinct (clones, not the
+    graph's buffer)."""
+    images, labels = _batches(cuda, 4, size=size)
     with _deterministic():
-        _, graphed, step = _setup(cuda)
-        _, eager, eager_step = _setup(cuda)
+        _, graphed, step = _setup(cuda, size=size)
+        _, eager, eager_step = _setup(cuda, size=size)
         gens = [torch.Generator(device=cuda).manual_seed(3) for _ in range(2)]
         replayed, launches = profiling.counts["step.replayed"], conv_wgrad.depthwise_weight_grad.launches
-        narrow = conv_narrow.conv_narrow.launches
+        narrow, passes = conv_narrow.conv_narrow.launches, engine.python_passes()
         losses = []
         for x in images:
             loss, logs = step(graphed, x, labels, torch.tensor(WEIGHTS, device=cuda), gens[0])
@@ -129,7 +144,10 @@ def test_graphed_micro_steps_match_eager(cuda):
     assert profiling.counts["step.replayed"] == replayed + 4
     assert len(step.graphs.captured) == 2
     assert conv_wgrad.depthwise_weight_grad.launches > launches
-    assert conv_narrow.conv_narrow.launches > narrow
+    # the graphed side's passes through Python and the eager side's four forwards
+    forwards = engine.python_passes() - passes + len(images)
+    *_, narrow_a_forward = SIZES[size]
+    assert conv_narrow.conv_narrow.launches - narrow == narrow_a_forward * forwards
     assert len({float(v) for v in losses}) == 4
     assert torch.equal(gens[0].get_state(), gens[1].get_state())
 

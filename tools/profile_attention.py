@@ -39,6 +39,7 @@ from torch.autograd import DeviceType
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from lintransunet_tpu_torch.experiments.common import cuda_ms  # noqa: E402
 from lintransunet_tpu_torch.ops import linear_attention as fused  # noqa: E402
 
 ITERS = 50
@@ -105,7 +106,7 @@ def measure(label, shapes, layout, make_call):
     total_ms, total_dev, total_busy = 0.0, 0.0, 0.0
     for bh, n, d in shapes:
         fn = make_call(bh, n, d, layout, gen)
-        ms = chip_smoke.cuda_ms(fn, ITERS, warmup=5)
+        ms = cuda_ms(fn, ITERS, warmup=5)
         busy = busy_us(fn)
         host = host_us(fn)
         launches, per = profile_call(fn)
