@@ -25,7 +25,8 @@ last line):
    weights from a seed, f32 parameters, bf16 compute) behind
    ``make_eval_runner`` answers three 512 x 512 x 144 volumes (5 windows
    each); the attention kernel must launch 32 times a window, conv_narrow 5
-   times (``NARROW_CALLS``) and the other kernels never;
+   times (``NARROW_CALLS``), conv_depthwise 4 times (``PEG_CALLS``) and the
+   other kernels never;
 4. kernel vs plain attention end to end on one window of the default path:
    in bf16 and f32 the ConnectBridge output and the coarsest mask (both
    upstream of the first ROI box threshold) within PRE_THRESHOLD_TOL; the
@@ -39,8 +40,8 @@ last line):
     backward attention launches;
 5. the fused configuration at full width: the same weights with
    ``fused_s1=True, fused_stack=True`` answer the same three volumes; per
-   window exactly 7 conv-unit, 8 stack and 5 conv_narrow launches, and no
-   standalone attention launch;
+   window exactly 7 conv-unit, 8 stack, 5 conv_narrow and 4 conv_depthwise
+   launches, and no standalone attention launch;
 6. fused vs default end to end on one window, same weights: the
    ConnectBridge output and the coarsest mask within FUSED_TOL in bf16 and
    f32, and both configurations' window forward times. The fused conv unit
@@ -54,7 +55,8 @@ last line):
    every step is a CUDA graph replay, the first after the step's warm-up
    and capture, its two passes through Python; each pass launches exactly
    32 forward and 32 backward attention kernels, 3 depthwise weight
-   gradients and 5 conv_narrow forwards and none of the others (the replays launch theirs without
+   gradients, 5 conv_narrow and 4 conv_depthwise forwards and none of the
+   others (the replays launch theirs without
    Python: one replay under the profiler shows each of the port's kernels,
    none more often than the capture launched it); prints ms per step and
    the peak memory.
@@ -84,7 +86,8 @@ last line):
     and 32 backward attention launches a step plus 32 forward a window of
     the runner's grid in ``train3d`` (32 a window batch in the inference),
     the depthwise weight gradients, conv_narrow 5 times a forward (4 at 3
-    classes, whose final block has 12 outputs) and no other kernel, a
+    classes, whose final block has 12 outputs), conv_depthwise 4 times a
+    forward and no other kernel, a
     (80, 512, 512) binary export, and a finite
     ``summary_4_fold.json``. Prints ms per step through the CLI beside phase
     7's, the host's data time, s per served volume, whether the native
@@ -104,8 +107,8 @@ last line):
     flagship's widths on one 512 x 512 x 64 window in eval, bf16, with the
     kernel: the output's shape, finite probabilities whose channels sum to
     1, attention launches equal to the model's attention layers, conv_narrow
-    launches equal to its routed convolutions (the bottle model's one, its
-    final block); kernel vs
+    and conv_depthwise launches equal to its routed convolutions (the bottle
+    model's one each, its final block and its positional encoding); kernel vs
     plain attention in f32 on the same window (the output, or for
     ``MaskSkipTransUnet`` the bottleneck bridge and ``mask_list[0]`` upstream
     of its first ROI box and then the labels); then one f32
@@ -233,7 +236,7 @@ from lintransunet_tpu_torch.models import (
     init_random_,
 )
 from lintransunet_tpu_torch.ops import attention
-from lintransunet_tpu_torch.ops import conv_narrow
+from lintransunet_tpu_torch.ops import conv_depthwise, conv_narrow
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import conv_wgrad
 from lintransunet_tpu_torch.ops import fused_stack as fs
@@ -245,7 +248,7 @@ VOLUME = (1, 1, 512, 512, 144)
 N_VOLUMES = 3
 WINDOWS_PER_VOLUME = 5      # depth 144, roi depth 64, overlap 0.6
 KERNEL_NAMES = ("linear_attention", "conv_unit", "fused_stack", "conv_wgrad", "conv_narrow",
-                "probe_taps", "probe_conv", "probe_stats")
+                "conv_depthwise", "probe_taps", "probe_conv", "probe_stats")
 # The probes' tensor-core kernels whose registers and spills phase 1 prints
 # on a line each: (library, kernel)
 PROBE_MMA_KERNELS = (("probe_conv", "conv_mma"), ("probe_taps", "taps_fold"),
@@ -260,6 +263,7 @@ COUNTED = {"linear_attention": fused.linear_attention,
            "fused_stack": fs.fused_transformer_stack,
            "conv_wgrad": conv_wgrad.depthwise_weight_grad,
            "conv_narrow": conv_narrow.conv_narrow,
+           "conv_depthwise": conv_depthwise.conv_depthwise,
            "tap_sum": dot_probe.tap_sum,
            "row_offset_sum": rowoffset_probe.row_offset_sum,
            "inner_step": inner_probe.inner_step_packed,
@@ -281,6 +285,9 @@ def times(per, n):
 # model's one) and the mask heads of levels 0-3
 NARROW_CALLS = [(16, 8, (256, 256, 32)), (32, 2, (256, 256, 32)), (64, 2, (128, 128, 32)),
                 (128, 2, (64, 64, 16)), (256, 2, (32, 32, 16))]
+# the positional encodings of a bf16 flagship forward, which route to
+# conv_depthwise: the bottleneck's and the ROI bridges' at levels 3, 2, 1
+PEG_CALLS = 4
 # launches per window (serving) or pass of the train step's forward and
 # backward through Python ("train": bf16, whose three 256-channel PEG
 # weight gradients route to conv_wgrad; "train_f32": f32, which routes
@@ -289,10 +296,12 @@ NARROW_CALLS = [(16, 8, (256, 256, 32)), (32, 2, (256, 256, 32)), (64, 2, (128, 
 # its kernels launch without Python, as the pass that captured them
 # launched them, and the wrappers' counters count the passes alone
 # (python_passes)
-PER_WINDOW = {"default": _per(linear_attention=32, conv_narrow=len(NARROW_CALLS)),
-              "fused": _per(conv_unit=7, fused_stack=8, conv_narrow=len(NARROW_CALLS)),
+PER_WINDOW = {"default": _per(linear_attention=32, conv_narrow=len(NARROW_CALLS),
+                              conv_depthwise=PEG_CALLS),
+              "fused": _per(conv_unit=7, fused_stack=8, conv_narrow=len(NARROW_CALLS),
+                            conv_depthwise=PEG_CALLS),
               "train": _per(linear_attention=32, linear_attention_backward=32, conv_wgrad=3,
-                            conv_narrow=len(NARROW_CALLS)),
+                            conv_narrow=len(NARROW_CALLS), conv_depthwise=PEG_CALLS),
               "train_f32": _per(linear_attention=32, linear_attention_backward=32)}
 # (BH, N, d) of the window's attention calls: bottleneck, levels 3, 2, 1
 MAIN_SHAPES = [(8, 4096, 32), (8, 2160, 32), (8, 5376, 32), (4, 28704, 32)]
@@ -412,7 +421,7 @@ def phase_card():
 KERNEL_TESTS = ("tests/test_torch_cuda.py",
                 "tests/test_torch_cuda_graphs.py::test_graphed_micro_steps_match_eager[flagship]")
 KERNEL_TEST_NAMES = ("matches_plain or head_split or packed_qkv or narrow_heads "
-                     "or bf16_operands or micro_steps_match_eager")
+                     "or bf16_operands or micro_steps_match_eager or depthwise_conv")
 
 
 def phase_kernels():
@@ -598,7 +607,8 @@ def phase_fused_qkv(model, window):
     same weights, on one window: held as phase 4 (upstream of the first ROI
     box within PRE_THRESHOLD_TOL in bf16 and f32, the f32 labels on
     MIN_AGREEMENT of the voxels), 32 attention launches, 5 conv_narrow
-    launches in bf16 (none in f32) and no other kernel's a window; the window's CUDA launches each way; then one f32
+    and 4 conv_depthwise launches in bf16 (none in f32) and no other kernel's
+    a window; the window's CUDA launches each way; then one f32
     train step (TF32 off), one product against three, within TRAIN_TOL, 32
     forward and 32 backward attention launches."""
     state = model.state_dict()
@@ -608,9 +618,9 @@ def phase_fused_qkv(model, window):
         reset_launch_counts()
         got = pre_threshold(m, window)
         launches = launch_counts()
-        # an f32 model routes no convolution to conv_narrow
+        # an f32 model routes no convolution to conv_narrow or conv_depthwise
         want = PER_WINDOW["default"] if dtype == torch.bfloat16 else dict(
-            PER_WINDOW["default"], conv_narrow=0)
+            PER_WINDOW["default"], conv_narrow=0, conv_depthwise=0)
         if launches != want:
             fail(f"4b: a {name} window launched {launches}, not {want}")
         with projection(False):
@@ -756,9 +766,10 @@ def phase_train(images, labels, criterions):
 
 # device rows of one replayed bf16 micro-step of the flagship, by kernel
 # name: 32 attention calls each way (lta_fold in both, then lta_out or
-# lta_bwd_tokens) and three routed weight gradients (two launches each)
+# lta_bwd_tokens), three routed weight gradients (two launches each) and
+# the four positional encodings' forwards
 REPLAY_ROWS = {"lta_fold": 64, "lta_out": 32, "lta_bwd_tokens": 32,
-               "conv_unit_wgrad_dw": 3, "conv_unit_wgrad_sum": 3}
+               "conv_unit_wgrad_dw": 3, "conv_unit_wgrad_sum": 3, "conv_unit_depthwise": 4}
 
 
 def replay_kernels(fn):
@@ -1092,6 +1103,7 @@ def train_launches(passes, eval_windows, classes=2):
     per = times(PER_WINDOW["train"], passes)
     per["linear_attention"] += PER_WINDOW["default"]["linear_attention"] * eval_windows
     per["conv_narrow"] = narrow_calls(classes) * (passes + eval_windows)
+    per["conv_depthwise"] = PEG_CALLS * (passes + eval_windows)
     return per
 
 
@@ -1110,7 +1122,8 @@ def check_cli_run(tag, out, multi_class=False):
         fail(f"{train_name} launched {out['train_launches']}, not {want} ({out['passes']} "
              f"passes through Python for {steps} steps, and {out['eval_windows']} eval windows)")
     want_infer = _per(linear_attention=32 * out["infer_chunks"],
-                      conv_narrow=narrow_calls(classes) * out["infer_chunks"])
+                      conv_narrow=narrow_calls(classes) * out["infer_chunks"],
+                      conv_depthwise=PEG_CALLS * out["infer_chunks"])
     if out["infer_launches"] != want_infer:
         fail(f"{infer_name} launched {out['infer_launches']}, not {want_infer} "
              f"({out['infer_chunks']} window batches)")
@@ -1306,19 +1319,19 @@ def model_forward(model, window):
     return out, masks, seen.get("out")
 
 
-def routed_narrow(model, fn):
-    """(``fn()``, the calls in it of the model's ``Conv3d`` layers that
-    ``conv_narrow.routes`` takes)."""
-    calls = []
+def routed_calls(model, fn):
+    """(``fn()``, {"conv_narrow": n, "conv_depthwise": m}: the calls in it
+    of the model's ``Conv3d`` layers that each wrapper's ``routes`` takes)."""
+    calls = {"conv_narrow": 0, "conv_depthwise": 0}
 
     def count(mod, args):
-        calls.extend([1] * conv_narrow.routes(args[0], mod.weight, mod.stride, mod.padding,
-                                              mod.groups))
+        for name, op in (("conv_narrow", conv_narrow), ("conv_depthwise", conv_depthwise)):
+            calls[name] += op.routes(args[0], mod.weight, mod.stride, mod.padding, mod.groups)
 
     handles = [m.register_forward_pre_hook(count) for m in model.modules()
                if isinstance(m, blocks.Conv3d)]
     try:
-        return fn(), len(calls)
+        return fn(), calls
     finally:
         for handle in handles:
             handle.remove()
@@ -1327,21 +1340,23 @@ def routed_narrow(model, fn):
 def phase_other_models(window):
     """Each of the four models on one window in bf16 with the kernel: shape,
     finite channel probabilities, exact launches (the attention kernel once a
-    layer, conv_narrow once a routed convolution: the bottle model's final
-    block alone); then kernel vs plain in f32 on the same window."""
+    layer, conv_narrow and conv_depthwise once a routed convolution: the
+    bottle model's final block and its positional encoding alone); then
+    kernel vs plain in f32 on the same window."""
     for name in OTHER_MODELS:
         model = build_other(name)
         model_forward(model, window)  # warm up
         _sync()
         reset_launch_counts()
         t0 = time.perf_counter()
-        (out, masks, _), narrow = routed_narrow(model, lambda: model_forward(model, window))
+        (out, masks, _), routed = routed_calls(model, lambda: model_forward(model, window))
         _sync()
         ms = (time.perf_counter() - t0) * 1e3
         launches = launch_counts()
-        want = _per(linear_attention=attention_layers(model), conv_narrow=narrow)
-        if narrow < 1 or (name == "BottleTransUnet" and narrow != 1):
-            fail(f"{name}: {narrow} convolutions routed to conv_narrow")
+        want = _per(linear_attention=attention_layers(model), **routed)
+        if routed["conv_narrow"] < 1 or (name == "BottleTransUnet"
+                                         and routed != {"conv_narrow": 1, "conv_depthwise": 1}):
+            fail(f"{name}: convolutions routed {routed}")
         if tuple(out.shape) != (1, 2) + WINDOW[2:] or not torch.isfinite(out).all():
             fail(f"{name}: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
         sum_err = (out.sum(dim=1) - 1.0).abs().max().item()
@@ -1780,7 +1795,7 @@ def phase_remat(images, labels, criterions):
         finally:
             blocks.REMAT = ""
     want = times(_per(linear_attention=64, linear_attention_backward=32, conv_wgrad=3,
-                      conv_narrow=5), passes)
+                      conv_narrow=5, conv_depthwise=PEG_CALLS), passes)
     if passes != 2 or launches != want:
         fail(f"the recompute step launched {launches} in {passes} passes, not {want} in 2 (a "
              f"warm-up and a capture)")

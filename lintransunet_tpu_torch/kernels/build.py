@@ -46,6 +46,9 @@ SIGNATURES = {
     "conv_narrow": {
         "cn_forward": (_I, [_P, _P, _I, _P, _P, _P, _P, _P]),
     },
+    "conv_depthwise": {
+        "cd_forward": (_I, [_P, _P, _I, _P, _P, _P, _P]),
+    },
     "fused_stack": {
         "fst_forward": (_I, [_P] * 10 + [_I] * 6 + [_P]),
         "fst_num_tiles": (_I, [_I, _I]),

@@ -6,9 +6,10 @@ fused op whose CUDA kernel is in ``csrc/``, with its plain version). The
 fused eval configuration's ops are submodules too: ``ops.conv_unit`` (the
 stride-1 conv unit) and ``ops.fused_stack`` (the transformer stack), each a
 CUDA kernel in ``csrc/`` with its plain version; so are ``ops.conv_wgrad``,
-the training path's weight gradient of the wide depthwise convolutions, and
-``ops.conv_narrow``, the forward of the bf16 3x3x3 convolutions with at most
-8 outputs. ``ops.pool`` holds the training path's pooling.
+the training path's weight gradient of the wide depthwise convolutions,
+``ops.conv_depthwise``, the forward of the bf16 depthwise convolutions on
+channels-last inputs, and ``ops.conv_narrow``, the forward of the bf16 3x3x3
+convolutions with at most 8 outputs. ``ops.pool`` holds the training path's pooling.
 """
 
 from lintransunet_tpu_torch.ops.bbox import mask_boundary, min_max_indice, min_max_indice2

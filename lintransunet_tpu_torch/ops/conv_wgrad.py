@@ -10,11 +10,14 @@ training step's shapes; at 128 channels it takes an implicit-GEMM kernel
 (PERF.md, section 6). ``routes`` picks exactly those convolutions by what
 a call shows: bf16, depthwise, kernel 3, stride 1, padding 1, more than
 ``ENGINE_CHANNELS`` channels, and a weight that wants a gradient while
-grad mode is on. ``ops.conv3d`` sends them through ``DepthwiseConv3d``:
-its forward and its data and bias gradients are cuDNN's calls as before,
-its weight gradient is ``depthwise_weight_grad``. Under
-``torch.inference_mode()`` nothing routes, so serving runs the same
-``F.conv3d``.
+grad mode is on. ``ops.conv3d`` sends them through ``DepthwiseConv3d``,
+and the depthwise convolutions that ``conv_depthwise.routes`` picks under
+grad too (channels-last CUDA inputs, 128 channels among them): its forward
+is ``conv_depthwise``'s kernel where ``conv_depthwise.routes`` takes the
+input and cuDNN's ``F.conv3d`` elsewhere, its data and bias gradients are
+cuDNN's calls as before, and its weight gradient is
+``depthwise_weight_grad`` above ``ENGINE_CHANNELS`` and cuDNN's, as
+autograd computes it for ``F.conv3d``, at or below.
 
 ``depthwise_weight_grad`` dispatches on the device of its inputs: CPU
 tensors go to ``depthwise_weight_grad_reference`` (the plain f32 weight
@@ -32,6 +35,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from lintransunet_tpu_torch.ops import conv_depthwise
 
 ENGINE_CHANNELS = 128  # depthwise widths above this reach cuDNN's generic engine
 MIN_CHUNK = 64         # voxels a chunk of the kernel's split, at least
@@ -119,9 +124,13 @@ depthwise_weight_grad.launches = 0
 
 class DepthwiseConv3d(torch.autograd.Function):
     """``F.conv3d(x, weight.to(x.dtype), bias, 1, 1, 1, C)`` for a routed
-    depthwise convolution (``routes``). Forward, data and bias gradients
-    are cuDNN's; the gradient of the (f32) weight is
-    ``depthwise_weight_grad``. ``bias`` is already in x's dtype."""
+    depthwise convolution (``routes``, or ``conv_depthwise.routes`` under
+    grad). The forward is ``conv_depthwise``'s kernel where
+    ``conv_depthwise.routes`` takes x, else cuDNN's; the data and bias
+    gradients are cuDNN's ``convolution_backward``; the gradient of the
+    (f32) weight is ``depthwise_weight_grad`` above ``ENGINE_CHANNELS``,
+    else cuDNN's from the same call, as autograd computes it for
+    ``F.conv3d``. ``bias`` is already in x's dtype."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
@@ -129,16 +138,22 @@ class DepthwiseConv3d(torch.autograd.Function):
         ctx.save_for_backward(x, w)
         ctx.weight_dtype = weight.dtype
         ctx.with_bias = bias is not None
-        return F.conv3d(x, w, bias, 1, 1, 1, x.shape[1])
+        c = x.shape[1]
+        if conv_depthwise.routes(x, w, 1, 1, c):
+            return conv_depthwise.conv_depthwise(x, w, bias)
+        return F.conv3d(x, w, bias, 1, 1, 1, c)
 
     @staticmethod
     def backward(ctx, grad):
         x, w = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad
-        gx, gb = None, None
-        if need_x or need_b:
-            gx, _, gb = torch.ops.aten.convolution_backward(
+        kernel_w = need_w and x.shape[1] > ENGINE_CHANNELS
+        gx, gw, gb = None, None, None
+        mask = [need_x, need_w and not kernel_w, need_b]
+        if any(mask):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
                 grad, x, w, [w.shape[0]] if ctx.with_bias else None, [1, 1, 1], [1, 1, 1],
-                [1, 1, 1], False, [0, 0, 0], x.shape[1], [need_x, False, need_b])
-        gw = depthwise_weight_grad(x, grad).to(ctx.weight_dtype) if need_w else None
-        return gx, gw, gb
+                [1, 1, 1], False, [0, 0, 0], x.shape[1], mask)
+        if kernel_w:
+            gw = depthwise_weight_grad(x, grad)
+        return gx, None if gw is None else gw.to(ctx.weight_dtype), gb

@@ -9,7 +9,9 @@ jax-configuring conftest:
 Each kernel is held at the shapes the model's paths give it: the window's
 and the training patch's attention calls at the serve and train batches,
 the other models' head widths, the fused build's seven conv units and four
-token stacks, the routed convolutions at both batches, each probe at its
+token stacks, the routed convolutions at both batches (the positional
+encodings' forwards at every shape of the flagship's window and micro-step),
+each probe at its
 TPU probe's main shape through its entry point. The attention kernels are
 also held on the model's layouts (the head-split view of a (B, N, H*d)
 projection, the thirds of a fused QKV one), to two launches a call, to the
@@ -43,6 +45,10 @@ Tolerances, each a share of the plain output's largest magnitude:
   gradient's largest magnitude (both sum the same bf16 products in f32,
   over 240-9,216 voxels, in another order); its data and bias gradients
   through ``DepthwiseConv3d`` are cuDNN's own calls, equal to the bit.
+* depthwise convolution (``ops.conv_depthwise``): 2^-7 of the plain
+  version's largest magnitude (the same bf16 operands, 27 products summed
+  in f32 in another order, each side rounding its sum to bf16 once: one
+  bf16 ulp is 2^-8 of a value).
 * probes (``lintransunet_tpu_torch/experiments``): bf16 2e-2 (the same bf16
   operands, products summed in f32 in another order, each side rounding
   its result to bf16 once); variant E's bf16 accumulation 3e-2 (a bf16
@@ -67,6 +73,7 @@ from lintransunet_tpu_torch.experiments import (
 )
 from lintransunet_tpu_torch import kernels
 from lintransunet_tpu_torch.kernels.launches import cuda_launches
+from lintransunet_tpu_torch.ops import conv_depthwise as cd
 from lintransunet_tpu_torch.ops import conv_narrow as cn
 from lintransunet_tpu_torch.ops import conv_unit as cu
 from lintransunet_tpu_torch.ops import conv_wgrad as cw
@@ -1045,39 +1052,57 @@ def test_depthwise_wgrad_launches_conv_unit_kernels(cuda):
 
 @pytest.mark.parametrize("bias", [True, False])
 def test_routed_conv_keeps_cudnn_forward_and_data_gradient(cuda, bias):
-    """``ops.conv3d`` on a routed convolution: the forward, the data and the
-    bias gradients are F.conv3d's through autograd, to the bit; the weight
-    gradient is the kernel's. Under ``torch.inference_mode()`` the call
-    routes nowhere and launches no kernel of ours."""
+    """``ops.conv3d`` on a routed 256-channel convolution: the data and the
+    bias gradients are F.conv3d's through autograd, to the bit, and the
+    weight gradient is the kernel's. The forward is cuDNN's, to the bit, on
+    a channels-first input; on the positional encoding's channels-last view
+    it is ``conv_depthwise``'s kernel (one launch), within DEPTHWISE_TOL of
+    cuDNN's. Under ``torch.inference_mode()`` the call gives the same
+    forward, straight from the f32 weight, and launches no weight
+    gradient."""
     from lintransunet_tpu_torch.ops import conv3d
 
-    x0, g = _depthwise_inputs(DEPTHWISE_ROUTED[2], "channels_last", cuda, seed=1)
+    x_cl, g = _depthwise_inputs(DEPTHWISE_ROUTED[2], "channels_last", cuda, seed=1)
     gen = torch.Generator(device="cpu").manual_seed(2)
     w0 = (torch.randn((256, 1, 3, 3, 3), generator=gen) * 0.2).to(cuda)
     b0 = torch.randn((256,), generator=gen).to(cuda)
-    got, want = {}, {}
-    for out, routed in ((got, True), (want, False)):
-        x = x0.detach().clone().requires_grad_()
-        w = w0.clone().requires_grad_()
-        b = b0.clone().requires_grad_() if bias else None
-        if routed:
-            before = cw.depthwise_weight_grad.launches
-            y = conv3d(x, w, b, 1, 1, 256)
+    for layout in ("channels_last", "contiguous"):
+        x0 = x_cl if layout == "channels_last" else x_cl.contiguous()
+        got, want = {}, {}
+        for out, routed in ((got, True), (want, False)):
+            x = x0.detach().clone().requires_grad_()
+            w = w0.clone().requires_grad_()
+            b = b0.clone().requires_grad_() if bias else None
+            if routed:
+                before = cw.depthwise_weight_grad.launches
+                forwards = cd.conv_depthwise.launches
+                y = conv3d(x, w, b, 1, 1, 256)
+                assert type(y.grad_fn).__name__ == "DepthwiseConv3dBackward"
+            else:
+                y = F.conv3d(x, w.to(x.dtype), None if b is None else b.to(x.dtype), 1, 1, 1,
+                             256)
+            y.backward(g)
+            out.update(y=y.detach(), x=x.grad, w=w.grad, b=None if b is None else b.grad)
+        assert cw.depthwise_weight_grad.launches == before + 1
+        assert torch.equal(got["x"], want["x"]), layout
+        if bias:
+            assert torch.equal(got["b"], want["b"]), layout
+        plain = cw.depthwise_weight_grad_reference(x0, g)
+        assert (got["w"] - plain).abs().max().item() <= 1e-5 * plain.abs().max().item()
+        if layout == "channels_last":
+            assert cd.conv_depthwise.launches == forwards + 1
+            assert torch.equal(got["y"], cd.conv_depthwise(x0, w0.to(x0.dtype),
+                                                           b0.to(x0.dtype) if bias else None))
+            err = (got["y"].float() - want["y"].float()).abs().max().item()
+            assert err <= DEPTHWISE_TOL * want["y"].float().abs().max().item(), err
         else:
-            y = F.conv3d(x, w.to(x.dtype), None if b is None else b.to(x.dtype), 1, 1, 1, 256)
-        y.backward(g)
-        out.update(y=y.detach(), x=x.grad, w=w.grad, b=None if b is None else b.grad)
-    assert cw.depthwise_weight_grad.launches == before + 1
-    assert torch.equal(got["y"], want["y"]) and torch.equal(got["x"], want["x"])
-    if bias:
-        assert torch.equal(got["b"], want["b"])
-    plain = cw.depthwise_weight_grad_reference(x0, g)
-    assert (got["w"] - plain).abs().max().item() <= 1e-5 * plain.abs().max().item()
-    with torch.inference_mode():
-        before = cw.depthwise_weight_grad.launches
-        served = conv3d(x0, w0, b0 if bias else None, 1, 1, 256)
-    assert cw.depthwise_weight_grad.launches == before
-    assert torch.equal(served, want["y"])
+            assert cd.conv_depthwise.launches == forwards
+            assert torch.equal(got["y"], want["y"])
+        with torch.inference_mode():
+            before = cw.depthwise_weight_grad.launches
+            served = conv3d(x0, w0, b0 if bias else None, 1, 1, 256)
+        assert cw.depthwise_weight_grad.launches == before
+        assert torch.equal(served, got["y"]), layout
 
 
 def test_depthwise_wgrad_rejects_what_it_does_not_take(cuda):
@@ -1211,3 +1236,122 @@ def test_narrow_conv_rejects_what_it_does_not_take(cuda):
         cn.conv_narrow(x, torch.cat([w] * 5), None)
     with pytest.raises(ValueError):
         cn.conv_narrow(x, w, b.float())
+
+
+# (N, C, S1, S2, S3) of the positional encodings' depthwise convolutions in a
+# flagship window batch (4) and micro-batch (3): the bottleneck's (the bottle
+# model's one) and the ROI bridges' at levels 3, 2 and 1 (PERF.md, section
+# 6, row 14); then ragged ones: a partial 64-channel slab, crops off the
+# kernel's 4 x 8 x 4 tiles, single voxels.
+PEG_CALLS = [(n,) + call for n in (4, 3) for call in
+             ((256, 8, 16, 16), (256, 8, 15, 9), (256, 8, 24, 14), (128, 16, 39, 23))]
+PEG_RAGGED = [(1, 8, 1, 1, 1), (2, 72, 5, 9, 3), (1, 136, 3, 17, 6), (2, 256, 9, 8, 5),
+              (1, 16, 2, 1, 30)]
+DEPTHWISE_TOL = 2 ** -7
+
+
+def _peg_inputs(shape, device, weight_dtype=torch.float32, seed=0):
+    """x as the positional encoding hands it over (a permuted view of
+    (N, S1, S2, S3, C) tokens), the weight in ``weight_dtype``, a bf16 bias."""
+    n, c, s1, s2, s3 = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((n, s1, s2, s3, c), generator=g).to(device, torch.bfloat16)
+    w = (torch.randn((c, 1, 3, 3, 3), generator=g) * 0.2).to(device, weight_dtype)
+    b = torch.randn((c,), generator=g).to(device, torch.bfloat16)
+    return x.permute(0, 4, 1, 2, 3), w, b
+
+
+@pytest.mark.parametrize("weight_dtype,bias", [(torch.float32, True), (torch.bfloat16, False)])
+@pytest.mark.parametrize("shape", PEG_CALLS + PEG_RAGGED)
+def test_depthwise_conv_matches_plain(cuda, shape, weight_dtype, bias):
+    x, w, b = _peg_inputs(shape, cuda, weight_dtype)
+    b = b if bias else None
+    assert cd.routes(x, w, 1, 1, shape[1])
+    before = cd.conv_depthwise.launches
+    got = cd.conv_depthwise(x, w, b)
+    want = cd.conv_depthwise_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert cd.conv_depthwise.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.stride() == x.stride()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= DEPTHWISE_TOL * want.float().abs().max().item(), err
+
+
+def test_depthwise_conv_is_deterministic(cuda):
+    x, w, b = _peg_inputs(PEG_CALLS[3], cuda)
+    first = cd.conv_depthwise(x, w, b)
+    second = cd.conv_depthwise(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_depthwise_conv_rejects_what_it_does_not_take(cuda):
+    x, w, b = _peg_inputs(PEG_CALLS[0], cuda)
+    with pytest.raises(ValueError):
+        cd.conv_depthwise(x.contiguous(), w, b)  # channels first
+    with pytest.raises(ValueError):
+        cd.conv_depthwise(x.float(), w, b)
+    with pytest.raises(ValueError):
+        cd.conv_depthwise(x[:, :12], w[:12], b[:12])  # 12 channels
+    with pytest.raises(ValueError):
+        cd.conv_depthwise(x, w, b.float())
+    with pytest.raises(ValueError):
+        cd.conv_depthwise(x, w.double(), b)
+
+
+@pytest.mark.parametrize("name,pegs", [("MaskTransUnet", 4), ("BottleTransUnet", 1)])
+def test_depthwise_conv_launches_a_forward(cuda, name, pegs):
+    """A bf16 eval forward of the flagship, or the bottle model at its
+    widths, on one 512 x 512 x 32 window runs the kernel once a positional
+    encoding."""
+    from lintransunet_tpu_torch.models import FLAGSHIP, get_model_dict, init_random_
+
+    widths = FLAGSHIP if name == "MaskTransUnet" else {
+        key: FLAGSHIP[key] for key in ("num_layers", "dim_input", "dim_output")}
+    model = get_model_dict(name)(**widths, dtype=torch.bfloat16, device=cuda)
+    init_random_(model, torch.Generator(device="cpu").manual_seed(0)).eval()
+    window = torch.randn((1, 1, 512, 512, 32), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        before = cd.conv_depthwise.launches
+        model(window.to(cuda))
+        torch.cuda.synchronize()
+    assert cd.conv_depthwise.launches - before == pegs
+
+
+def _graphed_micro_step_profiled():
+    """(the device rows of one replayed bf16 micro-step of the flagship on
+    one 512 x 512 x 32 patch, the replays in that call)."""
+    from lintransunet_tpu_torch import engine
+    from lintransunet_tpu_torch.cli.common import get_criterion_list
+    from lintransunet_tpu_torch.models import flagship
+    from lintransunet_tpu_torch.utils import profiling
+
+    device = torch.device("cuda")
+    model = flagship(0, dtype=torch.bfloat16, device=device, dropout=0.3).train()
+    criterions, _ = get_criterion_list(5, ["CrossEntroLoss", "DiceClassLoss"])
+    state = engine.create_train_state(model, 1e-4, step_times=2)
+    step = engine.make_train_step(model, criterions)
+    image = torch.randn((1, 1, 512, 512, 32), generator=torch.Generator().manual_seed(0))
+    labels = torch.zeros((1, 512, 512, 32), dtype=torch.long)
+    labels[:, 200:320, 220:300, 8:24] = 1
+    image, labels = image.to(device), labels.to(device)
+    weights = [0.15, 0.25, 0.4, 0.5, 1.0]
+    gen = torch.Generator(device=device).manual_seed(3)
+    for _ in range(3):  # the warm-up and both phases' captures
+        step(state, image, labels, weights, gen)
+    replayed = profiling.counts["step.replayed"]
+    seen = cuda_launches(lambda: step(state, image, labels, weights, gen))
+    return seen.rows, profiling.counts["step.replayed"] - replayed
+
+
+def test_depthwise_conv_in_a_graphed_micro_step(cuda):
+    """A replayed micro-step of the flagship runs the positional encodings'
+    forwards on ``conv_unit_depthwise`` (the benchmark's
+    ``depthwise_conv_ms.train`` reads that name), at most 4 device rows, and
+    none on cuDNN's generic engine (``implicit_convolveNd_sgemm``)."""
+    rows, replayed = _in_a_new_process(_graphed_micro_step_profiled)
+    assert replayed == 1
+    depthwise = [r for r in rows if "conv_unit_depthwise" in r]
+    assert 0 < len(depthwise) <= 4, depthwise
+    assert not [r for r in rows if "implicit_convolveNd_sgemm" in r]

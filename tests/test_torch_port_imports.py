@@ -81,7 +81,7 @@ def test_every_kernel_source_has_a_binding():
     sources = {p.stem for p in (REPO / "lintransunet_tpu_torch" / "csrc").glob("*.cu")}
     assert sources == set(kernels.SIGNATURES) == {
         "linear_attention", "conv_unit", "fused_stack", "probe_taps", "probe_conv",
-        "probe_stats", "conv_wgrad", "conv_narrow"}
+        "probe_stats", "conv_wgrad", "conv_narrow", "conv_depthwise"}
 
 
 def test_cpu_tensor_takes_plain_path_without_counting():
